@@ -5,31 +5,57 @@
 
 Builds the port's CUDA kernels from `pointnerf2studio_torch/csrc/` with
 nvcc (sm_90a), builds the 558k-point procedural chair scene, its voxel
-grid and its fused-layout candidate cache on the GPU, and renders the
-whole 800x800 frame (focal 1111.1, 400 samples per ray, K = 8, bf16
-aggregator of hidden 256 / colour 128, random weights from seed 0)
-through `fast_render_rays` in 65,536-ray chunks, with the depth window
-and ray budget measured on the frame as the JAX bench sizes them.
+grid and its fused-layout candidate cache on the GPU, and drives three
+paths at the full width of the chair model (focal 1111.1, 400 samples
+per ray, K = 8, bf16 aggregator of hidden 256 / colour 128, random
+weights from seed 0), in 65,536-ray chunks, with the depth window and
+ray budget measured on the frame as the JAX bench sizes them:
 
-It fails (non-zero exit, no result line) when there is no CUDA device,
-when a kernel does not build or launch, when a kernel of the path was
-not launched during the frame, when an exactness counter is non-zero,
-when a kernel disagrees with its plain PyTorch version on one chunk's
-real inputs (first_valid_cols: exactly; fused_chunk_decode: `found`
-exactly, rgb within 2e-2, sigma within 2e-2 + 2^-7 |sigma|, mean |diff|
-< 2e-3), or when the
-chunk rendered through the kernels differs from the chunk rendered
-through the plain versions (ray_mask exactly, colour within the same
-bound). Printed before the last line: the card's name and power limit,
-build and phase times, each kernel's and its plain version's time at the
-path's shapes, the frame's rays/s, and one JSON line of kernel records.
-The last line is {"ok": true, "device": {...}}.
+  1. the whole 800x800 frame through `fast_render_rays` with
+     chunk_mode="fused" (kernels first_valid_cols, fused_chunk_decode);
+  2. the whole frame through the staged fast path, knn_mode="fused" and
+     fused_decode2 on (kernels first_valid_cols, fused_candidate_select,
+     fused_decode2), held to frame 1: ray_mask equal, colour within
+     2e-2, mean < 2e-3;
+  3. one 65,536-ray chunk of the frame through the legacy `render_rays`
+     on the point cloud and grid, fused_decode on (kernels
+     first_valid_cols at BP = 80 / D = 400, fused_decode); its agreement
+     with the fast path on those rays is printed, not asserted.
+
+The launch counts are set to 0 just before each path and read just
+after it. It fails (non-zero exit, no result line) when there is no
+CUDA device, when a kernel does not build or launch, when a kernel of a
+path was not launched on it, when an exactness counter is non-zero,
+when miss rays are not exactly background, when a kernel disagrees with
+its plain PyTorch version on inputs captured from its path's first
+chunk (first_valid_cols and fused_candidate_select: exactly;
+fused_chunk_decode: `found` exactly, rgb within 2e-2, sigma within
+2e-2 + 2^-7 |sigma|, mean |diff| < 2e-3; fused_decode and
+fused_decode2: aw within 2e-2 + 2^-7 |aw|, hw within 2e-2, mean
+< 2e-3), or when a path's first chunk rendered through the kernels
+differs from the same chunk rendered through the plain versions
+(ray_mask exactly, colour within the same bound). Printed before the
+last line: the card's name and power limit, build and phase times, each
+kernel's and its plain version's time at its path's shapes beside the
+least time the card could take (bytes over 3.35 TB/s or operations over
+989 TFLOP/s bf16, whichever is larger), each path's rays/s, and one
+JSON line of kernel records. The last line is {"ok": true, "device":
+{...}}.
+
+    python3 chip_smoke.py --profile[=DIR]
+
+also runs one warm pass of each path under torch.profiler after its
+timing and prints, per path, the device time by kernel name (the ten
+largest), their sum and the device's idle share of the unprofiled pass
+(1 - device time / pass time); the full tables go to
+`DIR/profile_<path>.txt` (DIR defaults to `build/profile`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -45,6 +71,13 @@ ATOL, MEAN_TOL = 2e-2, 2e-3
 # ReLU output, so one rounding flip moves it by ulp(alpha_k) * w_k <=
 # 2^-7 alpha_k w_k; at the scene's densities (~5) that alone exceeds ATOL
 SIG_RTOL = 2.0 ** -7
+# the card's published peaks (H100 SXM): device memory bytes/s and dense
+# bf16 tensor-core FLOP/s
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
+# multiply-adds per (slot, neighbour) row of the per-neighbour tower and
+# per slot of the colour tower (hidden 256, colour 128, 3 colour layers)
+ROW_MACS = 284 * 256 + 256 * 256 + 263 * 256 + 256 * 256 + 256
+SLOT_MACS = 280 * 128 + 128 * 128 + 128 * 128 + 128 * 3
 
 
 def log(msg: str) -> None:
@@ -69,6 +102,21 @@ def bench_config():
         agg=AggregatorConfig(compute_dtype="bfloat16", pe_mode="rec"))
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, flops: float):
+    """(least ms the card could take, what bounds it)."""
+    t_b, t_f = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def fused_chunk_weight_bytes(agg) -> int:
+    """bf16 bytes of every weight and bias the fused chunk kernel reads."""
+    return 2 * sum(p.numel() for p in agg.parameters())
+
+
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     import torch
     for _ in range(warmup):
@@ -83,6 +131,34 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profile_pass(name: str, fn, pass_ms: float, out: pathlib.Path) -> None:
+    """One warm pass of `fn` under torch.profiler: device time by kernel
+    name, and the idle share of the unprofiled pass of `pass_ms`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    total = sum(r[0] for r in rows)
+    if total <= 0:
+        fail(f"profile of {name}: the profiler saw no device time")
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"profile_{name}.txt").write_text("".join(
+        f"{ms:10.3f} ms {n:6d} x {key}\n" for ms, n, key in rows))
+    log(f"profile {name}: device time {total:.1f} ms in {len(rows)} kernel "
+        f"names, {sum(r[1] for r in rows)} launches; unprofiled pass "
+        f"{pass_ms:.1f} ms, idle share {1 - total / pass_ms:.3f}")
+    for ms, n, key in rows[:10]:
+        log(f"  {ms:9.3f} ms {100 * ms / total:5.1f}% {n:5d} x {key[:90]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -91,7 +167,10 @@ def main() -> int:
     from pointnerf2studio_torch.data.synthetic import (
         camera_rays, make_chair_scene)
     from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.models import render as lr
     from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.ops import fused_decode as fd
+    from pointnerf2studio_torch.ops import fused_select as fs
     from pointnerf2studio_torch.ops.fused_chunk import (
         fused_chunk_decode, fused_chunk_decode_reference)
     from pointnerf2studio_torch.ops.select import (
@@ -148,6 +227,10 @@ def main() -> int:
             scene.params, scene.cloud.Rw2c, cache, scene.campos,
             scene.camrotc2w, rays, scene.near, scene.far, c, rmin, svs)
 
+    def render_frame(c=cfg):
+        return [render(raydirs[i * CHUNK:(i + 1) * CHUNK], c)
+                for i in range(n_chunks)]
+
     # capture the kernels' inputs from chunk 0 of the main-path run
     captured = {}
     orig_select, orig_fused = fr.select_first_cols, fr.fused_chunk_decode
@@ -164,8 +247,7 @@ def main() -> int:
     fr.select_first_cols, fr.fused_chunk_decode = capture_select, capture_fused
     _cuda.LAUNCHES.clear()
     t0 = time.perf_counter()
-    outs = [render(raydirs[i * CHUNK:(i + 1) * CHUNK])
-            for i in range(n_chunks)]
+    outs = render_frame()
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
     fr.select_first_cols, fr.fused_chunk_decode = orig_select, orig_fused
@@ -258,25 +340,301 @@ def main() -> int:
     log(f"fused_chunk_decode M={m_sl.shape[0]}: kernel {t_fc_k:.3f} ms, "
         f"plain {t_fc_p:.3f} ms")
 
-    frame_ms = [cuda_ms(lambda: [render(raydirs[i * CHUNK:(i + 1) * CHUNK])
-                                 for i in range(n_chunks)], 1)
-                for _ in range(3)]
+    frame_ms = [cuda_ms(render_frame, 1) for _ in range(3)]
     best = min(frame_ms)
     log(f"full frame {total} rays: {[round(t, 2) for t in frame_ms]} ms -> "
         f"{total / best * 1e3:.1f} rays/s (best of 3; {smi})")
+    prof_arg = next((a for a in sys.argv[1:] if a.startswith("--profile")),
+                    None)
+    prof_dir = pathlib.Path(
+        prof_arg.partition("=")[2] or "build/profile") if prof_arg else None
+    if prof_dir:
+        profile_pass("fused_chunk", render_frame, best, prof_dir)
+
+    # =================================================================
+    # Path A: the staged fast path (select kernel + decode tail +
+    # K-accumulating decode kernel) over the whole frame
+    # =================================================================
+    cfg_a = dataclasses.replace(
+        cfg, query=dataclasses.replace(cfg.query, knn_mode="fused",
+                                       chunk_mode="xla"),
+        agg=dataclasses.replace(cfg.agg, fused_decode2=True))
+    orig_fsel, orig_kacc = fr.fused_candidate_select, fd.kacc_tower
+
+    def capture_fsel(*a):
+        captured.setdefault("fsel", a)
+        return orig_fsel(*a)
+
+    def capture_kacc(*a, **k):
+        captured.setdefault("kacc", (a, k))
+        return orig_kacc(*a, **k)
+
+    fr.fused_candidate_select, fd.kacc_tower = capture_fsel, capture_kacc
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    outs_a = render_frame(cfg_a)
+    torch.cuda.synchronize()
+    launches_a = dict(_cuda.LAUNCHES)
+    fr.fused_candidate_select, fd.kacc_tower = orig_fsel, orig_kacc
+    log(f"path A frame rendered (first pass) in "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches_a}")
+    for name in ("first_valid_cols", "fused_candidate_select",
+                 "fused_decode2"):
+        if launches_a.get(name, 0) != n_chunks:
+            fail(f"path A: kernel {name} launched "
+                 f"{launches_a.get(name, 0)} times on {n_chunks} chunks")
+    ctr_a = {f: [int(getattr(o, f)) for o in outs_a]
+             for f in ("dw_overflow", "rb_overflow", "cb_overflow")}
+    if any(v for vals in ctr_a.values() for v in vals):
+        fail(f"path A: non-zero exactness counter: {ctr_a}")
+    color_a = torch.cat([o.coarse_raycolor for o in outs_a])
+    mask_a = torch.cat([o.ray_mask for o in outs_a])
+    if color_a.shape != (total, 3) or not torch.isfinite(color_a).all():
+        fail("path A: frame colour is not finite or has the wrong shape")
+    if not torch.equal(color_a[~mask_a],
+                       bg.expand(int((~mask_a).sum()), 3)):
+        fail("path A: miss rays are not exactly background")
+    if not torch.equal(mask_a, mask):
+        fail(f"path A: ray_mask differs from the fused-chunk frame on "
+             f"{int((mask_a != mask).sum())} rays")
+    d_a = (color_a - color).abs()
+    log(f"path A frame vs fused-chunk frame: counters zero, ray_mask "
+        f"equal, colour max |diff| {float(d_a.max()):.3e}, mean "
+        f"{float(d_a.mean()):.3e}")
+    if not (float(d_a.max()) <= ATOL and float(d_a.mean()) < MEAN_TOL):
+        fail("path A: frame colour disagrees with the fused-chunk frame")
+
+    # ---- fused_candidate_select vs plain on chunk 0's inputs (exact)
+    fsel_args = captured["fsel"]
+    ns_k, pm_k = fs.fused_candidate_select(*fsel_args)
+    ns_p, pm_p = fs.fused_candidate_select_reference(*fsel_args)
+    torch.cuda.synchronize()
+    fsel_bits = int((ns_k.view(torch.int16) != ns_p.view(torch.int16)).sum())
+    if not torch.equal(pm_k, pm_p) or fsel_bits:
+        fail(f"fused_candidate_select differs from its plain version: "
+             f"pnt_mask on {int((pm_k != pm_p).sum())} entries, payload "
+             f"on {fsel_bits}")
+    fsel_err = float((ns_k.float() - ns_p.float()).abs().max())
+    m_a = fsel_args[4]
+    n_pairs = int(pm_k.sum())
+    log(f"fused_candidate_select == plain on M={m_a.shape[0]} slots "
+        f"({int(m_a.sum())} valid, {n_pairs} neighbours, "
+        f"{n_pairs / max(int(m_a.sum()), 1):.2f} per valid slot): "
+        f"pnt_mask and payload bits equal")
+
+    def tower_check(name, kern, plain, a, k):
+        aw_k, hw_k = kern(*a, **k)
+        aw_p, hw_p = plain(*a, **k)
+        torch.cuda.synchronize()
+        d_aw = (aw_k - aw_p).abs()
+        d_hw = (hw_k.float() - hw_p.float()).abs()
+        mean = float(torch.cat([d_aw.reshape(-1), d_hw.reshape(-1)]).mean())
+        log(f"{name} vs plain on emb {tuple(a[1].shape)} "
+            f"({int((a[5] != 0).sum())} rows with a weight): max |diff| "
+            f"aw {float(d_aw.max()):.3e} hw {float(d_hw.max()):.3e}, "
+            f"mean {mean:.3e}; plain mean aw {float(aw_p.mean()):.4f}, "
+            f"mean |hw| {float(hw_p.float().abs().mean()):.4f}")
+        if not (bool((d_aw <= ATOL + SIG_RTOL * aw_p.abs()).all())
+                and float(d_hw.max()) <= ATOL and mean < MEAN_TOL):
+            fail(f"{name} disagrees with its plain version")
+        return float(max(d_aw.max(), d_hw.max()))
+
+    kacc_a, kacc_k = captured["kacc"]
+    kacc_err = tower_check("fused_decode2", fd.kacc_tower,
+                           fd.kacc_tower_reference, kacc_a, kacc_k)
+
+    # ---- path A's chunk 0 through the kernels vs the plain versions
+    out_ak = render(rays0, cfg_a)
+    fr.fused_candidate_select = fs.fused_candidate_select_reference
+    fr.fused_decode2 = fd.fused_decode2_reference
+    try:
+        out_ap = render(rays0, dataclasses.replace(
+            cfg_a, query=dataclasses.replace(cfg_a.query,
+                                             select_mode="topk")))
+    finally:
+        fr.fused_candidate_select = orig_fsel
+        fr.fused_decode2 = fd.fused_decode2
+    if not torch.equal(out_ak.ray_mask, out_ap.ray_mask):
+        fail("path A: chunk ray_mask differs between kernels and plain")
+    dca = (out_ak.coarse_raycolor - out_ap.coarse_raycolor).abs()
+    log(f"path A chunk 0 kernels vs plain: ray_mask equal, colour max "
+        f"|diff| {float(dca.max()):.3e}, mean {float(dca.mean()):.3e}")
+    if not (float(dca.max()) <= ATOL and float(dca.mean()) < MEAN_TOL):
+        fail("path A: chunk colour through the kernels disagrees with plain")
+
+    # =================================================================
+    # Path B: the legacy render_rays on the cloud and grid, one chunk
+    # =================================================================
+    cfg_b = dataclasses.replace(cfg, agg=dataclasses.replace(
+        cfg.agg, fused_decode=True))
+    orig_fvc, orig_pair = lr.first_valid_cols, fd.pair_tower
+
+    def capture_fvc(qs_, bp_):
+        captured.setdefault("fvc_b", (qs_, bp_))
+        return orig_fvc(qs_, bp_)
+
+    def capture_pair(*a, **k):
+        captured.setdefault("pair", (a, k))
+        return orig_pair(*a, **k)
+
+    def render_b():
+        return lr.render_rays(scene.params, scene.cloud, grid, scene.campos,
+                              scene.camrotc2w, rays0, scene.near, scene.far,
+                              cfg_b)
+
+    lr.first_valid_cols, fd.pair_tower = capture_fvc, capture_pair
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out_b = render_b()
+    torch.cuda.synchronize()
+    launches_b = dict(_cuda.LAUNCHES)
+    lr.first_valid_cols, fd.pair_tower = orig_fvc, orig_pair
+    log(f"path B chunk ({CHUNK} rays, D {cfg_b.query.z_depth_dim}, SR "
+        f"{cfg_b.query.SR}) rendered (first pass) in "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches_b}")
+    qb = cfg_b.query
+    m_b = min(CHUNK * (qb.compact_budget or qb.SR), CHUNK * qb.z_depth_dim)
+    want_b = {"first_valid_cols": 1,
+              "fused_decode": -(-m_b // qb.decode_chunk)}
+    for name, n in want_b.items():
+        if launches_b.get(name, 0) != n:
+            fail(f"path B: kernel {name} launched "
+                 f"{launches_b.get(name, 0)} times, expected {n}")
+    cb, mb = out_b.coarse_raycolor, out_b.ray_mask
+    if cb.shape != (CHUNK, 3) or not torch.isfinite(cb).all():
+        fail("path B: colour is not finite or has the wrong shape")
+    if not torch.equal(cb[~mb], bg.expand(int((~mb).sum()), 3)):
+        fail("path B: miss rays are not exactly background")
+    n_slots_b = int(out_b.pnt_mask.any(-1).sum())
+    if not 0.05 < float(mb.float().mean()) < 0.95 or n_slots_b == 0:
+        fail("path B: implausible chunk")
+    # the fast cache stores bf16 relative xyz, so distances (and a few
+    # boundary samples) differ between the two paths: printed only
+    both = mb & outs[0].ray_mask
+    d_b = (cb - outs[0].coarse_raycolor).abs()
+    log(f"path B vs fast path on chunk 0: ray_mask agree on "
+        f"{float((mb == outs[0].ray_mask).float().mean()):.6f} of rays "
+        f"(legacy {int(mb.sum())}, fast {int(outs[0].ray_mask.sum())}), "
+        f"colour on rays both hit: max |diff| "
+        f"{float(d_b[both].max()):.3e}, mean {float(d_b[both].mean()):.3e}; "
+        f"{n_slots_b} shading slots with a neighbour")
+
+    # ---- first_valid_cols at path B's shapes, fused_decode vs plain
+    qs_b, bp_b = captured["fvc_b"]
+    cs_k, cn_k = first_valid_cols(qs_b, bp_b)
+    cs_p, cn_p = first_valid_cols_reference(qs_b, bp_b)
+    if not (torch.equal(cs_k, cs_p) and torch.equal(cn_k, cn_p)):
+        fail("first_valid_cols differs from its plain version at path B's "
+             "shapes")
+    log(f"first_valid_cols == plain on qs {tuple(qs_b.shape)}, BP {bp_b}")
+    pair_a, pair_k = captured["pair"]
+    pair_err = tower_check("fused_decode", fd.pair_tower,
+                           fd.pair_tower_reference, pair_a, pair_k)
+
+    # ---- path B's chunk through the kernels vs the plain versions
+    lr.first_valid_cols = first_valid_cols_reference
+    lr.fused_decode = fd.fused_decode_reference
+    try:
+        out_bp = render_b()
+    finally:
+        lr.first_valid_cols, lr.fused_decode = orig_fvc, fd.fused_decode
+    if not torch.equal(mb, out_bp.ray_mask):
+        fail("path B: chunk ray_mask differs between kernels and plain")
+    dcb = (cb - out_bp.coarse_raycolor).abs()
+    log(f"path B chunk kernels vs plain: ray_mask equal, colour max |diff| "
+        f"{float(dcb.max()):.3e}, mean {float(dcb.mean()):.3e}")
+    if not (float(dcb.max()) <= ATOL and float(dcb.mean()) < MEAN_TOL):
+        fail("path B: chunk colour through the kernels disagrees with plain")
+
+    # ---- times of the new kernels at their paths' shapes (CUDA events)
+    t_fs_k = cuda_ms(lambda: fs.fused_candidate_select(*fsel_args), 10, 2)
+    t_fs_p = cuda_ms(
+        lambda: fs.fused_candidate_select_reference(*fsel_args), 2, 1)
+    t_ka_k = cuda_ms(lambda: fd.kacc_tower(*kacc_a, **kacc_k), 10, 2)
+    t_ka_p = cuda_ms(lambda: fd.kacc_tower_reference(*kacc_a, **kacc_k), 2, 1)
+    t_pt_k = cuda_ms(lambda: fd.pair_tower(*pair_a, **pair_k), 10, 2)
+    t_pt_p = cuda_ms(lambda: fd.pair_tower_reference(*pair_a, **pair_k), 2, 1)
+    t_selb_k = cuda_ms(lambda: first_valid_cols(qs_b, bp_b), 50, 3)
+    t_selb_p = cuda_ms(lambda: first_valid_cols_reference(qs_b, bp_b), 5, 1)
+    frame_a_ms = [cuda_ms(lambda: render_frame(cfg_a), 1) for _ in range(3)]
+    chunk_b_ms = [cuda_ms(render_b, 1) for _ in range(3)]
+    log(f"path A full frame {total} rays: "
+        f"{[round(t, 2) for t in frame_a_ms]} ms -> "
+        f"{total / min(frame_a_ms) * 1e3:.1f} rays/s (best of 3; {smi})")
+    log(f"path B chunk {CHUNK} rays: {[round(t, 2) for t in chunk_b_ms]} ms "
+        f"-> {CHUNK / min(chunk_b_ms) * 1e3:.1f} rays/s (best of 3; {smi})")
+    if prof_dir:
+        profile_pass("staged", lambda: render_frame(cfg_a), min(frame_a_ms),
+                     prof_dir)
+        profile_pass("legacy", render_b, min(chunk_b_ms), prof_dir)
+
+    # ---- the least time the card could take for each kernel's work at
+    # these inputs: every input read once, every output written once,
+    # over the memory rate; the tower's operations on the rows and slots
+    # this data gives it, over the bf16 tensor-core rate
+    C = cache.cand
+    n_valid = int(m_sl.sum())
+    # what a valid slot's selection must read: its C metas and the 3 bf16
+    # xyz channels of its C candidates; the other payload channels are
+    # needed for the selected neighbours only
+    slot_bytes = C * 4 + 3 * C * 2
+    pair_bytes = fs.PK * 2
+    b_sel = bound(nbytes(qs) + qs.shape[0] * (BP + 1) * 4, 0)
+    b_selb = bound(nbytes(qs_b) + qs_b.shape[0] * (bp_b + 1) * 4, 0)
+    M0 = m_sl.shape[0]
+    n_found = int(fnd_k.sum())
+    w_chunk = fused_chunk_weight_bytes(scene.params)
+    b_fc = bound(n_valid * slot_bytes + n_pairs * pair_bytes
+                 + M0 * (4 + 36 + 1) + w_chunk + M0 * (4 + 12 + 1),
+                 2 * (n_pairs * ROW_MACS + n_found * SLOT_MACS))
+    b_fs = bound(int(m_a.sum()) * slot_bytes + n_pairs * pair_bytes
+                 + m_a.shape[0] * (4 + 12 + 1) + nbytes(ns_k, pm_k), 0)
+
+    def tower_bound(a, outs_):
+        rows = int((a[5] != 0).sum())
+        w_tower = 2 * ROW_MACS + 4 * (4 * 256 + 1)
+        return bound(nbytes(*a[1:6]) + w_tower + nbytes(*outs_),
+                     2 * rows * ROW_MACS)
+
+    b_ka = tower_bound(kacc_a, fd.kacc_tower(*kacc_a, **kacc_k))
+    b_pt = tower_bound(pair_a, fd.pair_tower(*pair_a, **pair_k))
+    log(f"first_valid_cols: kernel {t_sel_k:.4f} ms (path B shapes "
+        f"{t_selb_k:.4f} ms, plain {t_selb_p:.4f} ms), bound "
+        f"{b_sel[0]:.4f} ms ({b_selb[0]:.4f} ms) by {b_sel[1]}")
+    for nm, tk, tp, bb in (
+            ("fused_chunk_decode", t_fc_k, t_fc_p, b_fc),
+            ("fused_candidate_select", t_fs_k, t_fs_p, b_fs),
+            ("fused_decode2 (M=%d)" % kacc_a[1].shape[0], t_ka_k, t_ka_p,
+             b_ka),
+            ("fused_decode (M=%d)" % pair_a[1].shape[0], t_pt_k, t_pt_p,
+             b_pt)):
+        log(f"{nm}: kernel {tk:.3f} ms, plain {tp:.3f} ms, bound "
+            f"{bb[0]:.3f} ms by {bb[1]}")
+
+    def record(name, source, replaces, n, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda",
+                "source": f"pointnerf2studio_torch/csrc/{source}",
+                "replaces": f"pointnerf2studio_tpu/ops/{replaces}",
+                "launches": n, "max_abs_err": float(err), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None}
 
     print(json.dumps({"kernels": [
-        {"name": "first_valid_cols", "route": "cuda",
-         "source": "pointnerf2studio_torch/csrc/first_valid_cols.cu",
-         "replaces": "pointnerf2studio_tpu/ops/select.py:41",
-         "launches": launches["first_valid_cols"],
-         "max_abs_err": float(sel_err), "ms": t_sel_k, "plain_ms": t_sel_p},
-        {"name": "fused_chunk_decode", "route": "cuda",
-         "source": "pointnerf2studio_torch/csrc/fused_chunk.cu",
-         "replaces": "pointnerf2studio_tpu/ops/fused_chunk.py:86",
-         "launches": launches["fused_chunk_decode"],
-         "max_abs_err": fused_err, "ms": t_fc_k, "plain_ms": t_fc_p},
-    ]}), flush=True)
+        record("first_valid_cols", "first_valid_cols.cu", "select.py:41",
+               launches["first_valid_cols"], sel_err, t_sel_k, t_sel_p,
+               b_sel),
+        record("fused_candidate_select", "fused_select.cu",
+               "fused_select.py:60", launches_a["fused_candidate_select"],
+               fsel_err, t_fs_k, t_fs_p, b_fs),
+        record("fused_decode", "fused_decode.cu", "fused_decode.py:91",
+               launches_b["fused_decode"], pair_err, t_pt_k, t_pt_p, b_pt),
+        record("fused_decode2", "fused_decode.cu", "fused_decode.py:235",
+               launches_a["fused_decode2"], kacc_err, t_ka_k, t_ka_p, b_ka),
+        record("fused_chunk_decode", "fused_chunk.cu", "fused_chunk.py:86",
+               launches["fused_chunk_decode"], fused_err, t_fc_k, t_fc_p,
+               b_fc),
+    ], "launches_by_path": {"fused_chunk": launches, "staged": launches_a,
+                            "legacy": launches_b}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,7 +5,10 @@ as {tower: [{"kernel": [in, out], "bias": [out]}, ...]}, and flax
 dataclasses of arrays for the point cloud and the fat cache. These
 functions take numpy arrays (np.asarray of each JAX leaf) and build the
 port's objects, so a test can run both packages on the same weights,
-the same cloud and the same cache. Nothing here imports JAX.
+the same cloud, the same grid and the same cache. Everything is built
+on `device`: the card by default (`device=None`), the CPU where the
+caller asks for it; without a card the default raises. Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from pointnerf2studio_torch.config import AggregatorConfig
 from pointnerf2studio_torch.models.aggregator import TOWERS, Aggregator
 from pointnerf2studio_torch.models.fast_render import FatCache
 from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
+from pointnerf2studio_torch.ops._cuda import resolve_device
+from pointnerf2studio_torch.ops.grid import PointGrid
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -32,9 +37,11 @@ def _t(a, device, dtype=None) -> torch.Tensor:
 
 @torch.no_grad()
 def aggregator_from_jax(tree: Mapping[str, Any], cfg: AggregatorConfig,
-                        device: torch.device | str = "cpu") -> Aggregator:
+                        device: torch.device | str | None = None
+                        ) -> Aggregator:
     """JAX aggregator params -> Aggregator. A JAX kernel is [in, out];
     an nn.Linear weight is [out, in], so each kernel is transposed."""
+    device = resolve_device(device)
     agg = Aggregator(cfg, device=device)
     for name in TOWERS:
         layers = getattr(agg, name)
@@ -51,9 +58,10 @@ def aggregator_from_jax(tree: Mapping[str, Any], cfg: AggregatorConfig,
     return agg
 
 
-def cloud_from_jax(cloud, device: torch.device | str = "cpu"
+def cloud_from_jax(cloud, device: torch.device | str | None = None
                    ) -> NeuralPointCloud:
     """A JAX NeuralPointCloud (or any object with its fields) -> port."""
+    device = resolve_device(device)
     f = torch.float32
     return NeuralPointCloud(
         xyz=_t(cloud.xyz, device, f),
@@ -65,9 +73,27 @@ def cloud_from_jax(cloud, device: torch.device | str = "cpu"
         alive=_t(cloud.alive, device, torch.bool))
 
 
-def fat_cache_from_jax(cache, device: torch.device | str = "cpu"
+def grid_from_jax(grid, device: torch.device | str | None = None
+                  ) -> PointGrid:
+    """A JAX PointGrid as built (its candidate cache, if any, is left
+    behind: the port's legacy render queries the grid itself)."""
+    device = resolve_device(device)
+    i32 = torch.int32
+    return PointGrid(
+        ranges_min=_t(grid.ranges_min, device, torch.float32),
+        scaled_vsize=_t(grid.scaled_vsize, device, torch.float32),
+        coor_2_occ=_t(grid.coor_2_occ, device, i32),
+        coor_occ=_t(grid.coor_occ, device, torch.bool),
+        occ_2_pnts=_t(grid.occ_2_pnts, device, i32),
+        occ_numpnts=_t(grid.occ_numpnts, device, i32),
+        n_occ=_t(grid.n_occ, device, i32),
+        occ_2_coor=_t(grid.occ_2_coor, device, i32))
+
+
+def fat_cache_from_jax(cache, device: torch.device | str | None = None
                        ) -> FatCache:
     """A JAX fused-layout FatCache (kmeta/kpay set) -> port FatCache."""
+    device = resolve_device(device)
     if cache.kmeta is None or cache.kpay is None:
         raise ValueError("the cache has no kernel-facing layout; build it "
                          "with chunk_mode='fused'")

@@ -3,7 +3,9 @@
 Port of `pointnerf2studio_tpu/data/synthetic.py` (sphere_config,
 make_sphere_scene, make_chair_scene, camera_rays). Point data comes
 from a numpy generator seeded by `seed`; the aggregator weights come
-from `Aggregator(cfg.agg, seed)`. Everything is built on `device`.
+from `Aggregator(cfg.agg, seed)`. Everything is built on `device`: the
+card by default (`device=None`), the CPU only where the caller asks for
+it with `device="cpu"`; without a card the default raises.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from pointnerf2studio_torch.data.procedural import _albedo, chair_sdf
 from pointnerf2studio_torch.models.aggregator import Aggregator
 from pointnerf2studio_torch.models.neural_points import (
     NeuralPointCloud, from_arrays)
+from pointnerf2studio_torch.ops._cuda import resolve_device
 from pointnerf2studio_torch.ops.grid import PointGrid, build_grid_from_points
 
 
@@ -50,8 +53,9 @@ def _scene_params(cfg: PointNerfConfig, seed: int, device) -> Aggregator:
 
 def make_sphere_scene(n_points: int = 20_000, seed: int = 0,
                       cfg: PointNerfConfig | None = None,
-                      device: torch.device | str = "cpu") -> Scene:
+                      device: torch.device | str | None = None) -> Scene:
     """Coloured sphere shell of radius 0.5, camera at (0, 0, 2)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     cfg = cfg or sphere_config()
     pts = rng.standard_normal((n_points, 3)).astype(np.float32)
@@ -93,11 +97,12 @@ def _project_to_chair(p: torch.Tensor):
 def make_chair_scene(n_points: int = 558_000, seed: int = 0,
                      cfg: PointNerfConfig | None = None,
                      jitter_sigma_voxels: float = 0.5,
-                     device: torch.device | str = "cpu") -> Scene:
+                     device: torch.device | str | None = None) -> Scene:
     """Chair-shaped scene at NeRF-Synthetic chair geometry: points on
     the procedural SDF chair surface, jittered by `jitter_sigma_voxels`
     scaled voxels; camera on the blender ring (radius 4.031, azimuth
     and elevation 30 degrees) looking at the origin; near/far [2, 6]."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     cfg = cfg or sphere_config()
     lo = np.array([-0.72, -0.70, -1.00], np.float32)

@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pointnerf2studio_torch.config import AggregatorConfig
+from pointnerf2studio_torch.ops._cuda import resolve_device
 from pointnerf2studio_torch.ops.encoding import positional_encoding
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -58,11 +59,13 @@ def _mlp_dims(cfg: AggregatorConfig) -> Dict[str, List[Tuple[int, int]]]:
 
 
 class Aggregator(nn.Module):
-    """The decoder's weights: one ModuleList of nn.Linear per tower."""
+    """The decoder's weights: one ModuleList of nn.Linear per tower, on
+    `device` (None: the card; raises without one)."""
 
     def __init__(self, cfg: AggregatorConfig, seed: int = 0,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         super().__init__()
+        device = resolve_device(device)
         for t, (name, dims) in enumerate(_mlp_dims(cfg).items()):
             # torch nn.Linear's default distribution, U(+-1/sqrt(in)),
             # drawn from a generator seeded per tower so the weights

@@ -1,5 +1,5 @@
-"""Fast eval render path: fat candidate cache + slot compaction + fused
-chunk decode + packed composite.
+"""Fast eval render path: fat candidate cache + slot compaction + chunk
+decode + packed composite.
 
 Port of the served subset of `pointnerf2studio_tpu/models/fast_render.py`:
 the kernel-facing ("fused") cache layout, `build_fat_cache`,
@@ -9,18 +9,26 @@ the kernel-facing ("fused") cache layout, `build_fat_cache`,
   dense qslot lookup, optionally clipped to a per-ray depth window ->
   first-BP valid columns per ray (ops/select.py; the CUDA kernel under
   select_mode="pallas") -> rank-gather pack to M = R * compact_budget
-  slots -> the fused chunk decode (ops/fused_chunk.py; the CUDA kernel)
-  -> packed alpha composite,
+  slots -> the chunk decode -> packed alpha composite,
 
 with every exactness counter the reference returns on that path
-(dw_overflow, rb_overflow, cb_overflow) and n_valid_slots. Not ported
-yet: the "rows" cache layout and the XLA-staged chunk pipeline, span
-tiers, coarse windows, the march and raster front-ends, prob mode, hash
-grids and sharding; a config that asks for them raises.
+(dw_overflow, rb_overflow, cb_overflow) and n_valid_slots. The chunk
+decode is one of
+
+  chunk_mode="fused": the whole chunk in one kernel (ops/fused_chunk.py);
+  knn_mode="fused", chunk_mode="xla" (the staged path): the candidate
+  selection kernel (ops/fused_select.py), the decode tail in torch
+  (`_decode_tail`), and the tower either as the K-accumulating decode
+  kernel (ops/fused_decode.py, AggregatorConfig.fused_decode2 with an
+  eligible config) or as `decode_radiance`.
+
+Not ported yet: the "rows" cache layout and the XLA candidate stages,
+span tiers, coarse windows, the march and raster front-ends, prob mode,
+hash grids and sharding; a config that asks for them raises.
 
 No host synchronisation happens per chunk: ray packing and slot packing
-are cumsum/scatter compactions on the device, and the fused kernel skips
-masked slots itself.
+are cumsum/scatter compactions on the device, and the kernels skip
+masked slots themselves.
 """
 
 from __future__ import annotations
@@ -33,13 +41,17 @@ import numpy as np
 import torch
 
 from pointnerf2studio_torch.config import PointNerfConfig
-from pointnerf2studio_torch.models.aggregator import Aggregator
+from pointnerf2studio_torch.models.aggregator import (
+    Aggregator, aggregation_weight, decode_radiance)
 from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
-from pointnerf2studio_torch.ops.camera import w2pers
+from pointnerf2studio_torch.ops.camera import neighbor_dists, rotate, w2pers
 from pointnerf2studio_torch.ops.compositing import (
     TONE_MAPS, packed_alpha_composite)
 from pointnerf2studio_torch.ops.fused_chunk import (
     PK, fused_chunk_decode, fused_chunk_eligible)
+from pointnerf2studio_torch.ops.fused_decode import (
+    fused_decode2, fused_decode_served, tower_inputs)
+from pointnerf2studio_torch.ops.fused_select import fused_candidate_select
 from pointnerf2studio_torch.ops.grid import PointGrid
 from pointnerf2studio_torch.ops.query import neighbor_offsets
 from pointnerf2studio_torch.ops.select import (
@@ -48,6 +60,7 @@ from pointnerf2studio_torch.ops.select import (
 PAYW = 44                 # bf16 payload per candidate: xyz_rel(3) +
                           # emb(32) + conf(1) + dir(3) + color(3) + pad(2)
 ROWW = 1 + PAYW // 2      # f32 words per candidate in the "rows" layout
+TAIL_CHUNK = 1 << 16      # slots per piece of the decode_radiance tail
 
 
 @dataclasses.dataclass
@@ -230,24 +243,71 @@ def _slab(raydirs, campos, ranges_min, rmax):
     return t_enter, t_exit
 
 
-def _check_served(cfg: PointNerfConfig, Rw2c: torch.Tensor) -> None:
+def _use_fused2(cfg: PointNerfConfig) -> bool:
+    """The K-accumulating decode kernel runs where the config asks for
+    it and the tower is one it implements (the reference also wants a
+    TPU backend; the port has no such test)."""
+    return cfg.agg.fused_decode2 and fused_decode_served(
+        cfg.agg, False, cfg.query.K)
+
+
+def _check_served(cfg: PointNerfConfig, Rw2c: torch.Tensor) -> str:
+    """"chunk" (the fused chunk kernel) or "staged" (select kernel +
+    decode tail) for a config the port serves; raises otherwise."""
     q = cfg.query
+    whole = (q.chunk_mode == "fused" and not _use_fused2(cfg)
+             and fused_chunk_eligible(cfg.agg, Rw2c.ndim == 4, q.K))
+    staged = q.chunk_mode == "xla" and q.knn_mode == "fused"
     unported = {
         "span_tiers": bool(q.span_tiers), "march_steps": bool(q.march_steps),
         "coarse_step": q.coarse_step > 1,
         "compact_mode": q.compact_mode != "topk",
         "composite_mode": q.composite_mode != "packed",
-        "chunk_mode": q.chunk_mode != "fused",
+        "chunk_mode/knn_mode/agg": not (whole or staged),
         "decode_mode": q.decode_mode != "lanes",
         "base_cache": q.base_cache,
-        "agg": not fused_chunk_eligible(cfg.agg, Rw2c.ndim == 4, q.K),
+        "per-point Rw2c": Rw2c.ndim != 2,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
             f"fast_render_rays: not ported for this config ({bad}); the "
             f"port serves depth_window/ray_budget + topk compaction + "
-            f"chunk_mode='fused' + packed composite")
+            f"packed composite with chunk_mode='fused' (an eligible "
+            f"aggregator, fused_decode2 off) or with knn_mode='fused', "
+            f"chunk_mode='xla'")
+    return "chunk" if whole else "staged"
+
+
+def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
+                 campos, nsel, pnt_mask, locs, center, rd_sel):
+    """(sigma [M], rgb [M, 3], found [M]) from the selected payloads
+    nsel [M, K, >= 42] bf16: neighbour geometry, aggregation weights,
+    then the tower (the reference's `_decode_tail`)."""
+    f32 = torch.float32
+    nxyz = nsel[..., :3].to(f32) + center[:, None, :]           # [M, K, 3]
+    # attribute slices stay bf16 end to end, as in the reference
+    emb = nsel[..., 3:35]
+    conf = nsel[..., 35].to(f32)
+    ndir = nsel[..., 36:39]
+    ncol = nsel[..., 39:42]
+    dists = neighbor_dists(nxyz, locs, camrotc2w, campos)
+    weight = aggregation_weight(cfg.agg, dists, pnt_mask)
+    if cfg.agg.conf_in_weight:
+        weight = weight * conf
+    vd = rotate(rd_sel, Rw2c)
+    if _use_fused2(cfg):
+        dists_rot, dirdot, wk, dir_pe = tower_inputs(
+            cfg.agg, dists, ndir, vd, weight, pnt_mask, Rw2c)
+        sig, rgb = fused_decode2(
+            params, emb, dists_rot, ncol, dirdot, wk, dir_pe,
+            cfg.agg.num_feat_freqs, cfg.agg.num_dist_freqs)
+    else:
+        sig, rgb = decode_radiance(
+            params, cfg.agg, neigh_emb=emb, neigh_color=ncol,
+            neigh_dir=ndir, dists=dists, weight=weight, pnt_mask=pnt_mask,
+            viewdirs=vd, Rw2c=Rw2c)
+    return sig, rgb, pnt_mask.any(-1)
 
 
 @torch.no_grad()
@@ -265,7 +325,7 @@ def fast_render_rays(
     scaled_vsize: torch.Tensor,     # [3]
 ) -> FastRenderOutput:
     """Render R rays through the fast path (see the module docstring)."""
-    _check_served(cfg, Rw2c)
+    route = _check_served(cfg, Rw2c)
     q = cfg.query
     dev = raydirs.device
     f32 = torch.float32
@@ -370,20 +430,37 @@ def fast_render_rays(
     cb_overflow = (torch.clamp(pack_end[-1] - M, min=0).to(torch.int32)
                    if M < R * min(SR, BP, Dax) else None)
 
-    # ---- fused chunk: selection + tower per slot (one kernel launch)
     rd_sel = raydirs[sel_ray]
     t_sel = near + (sel_d.to(f32) + 0.5) * step_t
     locs = campos + rd_sel * t_sel[:, None]
     vox = torch.floor((locs - ranges_min) / scaled_vsize)
     center = ranges_min + (vox + 0.5) * scaled_vsize
-    num_shells = (q.kernel_size[0] + 1) // 2
-    sig, rgb, found = fused_chunk_decode(
-        params, Rw2c, camrotc2w, campos, cache.kmeta, cache.kpay,
-        qslot_c.to(torch.int32), locs.contiguous(), center.contiguous(),
-        rd_sel.contiguous(), mask_c, K=K, radius2=q.radius_limit ** 2,
-        num_shells=num_shells if q.layered_search else 1,
-        nff=cfg.agg.num_feat_freqs, ndf=cfg.agg.num_dist_freqs,
-        nvf=cfg.agg.num_viewdir_freqs, act_super=cfg.agg.act_super)
+    num_shells = (q.kernel_size[0] + 1) // 2 if q.layered_search else 1
+    qslot_i = qslot_c.to(torch.int32)
+    if route == "chunk":
+        # ---- selection + tower per slot in one kernel launch
+        sig, rgb, found = fused_chunk_decode(
+            params, Rw2c, camrotc2w, campos, cache.kmeta, cache.kpay,
+            qslot_i, locs.contiguous(), center.contiguous(),
+            rd_sel.contiguous(), mask_c, K=K, radius2=q.radius_limit ** 2,
+            num_shells=num_shells,
+            nff=cfg.agg.num_feat_freqs, ndf=cfg.agg.num_dist_freqs,
+            nvf=cfg.agg.num_viewdir_freqs, act_super=cfg.agg.act_super)
+    else:
+        # ---- staged: the select kernel, then the decode tail. Under
+        # decode_radiance the tail runs in pieces of TAIL_CHUNK slots:
+        # every stage is per slot, so the pieces change no result; they
+        # bound the [M, K, 284] feature and its PE intermediates
+        nsel, pnt_mask = fused_candidate_select(
+            cache.kmeta, cache.kpay, qslot_i, (center - locs).contiguous(),
+            mask_c, K, q.radius_limit ** 2, num_shells)
+        piece = max(M, 1) if _use_fused2(cfg) else TAIL_CHUNK
+        tails = [_decode_tail(params, cfg, Rw2c, camrotc2w, campos,
+                              nsel[s:s + piece], pnt_mask[s:s + piece],
+                              locs[s:s + piece], center[s:s + piece],
+                              rd_sel[s:s + piece])
+                 for s in range(0, M, piece)]
+        sig, rgb, found = (torch.cat(x) for x in zip(*tails))
 
     # ---- packed composite
     slot_ok = mask_c & found

@@ -1,7 +1,7 @@
 """Neural point cloud: the point store.
 
-Port of `pointnerf2studio_tpu/models/neural_points.py` (NeuralPointCloud
-and from_arrays). Static-capacity layout: arrays are allocated at
+Port of `pointnerf2studio_tpu/models/neural_points.py` (NeuralPointCloud,
+from_arrays and the single-device gather_neighbors). Static-capacity layout: arrays are allocated at
 `capacity` rows with an `alive` mask; names match the reference
 checkpoint keys (xyz, points_embeding, points_conf, points_dir,
 points_color, Rw2c).
@@ -10,10 +10,12 @@ points_color, Rw2c).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from pointnerf2studio_torch.ops._cuda import resolve_device
 
 
 @dataclasses.dataclass
@@ -39,9 +41,11 @@ def from_arrays(
     points_color: np.ndarray,
     Rw2c: Optional[np.ndarray] = None,
     capacity: Optional[int] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> NeuralPointCloud:
-    """Build a point cloud on `device`, padded to `capacity` dead rows."""
+    """Build a point cloud on `device` (None: the card; raises without
+    one), padded to `capacity` dead rows."""
+    device = resolve_device(device)
     n = xyz.shape[0]
     cap = capacity or n
 
@@ -59,3 +63,18 @@ def from_arrays(
         points_color=pad(points_color),
         Rw2c=torch.as_tensor(np.asarray(Rw2c, np.float32)).to(device),
         alive=(torch.arange(cap) < n).to(device))
+
+
+def gather_neighbors(points: NeuralPointCloud, sample_pidx: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+    """Per-neighbour attributes for point ids sample_pidx [..., K]
+    (-1 = empty) as padded [..., K, .] tensors: xyz, embeding, conf,
+    dir, color. Empty slots gather a clamped index and must be masked
+    downstream via `sample_pidx >= 0`. Single device only: the
+    reference's row-sharded gather is not ported."""
+    idx = torch.clamp(sample_pidx, 0, points.capacity - 1).long()
+    return {"xyz": points.xyz[idx],
+            "embeding": points.points_embeding[idx],
+            "conf": points.points_conf[idx],
+            "dir": points.points_dir[idx],
+            "color": points.points_color[idx]}

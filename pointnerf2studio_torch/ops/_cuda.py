@@ -29,16 +29,35 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-# extra nvcc flags per source. fused_chunk keeps every float multiply
-# and add separately rounded (no FMA contraction) so that the candidate
-# distances, radius test and tie-breaks equal the plain version's.
+# extra nvcc flags per source. fused_chunk and fused_select keep every
+# float multiply and add separately rounded (no FMA contraction) so that
+# the candidate distances, radius test and tie-breaks equal the plain
+# version's; fused_decode does so to round its biases, activations and
+# weighted sums as its plain version does.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "first_valid_cols": [],
     "fused_chunk": ["-fmad=false"],
+    "fused_select": ["-fmad=false"],
+    "fused_decode": ["-fmad=false"],
 }
+
+# slots per step of the plain versions (bounds their memory)
+PLAIN_BLOCK = 16384
 
 LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device an entry point builds on: the card unless the caller
+    names another. With no card, `device=None` raises; it does not fall
+    back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return torch.device("cuda")
 
 
 def _nvcc() -> str:

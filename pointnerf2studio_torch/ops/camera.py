@@ -11,11 +11,16 @@ from __future__ import annotations
 import torch
 
 
+def rotate(v: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """v @ rot for v [..., 3] and rot [3, 3], as elementwise
+    multiply-adds."""
+    return (v[..., :, None] * rot).sum(-2)
+
+
 def world_to_cam(point_xyz_w: torch.Tensor, camrotc2w: torch.Tensor,
                  campos: torch.Tensor) -> torch.Tensor:
     """World -> camera frame: R_c2w^T @ (p - campos). Any leading shape."""
-    shift = point_xyz_w - campos
-    return (shift[..., :, None] * camrotc2w).sum(-2)
+    return rotate(point_xyz_w - campos, camrotc2w)
 
 
 def w2pers(point_xyz_w: torch.Tensor, camrotc2w: torch.Tensor,
@@ -24,3 +29,19 @@ def w2pers(point_xyz_w: torch.Tensor, camrotc2w: torch.Tensor,
     xyz_c = world_to_cam(point_xyz_w, camrotc2w, campos)
     z = xyz_c[..., 2]
     return torch.stack([xyz_c[..., 0] / z, xyz_c[..., 1] / z, z], -1)
+
+
+def neighbor_dists(neigh_xyz: torch.Tensor, locs: torch.Tensor,
+                   camrotc2w: torch.Tensor, campos: torch.Tensor
+                   ) -> torch.Tensor:
+    """The decoder's per-neighbour offsets [M, K, 6] of neighbours
+    neigh_xyz [M, K, 3] from shading points locs [M, 3]: the world delta,
+    then the delta in perspective coordinates (x and y scaled back by
+    depth)."""
+    nei = w2pers(neigh_xyz, camrotc2w, campos)
+    lp = w2pers(locs, camrotc2w, campos)[..., None, :]
+    pdist = torch.stack(
+        [nei[..., 0] * nei[..., 2] - lp[..., 0] * lp[..., 2],
+         nei[..., 1] * nei[..., 2] - lp[..., 1] * lp[..., 2],
+         nei[..., 2] - lp[..., 2]], -1)
+    return torch.cat([neigh_xyz - locs[..., None, :], pdist], -1)

@@ -37,7 +37,6 @@ from pointnerf2studio_torch.ops.fused_decode import _pe_blocks, _w1_permutation
 
 PK = 48                 # payload channels (PAYW = 44 padded to 48)
 FEAT = 32               # embedding width the cache payload fixes
-PLAIN_BLOCK = 16384     # slots per step of the plain version (memory bound)
 
 
 def fused_chunk_eligible(cfg: AggregatorConfig, per_point_rw2c: bool,
@@ -291,8 +290,8 @@ def fused_chunk_decode_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of `fused_chunk_decode`: gathers kmeta[qslot] and
     kpay[qslot] explicitly and runs the reference kernel's math in
-    blocks of PLAIN_BLOCK slots."""
-    block = PLAIN_BLOCK
+    blocks of `_cuda.PLAIN_BLOCK` slots."""
+    block = _cuda.PLAIN_BLOCK
     plist, n_rest = _prep_params(params, FEAT, nff, ndf, nvf)
     outs = []
     for s in range(0, qslot.shape[0], block):

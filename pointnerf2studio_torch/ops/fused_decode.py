@@ -1,17 +1,113 @@
-"""Block-layout positional encodings and the matching weight permutation.
+"""The radiance decoder's per-neighbour tower as one kernel.
 
-Port of the helpers `_pe_blocks` and `_w1_permutation` of
-`pointnerf2studio_tpu/ops/fused_decode.py`. The fused kernels lay a
-positional encoding out as channel blocks, [sin(x*2^0), ..,
-sin(x*2^{F-1}), cos(x*2^0), ..], a permutation of the reference's
-interleaved layout (ops/encoding.py) that the first-layer weight rows
-absorb once. The decode kernels of that module are not ported yet.
+Port of `pointnerf2studio_tpu/ops/fused_decode.py`. Per (shading slot,
+neighbour) row the feature [emb, PE_block(emb), PE_block(dists)] (bf16,
+block-layout positional encodings, the first-layer weight rows permuted
+once by `_w1_permutation`) runs through mlp_base -> mlp_head -> density
+head with bf16 operands, float32 accumulation, float32 bias,
+LeakyReLU(0.1) and a cast to bf16 per layer; alpha = ReLU(h . wd + bd).
+Two variants differ in where they round:
+
+  `fused_decode`   per row aw = alpha * wk (f32) and
+                   hw = bf16(f32(bf16 h) * wk); the K-sum runs outside
+                   the kernel (hw summed in float32, then rounded to
+                   bf16, as the reference's bf16 `jnp.sum` does);
+  `fused_decode2`  h stays float32 after layer 4 (rounded to bf16 only
+                   for the density dot) and sum_k alpha * wk, sum_k
+                   h * wk are taken in float32 in k order.
+
+Both then run the per-slot colour tower (`_color_tower`) in plain torch
+and return (sigma [M], rgb [M, 3]).
+
+`pair_tower` and `kacc_tower` are the wrappers of the two entry points
+of the hand-written CUDA source `csrc/fused_decode.cu` (replacing the
+Pallas kernels `_pair_kernel`, ops/fused_decode.py:91, and
+`_kacc_kernel`, :235, of the reference). On CUDA tensors they launch the
+kernel; on CPU tensors they run the plain versions
+`pair_tower_reference` / `kacc_tower_reference`, which follow the Pallas
+kernel bodies step by step. `fused_decode_reference` and
+`fused_decode2_reference` are the whole plain functions. The kernels
+are bound by their tensor-core products; rows whose wk is exactly 0 are
+skipped there (they add exactly 0), while the plain versions compute
+every row. `pe_mode` does not reach these functions: the encodings are
+always evaluated directly. The density activation is always ReLU, as in
+the reference's kernels (they ignore `act_super`).
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import Tuple
+
 import numpy as np
 import torch
+
+from pointnerf2studio_torch.config import AggregatorConfig
+from pointnerf2studio_torch.models.aggregator import (
+    Aggregator, _linear_head, _mlp)
+from pointnerf2studio_torch.ops import _cuda
+from pointnerf2studio_torch.ops.camera import rotate
+from pointnerf2studio_torch.ops.encoding import positional_encoding
+
+HIDDEN, FEAT, DIST = 256, 32, 6     # the widths csrc/fused_decode.cu is built for
+
+
+def fused_decode_eligible(cfg: AggregatorConfig, per_point_rw2c: bool,
+                          K: int) -> bool:
+    """The configurations the decode kernels implement (the reference's
+    gate, unchanged); anything else takes `decode_radiance`."""
+    return (not per_point_rw2c
+            and cfg.agg_intrp_order == 2
+            and cfg.agg_distance_kernel in ("linear", "quadric", "avg",
+                                            "numlinear", "numquadric")
+            and cfg.point_color_mode and cfg.point_dir_mode
+            and cfg.num_mlp_base_layers == 2
+            and cfg.num_mlp_head_layers == 2
+            and cfg.shading_feature_dim == cfg.point_features_dim)
+
+
+def fused_decode_served(cfg: AggregatorConfig, per_point_rw2c: bool,
+                        K: int) -> bool:
+    """`fused_decode_eligible`, and for an eligible config a check that
+    the port has its kernel: csrc/fused_decode.cu is built for 32
+    features, 6 dists, hidden 256, PE freqs (3, 5) and K <= 8, and only
+    the `linear` weight kernel is ported. An eligible config outside
+    that raises NotImplementedError on either device; it does not take
+    `decode_radiance` quietly."""
+    if not fused_decode_eligible(cfg, per_point_rw2c, K):
+        return False
+    got = {"agg_distance_kernel": cfg.agg_distance_kernel,
+           "shading_feature_dim": cfg.shading_feature_dim,
+           "dist_dim": cfg.dist_dim, "hidden_size": cfg.hidden_size,
+           "num_feat_freqs": cfg.num_feat_freqs,
+           "num_dist_freqs": cfg.num_dist_freqs}
+    want = {"agg_distance_kernel": "linear", "shading_feature_dim": FEAT,
+            "dist_dim": DIST, "hidden_size": HIDDEN, "num_feat_freqs": 3,
+            "num_dist_freqs": 5}
+    bad = {k: v for k, v in got.items() if v != want[k]}
+    if not 1 <= K <= 8:
+        bad["K"] = K
+    if bad:
+        raise NotImplementedError(
+            f"the fused decode kernels are not ported for {bad}; they "
+            f"serve {want} with K <= 8")
+    return True
+
+
+def tower_inputs(cfg: AggregatorConfig, dists, neigh_dir, viewdirs, weight,
+                 pnt_mask, Rw2c):
+    """What both decode functions take beside emb and colour, from the
+    decoder's inputs (dists [M, K, 6], neigh_dir [M, K, 3], viewdirs
+    [M, 3] already Rw2c-rotated, weight and pnt_mask [M, K], a global
+    Rw2c): (dists_rot [M, K, 6], dirdot [M, K, 4], wk [M, K],
+    dir_pe [M, P])."""
+    dists_rot = torch.cat([rotate(dists[..., :3], Rw2c), dists[..., 3:]], -1)
+    dir_enc = positional_encoding(viewdirs, cfg.num_viewdir_freqs, ori=True)
+    ov, dir_pe = dir_enc[..., :3], dir_enc[..., 3:]
+    ndir = rotate(neigh_dir.float(), Rw2c)
+    dirdot = torch.cat([ndir - ov[:, None, :],
+                        (ndir * ov[:, None, :]).sum(-1, keepdim=True)], -1)
+    return dists_rot, dirdot, weight * pnt_mask.to(weight.dtype), dir_pe
 
 
 def _pe_blocks(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
@@ -40,3 +136,273 @@ def _w1_permutation(c: int, feat_freqs: int, d: int, dist_freqs: int
             for i in range(d):
                 perm.append(base + (i * dist_freqs + j) * 2 + sc)
     return np.asarray(perm, np.int64)
+
+
+@torch.no_grad()
+def _tower_params(agg: Aggregator, C: int, D: int, nff: int, ndf: int):
+    """(w1, b1, w2, b2, w3, b3, w4, b4, wd, bd): kernels [in, out] bf16
+    (w1's rows permuted to the block PE layout), biases [1, out] f32 -
+    the reference's layout."""
+    def wb(lin):
+        return (lin.weight.T.to(torch.bfloat16),
+                lin.bias[None, :].float())
+
+    dev = agg.mlp_base[0].weight.device
+    perm = torch.as_tensor(_w1_permutation(C, nff, D, ndf), device=dev)
+    w1 = agg.mlp_base[0].weight.T[perm].to(torch.bfloat16)
+    b1 = agg.mlp_base[0].bias[None, :].float()
+    return ((w1, b1) + wb(agg.mlp_base[1]) + wb(agg.mlp_head[0])
+            + wb(agg.mlp_head[1]) + wb(agg.density_head[0]))
+
+
+def _leaky(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x > 0, x, 0.1 * x)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 x bf16 product accumulated in float32."""
+    return x.to(torch.bfloat16).float() @ w.float()
+
+
+def _blocks(M: int):
+    return [slice(s, s + _cuda.PLAIN_BLOCK) for s in range(0, M, _cuda.PLAIN_BLOCK)]
+
+
+@torch.no_grad()
+def pair_tower_reference(
+    agg: Aggregator, emb, dists, color, dirdot, wk, *, nff: int, ndf: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `pair_tower`, the body of the reference's
+    `_pair_kernel` step by step: (aw [M, K] f32, hw [M, K, H] bf16)."""
+    bf = torch.bfloat16
+    M, K, C = emb.shape
+    w1, b1, w2, b2, w3, b3, w4, b4, wd, bd = _tower_params(
+        agg, C, dists.shape[-1], nff, ndf)
+
+    def layer(x, w, b):
+        return _leaky(_mm(x, w) + b).to(bf)
+
+    aws, hws = [], []
+    for s in _blocks(M):
+        e, d = emb[s].to(bf), dists[s].to(bf)
+        feat = torch.cat([e, _pe_blocks(e, nff), _pe_blocks(d, ndf)], -1)
+        x = layer(layer(feat, w1, b1), w2, b2)
+        h_in = torch.cat([x, color[s].to(bf), dirdot[s].to(bf)], -1)
+        h = layer(layer(h_in, w3, b3), w4, b4)
+        alpha = torch.clamp(_mm(h, wd) + bd, min=0.0)
+        w = wk[s].float()[..., None]
+        aws.append((alpha * w)[..., 0])
+        hws.append((h.float() * w).to(bf))
+    if not aws:
+        return (wk.new_zeros((0, K), dtype=torch.float32),
+                wk.new_zeros((0, K, w4.shape[1]), dtype=bf))
+    return torch.cat(aws), torch.cat(hws)
+
+
+@torch.no_grad()
+def kacc_tower_reference(
+    agg: Aggregator, emb, dists, color, dirdot, wk, *, nff: int, ndf: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `kacc_tower`, the body of the reference's
+    `_kacc_kernel` step by step: (aw [M] f32, hw [M, H] f32)."""
+    bf = torch.bfloat16
+    M, K, C = emb.shape
+    D = dists.shape[-1]
+    w1, b1, w2, b2, w3, b3, w4, b4, wd, bd = _tower_params(
+        agg, C, D, nff, ndf)
+    nf = 2 * C * nff
+    w1a, w1b, w1c = w1[:C], w1[C:C + nf], w1[C + nf:]
+    w3a, w3b = w3[:w2.shape[1]], w3[w2.shape[1]:]
+
+    aws, hws = [], []
+    for s in _blocks(M):
+        e, d = emb[s].to(bf), dists[s].to(bf)
+        x = (_mm(e, w1a) + _mm(_pe_blocks(e, nff), w1b)
+             + _mm(_pe_blocks(d, ndf), w1c) + b1)
+        x = _leaky(x).to(bf)
+        x = _leaky(_mm(x, w2) + b2).to(bf)
+        cd = torch.cat([color[s].to(bf), dirdot[s].to(bf)], -1)
+        h = _leaky(_mm(x, w3a) + _mm(cd, w3b) + b3).to(bf)
+        h = _leaky(_mm(h, w4) + b4)                     # [B, K, H] f32
+        alpha = torch.clamp(_mm(h, wd) + bd, min=0.0)
+        w = wk[s].float()[..., None]
+        aw_c, hw_c = alpha * w, h * w
+        aw, hw = aw_c[:, 0], hw_c[:, 0]
+        for k in range(1, K):                           # k order
+            aw, hw = aw + aw_c[:, k], hw + hw_c[:, k]
+        aws.append(aw[:, 0])
+        hws.append(hw)
+    if not aws:
+        return (wk.new_zeros((0,), dtype=torch.float32),
+                wk.new_zeros((0, w4.shape[1]), dtype=torch.float32))
+    return torch.cat(aws), torch.cat(hws)
+
+
+def _kernel_params(agg: Aggregator, nff: int, ndf: int):
+    """The tower's weights as csrc/fused_decode.cu takes them: one bf16
+    buffer of [in, out] row-major blocks (w1 [288, 256], w2, w3
+    [272, 256], w4, wd [256, 16]; input rows zero padded) and one f32
+    buffer of biases (b1..b4, bd padded to 16)."""
+    if (nff, ndf) != (3, 5):
+        raise ValueError("the CUDA decode kernels are built for PE freqs "
+                         "(3, 5)")
+    # packed once per set of weights: the key changes when a weight is
+    # moved or written in place
+    key = tuple((p.data_ptr(), p._version) for lyr in (
+        *agg.mlp_base, *agg.mlp_head, *agg.density_head)
+        for p in (lyr.weight, lyr.bias))
+    cached = agg.__dict__.get("_decode_kernel_params")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    w1, b1, w2, b2, w3, b3, w4, b4, wd, bd = _tower_params(
+        agg, FEAT, DIST, nff, ndf)
+    H = HIDDEN
+    if (w1.shape != (FEAT + 2 * FEAT * nff + 2 * DIST * ndf, H)
+            or w2.shape != (H, H) or w3.shape != (H + 7, H)
+            or w4.shape != (H, H) or wd.shape != (H, 1)):
+        raise ValueError("the CUDA decode kernels are built for 32 "
+                         "features, 6 dists, hidden 256, colour and dir "
+                         "modes on")
+
+    def padm(w, rows, cols):
+        out = w.new_zeros((rows, cols))
+        out[:w.shape[0], :w.shape[1]] = w
+        return out.reshape(-1)
+
+    weights = torch.cat([padm(w1, 288, H), padm(w2, H, H), padm(w3, 272, H),
+                         padm(w4, H, H), padm(wd, H, 16)]).contiguous()
+    biases = torch.cat([b1.reshape(-1), b2.reshape(-1), b3.reshape(-1),
+                        b4.reshape(-1), bd.reshape(-1),
+                        bd.new_zeros(15)]).contiguous()
+    agg.__dict__["_decode_kernel_params"] = (key, (weights, biases))
+    return weights, biases
+
+
+def _launch(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
+    dev = emb.device
+    M, K, C = emb.shape
+    if not 1 <= K <= 8:
+        raise ValueError(f"the CUDA decode kernels need K <= 8, got {K}")
+    weights, biases = _kernel_params(agg, nff, ndf)
+    emb = emb.to(torch.bfloat16).contiguous()
+    dists = dists.float().contiguous()
+    cd = torch.cat([color.float(), dirdot.float()], -1).contiguous()
+    wk = wk.float().contiguous()
+    _cuda.require(emb, "emb", torch.bfloat16, (M, K, FEAT), dev)
+    _cuda.require(dists, "dists", torch.float32, (M, K, DIST), dev)
+    _cuda.require(cd, "colour + dirdot", torch.float32, (M, K, 7), dev)
+    _cuda.require(wk, "wk", torch.float32, (M, K), dev)
+    _cuda.require(weights, "tower weights", torch.bfloat16,
+                  (weights.numel(),), dev)
+    _cuda.require(biases, "tower biases", torch.float32, (biases.numel(),),
+                  dev)
+    lib = _cuda.library("fused_decode")
+    lib.fused_decode_n_weights.restype = ctypes.c_int
+    lib.fused_decode_n_biases.restype = ctypes.c_int
+    if (lib.fused_decode_n_weights() != weights.numel()
+            or lib.fused_decode_n_biases() != biases.numel()):
+        raise RuntimeError("packed parameter layout does not match "
+                           "csrc/fused_decode.cu")
+    if entry == "fused_decode":
+        aw = torch.empty((M, K), dtype=torch.float32, device=dev)
+        hw = torch.empty((M, K, HIDDEN), dtype=torch.bfloat16, device=dev)
+    else:
+        aw = torch.empty((M,), dtype=torch.float32, device=dev)
+        hw = torch.empty((M, HIDDEN), dtype=torch.float32, device=dev)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _cuda.LAUNCHES[entry] += 1
+    _cuda.check(fn(*[_cuda.ptr(t) for t in (
+        emb, dists, cd, wk, weights, biases, aw, hw)], M, K,
+        _cuda.stream_handle(dev)), f"{entry} launch")
+    return aw, hw
+
+
+@torch.no_grad()
+def pair_tower(agg: Aggregator, emb, dists, color, dirdot, wk, *,
+               nff: int, ndf: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(aw [M, K] f32, hw [M, K, H] bf16) per (slot, k) row. CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
+    if not emb.is_cuda:
+        return pair_tower_reference(agg, emb, dists, color, dirdot, wk,
+                                    nff=nff, ndf=ndf)
+    return _launch("fused_decode", agg, emb, dists, color, dirdot, wk,
+                   nff, ndf)
+
+
+@torch.no_grad()
+def kacc_tower(agg: Aggregator, emb, dists, color, dirdot, wk, *,
+               nff: int, ndf: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(aw [M] f32, hw [M, H] f32) summed over k in k order. CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
+    if not emb.is_cuda:
+        return kacc_tower_reference(agg, emb, dists, color, dirdot, wk,
+                                    nff=nff, ndf=ndf)
+    return _launch("fused_decode2", agg, emb, dists, color, dirdot, wk,
+                   nff, ndf)
+
+
+def _color_tower(agg: Aggregator, sigma, agg_feat, dir_pe):
+    """Per-slot colour tower on the K-aggregated feature, in bf16 as the
+    reference's: (sigma [M], rgb [M, 3] f32)."""
+    bf = torch.bfloat16
+    color_in = torch.cat([agg_feat.to(bf), dir_pe.to(bf)], -1)
+    cfeat = _mlp(agg.mlp_color, color_in, bf)
+    rgb = torch.sigmoid(_linear_head(agg.color_head[0], cfeat, bf).float())
+    return sigma, rgb * (1 + 2e-3) - 1e-3
+
+
+def _decode(tower, agg, emb, dists, color, dirdot, wk, dir_pe, nff, ndf):
+    aw, hw = tower(agg, emb, dists, color, dirdot, wk, nff=nff, ndf=ndf)
+    # hw is bf16 [M, K, H]: summed over K in float32 and rounded to bf16
+    # once, the result type of the reference's bf16 jnp.sum
+    return _color_tower(agg, aw.sum(-1),
+                        hw.float().sum(1).to(torch.bfloat16), dir_pe)
+
+
+def _decode2(tower, agg, emb, dists, color, dirdot, wk, dir_pe, nff, ndf):
+    aw, hw = tower(agg, emb, dists, color, dirdot, wk, nff=nff, ndf=ndf)
+    return _color_tower(agg, aw, hw, dir_pe)
+
+
+@torch.no_grad()
+def fused_decode(
+    agg: Aggregator,
+    emb: torch.Tensor,      # [M, K, C]
+    dists: torch.Tensor,    # [M, K, D] already Rw2c-rotated
+    color: torch.Tensor,    # [M, K, 3]
+    dirdot: torch.Tensor,   # [M, K, 4] = [ndir - ov, <ndir, ov>]
+    wk: torch.Tensor,       # [M, K] aggregation weight * mask
+    dir_pe: torch.Tensor,   # [M, P] per-slot viewdir PE (sans raw dirs)
+    num_feat_freqs: int, num_dist_freqs: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused decode -> (sigma [M], rgb [M, 3])."""
+    return _decode(pair_tower, agg, emb, dists, color, dirdot, wk, dir_pe,
+                   num_feat_freqs, num_dist_freqs)
+
+
+@torch.no_grad()
+def fused_decode_reference(agg, emb, dists, color, dirdot, wk, dir_pe,
+                           num_feat_freqs: int, num_dist_freqs: int):
+    """Plain version of `fused_decode` on any device."""
+    return _decode(pair_tower_reference, agg, emb, dists, color, dirdot, wk,
+                   dir_pe, num_feat_freqs, num_dist_freqs)
+
+
+@torch.no_grad()
+def fused_decode2(agg, emb, dists, color, dirdot, wk, dir_pe,
+                  num_feat_freqs: int, num_dist_freqs: int):
+    """K-accumulating fused decode -> (sigma [M], rgb [M, 3]); same
+    arguments as `fused_decode`."""
+    return _decode2(kacc_tower, agg, emb, dists, color, dirdot, wk, dir_pe,
+                    num_feat_freqs, num_dist_freqs)
+
+
+@torch.no_grad()
+def fused_decode2_reference(agg, emb, dists, color, dirdot, wk, dir_pe,
+                            num_feat_freqs: int, num_dist_freqs: int):
+    """Plain version of `fused_decode2` on any device."""
+    return _decode2(kacc_tower_reference, agg, emb, dists, color, dirdot,
+                    wk, dir_pe, num_feat_freqs, num_dist_freqs)

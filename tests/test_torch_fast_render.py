@@ -6,8 +6,14 @@ weights, cloud and cache carried over by convert.py.
 
 Every counter and n_valid_slots must be equal, ray_mask equal, miss rays
 exactly background; colour and acc within the reference's own bf16 bound
-for its fused chunk (atol 2e-2, mean < 2e-3). On the CPU no CUDA kernel
-launches. Importing the whole port leaves JAX out of sys.modules."""
+for its fused chunk (atol 2e-2, mean < 2e-3). The staged path
+(knn_mode="fused", chunk_mode="xla") is held to the same reference
+function: with a float32 tower and fused_decode2 off both sides run the
+same float32 arithmetic in another summation order (atol 2e-4); with
+the bf16 tower, and with the port's K-accumulating decode against the
+reference's decode_radiance (its fused_decode2 needs a TPU backend), the
+bf16 bound applies. On the CPU no CUDA kernel launches. Importing the
+whole port leaves JAX out of sys.modules."""
 
 import dataclasses
 import pkgutil
@@ -83,9 +89,10 @@ def test_fast_render_matches_jax(scene, packed):
     _cuda.LAUNCHES.clear()
     got = tfr.fast_render_rays(
         convert.aggregator_from_jax(jax.tree.map(np.asarray, s.params),
-                                    tc.agg),
-        T(s.cloud.Rw2c), convert.fat_cache_from_jax(cache), T(s.campos),
-        T(s.camrotc2w), T(rays), s.near, s.far, tc, T(rmin), T(svs))
+                                    tc.agg, device="cpu"),
+        T(s.cloud.Rw2c), convert.fat_cache_from_jax(cache, device="cpu"),
+        T(s.campos), T(s.camrotc2w), T(rays), s.near, s.far, tc, T(rmin),
+        T(svs))
     assert sum(_cuda.LAUNCHES.values()) == 0
 
     for f in ("dw_overflow", "rb_overflow", "cb_overflow", "n_valid_slots"):
@@ -107,6 +114,60 @@ def test_fast_render_matches_jax(scene, packed):
     for g, w in ((color, want.coarse_raycolor), (got.acc.numpy(), want.acc)):
         d = np.abs(g - np.asarray(w, np.float32))
         assert d.max() <= 2e-2 and d.mean() < 2e-3, (d.max(), d.mean())
+
+
+@pytest.mark.parametrize("dtype,fused2,atol,mean_tol", [
+    ("float32", False, 2e-4, 2e-5),
+    ("bfloat16", False, 2e-2, 2e-3),
+    ("bfloat16", True, 2e-2, 2e-3),
+])
+def test_staged_path_matches_jax(scene, dtype, fused2, atol, mean_tol):
+    """knn_mode="fused", chunk_mode="xla": the select kernel's plain
+    version, the decode tail and decode_radiance (fused2 off) or the
+    K-accumulating decode (fused2 on) against the reference, whose
+    select kernel runs in interpret mode on the CPU."""
+    s, cache, rmin, svs, rays = scene
+    q = s.cfg.query
+    dw = jfr.measured_depth_window(
+        s.campos, rays, s.near, s.far, q.z_depth_dim, s.grid.ranges_min,
+        s.grid.dims, q.scaled_vsize)
+    hits = jfr.slab_hit_mask(s.campos, rays, s.near, s.far, q.z_depth_dim,
+                             s.grid.ranges_min, s.grid.dims, q.scaled_vsize)
+    cfg = dataclasses.replace(
+        s.cfg,
+        agg=dataclasses.replace(s.cfg.agg, compute_dtype=dtype),
+        query=dataclasses.replace(
+            q, compact_budget=4, depth_window=dw,
+            ray_budget=int(hits.sum()) + 16, knn_mode="fused",
+            chunk_mode="xla"))
+    with jax.default_matmul_precision("highest"):
+        want = jfr.fast_render_rays_jit(
+            s.params, s.cloud.Rw2c, cache, s.campos, s.camrotc2w, rays,
+            s.near, s.far, cfg, rmin, svs)
+
+    T = lambda a: torch.as_tensor(np.array(a))    # noqa: E731
+    tc = _port_cfg(cfg)
+    tc = dataclasses.replace(tc, agg=dataclasses.replace(
+        tc.agg, fused_decode2=fused2))
+    _cuda.LAUNCHES.clear()
+    got = tfr.fast_render_rays(
+        convert.aggregator_from_jax(jax.tree.map(np.asarray, s.params),
+                                    tc.agg, device="cpu"),
+        T(s.cloud.Rw2c), convert.fat_cache_from_jax(cache, device="cpu"),
+        T(s.campos), T(s.camrotc2w), T(rays), s.near, s.far, tc, T(rmin),
+        T(svs))
+    assert sum(_cuda.LAUNCHES.values()) == 0
+    for f in ("dw_overflow", "rb_overflow", "cb_overflow", "n_valid_slots"):
+        assert int(getattr(got, f)) == int(getattr(want, f)), f
+    assert int(got.dw_overflow) == int(got.rb_overflow) == 0
+    mask = got.ray_mask.numpy()
+    np.testing.assert_array_equal(mask, np.asarray(want.ray_mask))
+    assert 0 < mask.sum() < mask.size
+    color = got.coarse_raycolor.numpy()
+    assert np.all(color[~mask] == np.asarray(s.cfg.bg_color, np.float32))
+    for g, w in ((color, want.coarse_raycolor), (got.acc.numpy(), want.acc)):
+        d = np.abs(g - np.asarray(w, np.float32))
+        assert d.max() <= atol and d.mean() < mean_tol, (d.max(), d.mean())
 
 
 def test_depth_window_helpers_match(scene):

@@ -98,13 +98,15 @@ def test_plain_fused_chunk_matches_pallas_interpret(chunk, layered):
         jnp.asarray(c["rd"]), jnp.asarray(c["mask"]), block=128,
         interpret=True, **kw))
     agg = convert.aggregator_from_jax(
-        c["params"], TAggConfig(**dataclasses.asdict(cfg.agg)))
+        c["params"], TAggConfig(**dataclasses.asdict(cfg.agg)),
+        device="cpu")
     T = torch.as_tensor
     _cuda.LAUNCHES.clear()
     sig, rgb, found = tfc.fused_chunk_decode(
         agg, T(np.array(s.cloud.Rw2c)), T(np.array(s.camrotc2w)),
         T(np.array(s.campos)), T(c["kmeta"]),
-        convert.fat_cache_from_jax(_Cache(c)).kpay, T(c["qslot"]),
+        convert.fat_cache_from_jax(_Cache(c), device="cpu").kpay,
+        T(c["qslot"]),
         T(c["locs"]), T(c["center"]), T(c["rd"]), T(c["mask"]), **kw)
     assert _cuda.LAUNCHES["fused_chunk_decode"] == 0
     assert found.any() and not found.all()
@@ -127,7 +129,8 @@ class _Cache:
 def test_prep_params_exact(chunk):
     cfg = chunk["cfg"]
     agg = convert.aggregator_from_jax(
-        chunk["params"], TAggConfig(**dataclasses.asdict(cfg.agg)))
+        chunk["params"], TAggConfig(**dataclasses.asdict(cfg.agg)),
+        device="cpu")
     want, n_want = jfc._prep_params(chunk["s"].params, 32, 3, 5, 4)
     got, n_got = tfc._prep_params(agg, 32, 3, 5, 4)
     assert n_got == n_want == 2
@@ -193,7 +196,7 @@ def test_decode_radiance_matches(dtype, order):
         sig_w, rgb_w = (np.asarray(a) for a in jagg.decode_radiance(
             params, cfg, *(jnp.asarray(a) for a in args)))
     agg = convert.aggregator_from_jax(
-        params_np, TAggConfig(**dataclasses.asdict(cfg)))
+        params_np, TAggConfig(**dataclasses.asdict(cfg)), device="cpu")
     # the port's decode_radiance on the same weights and inputs
     sig, rgb = tagg.decode_radiance(
         agg, TAggConfig(**dataclasses.asdict(cfg)),
@@ -225,7 +228,7 @@ def test_aggregation_weight_matches(axis_weight):
 
 def test_aggregator_init_is_seeded():
     cfg = TAggConfig()
-    a, b, c = (tagg.Aggregator(cfg, seed=s) for s in (0, 0, 1))
+    a, b, c = (tagg.Aggregator(cfg, seed=s, device="cpu") for s in (0, 0, 1))
     for (na, pa), (_, pb), (_, pc) in zip(a.named_parameters(),
                                           b.named_parameters(),
                                           c.named_parameters()):

@@ -28,7 +28,8 @@ def scene():
         cfg.query, use_cache=False))
     s = make_sphere_scene(n_points=20_000, cfg=cfg)
     tq = TQueryConfig(**dataclasses.asdict(cfg.query))
-    cloud = convert.cloud_from_jax(jax.tree.map(np.asarray, s.cloud))
+    cloud = convert.cloud_from_jax(jax.tree.map(np.asarray, s.cloud),
+                                   device="cpu")
     return s, tq, cloud, tgrid.build_grid_from_points(cloud.xyz, cloud.alive,
                                                       tq)
 
@@ -62,7 +63,7 @@ def test_fused_cache_matches(scene, cand_cap):
         got.kpay.view(torch.int16).numpy(),
         np.asarray(want.kpay).view(np.int16))
     # converting the JAX cache gives the same tensors
-    conv = convert.fat_cache_from_jax(want)
+    conv = convert.fat_cache_from_jax(want, device="cpu")
     assert torch.equal(conv.kmeta, got.kmeta)
     assert torch.equal(conv.kpay.view(torch.int16), got.kpay.view(torch.int16))
 

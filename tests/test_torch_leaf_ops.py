@@ -1,7 +1,9 @@
 """Leaf math of the PyTorch port vs the JAX reference on the same numpy
 inputs: positional encodings, camera transforms, compositing, the
-procedural chair SDF and albedo. float32 throughout; tolerances are a
-few float32 ulps of the values compared (different sin/cos/exp
+procedural chair SDF and albedo, ray generation (closed form exactly,
+the caller-supplied jitter within a few ulps of the cumsum) and the
+neighbour gather (exactly). float32 throughout; tolerances are a few
+float32 ulps of the values compared (different sin/cos/exp
 implementations and reduction orders)."""
 
 import jax
@@ -11,13 +13,17 @@ import pytest
 import torch
 
 from pointnerf2studio_torch.data import procedural as tproc
+from pointnerf2studio_torch.models import neural_points as tnp
 from pointnerf2studio_torch.ops import camera as tcam
 from pointnerf2studio_torch.ops import compositing as tcomp
 from pointnerf2studio_torch.ops import encoding as tenc
+from pointnerf2studio_torch.ops import raygen as traygen
 from pointnerf2studio_tpu.data import procedural as jproc
+from pointnerf2studio_tpu.models import neural_points as jnpts
 from pointnerf2studio_tpu.ops import camera as jcam
 from pointnerf2studio_tpu.ops import compositing as jcomp
 from pointnerf2studio_tpu.ops import encoding as jenc
+from pointnerf2studio_tpu.ops import raygen as jraygen
 
 torch.set_num_threads(1)
 
@@ -144,3 +150,76 @@ def test_packed_composite_drops_rays_past_the_budget():
     assert found.tolist() == [True, True, True, False]
     assert acc[3] == 0 and (rgb_sum[3] == 0).all() and depth[3] == 0
     assert acc[2] > 0
+
+
+RAYGEN = ["near_far_linear_ray_generation",
+          "near_far_disparity_linear_ray_generation"]
+
+
+def _rays(n, seed):
+    rng = np.random.default_rng(seed)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    return rng, rd, np.array([0.1, -0.2, 2.0], np.float32)
+
+
+@pytest.mark.parametrize("fn", RAYGEN)
+@pytest.mark.parametrize("D", [48, 120, 400])
+def test_raygen_closed_form_exact(fn, D):
+    """No jitter: sample positions, segment lengths and mid ts equal the
+    reference's bit for bit (also with jitter > 0 but no draws given,
+    which takes the closed form on both sides)."""
+    _, rd, cp = _rays(33, D)
+    for jitter in (0.0, 0.3):
+        want = getattr(jraygen, fn)(jnp.asarray(cp), jnp.asarray(rd), D,
+                                    near=2.0, far=6.0, jitter=jitter)
+        got = getattr(traygen, fn)(torch.as_tensor(cp), torch.as_tensor(rd),
+                                   D, 2.0, 6.0, jitter=jitter)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[0].shape == (33, D, 3) and got[1].shape == (33, D)
+
+
+@pytest.mark.parametrize("fn", RAYGEN)
+@pytest.mark.parametrize("batched", [False, True])
+def test_raygen_jitter_u(fn, batched):
+    """Caller-supplied uniform draws: the cumsum of the jittered
+    segments differs from the reference's by a few float32 ulps of t."""
+    D = 64
+    rng, rd, cp = _rays(20, 5)
+    u = rng.random((20, D)).astype(np.float32)
+    if batched:
+        rd, u, cp = rd.reshape(2, 10, 3), u.reshape(2, 10, D), cp[None]
+        cp = np.repeat(cp, 2, 0)
+    want = getattr(jraygen, fn)(jnp.asarray(cp), jnp.asarray(rd), D,
+                                near=1.0, far=3.0, jitter=0.3,
+                                jitter_u=jnp.asarray(u))
+    got = getattr(traygen, fn)(torch.as_tensor(cp), torch.as_tensor(rd), D,
+                               1.0, 3.0, jitter=0.3,
+                               jitter_u=torch.as_tensor(u))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=2e-6)
+    closed = getattr(traygen, fn)(torch.as_tensor(cp), torch.as_tensor(rd),
+                                  D, 1.0, 3.0)
+    assert float((got[2] - closed[2]).abs().max()) > 1e-4
+
+
+def test_gather_neighbors_exact():
+    rng = np.random.default_rng(2)
+    n = 50
+    arrs = dict(xyz=rng.normal(size=(n, 3)), emb=rng.normal(size=(n, 32)),
+                conf=rng.random((n, 1)), dirs=rng.normal(size=(n, 3)),
+                col=rng.random((n, 3)))
+    arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
+    order = ("xyz", "emb", "conf", "dirs", "col")
+    jc = jnpts.from_arrays(*(jnp.asarray(arrs[k]) for k in order))
+    tc = tnp.from_arrays(*(arrs[k] for k in order), device="cpu")
+    pidx = rng.integers(-1, n, (7, 5, 8)).astype(np.int32)
+    want = jnpts.gather_neighbors(jc, jnp.asarray(pidx))
+    got = tnp.gather_neighbors(tc, torch.as_tensor(pidx))
+    assert set(got) == {"xyz", "embeding", "conf", "dir", "color"}
+    for k, v in got.items():
+        assert v.shape[:3] == pidx.shape
+        np.testing.assert_array_equal(v.numpy(), np.asarray(want[k]))

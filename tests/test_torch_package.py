@@ -1,0 +1,84 @@
+"""Package rules of the PyTorch port: no module of
+`pointnerf2studio_torch/`, nor `chip_smoke.py`, imports `jax` or the JAX
+package (the sources are scanned for import statements), and the entry
+points that build state run on the card by default - without a card a
+call that does not ask for the CPU raises instead of running there."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pointnerf2studio_torch import convert
+from pointnerf2studio_torch.config import AggregatorConfig
+from pointnerf2studio_torch.data import synthetic
+from pointnerf2studio_torch.models import aggregator, neural_points
+
+ROOT = Path(__file__).resolve().parent.parent
+SOURCES = sorted(
+    str(p.relative_to(ROOT))
+    for p in list((ROOT / "pointnerf2studio_torch").rglob("*.py"))
+    + [ROOT / "chip_smoke.py"])
+BANNED = ("jax", "jaxlib", "flax", "optax", "pointnerf2studio_tpu")
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+def test_sources_found():
+    assert "chip_smoke.py" in SOURCES
+    for mod in ("ops/fused_select.py", "ops/fused_decode.py",
+                "models/render.py", "ops/raygen.py"):
+        assert f"pointnerf2studio_torch/{mod}" in SOURCES
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_imports_no_jax(source):
+    roots = set(_imported_roots(ROOT / source))
+    assert not roots & set(BANNED), (source, roots & set(BANNED))
+    text = (ROOT / source).read_text()
+    assert "__import__(" not in text and "import_module(" not in text
+
+
+class _Fields:
+    def __getattr__(self, name):
+        return np.zeros((2, 3), np.float32)
+
+
+DEFAULT_DEVICE_CALLS = {
+    "make_chair_scene": lambda **kw: synthetic.make_chair_scene(**kw),
+    "make_sphere_scene": lambda **kw: synthetic.make_sphere_scene(**kw),
+    "aggregator_from_jax": lambda **kw: convert.aggregator_from_jax(
+        {}, AggregatorConfig(), **kw),
+    "cloud_from_jax": lambda **kw: convert.cloud_from_jax(_Fields(), **kw),
+    "grid_from_jax": lambda **kw: convert.grid_from_jax(_Fields(), **kw),
+    "fat_cache_from_jax": lambda **kw: convert.fat_cache_from_jax(
+        _Fields(), **kw),
+    "from_arrays": lambda **kw: neural_points.from_arrays(
+        *(np.zeros((2, c), np.float32) for c in (3, 32, 1, 3, 3)), **kw),
+    "Aggregator": lambda **kw: aggregator.Aggregator(AggregatorConfig(), **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_DEVICE_CALLS))
+def test_default_device_is_the_card(name):
+    """With no card, a call without a device raises before it builds
+    anything; it does not fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DEFAULT_DEVICE_CALLS[name]()
+
+
+def test_sphere_scene_on_the_cpu_when_asked():
+    s = synthetic.make_sphere_scene(500, device="cpu")
+    assert s.cloud.xyz.device.type == "cpu"
+    assert s.params.mlp_base[0].weight.device.type == "cpu"
