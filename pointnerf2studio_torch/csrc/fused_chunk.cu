@@ -1,5 +1,5 @@
-// The whole post-gather chunk of the fast render path in one kernel:
-// candidate selection, payload extract, inverse-distance weights,
+// The whole post-gather chunk of the fast render path behind one entry
+// point: candidate selection, payload extract, inverse-distance weights,
 // rotated/perspective dists, the per-neighbour MLP tower with weighted
 // alpha/feature sums over K, and the colour tower. Output per slot:
 // (sigma, rgb, found).
@@ -10,226 +10,146 @@
 // features, PE freqs 3/5/4, K <= 8, C <= 64 candidates of PK = 48 bf16
 // channels).
 //
-// What bounds it on Hopper: the tower is ~0.27 MFLOP per valid
-// (slot, neighbour) pair and ~0.14 MFLOP of colour tower per slot, and
-// every pair needs 42 of the 48 payload channels of one candidate
-// gathered from a 6 KB candidate row. The TPU kernel consumed an
-// XLA-gathered [M, 48, C] block (1.8 GB per 65k-ray chunk at chair
-// scale) and ran the tower on all K lanes, valid or not. Here:
-//   * the kernel reads kmeta/kpay rows itself through qslot, so the
-//     gathered candidate block never exists in device memory: a slot
-//     costs its 64 metas, 3 xyz channels of 64 candidates and the 42
-//     channels of each selected neighbour;
-//   * one warp per slot holds the 64 candidates, two per lane, and
-//     finds the K nearest by K rounds of a shuffle arg-min on
-//     (d2, column) — the smallest-index tie-break of the reference;
-//   * the valid (slot, k) pairs of a block's 8 slots pack into at most
-//     64 rows in shared memory (invalid neighbours contribute exactly 0
-//     to every sum, so skipping them changes no result), and each layer
-//     is a bf16 x bf16 -> f32 tensor-core product (nvcuda::wmma
-//     16x16x16) with the weights read straight from global memory /
-//     L2, each weight fragment once per block and reused for up to four
-//     16-row tiles;
-//   * the rounding points are the reference's: products of bf16
-//     operands accumulated in f32, (bf16(acc) + bf16(bias)) rounded to
-//     bf16, LeakyReLU(0.1) in f32, alpha*w and h*w summed over K in f32
-//     in k order, sigmoid*(1+2e-3)-1e-3.
+// What bounds it on Hopper: tensor-core operations. The tower is ~0.27
+// MFLOP per valid (slot, neighbour) pair and the colour tower ~0.14
+// MFLOP per slot, and every pair needs 42 of the 48 payload channels of
+// one candidate gathered from a 6 KB candidate row. The TPU kernel
+// consumed an XLA-gathered [M, 48, C] block (1.8 GB per 65k-ray chunk at
+// chair scale) and ran the tower on all K lanes, valid or not. On the
+// TPU one kernel did all of it; here its parts want different shapes,
+// so the entry point launches three kernels back to back:
+//   * chunk_select_kernel, many small blocks (the gathers are bound by
+//     memory latency and need warps in flight, which a tower block of 8
+//     consumer warps does not have): it reads kmeta/kpay rows itself
+//     through qslot, so the gathered candidate block never exists in
+//     device memory: a slot costs its 64 metas, 3 xyz channels of 64
+//     candidates and the 42 channels of each selected neighbour. Eight
+//     lanes per slot hold the 64 candidates, eight per lane (16-byte
+//     loads), and find the K nearest by K rounds of an arg-min on (d2,
+//     column), in registers and then by three shuffles - the
+//     smallest-index tie-break of the reference; a warp selects for four
+//     slots in lockstep. Then a lane per neighbour does the geometry. It
+//     writes, for the valid (slot, k) pairs only, the
+//     tower's inputs (embedding bf16 [32], dists f32 [6], colour/dirdot
+//     f32 [7], weight) to a scratch buffer of 120 bytes a pair, and per
+//     slot the neighbour count and the rotated view direction;
+//   * chunk_tower_kernel, the tower of csrc/tower.cuh on those pairs
+//     (invalid neighbours contribute exactly 0 to every sum, so skipping
+//     them changes no result): one persistent block per SM of 2 consumer
+//     warpgroups + the producer's, wgmma m64n256k16 on bf16 with both
+//     operands in shared memory, the weights streamed as pre-swizzled
+//     32 KB slabs through a ring of 4 stages by cp.async.bulk on
+//     mbarriers. The 256->1 density head is a dot product from the
+//     registers; the K-sums leave as bf16 rows of 256 per slot. Its
+//     body is run_tower with ChunkPolicy (rows from the scratch, sigma
+//     and `found` out). 225,872 bytes of shared memory a block; 232
+//     registers a consumer thread;
+//   * chunk_colour_kernel, the colour tower on the slots: the same block
+//     shape and ring; a warpgroup's tile is 64 consecutive slots, a row
+//     per slot (the K-sums and PE(viewdir), 280 columns), three wgmma
+//     m64n128k16 layers against five stage uses of colour weights, and
+//     the 128->3 head as dot products from the registers. Run per tower
+//     tile instead, on at most 32 slots in 64 rows and five more stage
+//     uses per tile, it cost four times as much.
+// The rounding points are the reference's: products of bf16 operands
+// accumulated in f32, (bf16(acc) + bf16(bias)) rounded to bf16,
+// LeakyReLU(0.1) in f32, alpha*w and h*w summed over K in f32 in k
+// order, sigmoid*(1+2e-3)-1e-3.
 // Selection geometry must equal the plain version bit for bit (masks,
 // radius test, tie-breaks), so this file is compiled with -fmad=false:
 // every multiply and add rounds separately, in the reference's order.
-// Slots whose mask is false exit early and output (0, 0, false).
+// Slots whose mask is false output (0, 0, false).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "tower.cuh"
+
+using namespace tower;
 
 namespace {
 
-constexpr int kSlots = 8;               // slots per block, one warp each
-constexpr int kThreads = kSlots * 32;
-constexpr int kKMax = 8;
-constexpr int kRows = kSlots * kKMax;   // pair rows per block
-constexpr int kH = 256;                 // per-neighbour tower width
 constexpr int kHC = 128;                // colour tower width
 constexpr int kPK = 48;                 // payload channels
 constexpr int kCMax = 64;               // candidates per slot
-constexpr int kNff = 3, kNdf = 5, kNvf = 4;
-constexpr int kLd = 288;                // activation row stride (elements)
-constexpr int kCdLd = 16;               // colour + dirdot row (7 used)
-constexpr int kVdLd = 32;               // PE(viewdir) row (24 used)
-
-// packed bf16 parameter buffer, [in, out] row-major, zero padded
-constexpr int kW1 = 0;                        // [288, 256]
-constexpr int kB1 = kW1 + 288 * kH;
-constexpr int kW2 = kB1 + kH;                 // [256, 256]
-constexpr int kB2 = kW2 + kH * kH;
-constexpr int kW3 = kB2 + kH;                 // [272, 256]
-constexpr int kB3 = kW3 + 272 * kH;
-constexpr int kW4 = kB3 + kH;                 // [256, 256]
-constexpr int kB4 = kW4 + kH * kH;
-constexpr int kWD = kB4 + kH;                 // [256, 16], column 0 used
-constexpr int kBD = kWD + kH * 16;
-constexpr int kWC0 = kBD + 16;                // [288, 128]
-constexpr int kBC0 = kWC0 + 288 * kHC;
-constexpr int kWC1 = kBC0 + kHC;              // [128, 128]
-constexpr int kBC1 = kWC1 + kHC * kHC;
-constexpr int kWC2 = kBC1 + kHC;              // [128, 128]
-constexpr int kBC2 = kWC2 + kHC * kHC;
-constexpr int kWCH = kBC2 + kHC;              // [128, 16], columns 0-2
-constexpr int kBCH = kWCH + kHC * 16;
+constexpr int kNvf = 4;                 // PE octaves of the view direction
+constexpr int kColourSeq = 5;           // stage uses of a colour tile
+constexpr int kSelectThreads = 128;     // chunk_select_kernel: 16 slots
+// colour weights after the tower's slabs: sub-slabs of 64 inputs x 128
+// outputs (16 KB): wc0 five (k 0-319, 280 used), wc1 two, wc2 two
+constexpr int kColour0 = kTowerSlabs * kSlabBytes;
+constexpr int kSubSlab = 64 * kHC * 2;
+constexpr int kNWeightBytes = kColour0 + 9 * kSubSlab;
+// f32 parameters after the tower's
+constexpr int kBC0 = kNTowerF32, kBC1 = kBC0 + kHC, kBC2 = kBC1 + kHC;
+constexpr int kWCH = kBC2 + kHC;        // [3][128] colour head (bf16 values)
+constexpr int kBCH = kWCH + 3 * kHC;
 constexpr int kNParams = kBCH + 16;
-
-struct Smem {
-  bf16 a[kRows * kLd];
-  bf16 b[kRows * kLd];
-  bf16 cd[kRows * kCdLd];
-  bf16 vd[16 * kVdLd];
-  float stage[kSlots * 256];
-  float hws[kSlots * kH];
-  float row_wk[kRows];
-  float row_alpha[kRows];
-  int row_slot[kRows];
-  float consts[32];
-  int nk[kSlots];
-  int off[kSlots + 1];
+// the scratch buffer between the kernels, for M slots of K pairs
+struct Scratch {
+  bf16* emb;        // [M*K, 32]
+  bf16* hw;         // [M, 256] sum_k h * w_k, the colour tower's input
+  float* dists;     // [M*K, 6] bf16-rounded values
+  float* cd;        // [M*K, 7] colour, dirdot
+  float* wk;        // [M*K] normalised weights
+  float* vd;        // [M, 3] Rw2c-rotated view direction
+  signed char* nk;  // [M] neighbours found, -1: slot masked off
 };
+constexpr int kPairBytes = kC * 2 + (kD + kCD + 1) * 4;   // 120
+constexpr int kSlotBytes = kH * 2 + 3 * 4 + 1;
 
-enum Mode { kHidden = 0, kHiddenAcc = 1, kDensity = 2, kRgb = 3 };
-
-__device__ __forceinline__ float bf_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+__host__ __device__ inline Scratch carve(void* base, int M, int K) {
+  const size_t mk = (size_t)M * K;
+  Scratch s;
+  s.emb = (bf16*)base;
+  s.hw = s.emb + mk * kC;
+  s.dists = (float*)(s.hw + (size_t)M * kH);
+  s.cd = s.dists + mk * kD;
+  s.wk = s.cd + mk * kCD;
+  s.vd = s.wk + mk;
+  s.nk = (signed char*)(s.vd + (size_t)M * 3);
+  return s;
 }
 
-__device__ __forceinline__ float leaky(float x) {
-  return x > 0.f ? x : 0.1f * x;
-}
-
-// out = epilogue(A @ W): A is [rtiles*16, ka*16] (+ [.., ka2*16] from
-// A2) bf16 in shared memory, W is [(ka+ka2)*16, ntiles*16] bf16 in
-// global memory. Warp w computes column tiles w, w+8, ...
-template <int MODE>
-__device__ void gemm(Smem& sm, const bf16* A, int lda, int ka,
-                     const bf16* A2, int lda2, int ka2,
-                     const bf16* __restrict__ W, int ldw,
-                     const bf16* __restrict__ bias, int ntiles, int rtiles,
-                     int nrows, bf16* out, int ldo, int act_super,
-                     float* rgb_out, int slot0, int M) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* st = sm.stage + warp * 256;
-  for (int ct = warp; ct < ntiles; ct += kSlots) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-    for (int rt = 0; rt < 4; ++rt) wmma::fill_fragment(acc[rt], 0.f);
-    for (int kk = 0; kk < ka + ka2; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, W + (size_t)kk * 16 * ldw + ct * 16, ldw);
-#pragma unroll
-      for (int rt = 0; rt < 4; ++rt) {
-        if (rt < rtiles) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-              af;
-          if (kk < ka)
-            wmma::load_matrix_sync(af, A + rt * 16 * lda + kk * 16, lda);
-          else
-            wmma::load_matrix_sync(af, A2 + rt * 16 * lda2 + (kk - ka) * 16,
-                                   lda2);
-          wmma::mma_sync(acc[rt], af, bf, acc[rt]);
-        }
-      }
-    }
-#pragma unroll
-    for (int rt = 0; rt < 4; ++rt) {
-      if (rt >= rtiles) continue;
-      wmma::store_matrix_sync(st, acc[rt], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e >> 4, c = e & 15;
-        const int row = rt * 16 + r, col = ct * 16 + c;
-        const float y = bf_round(bf_round(st[e]) +
-                                 __bfloat162float(bias[col]));
-        if (MODE == kHidden || MODE == kHiddenAcc) {
-          const float z = leaky(y);
-          out[row * ldo + col] = __float2bfloat16(z);
-          st[e] = z;
-        } else if (MODE == kDensity) {
-          if (c == 0)
-            sm.row_alpha[row] =
-                act_super ? log1pf(expf(-fabsf(y - 1.f))) + fmaxf(y - 1.f, 0.f)
-                          : fmaxf(y, 0.f);
-        } else {  // kRgb: row = local slot
-          if (c < 3 && row < kSlots && slot0 + row < M &&
-              sm.nk[row] >= 0) {
-            const float s = 1.f / (1.f + expf(-y));
-            rgb_out[(size_t)(slot0 + row) * 3 + c] =
-                s * (1.f + 2e-3f) - 1e-3f;
-          }
-        }
-      }
-      __syncwarp();
-      if (MODE == kHiddenAcc && lane < 16) {
-        // h * w_k summed over k in k order: one lane per column walks
-        // the rows in order, so every sum has the reference's order
-        const int col = ct * 16 + lane;
-        for (int r = 0; r < 16; ++r) {
-          const int row = rt * 16 + r;
-          if (row < nrows)
-            sm.hws[sm.row_slot[row] * kH + col] +=
-                st[r * 16 + lane] * sm.row_wk[row];
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_chunk_kernel(const int32_t* __restrict__ kmeta,
-                   const bf16* __restrict__ kpay,
-                   const int32_t* __restrict__ qslot,
-                   const float* __restrict__ locs,
-                   const float* __restrict__ center,
-                   const float* __restrict__ rd,
-                   const uint8_t* __restrict__ mask,
-                   const float* __restrict__ consts,
-                   const bf16* __restrict__ P, float* __restrict__ sig,
-                   float* __restrict__ rgb, uint8_t* __restrict__ found,
-                   int M, int C, int K, float radius2, int num_shells,
-                   int act_super) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slot0 = blockIdx.x * kSlots;
-  const int m = slot0 + warp;
-  const bool active = m < M && mask[m] != 0;
-
-  if (threadIdx.x < 21) sm.consts[threadIdx.x] = consts[threadIdx.x];
-  for (int i = threadIdx.x; i < kSlots * kH; i += kThreads) sm.hws[i] = 0.f;
-  if (lane == 0) sm.nk[warp] = active ? 0 : -1;
-  if (!active && m < M && lane == 0) {
-    sig[m] = 0.f;
-    rgb[(size_t)m * 3 + 0] = rgb[(size_t)m * 3 + 1] = rgb[(size_t)m * 3 + 2] =
-        0.f;
-    found[m] = 0;
-  }
-  if (!__syncthreads_or(active)) return;
-
-  const float* cam = sm.consts;       // campos
-  const float* Rc = sm.consts + 3;    // camrotc2w, row-major
-  const float* Wr = sm.consts + 12;   // Rw2c, row-major
-
-  // ---- selection: one warp per slot, candidates lane and lane + 32 ----
+// ---------------------------------------------------------------------
+// selection, extract, weights and geometry: four slots a warp
+// ---------------------------------------------------------------------
+__global__ void __launch_bounds__(kSelectThreads)
+chunk_select_kernel(const int32_t* __restrict__ kmeta,
+                    const bf16* __restrict__ kpay,
+                    const int32_t* __restrict__ qslot,
+                    const float* __restrict__ locs,
+                    const float* __restrict__ center,
+                    const float* __restrict__ rd,
+                    const uint8_t* __restrict__ mask,
+                    const float* __restrict__ consts, Scratch out,
+                    float* __restrict__ sig, float* __restrict__ rgb,
+                    uint8_t* __restrict__ found, int M, int C, int K,
+                    float radius2, int num_shells) {
+  __shared__ float sc[32];
+  if (threadIdx.x < 21) sc[threadIdx.x] = consts[threadIdx.x];
+  __syncthreads();
+  const float* cam = sc;        // campos
+  const float* Rc = sc + 3;     // camrotc2w, row-major
+  const float* Wr = sc + 12;    // Rw2c, row-major
+  const int lane = threadIdx.x & 31, l = lane & 7, gbase = lane & ~7;
+  const int j = (blockIdx.x * (kSelectThreads / 32) + (threadIdx.x >> 5)) * 4 +
+                (lane >> 3);
+  const int m = min(j, M - 1);
+  const bool act = j < M && mask[m] != 0;   // uniform in the 8-lane group
   int q = 0;
-  float loc[3], cen[3], pxa[3] = {0, 0, 0}, pxb[3] = {0, 0, 0};
-  int selc[kKMax];
-  float wraw[kKMax];
-  int nk = 0;
-  float wnorm = 0.f;
-  if (active) {
+  float key[8], px[3][8], loc[3], cen[3];
+  int shell[8];
+  bool ok[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    key[i] = CUDART_INF_F;
+    shell[i] = 0;
+    ok[i] = false;
+    px[0][i] = px[1][i] = px[2][i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) loc[i] = cen[i] = 0.f;
+  if (act) {
     q = qslot[m];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -240,276 +160,505 @@ fused_chunk_kernel(const int32_t* __restrict__ kmeta,
                 cl2 = cen[2] - loc[2];
     const int32_t* meta_row = kmeta + (size_t)q * C;
     const bf16* pay_row = kpay + (size_t)q * kPK * C;
-    float key[2];
-    int shell[2];
-    bool ok[2];
+    alignas(16) int32_t meta[8];
+    if ((C & 7) == 0) {   // 16-byte loads
+      if (l * 8 < C) {
+        *(int4*)&meta[0] = *(const int4*)(meta_row + l * 8);
+        *(int4*)&meta[4] = *(const int4*)(meta_row + l * 8 + 4);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const uint4 v = *(const uint4*)(pay_row + a * C + l * 8);
+          const __nv_bfloat162* h = (const __nv_bfloat162*)&v;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            px[a][2 * i] = __low2float(h[i]);
+            px[a][2 * i + 1] = __high2float(h[i]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) meta[i] = -1;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int c = l * 8 + i;
+        meta[i] = c < C ? meta_row[c] : -1;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          px[a][i] =
+              c < C ? __bfloat162float(pay_row[a * C + c]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float dx = px[0][i] + cl0, dy = px[1][i] + cl1,
+                  dz = px[2][i] + cl2;
+      const float d2 = dx * dx + dy * dy + dz * dz;
+      ok[i] = l * 8 + i < C && meta[i] >= 0 &&
+              (radius2 <= 0.f || d2 <= radius2);
+      shell[i] = meta[i] & 3;
+      key[i] = d2;
+    }
+  }
+  if (num_shells > 1) {
+    // layered eligibility: shell s is searchable only while fewer
+    // than K candidates were accepted in shells < s
+    bool elig[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) elig[i] = shell[i] == 0;
+    int before = 0;
+    for (int sh = 1; sh < num_shells; ++sh) {
+      int n = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) n += ok[i] && shell[i] == sh - 1;
+      n += __shfl_xor_sync(0xffffffffu, n, 1);
+      n += __shfl_xor_sync(0xffffffffu, n, 2);
+      n += __shfl_xor_sync(0xffffffffu, n, 4);
+      before += n;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        elig[i] = elig[i] || (shell[i] == sh && before < K);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ok[i] = ok[i] && elig[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) key[i] = ok[i] ? key[i] : CUDART_INF_F;
+
+  // K rounds; lane k of the group keeps neighbour k's column and weight
+  float wsum = 0.f, my_w = 0.f;
+  int nk = 0, my_c = 0;
+  for (int k = 0; k < K; ++k) {
+    // the smallest (d2, column) of the slot's 64 candidates
+    float bk = key[0];
+    int bc = l * 8;
+#pragma unroll
+    for (int i = 1; i < 8; ++i)
+      if (key[i] < bk) {
+        bk = key[i];
+        bc = l * 8 + i;
+      }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      const float ok2 = __shfl_xor_sync(0xffffffffu, bk, o);
+      const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
+      if (ok2 < bk || (ok2 == bk && oc < bc)) {
+        bk = ok2;
+        bc = oc;
+      }
+    }
+    // group-uniform; once false it stays false (no key is left)
+    const bool got = bk < CUDART_INF_F;
+    if (!__any_sync(0xffffffffu, got)) break;
+    float mine[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (bc == l * 8 + i) {
+        key[i] = CUDART_INF_F;
+        mine[0] = px[0][i];
+        mine[1] = px[1][i];
+        mine[2] = px[2][i];
+      }
+    float dw[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float sx = __shfl_sync(0xffffffffu, mine[a], gbase | (bc >> 3));
+      dw[a] = (sx + cen[a]) - loc[a];
+    }
+    const float dw2 = dw[0] * dw[0] + dw[1] * dw[1] + dw[2] * dw[2];
+    const float w = 1.0f / fmaxf(sqrtf(dw2), 1e-6f);
+    if (got) {
+      wsum = wsum + w;
+      nk = k + 1;
+      if (l == k) {
+        my_c = bc;
+        my_w = w;
+      }
+    }
+  }
+  const float wnorm = 1.0f / fmaxf(wsum, 1e-8f);
+  my_w = my_w * wnorm;
+
+  // per slot: count, view direction, and the sample in camera space
+  float vd[3], lc[3];
+  {
+    const float r0 = act ? rd[(size_t)m * 3 + 0] : 0.f,
+                r1 = act ? rd[(size_t)m * 3 + 1] : 0.f,
+                r2 = act ? rd[(size_t)m * 3 + 2] : 0.f;
+    const float ls0 = loc[0] - cam[0], ls1 = loc[1] - cam[1],
+                ls2 = loc[2] - cam[2];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      vd[a] = r0 * Wr[0 * 3 + a] + r1 * Wr[1 * 3 + a] + r2 * Wr[2 * 3 + a];
+      lc[a] = ls0 * Rc[0 * 3 + a] + ls1 * Rc[1 * 3 + a] + ls2 * Rc[2 * 3 + a];
+    }
+  }
+  const float lpx = lc[0] / lc[2], lpy = lc[1] / lc[2];
+  if (l == 0 && j < M) {
+    out.nk[m] = (signed char)(act ? nk : -1);
+    if (act) {
+      out.vd[(size_t)m * 3 + 0] = vd[0];
+      out.vd[(size_t)m * 3 + 1] = vd[1];
+      out.vd[(size_t)m * 3 + 2] = vd[2];
+    } else {
+      sig[m] = 0.f;
+      rgb[(size_t)m * 3 + 0] = rgb[(size_t)m * 3 + 1] =
+          rgb[(size_t)m * 3 + 2] = 0.f;
+      found[m] = 0;
+    }
+  }
+
+  // extract: for neighbour k the group's lane l gathers channels 6 l ..
+  // 6 l + 5 of column c_k (0-2 rel xyz, 3-34 emb, 35 conf, 36-38 dir,
+  // 39-41 colour), copies the embedding channels out, and hands xyz (lane
+  // 0) and dir / colour (lane 6) to lane k, which does row k's geometry
+  const bf16* pay_row = kpay + (size_t)q * kPK * C;
+  float pv[3] = {0.f, 0.f, 0.f}, ndir[3] = {0.f, 0.f, 0.f},
+        ncol[3] = {0.f, 0.f, 0.f};
+  const int kmax = __reduce_max_sync(0xffffffffu, nk);
+  for (int k = 0; k < kmax; ++k) {
+    const int c = __shfl_sync(0xffffffffu, my_c, gbase | k);
+    const bool row = k < nk;
+    bf16 v[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      v[i] = row ? pay_row[(l * 6 + i) * C + c] : __float2bfloat16(0.f);
+    if (row) {
+      bf16* e = out.emb + ((size_t)m * K + k) * kC;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int ch = l * 6 + i - 3;
+        if (ch >= 0 && ch < kC) e[ch] = v[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float a = __shfl_sync(0xffffffffu, __bfloat162float(v[i]), gbase);
+      const float b =
+          __shfl_sync(0xffffffffu, __bfloat162float(v[i]), gbase | 6);
+      const float d =
+          __shfl_sync(0xffffffffu, __bfloat162float(v[3 + i]), gbase | 6);
+      if (l == k) {
+        pv[i] = a;
+        ndir[i] = b;
+        ncol[i] = d;
+      }
+    }
+  }
+  if (l < nk) {
+    float nx[3], dw[3], ns[3], nc[3], dr[3], ndr[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      nx[a] = pv[a] + cen[a];
+      dw[a] = nx[a] - loc[a];
+      ns[a] = nx[a] - cam[a];
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      nc[a] = ns[0] * Rc[0 * 3 + a] + ns[1] * Rc[1 * 3 + a] +
+              ns[2] * Rc[2 * 3 + a];
+      dr[a] = dw[0] * Wr[0 * 3 + a] + dw[1] * Wr[1 * 3 + a] +
+              dw[2] * Wr[2 * 3 + a];
+      ndr[a] = ndir[0] * Wr[0 * 3 + a] + ndir[1] * Wr[1 * 3 + a] +
+               ndir[2] * Wr[2 * 3 + a];
+    }
+    const float npx = nc[0] / nc[2], npy = nc[1] / nc[2];
+    const size_t g = (size_t)m * K + l;
+    float* d = out.dists + g * kD;
+    d[0] = bf_round(dr[0]);
+    d[1] = bf_round(dr[1]);
+    d[2] = bf_round(dr[2]);
+    d[3] = bf_round(npx * nc[2] - lpx * lc[2]);
+    d[4] = bf_round(npy * nc[2] - lpy * lc[2]);
+    d[5] = bf_round(nc[2] - lc[2]);
+    float* o = out.cd + g * kCD;
+    o[0] = ncol[0];
+    o[1] = ncol[1];
+    o[2] = ncol[2];
+    o[3] = ndr[0] - vd[0];
+    o[4] = ndr[1] - vd[1];
+    o[5] = ndr[2] - vd[2];
+    o[6] = ndr[0] * vd[0] + ndr[1] * vd[1] + ndr[2] * vd[2];
+    out.wk[g] = my_w;
+  }
+}
+
+// ---------------------------------------------------------------------
+// the towers on the selected pairs
+// ---------------------------------------------------------------------
+struct ColourEntry {
+  __device__ void operator()(int idx, uint32_t& off, uint32_t& bytes) const {
+    // wc0: k 0-127, 128-255, 256-319; wc1; wc2
+    const int sub0 = idx < 3 ? 2 * idx : 2 * idx - 1;
+    off = kColour0 + sub0 * kSubSlab;
+    bytes = idx == 2 ? kSubSlab : 2 * kSubSlab;
+  }
+};
+
+// one stage of a colour layer's products: NSUB 64-wide sub-slabs of the
+// colour activations from slab `a_slab0` on against the stage, LAST
+// k-steps in the last of them; FIRST overwrites the accumulators
+template <int NSUB, int LAST, bool FIRST>
+__device__ __forceinline__ void colour_stage(float (&acc)[64],
+                                             Consumer<kStages>& c,
+                                             uint32_t a_base, int a_slab0,
+                                             uint32_t& prev, int lane) {
+  const uint32_t st = c.wait();
+#pragma unroll
+  for (int u = 0; u < NSUB; ++u) {
+    const uint32_t a = a_base + (a_slab0 + u) * kASlabBytes;
+    const uint32_t b = c.r.data + st * kSlabBytes + u * kSubSlab;
+#pragma unroll
+    for (int ks = 0; ks < (u == NSUB - 1 ? LAST : 4); ++ks)
+      wgmma_n128(acc, make_desc(a + ks * 32), make_desc(b + ks * 32),
+                 !(FIRST && u == 0 && ks == 0));
+  }
+  wg_commit();
+  if (!FIRST) {
+    wg_wait<1>();
+    c.release(prev, lane);
+  }
+  prev = st;
+  ++c.n;
+}
+
+__device__ __forceinline__ void colour_finish(float (&acc)[64],
+                                              Consumer<kStages>& c,
+                                              uint32_t prev, int lane) {
+  wg_wait<0>();
+  c.release(prev, lane);
+  fence_regs(acc);
+}
+
+// The tower's policy (run_tower in tower.cuh): the rows are the pairs the
+// selection wrote, k = 0 .. nk - 1 of every slot that is not masked off;
+// a slot's sigma and `found` leave here, its K-sums go to the scratch as
+// the colour tower's bf16 input row.
+struct ChunkPolicy {
+  static constexpr bool kRoundBias = true;
+  const bf16* emb;
+  const float* dists;
+  const float* cd;
+  Scratch in;
+  float* sig;
+  uint8_t* found;
+  int act_super;
+
+  __device__ __forceinline__ unsigned load_slot(int m, int K, float* w,
+                                                bool& live) const {
+    const int nk = in.nk[m];
+    for (int k = 0; k < nk; ++k) w[k] = in.wk[(size_t)m * K + k];
+    live = nk >= 0;
+    return (1u << max(nk, 0)) - 1u;
+  }
+
+  // the selection has written the slots that are masked off
+  __device__ __forceinline__ void no_row(int, unsigned, int, int, int) const {}
+
+  __device__ __forceinline__ void finish(const float (&acc)[128], float d0,
+                                         float d1, const float* F, Tables& T,
+                                         unsigned char* A, int m0, int n_take,
+                                         int, int wg, int ww, int lane) const {
+    const float bd = __ldg(F + kBD);
+    float al[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int c = lane + 32 * h;
-      float* px = h ? pxb : pxa;
-      ok[h] = false;
-      shell[h] = 0;
-      key[h] = CUDART_INF_F;
-      if (c < C) {
-        const int32_t meta = meta_row[c];
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          px[i] = __bfloat162float(pay_row[i * C + c]);
-        const float dx = px[0] + cl0, dy = px[1] + cl1, dz = px[2] + cl2;
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        ok[h] = meta >= 0 && (radius2 <= 0.f || d2 <= radius2);
-        shell[h] = meta & 3;
-        key[h] = d2;
-      }
+      const float y = bf_round(bf_round(h ? d1 : d0) + bd);
+      al[h] = act_super ? log1pf(expf(-fabsf(y - 1.f))) + fmaxf(y - 1.f, 0.f)
+                        : fmaxf(y, 0.f);
     }
-    if (num_shells > 1) {
-      // layered eligibility: shell s is searchable only while fewer
-      // than K candidates were accepted in shells < s
-      bool elig[2] = {shell[0] == 0, shell[1] == 0};
-      int before = 0;
-      for (int s = 1; s < num_shells; ++s) {
-        before += __popc(__ballot_sync(0xffffffffu,
-                                       ok[0] && shell[0] == s - 1)) +
-                  __popc(__ballot_sync(0xffffffffu,
-                                       ok[1] && shell[1] == s - 1));
-        elig[0] = elig[0] || (shell[0] == s && before < K);
-        elig[1] = elig[1] || (shell[1] == s && before < K);
-      }
-      ok[0] = ok[0] && elig[0];
-      ok[1] = ok[1] && elig[1];
-    }
-    key[0] = ok[0] ? key[0] : CUDART_INF_F;
-    key[1] = ok[1] ? key[1] : CUDART_INF_F;
-
-    float wsum = 0.f;
-#pragma unroll
-    for (int k = 0; k < kKMax; ++k) {
-      if (k >= K) break;
-      float bk = key[0];
-      int bc = lane;
-      if (key[1] < bk) {
-        bk = key[1];
-        bc = lane + 32;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ok2 = __shfl_xor_sync(0xffffffffu, bk, o);
-        const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
-        if (ok2 < bk || (ok2 == bk && oc < bc)) {
-          bk = ok2;
-          bc = oc;
-        }
-      }
-      if (!(bk < CUDART_INF_F)) break;  // warp-uniform: no candidate left
-      if (bc == lane) key[0] = CUDART_INF_F;
-      if (bc == lane + 32) key[1] = CUDART_INF_F;
-      float dw2 = 0.f;
-      float dw[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float mine = (bc >> 5) ? pxb[i] : pxa[i];
-        const float sx = __shfl_sync(0xffffffffu, mine, bc & 31);
-        dw[i] = (sx + cen[i]) - loc[i];
-      }
-      dw2 = dw[0] * dw[0] + dw[1] * dw[1] + dw[2] * dw[2];
-      const float w = 1.0f / fmaxf(sqrtf(dw2), 1e-6f);
-      wsum = wsum + w;
-      selc[k] = bc;
-      wraw[k] = w;
-      nk = k + 1;
-    }
-    wnorm = 1.0f / fmaxf(wsum, 1e-8f);
-    if (lane == 0) sm.nk[warp] = nk;
+    const signed char* nk = in.nk + m0;
+    float* sg = sig + m0;
+    uint8_t* fnd = found + m0;
+    bf16* hw = in.hw + (size_t)m0 * kH;
+    slot_sums(
+        acc, al[0], al[1], T, A, n_take, wg, ww, lane,
+        [nk, sg, fnd](int i, float s, int n) {
+          if (nk[i] >= 0) {
+            sg[i] = s;
+            fnd[i] = n > 0;
+          }
+        },
+        [hw](int i, int col, float v) {
+          hw[i * kH + col] = __float2bfloat16(v);
+        });
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int acc = 0;
-    for (int s = 0; s < kSlots; ++s) {
-      sm.off[s] = acc;
-      acc += max(sm.nk[s], 0);
-    }
-    sm.off[kSlots] = acc;
-  }
-  __syncthreads();
-  const int nrows = sm.off[kSlots];
+};
 
-  // ---- per-pair features: layer-1 input rows + colour/dirdot rows ----
-  if (active) {
-    float vd[3], lc[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      float r0 = rd[(size_t)m * 3 + 0], r1 = rd[(size_t)m * 3 + 1],
-            r2 = rd[(size_t)m * 3 + 2];
-      vd[j] = r0 * Wr[0 * 3 + j] + r1 * Wr[1 * 3 + j] + r2 * Wr[2 * 3 + j];
+__global__ void __launch_bounds__(kThreads, 1)
+chunk_tower_kernel(const ChunkPolicy p, const unsigned char* __restrict__ W,
+                   const float* __restrict__ F, int M, int K) {
+  run_tower(p, W, F, M, K);
+}
+
+// ---------------------------------------------------------------------
+// the colour tower on the slots: a warpgroup's tile is 64 consecutive
+// slots, a row per slot
+// ---------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads, 1)
+chunk_colour_kernel(Scratch in, const unsigned char* __restrict__ W,
+                    const float* __restrict__ F, float* __restrict__ rgb,
+                    int M) {
+  Block& sm = block_smem();
+  Consumer<kStages> ring_c;
+  int warp, lane;
+  if (!block_begin<kColourSeq>(sm, W, ColourEntry(), ring_c, warp, lane))
+    return;
+  const int wg = warp >> 2, ww = warp & 3;
+  unsigned char* A = sm.a[wg];
+  const uint32_t a_base = smem_u32(A);
+  const int n_tiles = (M + kWgRows - 1) / kWgRows;
+  const int q4 = lane & 3, r0 = ww * 16 + (lane >> 2), rx = r0 & 7;
+  float cacc[64];
+
+  // both warpgroups make the same number of rounds: the ring is shared
+  for (int it = 0; (it * (int)gridDim.x + (int)blockIdx.x) * 2 < n_tiles;
+       ++it) {
+    const int tile = (it * (int)gridDim.x + (int)blockIdx.x) * 2 + wg;
+    if (tile >= n_tiles || (TOWER_PROBE & 16)) {
+      ring_c.drain(kColourSeq, lane);
+      continue;
     }
-    {
-      const float ls0 = loc[0] - cam[0], ls1 = loc[1] - cam[1],
-                  ls2 = loc[2] - cam[2];
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        lc[j] = ls0 * Rc[0 * 3 + j] + ls1 * Rc[1 * 3 + j] + ls2 * Rc[2 * 3 + j];
-    }
-    const float lpx = lc[0] / lc[2], lpy = lc[1] / lc[2];
-    // PE(viewdir) block layout: sin(v*2^j) at j*3+i, cos at 12+j*3+i
-    {
-      bf16* vrow = sm.vd + warp * kVdLd;
+    const int m0 = tile * kWgRows;
+
+    // ---- rows: the slot's K-sums (256) and PE(viewdir) (24), zeros to
+    // 288. Rows of slots that are masked off or past M stay as they are:
+    // a row's products touch no other row and are not written out ----
+#pragma unroll 4
+    for (int r = ww; r < kWgRows; r += 4) {
+      const int m = m0 + r;
+      if (m >= M || in.nk[m] < 0) continue;   // warp-uniform
+      *(uint4*)(A + a_offset(r, 8 * lane)) =
+          *(const uint4*)(in.hw + (size_t)m * kH + 8 * lane);
+      // block layout: sin(v*2^j) at 256 + j*3+a, cos at 268 + j*3+a
       if (lane < 3 * kNvf) {
-        const int j = lane / 3, i = lane % 3;
-        const float v = bf_round(vd[i]) * (float)(1 << j);
-        vrow[lane] = __float2bfloat16(sinf(v));
-        vrow[3 * kNvf + lane] = __float2bfloat16(cosf(v));
+        const int f = lane / 3, a = lane % 3;
+        const float v =
+            bf_round(in.vd[(size_t)m * 3 + a]) * (float)(1 << f);
+        *(bf16*)(A + a_offset(r, 256 + lane)) = __float2bfloat16(sinf(v));
+        *(bf16*)(A + a_offset(r, 256 + 3 * kNvf + lane)) =
+            __float2bfloat16(cosf(v));
       } else if (lane >= 6 * kNvf) {
-        vrow[lane] = __float2bfloat16(0.f);
+        *(bf16*)(A + a_offset(r, 256 + lane)) = __float2bfloat16(0.f);
       }
     }
-    const bf16* pay_row = kpay + (size_t)q * kPK * C;
-    for (int k = 0; k < nk; ++k) {
-      const int row = sm.off[warp] + k;
-      const int c = selc[k];
-      const float p_lo = __bfloat162float(pay_row[lane * C + c]);
-      const float p_hi =
-          lane < 16 ? __bfloat162float(pay_row[(32 + lane) * C + c]) : 0.f;
-      // channels: 0-2 rel xyz, 3-34 emb, 35 conf, 36-38 dir, 39-41 colour
-      const float e_lo = __shfl_sync(0xffffffffu, p_lo, min(lane + 3, 31));
-      const float e_hi = __shfl_sync(0xffffffffu, p_hi, max(lane - 29, 0));
-      const float emb = lane <= 28 ? e_lo : e_hi;
-      float pv[3], ndir[3], ncol[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        pv[i] = __shfl_sync(0xffffffffu, p_lo, i);
-        ndir[i] = __shfl_sync(0xffffffffu, p_hi, 4 + i);
-        ncol[i] = __shfl_sync(0xffffffffu, p_hi, 7 + i);
-      }
-      float nx[3], dw[3], ns[3], nc[3], dr[3], ndr[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        nx[i] = pv[i] + cen[i];
-        dw[i] = nx[i] - loc[i];
-        ns[i] = nx[i] - cam[i];
-      }
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        nc[j] = ns[0] * Rc[0 * 3 + j] + ns[1] * Rc[1 * 3 + j] +
-                ns[2] * Rc[2 * 3 + j];
-        dr[j] = dw[0] * Wr[0 * 3 + j] + dw[1] * Wr[1 * 3 + j] +
-                dw[2] * Wr[2 * 3 + j];
-        ndr[j] = ndir[0] * Wr[0 * 3 + j] + ndir[1] * Wr[1 * 3 + j] +
-                 ndir[2] * Wr[2 * 3 + j];
-      }
-      const float npx = nc[0] / nc[2], npy = nc[1] / nc[2];
-      float dist[6] = {dr[0], dr[1], dr[2], npx * nc[2] - lpx * lc[2],
-                       npy * nc[2] - lpy * lc[2], nc[2] - lc[2]};
-#pragma unroll
-      for (int i = 0; i < 6; ++i) dist[i] = bf_round(dist[i]);
+    fence_async_smem();
+    wg_bar(wg);
 
-      bf16* xr = sm.a + row * kLd;
-      xr[lane] = __float2bfloat16(emb);
 #pragma unroll
-      for (int j = 0; j < kNff; ++j) {
-        const float v = emb * (float)(1 << j);
-        xr[32 + j * 32 + lane] = __float2bfloat16(sinf(v));
-        xr[32 + 32 * kNff + j * 32 + lane] = __float2bfloat16(cosf(v));
+    for (int layer = 0; layer < 3; ++layer) {
+      uint32_t prev = 0;
+      wg_fence();
+      colour_stage<2, 4, true>(cacc, ring_c, a_base, 0, prev, lane);
+      if (layer == 0) {
+        colour_stage<2, 4, false>(cacc, ring_c, a_base, 2, prev, lane);
+        colour_stage<1, 2, false>(cacc, ring_c, a_base, 4, prev, lane);
       }
-      if (lane < 6 * kNdf) {
-        const int j = lane / 6, i = lane % 6;
-        float d = dist[0];
+      colour_finish(cacc, ring_c, prev, lane);
+      const float* bias = F + (layer == 0 ? kBC0 : layer == 1 ? kBC1 : kBC2);
+      if (layer < 2) {
 #pragma unroll
-        for (int t = 1; t < 6; ++t) d = i == t ? dist[t] : d;
-        const float v = d * (float)(1 << j);
-        xr[224 + lane] = __float2bfloat16(sinf(v));
-        xr[224 + 6 * kNdf + lane] = __float2bfloat16(cosf(v));
+        for (int j = 0; j < 16; ++j) {
+          const float2 b = __ldg((const float2*)(bias + 8 * j + 2 * q4));
+          unsigned char* p = A + (j >> 3) * kASlabBytes + r0 * 128 +
+                             (((j & 7) ^ rx) << 4) + q4 * 4;
+          *(__nv_bfloat162*)p = __floats2bfloat162_rn(
+              bias_act<true>(cacc[4 * j], b.x),
+              bias_act<true>(cacc[4 * j + 1], b.y));
+          *(__nv_bfloat162*)(p + 8 * 128) = __floats2bfloat162_rn(
+              bias_act<true>(cacc[4 * j + 2], b.x),
+              bias_act<true>(cacc[4 * j + 3], b.y));
+        }
+        fence_async_smem();
+        wg_bar(wg);
       } else {
-        const int base = 284 + 2 * (lane - 30);
-        xr[base] = xr[base + 1] = __float2bfloat16(0.f);
-      }
-      if (lane < kCdLd) {
-        const float dot = ndr[0] * vd[0] + ndr[1] * vd[1] + ndr[2] * vd[2];
-        float v = 0.f;
-        if (lane < 3) v = ncol[lane];
-        else if (lane < 6) v = ndr[lane - 3] - vd[lane - 3];
-        else if (lane == 6) v = dot;
-        sm.cd[row * kCdLd + lane] = __float2bfloat16(v);
-      }
-      if (lane == 0) {
-        sm.row_slot[row] = warp;
-        sm.row_wk[row] = wraw[k] * wnorm;
+        // colour head 128 -> 3 from the registers
+        float o[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 b = __ldg((const float2*)(bias + 8 * j + 2 * q4));
+          const float x00 = bf_round(bias_act<true>(cacc[4 * j], b.x));
+          const float x01 = bf_round(bias_act<true>(cacc[4 * j + 1], b.y));
+          const float x10 = bf_round(bias_act<true>(cacc[4 * j + 2], b.x));
+          const float x11 = bf_round(bias_act<true>(cacc[4 * j + 3], b.y));
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            const float2 w = __ldg(
+                (const float2*)(F + kWCH + ch * kHC + 8 * j + 2 * q4));
+            o[0][ch] = o[0][ch] + x00 * w.x;
+            o[0][ch] = o[0][ch] + x01 * w.y;
+            o[1][ch] = o[1][ch] + x10 * w.x;
+            o[1][ch] = o[1][ch] + x11 * w.y;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            float v = o[h][ch];
+            v = v + __shfl_xor_sync(0xffffffffu, v, 1);
+            v = v + __shfl_xor_sync(0xffffffffu, v, 2);
+            const int m = m0 + r0 + 8 * h;
+            if (q4 == 0 && m < M && in.nk[m] >= 0) {
+              const float y = bf_round(bf_round(v) + __ldg(F + kBCH + ch));
+              const float sg = 1.f / (1.f + expf(-y));
+              rgb[(size_t)m * 3 + ch] = sg * (1.f + 2e-3f) - 1e-3f;
+            }
+          }
       }
     }
+    wg_bar(wg);   // the next tile's rows overwrite this tile's
   }
-  __syncthreads();
-
-  // ---- per-neighbour tower on the packed pair rows ----
-  const int rtiles = (nrows + 15) / 16;
-  if (rtiles > 0) {
-    gemm<kHidden>(sm, sm.a, kLd, 18, nullptr, 0, 0, P + kW1, kH, P + kB1,
-                  16, rtiles, nrows, sm.b, kLd, act_super, nullptr, 0, M);
-    __syncthreads();
-    gemm<kHidden>(sm, sm.b, kLd, 16, nullptr, 0, 0, P + kW2, kH, P + kB2,
-                  16, rtiles, nrows, sm.a, kLd, act_super, nullptr, 0, M);
-    __syncthreads();
-    gemm<kHidden>(sm, sm.a, kLd, 16, sm.cd, kCdLd, 1, P + kW3, kH, P + kB3,
-                  16, rtiles, nrows, sm.b, kLd, act_super, nullptr, 0, M);
-    __syncthreads();
-    gemm<kHiddenAcc>(sm, sm.b, kLd, 16, nullptr, 0, 0, P + kW4, kH,
-                     P + kB4, 16, rtiles, nrows, sm.a, kLd, act_super,
-                     nullptr, 0, M);
-    __syncthreads();
-    gemm<kDensity>(sm, sm.a, kLd, 16, nullptr, 0, 0, P + kWD, 16, P + kBD,
-                   1, rtiles, nrows, nullptr, 0, act_super, nullptr, 0, M);
-    __syncthreads();
-  }
-
-  // ---- per-slot sums, then the colour tower (slot rows 0-7) ----
-  if (active && lane == 0) {
-    float aw = 0.f;
-    for (int k = 0; k < nk; ++k) {
-      const int row = sm.off[warp] + k;
-      aw = aw + sm.row_alpha[row] * sm.row_wk[row];
-    }
-    sig[m] = aw;
-    found[m] = nk > 0;
-  }
-  for (int i = lane; i < kH; i += 32)
-    sm.b[warp * kLd + i] = __float2bfloat16(sm.hws[warp * kH + i]);
-  __syncthreads();
-  gemm<kHidden>(sm, sm.b, kLd, 16, sm.vd, kVdLd, 2, P + kWC0, kHC, P + kBC0,
-                8, 1, kSlots, sm.a, kLd, act_super, nullptr, 0, M);
-  __syncthreads();
-  gemm<kHidden>(sm, sm.a, kLd, 8, nullptr, 0, 0, P + kWC1, kHC, P + kBC1, 8,
-                1, kSlots, sm.b, kLd, act_super, nullptr, 0, M);
-  __syncthreads();
-  gemm<kHidden>(sm, sm.b, kLd, 8, nullptr, 0, 0, P + kWC2, kHC, P + kBC2, 8,
-                1, kSlots, sm.a, kLd, act_super, nullptr, 0, M);
-  __syncthreads();
-  gemm<kRgb>(sm, sm.a, kLd, 8, nullptr, 0, 0, P + kWCH, 16, P + kBCH, 1, 1,
-             kSlots, nullptr, 0, act_super, rgb, slot0, M);
+  block_end(sm, ring_c);
 }
 
 }  // namespace
 
+extern "C" int fused_chunk_n_weight_bytes() { return kNWeightBytes; }
 extern "C" int fused_chunk_n_params() { return kNParams; }
+// bytes of scratch the entry point needs for M slots of K neighbours
+extern "C" long long fused_chunk_scratch_bytes(int M, int K) {
+  return (long long)M * K * kPairBytes + (long long)M * kSlotBytes;
+}
 
 extern "C" int fused_chunk_decode(const void* kmeta, const void* kpay,
                                   const void* qslot, const void* locs,
                                   const void* center, const void* rd,
                                   const void* mask, const void* consts,
-                                  const void* params, void* sig, void* rgb,
+                                  const void* weights, const void* params,
+                                  void* scratch, void* sig, void* rgb,
                                   void* found, int M, int C, int K,
                                   float radius2, int num_shells,
                                   int act_super, void* stream) {
   if (C < 1 || C > kCMax || K < 1 || K > kKMax)
     return (int)cudaErrorInvalidValue;
   if (M <= 0) return 0;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (M + kSlots - 1) / kSlots;
-  fused_chunk_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  const Scratch s = carve(scratch, M, K);
+  const int per_block = kSelectThreads / 32 * 4;
+  chunk_select_kernel<<<(M + per_block - 1) / per_block, kSelectThreads, 0,
+                        (cudaStream_t)stream>>>(
       (const int32_t*)kmeta, (const bf16*)kpay, (const int32_t*)qslot,
       (const float*)locs, (const float*)center, (const float*)rd,
-      (const uint8_t*)mask, (const float*)consts, (const bf16*)params,
-      (float*)sig, (float*)rgb, (uint8_t*)found, M, C, K, radius2,
-      num_shells, act_super);
+      (const uint8_t*)mask, (const float*)consts, s, (float*)sig,
+      (float*)rgb, (uint8_t*)found, M, C, K, radius2, num_shells);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  if ((err = persistent_blocks(chunk_tower_kernel, (M + kSpan - 1) / kSpan,
+                               blocks)) != cudaSuccess)
+    return (int)err;
+  const ChunkPolicy p = {s.emb, s.dists, s.cd, s, (float*)sig,
+                         (uint8_t*)found, act_super};
+  chunk_tower_kernel<<<blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      p, (const unsigned char*)weights, (const float*)params, M, K);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = persistent_blocks(chunk_colour_kernel,
+                               (M + kWgRows - 1) / kWgRows, blocks)) !=
+      cudaSuccess)
+    return (int)err;
+  chunk_colour_kernel<<<blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      s, (const unsigned char*)weights, (const float*)params, (float*)rgb,
+      M);
   return (int)cudaGetLastError();
 }

@@ -3,9 +3,12 @@
 Each `csrc/<name>.cu` exports plain C functions that take raw device
 pointers and a stream and return a cudaError_t. It is compiled with
 nvcc for sm_90a into a shared library under `build/kernels/` (keyed by
-a hash of the source and flags, so an edited source rebuilds) at first
-use, and loaded with ctypes. Nothing is compiled or loaded at import
-time: the CPU tests import every module of the port.
+a hash of the source, of every header under `csrc/` and of the flags,
+so an edited source or header rebuilds) at first use, and loaded with
+ctypes. Nothing is compiled or loaded at import
+time: the CPU tests import every module of the port. A source can also
+be built with flags added (`variant`): a library of its own under the
+same keying, which the wrappers launch inside the `with` block.
 
 `LAUNCHES` counts kernel launches per kernel name; each wrapper adds
 one where it launches its kernel and nowhere else.
@@ -14,13 +17,14 @@ one where it launches its kernel and nowhere else.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -45,7 +49,10 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
 PLAIN_BLOCK = 16384
 
 LAUNCHES: collections.Counter = collections.Counter()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+# a source, or a source and the flags added to its build
+Spec = Union[str, Tuple[str, Sequence[str]]]
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_VARIANT: Dict[str, Tuple[str, ...]] = {}
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -68,51 +75,95 @@ def _nvcc() -> str:
     return exe
 
 
-def _command(name: str, out: Path) -> List[str]:
+def _command(name: str, out: Path, csrc: Path = CSRC,
+             extra: Sequence[str] = ()) -> List[str]:
     return [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-            "-fPIC", *EXTRA_FLAGS[name], "-o", str(out),
-            str(CSRC / f"{name}.cu")]
+            "-fPIC", f"-I{csrc}", *EXTRA_FLAGS[name], *extra, "-o", str(out),
+            str(csrc / f"{name}.cu")]
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(
-        [ARCH, *EXTRA_FLAGS[name]]).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{key}.so"
+def _lib_path(name: str, csrc: Path = CSRC,
+              extra: Sequence[str] = ()) -> Path:
+    """Where the library of `csrc/<name>.cu` goes: keyed by the source,
+    every header beside it (a source may include any of them) and the
+    flags, those added by the caller included."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join([ARCH, *EXTRA_FLAGS[name], *extra]).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names: Sequence[str] = tuple(EXTRA_FLAGS)) -> Dict[str, str]:
-    """Compile every named source that has no library yet, one nvcc
-    per source, all started together. Returns {name: library path}.
-    Raises with nvcc's output when a build fails."""
+def _spec(spec: Spec) -> Tuple[str, Tuple[str, ...]]:
+    return (spec, ()) if isinstance(spec, str) else (spec[0], tuple(spec[1]))
+
+
+def packed_once(module, slot: str, params, make):
+    """`make()`, kept on `module` under `slot` and made again only when
+    one of `params` was moved or written in place (`data_ptr` and
+    `_version` of each are the key)."""
+    key = tuple((p.data_ptr(), p._version) for p in params)
+    cached = module.__dict__.get(slot)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    value = make()
+    module.__dict__[slot] = (key, value)
+    return value
+
+
+def build(specs: Sequence[Spec] = tuple(EXTRA_FLAGS)) -> Dict[Spec, str]:
+    """Compile every named source (or (source, added flags) pair) that
+    has no library yet, one nvcc each, all started together. Returns
+    {spec: library path}, a pair's flags as a tuple. Raises with nvcc's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    specs = [s if isinstance(s, str) else _spec(s) for s in specs]
+    paths = {spec: _lib_path(_spec(spec)[0], extra=_spec(spec)[1])
+             for spec in specs}
     procs = {}
-    for name in names:
-        path = _lib_path(name)
+    for spec, path in paths.items():
         if not path.exists():
+            name, extra = _spec(spec)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            procs[name] = (subprocess.Popen(
-                _command(name, tmp), stdout=subprocess.PIPE,
+            procs[spec] = (subprocess.Popen(
+                _command(name, tmp, extra=extra), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True), tmp, path)
     errors = []
-    for name, (proc, tmp, path) in procs.items():
+    for spec, (proc, tmp, path) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            errors.append(f"nvcc failed for {spec}:\n{log}")
         else:
             os.replace(tmp, path)
     if errors:
         raise RuntimeError("\n".join(errors))
-    return {name: str(_lib_path(name)) for name in names}
+    return {spec: str(path) for spec, path in paths.items()}
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built on first use."""
-    lib = _LIBS.get(name)
+    """The loaded library of `csrc/<name>.cu`, built on first use; inside
+    a `variant(name, flags)` block, the one built with those flags."""
+    key = (name, _VARIANT.get(name, ()))
+    lib = _LIBS.get(key)
     if lib is None:
-        lib = ctypes.CDLL(build([name])[name])
-        _LIBS[name] = lib
+        lib = ctypes.CDLL(build([key])[key])
+        _LIBS[key] = lib
     return lib
+
+
+@contextlib.contextmanager
+def variant(name: str, extra_flags: Sequence[str]):
+    """Inside the block, `library(name)` - and so the wrappers of that
+    source's kernels - is `csrc/<name>.cu` built with `extra_flags` added
+    (a `-D` probe build, say)."""
+    before = _VARIANT.get(name)
+    _VARIANT[name] = tuple(extra_flags)
+    try:
+        yield
+    finally:
+        if before is None:
+            del _VARIANT[name]
+        else:
+            _VARIANT[name] = before
 
 
 def check(err: int, what: str) -> None:

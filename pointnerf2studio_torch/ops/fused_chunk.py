@@ -8,18 +8,21 @@ Rw2c-rotated dists plus w2pers offsets, the per-neighbour tower with
 weighted alpha/feature sums over K, and the colour tower on the
 aggregate plus PE(viewdir). Output: (sigma, rgb, found) per slot.
 
-`fused_chunk_decode` is the wrapper of the hand-written CUDA kernel
+`fused_chunk_decode` is the wrapper of the hand-written CUDA source
 `csrc/fused_chunk.cu` (replacing the Pallas kernel `_kernel`,
-ops/fused_chunk.py:86 of the reference). On CUDA tensors it launches the
+ops/fused_chunk.py:86 of the reference; its one entry point launches
+three kernels back to back: selection and gathers, the tower, the colour
+tower). On CUDA tensors it launches the
 kernel; on CPU tensors it runs the plain version
 `fused_chunk_decode_reference`, which mirrors the Pallas kernel op for
 op. Both read the candidate rows through `qslot` from the kernel-facing
 cache (kmeta [max_q, C] int32, kpay [max_q, PK, C] bf16); the plain
 version gathers them explicitly, the kernel reads them in place.
 
-The kernel is bound by its tensor-core products and by the weight
-fragments it streams from L2, not by the candidate bytes; its source
-header says how. Slots whose mask is false output (0, 0, False).
+The kernel is bound by its tensor-core products, not by the candidate
+bytes; its weights are packed once per set of weights in the
+shared-memory image the kernel's wgmma reads (`_kernel_params`); its
+source header says how. Slots whose mask is false output (0, 0, False).
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import torch
 from pointnerf2studio_torch.config import AggregatorConfig
 from pointnerf2studio_torch.models.aggregator import Aggregator
 from pointnerf2studio_torch.ops import _cuda
-from pointnerf2studio_torch.ops.fused_decode import _pe_blocks, _w1_permutation
+from pointnerf2studio_torch.ops.fused_decode import (
+    _pe_blocks, _w1_permutation, pack_tower, swizzle_slabs)
 
 PK = 48                 # payload channels (PAYW = 44 padded to 48)
 FEAT = 32               # embedding width the cache payload fixes
@@ -110,41 +114,51 @@ def _prep_params(agg: Aggregator, C: int, nff: int, ndf: int, nvf: int):
             len(agg.mlp_color) - 1)
 
 
-def _kernel_params(plist, n_color_rest: int) -> torch.Tensor:
-    """Pack the prepped weights into the kernel's one bf16 buffer:
-    [in, out] row-major blocks in csrc/fused_chunk.cu's order, the input
-    rows padded to 16 and the 1- and 3-wide heads to 16 columns, each
-    bias (rounded to bf16, as the reference's kernel rounds it) after
-    its matrix."""
+def _kernel_params(plist, n_color_rest: int):
+    """Pack the prepped weights for csrc/fused_chunk.cu: (weights,
+    params). `weights` (bf16) is the tower's 17 slabs (`pack_tower`)
+    followed by the colour tower's in the same swizzled K-major image,
+    128 outputs wide: wc0 = [wc0a; wc0b] zero padded to 320 inputs (five
+    slabs), wc1 and wc2 (two each). `params` (f32) is the tower's (its
+    biases rounded to bf16, as the reference's kernel rounds them)
+    followed by bc0, bc1, bc2, the colour head's weights as [3, 128] and
+    its bias, all bf16 values, padded to 16."""
     (w1a, w1b, w1c, b1, w2, b2, w3a, w3b, b3, w4, b4, wd, bd,
      wc0a, wc0b, bc0) = plist[:16]
     if n_color_rest != 2 or w2.shape != (256, 256) or wc0a.shape[1] != 128:
         raise ValueError("the CUDA fused chunk kernel is built for hidden "
                          "256, colour width 128 and 3 colour layers")
-    rest = plist[16:16 + 2 * n_color_rest]
+    wc1, bc1, wc2, bc2 = plist[16:16 + 2 * n_color_rest]
     wch, bch = plist[-2:]
     bf = torch.bfloat16
+    weights, params = pack_tower(
+        torch.cat([w1a, w1b, w1c]), w2, torch.cat([w3a, w3b]), w4, wd,
+        (b1, b2, b3, b4), bd, round_bias=True)
+    wc0 = wc0a.new_zeros((320, 128), dtype=bf)
+    wc0[:wc0a.shape[0] + wc0b.shape[0]] = torch.cat([wc0a, wc0b]).to(bf)
+    weights = torch.cat([weights] + [swizzle_slabs(m.to(bf).contiguous())
+                                     for m in (wc0, wc1, wc2)])
 
-    def padm(w, rows, cols):
-        out = w.new_zeros((rows, cols), dtype=bf)
-        out[:w.shape[0], :w.shape[1]] = w.to(bf)
-        return out.reshape(-1)
+    def rb(x):
+        return x.reshape(-1).to(bf).float()
 
-    def padb(b, cols):
-        out = b.new_zeros((cols,), dtype=bf)
-        out[:b.shape[-1]] = b.reshape(-1).to(bf)
-        return out
+    params = torch.cat([params, rb(bc0), rb(bc1), rb(bc2), rb(wch.T),
+                        rb(bch), bch.new_zeros(13).float()])
+    return weights.contiguous(), params.contiguous()
 
-    parts = [padm(torch.cat([w1a, w1b, w1c]), 288, 256), padb(b1, 256),
-             padm(w2, 256, 256), padb(b2, 256),
-             padm(torch.cat([w3a, w3b]), 272, 256), padb(b3, 256),
-             padm(w4, 256, 256), padb(b4, 256),
-             padm(wd, 256, 16), padb(bd, 16),
-             padm(torch.cat([wc0a, wc0b]), 288, 128), padb(bc0, 128),
-             padm(rest[0], 128, 128), padb(rest[1], 128),
-             padm(rest[2], 128, 128), padb(rest[3], 128),
-             padm(wch, 128, 16), padb(bch, 16)]
-    return torch.cat(parts).contiguous()
+
+def _param_tensors(agg: Aggregator):
+    return [p for lyr in (*agg.mlp_base, *agg.mlp_head, *agg.density_head,
+                          *agg.mlp_color, *agg.color_head)
+            for p in (lyr.weight, lyr.bias)]
+
+
+def _packed_params(agg: Aggregator, nff: int, ndf: int, nvf: int):
+    """`_kernel_params` of `agg`, packed once per set of weights: again
+    only after a weight was moved or written in place."""
+    return _cuda.packed_once(
+        agg, "_chunk_kernel_params", _param_tensors(agg),
+        lambda: _kernel_params(*_prep_params(agg, FEAT, nff, ndf, nvf)))
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
@@ -347,29 +361,38 @@ def fused_chunk_decode(
     for name, t in (("locs", locs), ("center", center), ("rd", rd)):
         _cuda.require(t, name, torch.float32, (M, 3), dev)
     _cuda.require(mask, "mask", torch.bool, (M,), dev)
-    plist, n_rest = _prep_params(params, FEAT, nff, ndf, nvf)
-    packed = _kernel_params(plist, n_rest)
-    _cuda.require(packed, "aggregator weights", torch.bfloat16,
-                  (packed.numel(),), dev)
+    weights, fparams = _packed_params(params, nff, ndf, nvf)
+    _cuda.require(weights, "aggregator weights", torch.bfloat16,
+                  (weights.numel(),), dev)
+    _cuda.require(fparams, "aggregator biases", torch.float32,
+                  (fparams.numel(),), dev)
     consts = torch.cat([campos.reshape(3), camrotc2w.reshape(9),
                         Rw2c.reshape(9)]).float().to(dev).contiguous()
     sig = torch.empty(M, dtype=torch.float32, device=dev)
     rgb = torch.empty((M, 3), dtype=torch.float32, device=dev)
     found = torch.empty(M, dtype=torch.bool, device=dev)
     lib = _cuda.library("fused_chunk")
+    lib.fused_chunk_n_weight_bytes.restype = ctypes.c_int
     lib.fused_chunk_n_params.restype = ctypes.c_int
-    if lib.fused_chunk_n_params() != packed.numel():
+    lib.fused_chunk_scratch_bytes.restype = ctypes.c_longlong
+    lib.fused_chunk_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    if (lib.fused_chunk_n_weight_bytes() != 2 * weights.numel()
+            or lib.fused_chunk_n_params() != fparams.numel()):
         raise RuntimeError("packed parameter layout does not match "
                            "csrc/fused_chunk.cu")
+    # what the kernels hand each other: 120 bytes a (slot, k) pair and
+    # 525 a slot, written and read for the valid ones only
+    scratch = torch.empty(lib.fused_chunk_scratch_bytes(M, K),
+                          dtype=torch.uint8, device=dev)
     fn = lib.fused_chunk_decode
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _cuda.LAUNCHES["fused_chunk_decode"] += 1
     _cuda.check(fn(*[_cuda.ptr(t) for t in (
-        kmeta, kpay, qslot, locs, center, rd, mask, consts, packed, sig,
-        rgb, found)], M, C, K, float(radius2), int(num_shells),
+        kmeta, kpay, qslot, locs, center, rd, mask, consts, weights,
+        fparams, scratch, sig, rgb, found)], M, C, K, float(radius2), int(num_shells),
         int(act_super), _cuda.stream_handle(dev)),
         "fused_chunk_decode launch")
     return sig, rgb, found

@@ -27,9 +27,11 @@ kernel; on CPU tensors they run the plain versions
 `pair_tower_reference` / `kacc_tower_reference`, which follow the Pallas
 kernel bodies step by step. `fused_decode_reference` and
 `fused_decode2_reference` are the whole plain functions. The kernels
-are bound by their tensor-core products; rows whose wk is exactly 0 are
-skipped there (they add exactly 0), while the plain versions compute
-every row. `pe_mode` does not reach these functions: the encodings are
+are bound by their tensor-core products (`wgmma` on the tower of
+`csrc/tower.cuh`, whose weights `pack_tower` lays out once per set of
+weights in the shared-memory image the kernel reads); rows whose wk is
+exactly 0 are skipped there (they add exactly 0), while the plain
+versions compute every row. `pe_mode` does not reach these functions: the encodings are
 always evaluated directly. The density activation is always ReLU, as in
 the reference's kernels (they ignore `act_super`).
 """
@@ -238,44 +240,84 @@ def kacc_tower_reference(
     return torch.cat(aws), torch.cat(hws)
 
 
-def _kernel_params(agg: Aggregator, nff: int, ndf: int):
-    """The tower's weights as csrc/fused_decode.cu takes them: one bf16
-    buffer of [in, out] row-major blocks (w1 [288, 256], w2, w3
-    [272, 256], w4, wd [256, 16]; input rows zero padded) and one f32
-    buffer of biases (b1..b4, bd padded to 16)."""
-    if (nff, ndf) != (3, 5):
-        raise ValueError("the CUDA decode kernels are built for PE freqs "
-                         "(3, 5)")
-    # packed once per set of weights: the key changes when a weight is
-    # moved or written in place
-    key = tuple((p.data_ptr(), p._version) for lyr in (
-        *agg.mlp_base, *agg.mlp_head, *agg.density_head)
-        for p in (lyr.weight, lyr.bias))
-    cached = agg.__dict__.get("_decode_kernel_params")
-    if cached is not None and cached[0] == key:
-        return cached[1]
+SLAB_K = 64             # inputs per weight slab of csrc/tower.cuh
+
+
+def swizzle_slabs(w: torch.Tensor) -> torch.Tensor:
+    """A bf16 [in, out] matrix (in a multiple of 64) as csrc/tower.cuh's
+    shared-memory image, flat: one slab per 64 inputs, each slab K-major
+    (row n holds the slab's 64 inputs of output n, 128 bytes), and the
+    16-byte chunk c of row n stored at chunk c ^ (n & 7) (the 128-byte
+    swizzle wgmma reads). Element (k, n) of slab s sits at
+    s * 64 * out + n * 64 + ((k // 8) ^ (n & 7)) * 8 + k % 8."""
+    rows, n = w.shape
+    if rows % SLAB_K or n % 8 or w.dtype != torch.bfloat16:
+        raise ValueError(f"cannot slab a {w.dtype} matrix of {tuple(w.shape)}")
+    t = w.reshape(rows // SLAB_K, 8, 8, n).permute(0, 3, 1, 2)  # [s,n,c,8]
+    pos = torch.arange(8, device=w.device)
+    src = pos[None, :] ^ (torch.arange(n, device=w.device) & 7)[:, None]
+    idx = src[None, :, :, None].expand(t.shape[0], n, 8, 8)
+    return torch.gather(t, 2, idx).reshape(-1).contiguous()
+
+
+def pack_tower(w1, w2, w3, w4, wd, biases, bd, round_bias: bool):
+    """The per-neighbour tower's parameters as csrc/tower.cuh takes them.
+    `weights`: 17 bf16 slabs of 64 inputs x 256 outputs - w1 rows 0-255
+    (slabs 0-3), the tail slab 4 (inputs 0-31: w1 rows 256-287, inputs
+    32-47: w3 rows 256-271, the colour/dirdot rows; zero padded), w2
+    (5-8), w3 rows 0-255 (9-12), w4 (13-16). `params`: f32 b1..b4, the
+    density head's weights (bf16 values) and its bias, padded to 16;
+    with `round_bias` the biases are rounded to bf16 first."""
+    H = HIDDEN
+    bf = torch.bfloat16
+    if (w1.shape[1] != H or w1.shape[0] > 288 or w2.shape != (H, H)
+            or w3.shape[1] != H or not H <= w3.shape[0] <= H + 16
+            or w4.shape != (H, H) or wd.shape != (H, 1)):
+        raise ValueError("the CUDA tower is built for hidden 256, at most "
+                         "288 first-layer inputs and 16 colour/dir inputs")
+    tail = w1.new_zeros((SLAB_K, H), dtype=bf)
+    tail[:w1.shape[0] - H] = w1[H:]
+    tail[32:32 + w3.shape[0] - H] = w3[H:]
+    weights = torch.cat([swizzle_slabs(m.to(bf).contiguous()) for m in (
+        w1[:H], tail, w2, w3[:H], w4)])
+
+    def rb(b):
+        b = b.reshape(-1).float()
+        return b.to(bf).float() if round_bias else b
+
+    params = torch.cat([rb(b) for b in biases] + [
+        wd.reshape(-1).to(bf).float(), rb(bd), bd.new_zeros(15).float()])
+    return weights.contiguous(), params.contiguous()
+
+
+def _tower_tensors(agg: Aggregator):
+    return [p for lyr in (*agg.mlp_base, *agg.mlp_head, *agg.density_head)
+            for p in (lyr.weight, lyr.bias)]
+
+
+def _pack_decode(agg: Aggregator, nff: int, ndf: int):
     w1, b1, w2, b2, w3, b3, w4, b4, wd, bd = _tower_params(
         agg, FEAT, DIST, nff, ndf)
     H = HIDDEN
     if (w1.shape != (FEAT + 2 * FEAT * nff + 2 * DIST * ndf, H)
-            or w2.shape != (H, H) or w3.shape != (H + 7, H)
-            or w4.shape != (H, H) or wd.shape != (H, 1)):
+            or w3.shape != (H + 7, H)):
         raise ValueError("the CUDA decode kernels are built for 32 "
                          "features, 6 dists, hidden 256, colour and dir "
                          "modes on")
+    return pack_tower(w1, w2, w3, w4, wd, (b1, b2, b3, b4), bd,
+                      round_bias=False)
 
-    def padm(w, rows, cols):
-        out = w.new_zeros((rows, cols))
-        out[:w.shape[0], :w.shape[1]] = w
-        return out.reshape(-1)
 
-    weights = torch.cat([padm(w1, 288, H), padm(w2, H, H), padm(w3, 272, H),
-                         padm(w4, H, H), padm(wd, H, 16)]).contiguous()
-    biases = torch.cat([b1.reshape(-1), b2.reshape(-1), b3.reshape(-1),
-                        b4.reshape(-1), bd.reshape(-1),
-                        bd.new_zeros(15)]).contiguous()
-    agg.__dict__["_decode_kernel_params"] = (key, (weights, biases))
-    return weights, biases
+def _kernel_params(agg: Aggregator, nff: int, ndf: int):
+    """(weights, params) of `pack_tower` for csrc/fused_decode.cu, packed
+    once per set of weights: again only after a weight was moved or
+    written in place."""
+    if (nff, ndf) != (3, 5):
+        raise ValueError("the CUDA decode kernels are built for PE freqs "
+                         "(3, 5)")
+    return _cuda.packed_once(agg, "_decode_kernel_params",
+                             _tower_tensors(agg),
+                             lambda: _pack_decode(agg, nff, ndf))
 
 
 def _launch(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
@@ -283,7 +325,7 @@ def _launch(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
     M, K, C = emb.shape
     if not 1 <= K <= 8:
         raise ValueError(f"the CUDA decode kernels need K <= 8, got {K}")
-    weights, biases = _kernel_params(agg, nff, ndf)
+    weights, params = _kernel_params(agg, nff, ndf)
     emb = emb.to(torch.bfloat16).contiguous()
     dists = dists.float().contiguous()
     cd = torch.cat([color.float(), dirdot.float()], -1).contiguous()
@@ -294,13 +336,13 @@ def _launch(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
     _cuda.require(wk, "wk", torch.float32, (M, K), dev)
     _cuda.require(weights, "tower weights", torch.bfloat16,
                   (weights.numel(),), dev)
-    _cuda.require(biases, "tower biases", torch.float32, (biases.numel(),),
+    _cuda.require(params, "tower biases", torch.float32, (params.numel(),),
                   dev)
     lib = _cuda.library("fused_decode")
-    lib.fused_decode_n_weights.restype = ctypes.c_int
-    lib.fused_decode_n_biases.restype = ctypes.c_int
-    if (lib.fused_decode_n_weights() != weights.numel()
-            or lib.fused_decode_n_biases() != biases.numel()):
+    lib.fused_decode_n_weight_bytes.restype = ctypes.c_int
+    lib.fused_decode_n_params.restype = ctypes.c_int
+    if (lib.fused_decode_n_weight_bytes() != 2 * weights.numel()
+            or lib.fused_decode_n_params() != params.numel()):
         raise RuntimeError("packed parameter layout does not match "
                            "csrc/fused_decode.cu")
     if entry == "fused_decode":
@@ -315,7 +357,7 @@ def _launch(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
     fn.restype = ctypes.c_int
     _cuda.LAUNCHES[entry] += 1
     _cuda.check(fn(*[_cuda.ptr(t) for t in (
-        emb, dists, cd, wk, weights, biases, aw, hw)], M, K,
+        emb, dists, cd, wk, weights, params, aw, hw)], M, K,
         _cuda.stream_handle(dev)), f"{entry} launch")
     return aw, hw
 

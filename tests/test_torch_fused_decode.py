@@ -107,6 +107,64 @@ def test_towers_shapes_types_and_zero_rows(case):
     assert float((hw.float().sum(1) - hw2).abs().max()) <= ATOL
 
 
+def _read_slabs(buf, n_slabs, n_out):
+    """[n_slabs * 64, n_out] from the packed image as the kernel's wgmma
+    reads it: slab s, output row n (128 bytes), input k in the 16-byte
+    chunk (k // 8) ^ (n & 7)."""
+    k, n = np.arange(64)[:, None], np.arange(n_out)[None, :]
+    idx = n * 64 + ((k // 8) ^ (n & 7)) * 8 + k % 8
+    size = 64 * n_out
+    return np.concatenate([buf[s * size:(s + 1) * size][idx]
+                           for s in range(n_slabs)])
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16).numpy()
+
+
+def test_tower_pack_inverts(case):
+    """Reading the packed buffer the way the kernel does gives back every
+    layer's [in, out] matrix, zero padding included, and the biases."""
+    agg = case["agg"]
+    w1, b1, w2, b2, w3, b3, w4, b4, wd, bd = tfd._tower_params(
+        agg, 32, 6, 3, 5)
+    weights, params = tfd._kernel_params(agg, 3, 5)
+    assert weights.dtype == torch.bfloat16 and weights.numel() == 17 * 16384
+    slabs = _read_slabs(_bits(weights), 17, 256)
+    np.testing.assert_array_equal(slabs[:256], _bits(w1[:256]))
+    tail = slabs[256:320]
+    np.testing.assert_array_equal(tail[:28], _bits(w1[256:]))
+    np.testing.assert_array_equal(tail[32:39], _bits(w3[256:]))
+    assert not tail[28:32].any() and not tail[39:].any()
+    np.testing.assert_array_equal(slabs[320:576], _bits(w2))
+    np.testing.assert_array_equal(slabs[576:832], _bits(w3[:256]))
+    np.testing.assert_array_equal(slabs[832:], _bits(w4))
+    assert params.dtype == torch.float32 and params.numel() == 1296
+    want = torch.cat([b1[0], b2[0], b3[0], b4[0], wd[:, 0].float(), bd[0],
+                      torch.zeros(15)])
+    assert torch.equal(params, want)
+
+
+def test_tower_pack_is_made_once(case, monkeypatch):
+    agg = case["agg"]
+    calls = []
+    orig = tfd._pack_decode
+    monkeypatch.setattr(tfd, "_pack_decode",
+                        lambda *a: calls.append(1) or orig(*a))
+    agg.__dict__.pop("_decode_kernel_params", None)
+    first = tfd._kernel_params(agg, 3, 5)
+    again = tfd._kernel_params(agg, 3, 5)
+    assert len(calls) == 1 and again[0] is first[0] and again[1] is first[1]
+    with torch.no_grad():
+        agg.mlp_head[1].weight[3, 5] += 1.0       # in-place write
+    new = tfd._kernel_params(agg, 3, 5)
+    assert len(calls) == 2 and not torch.equal(new[0], first[0])
+    with torch.no_grad():
+        agg.mlp_head[1].weight[3, 5] -= 1.0
+    tfd._kernel_params(agg, 3, 5)
+    assert len(calls) == 3
+
+
 def test_w1_permutation_and_pe_blocks_match():
     np.testing.assert_array_equal(tfd._w1_permutation(32, 3, 6, 5),
                                   jfd._w1_permutation(32, 3, 6, 5))

@@ -82,3 +82,47 @@ def test_sphere_scene_on_the_cpu_when_asked():
     s = synthetic.make_sphere_scene(500, device="cpu")
     assert s.cloud.xyz.device.type == "cpu"
     assert s.params.mlp_base[0].weight.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["fused_decode", "fused_chunk"])
+def test_library_key_covers_shared_headers(name, tmp_path, monkeypatch):
+    """An edit to a header under csrc/ renames the library of every
+    source beside it, so a stale build is never loaded."""
+    import shutil
+
+    from pointnerf2studio_torch.ops import _cuda
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    assert '#include "tower.cuh"' in (csrc / f"{name}.cu").read_text()
+    before = _cuda._lib_path(name, csrc)
+    assert before == _cuda._lib_path(name)
+    with open(csrc / "tower.cuh", "a") as f:
+        f.write("// edited\n")
+    after = _cuda._lib_path(name, csrc)
+    assert after != before and after.parent == before.parent
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: "nvcc")
+    assert f"-I{csrc}" in _cuda._command(name, after, csrc)
+
+
+def test_library_variant_is_keyed_by_its_flags(monkeypatch):
+    """A source built with flags added is a library of its own under the
+    same keying, and `library` asks for it only inside the block."""
+    from pointnerf2studio_torch.ops import _cuda
+    flags = ["-DTOWER_PROBE=2"]
+    plain = _cuda._lib_path("fused_decode")
+    probe = _cuda._lib_path("fused_decode", extra=flags)
+    assert probe != plain and probe.parent == plain.parent
+    assert probe != _cuda._lib_path("fused_decode", extra=["-DTOWER_PROBE=4"])
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: "nvcc")
+    assert flags[0] in _cuda._command("fused_decode", probe, extra=flags)
+    asked = []
+    monkeypatch.setattr(_cuda, "build", lambda specs: asked.extend(specs) or
+                        {s: "/nonexistent/lib.so" for s in specs})
+    monkeypatch.setattr(_cuda.ctypes, "CDLL", lambda path: path)
+    monkeypatch.setattr(_cuda, "_LIBS", {})
+    with _cuda.variant("fused_decode", flags):
+        _cuda.library("fused_decode")
+        _cuda.library("fused_chunk")
+    _cuda.library("fused_decode")
+    assert asked == [("fused_decode", ("-DTOWER_PROBE=2",)),
+                     ("fused_chunk", ()), ("fused_decode", ())]
