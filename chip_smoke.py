@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `pointnerf2studio_torch/csrc/` (four
-sources and the tower header two of them share) with nvcc (sm_90a),
-builds the 558k-point procedural chair scene, its voxel
-grid and its fused-layout candidate cache on the GPU, and drives three
+sources, the tower header and the selection header two of them share
+each) with nvcc (sm_90a), builds the 558k-point procedural chair scene,
+its voxel grid and its candidate cache (metas, candidate-major payload,
+xyz planes) on the GPU, and drives three
 paths at the full width of the chair model (focal 1111.1, 400 samples
 per ray, K = 8, bf16 aggregator of hidden 256 / colour 128, random
 weights from seed 0), in 65,536-ray chunks, with the depth window and
@@ -41,8 +42,14 @@ kernel's and its plain version's time at its path's shapes beside the
 least time the card could take (bytes over 3.35 TB/s or operations over
 989 TFLOP/s bf16, whichever is larger), the ratio of the two and, for
 the three tower kernels, the TFLOP/s of useful work, each path's rays/s,
-and one JSON line of kernel records. The last line is {"ok": true, "device":
-{...}}.
+and one JSON line of kernel records. first_valid_cols is timed twice: on
+one qs buffer, which the 50 MB L2 holds from launch to launch, and
+rotating over copies of qs that exceed the L2 together; the second is
+its "ms", the time its bound of device-memory bytes speaks of. Both are
+taken with the launches queued behind a busy device: the kernel runs
+shorter than its wrapper takes on the host, so launches timed one by one
+read the host's call rate ("host_paced_ms", printed beside them). The
+last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile[=DIR]
 
@@ -132,12 +139,21 @@ def fused_chunk_weight_bytes(agg) -> int:
     return 2 * sum(p.numel() for p in agg.parameters())
 
 
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 1, queued: bool = False) -> float:
+    """ms per call of `fn` by CUDA events around `iters` calls. A kernel
+    that runs shorter than its wrapper takes on the host (tens of
+    microseconds of Python) is paced by the host, and the events then read
+    the host's call rate. `queued` keeps the device busy first
+    (torch.cuda._sleep, some 10 ms) while the host enqueues every call, so
+    the calls run back to back and the events read device time."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -146,21 +162,43 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_pass(name: str, fn, pass_ms: float, out: pathlib.Path) -> None:
-    """One warm pass of `fn` under torch.profiler: device time by kernel
-    name, and the idle share of the unprofiled pass of `pass_ms`."""
+def rotating_ms(fn, tensor, iters: int = 48, shift: int = 0) -> float:
+    """Device ms of `fn(copy)` over copies of `tensor` taken in turn,
+    enough of them (at least 4 x 50 MB) that no launch finds its input in
+    the L2; the launches are queued behind a busy device (`cuda_ms`).
+    `shift` starts each copy that many elements into its buffer (1: int32
+    rows off the 16-byte boundaries)."""
+    n = max(2, -(-4 * 50_000_000 // max(nbytes(tensor), 1)))
+    copies = []
+    for _ in range(n):
+        buf = tensor.new_empty(tensor.numel() + shift)
+        copies.append(buf[shift:].view(tensor.shape).copy_(tensor))
+    turn = iter(range(1 << 30))
+    return cuda_ms(lambda: fn(copies[next(turn) % n]), iters, n, queued=True)
+
+
+def device_rows(fn, iters: int = 1):
+    """[(device ms, launches, kernel name)], largest first, of `iters`
+    warm calls of `fn` under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+    return sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
+
+
+def profile_pass(name: str, fn, pass_ms: float, out: pathlib.Path) -> None:
+    """One warm pass of `fn` under torch.profiler: device time by kernel
+    name, and the idle share of the unprofiled pass of `pass_ms`."""
+    rows = device_rows(fn)
     total = sum(r[0] for r in rows)
     if total <= 0:
         fail(f"profile of {name}: the profiler saw no device time")
@@ -172,6 +210,18 @@ def profile_pass(name: str, fn, pass_ms: float, out: pathlib.Path) -> None:
         f"{pass_ms:.1f} ms, idle share {1 - total / pass_ms:.3f}")
     for ms, n, key in rows[:10]:
         log(f"  {ms:9.3f} ms {100 * ms / total:5.1f}% {n:5d} x {key[:90]}")
+
+
+def device_kernel_ms(fn, names, iters: int = 3) -> dict:
+    """Device ms a launch of the kernel whose name holds each of `names`,
+    over `iters` calls of `fn` under torch.profiler."""
+    rows = device_rows(fn, iters)
+    out = {n: ms / count for ms, count, key in rows for n in names
+           if n in key and count}
+    missing = [n for n in names if out.get(n, 0) <= 0]
+    if missing:
+        fail(f"the profiler saw no device time for {missing}")
+    return out
 
 
 PROBES = {0: "whole kernel", 1: "no feature rows", 2: "no wgmma",
@@ -208,7 +258,7 @@ def main() -> int:
     from pointnerf2studio_torch.ops import fused_decode as fd
     from pointnerf2studio_torch.ops import fused_select as fs
     from pointnerf2studio_torch.ops.fused_chunk import (
-        fused_chunk_decode, fused_chunk_decode_reference)
+        fused_chunk_decode, fused_chunk_decode_plain)
     from pointnerf2studio_torch.ops.select import (
         first_valid_cols, first_valid_cols_reference)
 
@@ -257,6 +307,14 @@ def main() -> int:
         f"{cache.kmeta.shape[0]}, C {cache.cand}; depth_window {dw}, "
         f"ray_budget {rb}, hit rays {int(hits.sum())} of {total}; built in "
         f"{time.perf_counter() - t0:.1f} s")
+    if (cache.kpay.data_ptr() != cache.kcand.data_ptr()
+            or not cache.kcand.is_contiguous()):
+        fail("the cache's kpay is not a view of the candidate-major kcand")
+    log(f"cache: kmeta {nbytes(cache.kmeta)} B, kcand "
+        f"{tuple(cache.kcand.shape)} {nbytes(cache.kcand)} B (kpay is its "
+        f"[max_q, PK, C] view), kxyz {tuple(cache.kxyz.shape)} "
+        f"{nbytes(cache.kxyz)} B, coor_2_qslot {nbytes(cache.coor_2_qslot)} "
+        f"B; device memory allocated {torch.cuda.memory_allocated()} B")
 
     def render(rays, c=cfg):
         return fr.fast_render_rays(
@@ -329,7 +387,7 @@ def main() -> int:
 
     args, kw = captured["fused"]
     sig_k, rgb_k, fnd_k = fused_chunk_decode(*args, **kw)
-    sig_p, rgb_p, fnd_p = fused_chunk_decode_reference(*args, **kw)
+    sig_p, rgb_p, fnd_p = fused_chunk_decode_plain(*args, **kw)
     torch.cuda.synchronize()
     if not torch.equal(fnd_k, fnd_p):
         fail(f"fused_chunk_decode found differs on "
@@ -352,7 +410,7 @@ def main() -> int:
     # ---- the whole chunk through the kernels vs the plain versions
     rays0 = raydirs[:CHUNK]
     out_k = render(rays0)
-    fr.fused_chunk_decode = fused_chunk_decode_reference
+    fr.fused_chunk_decode = fused_chunk_decode_plain
     try:
         out_p = render(rays0, dataclasses.replace(
             cfg, query=dataclasses.replace(cfg.query, select_mode="topk")))
@@ -367,14 +425,25 @@ def main() -> int:
         fail("chunk colour through the kernels disagrees with plain")
 
     # ---- times at the main path's shapes (CUDA events)
-    t_sel_k = cuda_ms(lambda: first_valid_cols(qs, BP), 50, 3)
+    t_sel_host = cuda_ms(lambda: first_valid_cols(qs, BP), 50, 3)
+    t_sel_l2 = cuda_ms(lambda: first_valid_cols(qs, BP), 48, 3, queued=True)
+    t_sel_k = rotating_ms(lambda x: first_valid_cols(x, BP), qs)
+    # rows off the 16-byte boundaries take the scalar kernel: 32-column
+    # tiles, a ballot after each load, direct 4-byte stores
+    t_sel_sc = rotating_ms(lambda x: first_valid_cols(x, BP), qs, shift=1)
     t_sel_p = cuda_ms(lambda: first_valid_cols_reference(qs, BP), 20, 2)
     t_fc_k = cuda_ms(lambda: fused_chunk_decode(*args, **kw), 10, 2)
-    t_fc_p = cuda_ms(lambda: fused_chunk_decode_reference(*args, **kw), 2, 1)
+    t_fc_p = cuda_ms(lambda: fused_chunk_decode_plain(*args, **kw), 2, 1)
     log(f"first_valid_cols qs {tuple(qs.shape)}: kernel {t_sel_k:.4f} ms, "
         f"plain {t_sel_p:.4f} ms")
-    log(f"fused_chunk_decode M={m_sl.shape[0]}: kernel {t_fc_k:.3f} ms, "
-        f"plain {t_fc_p:.3f} ms")
+    fc_parts = ["chunk_select_kernel", "chunk_tower_kernel",
+                "chunk_colour_kernel"]
+    t_fc_parts = device_kernel_ms(lambda: fused_chunk_decode(*args, **kw),
+                                  fc_parts)
+    log(f"fused_chunk_decode M={m_sl.shape[0]}: kernel {t_fc_k:.3f} ms "
+        f"(its device kernels by the profiler: "
+        + ", ".join(f"{n} {t_fc_parts[n]:.3f}" for n in fc_parts)
+        + f"), plain {t_fc_p:.3f} ms")
 
     frame_ms = [cuda_ms(render_frame, 1) for _ in range(3)]
     best = min(frame_ms)
@@ -443,7 +512,7 @@ def main() -> int:
     # ---- fused_candidate_select vs plain on chunk 0's inputs (exact)
     fsel_args = captured["fsel"]
     ns_k, pm_k = fs.fused_candidate_select(*fsel_args)
-    ns_p, pm_p = fs.fused_candidate_select_reference(*fsel_args)
+    ns_p, pm_p = fs.fused_candidate_select_plain(*fsel_args)
     torch.cuda.synchronize()
     fsel_bits = int((ns_k.view(torch.int16) != ns_p.view(torch.int16)).sum())
     if not torch.equal(pm_k, pm_p) or fsel_bits:
@@ -451,7 +520,7 @@ def main() -> int:
              f"pnt_mask on {int((pm_k != pm_p).sum())} entries, payload "
              f"on {fsel_bits}")
     fsel_err = float((ns_k.float() - ns_p.float()).abs().max())
-    m_a = fsel_args[4]
+    m_a = fsel_args[5]
     n_pairs = int(pm_k.sum())
     log(f"fused_candidate_select == plain on M={m_a.shape[0]} slots "
         f"({int(m_a.sum())} valid, {n_pairs} neighbours, "
@@ -487,7 +556,7 @@ def main() -> int:
 
     # ---- path A's chunk 0 through the kernels vs the plain versions
     out_ak = render(rays0, cfg_a)
-    fr.fused_candidate_select = fs.fused_candidate_select_reference
+    fr.fused_candidate_select = fs.fused_candidate_select_plain
     fr.fused_decode2 = fd.fused_decode2_reference
     try:
         out_ap = render(rays0, dataclasses.replace(
@@ -591,12 +660,17 @@ def main() -> int:
     # ---- times of the new kernels at their paths' shapes (CUDA events)
     t_fs_k = cuda_ms(lambda: fs.fused_candidate_select(*fsel_args), 10, 2)
     t_fs_p = cuda_ms(
-        lambda: fs.fused_candidate_select_reference(*fsel_args), 2, 1)
+        lambda: fs.fused_candidate_select_plain(*fsel_args), 2, 1)
     t_ka_k = cuda_ms(lambda: fd.kacc_tower(*kacc_a, **kacc_k), 10, 2)
     t_ka_p = cuda_ms(lambda: fd.kacc_tower_reference(*kacc_a, **kacc_k), 2, 1)
     t_pt_k = cuda_ms(lambda: fd.pair_tower(*pair_a, **pair_k), 10, 2)
     t_pt_p = cuda_ms(lambda: fd.pair_tower_reference(*pair_a, **pair_k), 2, 1)
-    t_selb_k = cuda_ms(lambda: first_valid_cols(qs_b, bp_b), 50, 3)
+    t_selb_host = cuda_ms(lambda: first_valid_cols(qs_b, bp_b), 50, 3)
+    t_selb_l2 = cuda_ms(lambda: first_valid_cols(qs_b, bp_b), 48, 3,
+                        queued=True)
+    t_selb_k = rotating_ms(lambda x: first_valid_cols(x, bp_b), qs_b)
+    t_selb_sc = rotating_ms(lambda x: first_valid_cols(x, bp_b), qs_b,
+                            shift=1)
     t_selb_p = cuda_ms(lambda: first_valid_cols_reference(qs_b, bp_b), 5, 1)
     frame_a_ms = [cuda_ms(lambda: render_frame(cfg_a), 1) for _ in range(3)]
     chunk_b_ms = [cuda_ms(render_b, 1) for _ in range(3)]
@@ -650,9 +724,36 @@ def main() -> int:
     f_fc = 2 * (n_pairs * ROW_MACS + n_found * SLOT_MACS)
     f_ka = 2 * int((kacc_a[5] != 0).sum()) * ROW_MACS
     f_pt = 2 * int((pair_a[5] != 0).sum()) * ROW_MACS
-    log(f"first_valid_cols: kernel {t_sel_k:.4f} ms (path B shapes "
-        f"{t_selb_k:.4f} ms, plain {t_selb_p:.4f} ms), bound "
-        f"{b_sel[0]:.4f} ms ({b_selb[0]:.4f} ms) by {b_sel[1]}")
+    log(f"first_valid_cols qs {tuple(qs.shape)} BP {BP}: kernel "
+        f"{t_sel_k:.4f} ms rotating over copies of qs past the L2 (the "
+        f"scalar kernel on the same rows off their 16-byte boundaries "
+        f"{t_sel_sc:.4f}), {t_sel_l2:.4f} ms on one buffer, both queued "
+        f"behind a busy device; {t_sel_host:.4f} ms a call at the host's "
+        f"pace; plain {t_sel_p:.4f} ms, bound {b_sel[0]:.4f} ms by "
+        f"{b_sel[1]}, kernel / bound {t_sel_k / b_sel[0]:.2f}")
+    log(f"first_valid_cols qs {tuple(qs_b.shape)} BP {bp_b} (path B): "
+        f"kernel {t_selb_k:.4f} ms rotating (scalar kernel "
+        f"{t_selb_sc:.4f}), {t_selb_l2:.4f} ms on one buffer; "
+        f"{t_selb_host:.4f} ms a call at the host's pace; plain "
+        f"{t_selb_p:.4f} ms, bound {b_selb[0]:.4f} ms, kernel / bound "
+        f"{t_selb_k / b_selb[0]:.2f}")
+    # what the candidate-major payload leaves to move: a chosen neighbour
+    # is 96 contiguous bytes, 3 sectors of 32 bytes (the channel-major
+    # layout cost a sector for each channel read: 48, or 42 in the chunk's
+    # selection), a valid slot its C metas and 3 x C xyz values
+    slot_sectors = (C * 4 + 3 * C * 2) // 32
+    for nm, t_sel, out_b, n_v in (
+            ("fused_candidate_select", t_fs_k, nbytes(ns_k, pm_k),
+             int(m_a.sum())),
+            ("chunk_select_kernel", t_fc_parts["chunk_select_kernel"],
+             n_pairs * 120 + M0 * 13, n_valid)):
+        sectors = n_v * slot_sectors + n_pairs * 3
+        log(f"{nm}: 3 sectors a chosen neighbour, {slot_sectors} a valid "
+            f"slot: {sectors} sectors, {sectors * 32 / 1e6:.1f} MB read for "
+            f"{n_v} valid slots and {n_pairs} neighbours, "
+            f"{sectors * 32 / PEAK_BYTES * 1e3:.4f} ms at the memory rate; "
+            f"measured {t_sel:.3f} ms with its {out_b / 1e6:.1f} MB of "
+            f"output")
     for nm, tk, tp, bb, fl in (
             ("fused_chunk_decode", t_fc_k, t_fc_p, b_fc, f_fc),
             ("fused_candidate_select", t_fs_k, t_fs_p, b_fs, None),
@@ -667,7 +768,7 @@ def main() -> int:
             f"{work}")
 
     def record(name, source, replaces, n, err, ms, plain_ms, bnd,
-               flops=None, device_kernels=None):
+               flops=None, device_kernels=None, extra=None):
         rec = {"name": name, "route": "cuda",
                "source": f"pointnerf2studio_torch/csrc/{source}",
                "replaces": f"pointnerf2studio_tpu/ops/{replaces}",
@@ -678,12 +779,21 @@ def main() -> int:
             rec["useful_tflops"] = flops / ms / 1e9
         if device_kernels:   # one launch of the wrapper runs all of these
             rec["device_kernels"] = device_kernels
+        rec.update(extra or {})
         return rec
 
     print(json.dumps({"kernels": [
         record("first_valid_cols", "first_valid_cols.cu", "select.py:41",
                launches["first_valid_cols"], sel_err, t_sel_k, t_sel_p,
-               b_sel),
+               b_sel, extra={"ms_one_buffer": t_sel_l2,
+                             "host_paced_ms": t_sel_host,
+                             "scalar_kernel_ms": t_sel_sc,
+                             "legacy_shape": {
+                                 "ms": t_selb_k, "ms_one_buffer": t_selb_l2,
+                                 "scalar_kernel_ms": t_selb_sc,
+                                 "host_paced_ms": t_selb_host,
+                                 "plain_ms": t_selb_p,
+                                 "bound_ms": b_selb[0]}}),
         record("fused_candidate_select", "fused_select.cu",
                "fused_select.py:60", launches_a["fused_candidate_select"],
                fsel_err, t_fs_k, t_fs_p, b_fs),
@@ -695,8 +805,7 @@ def main() -> int:
                f_ka),
         record("fused_chunk_decode", "fused_chunk.cu", "fused_chunk.py:86",
                launches["fused_chunk_decode"], fused_err, t_fc_k, t_fc_p,
-               b_fc, f_fc, ["chunk_select_kernel", "chunk_tower_kernel",
-                            "chunk_colour_kernel"]),
+               b_fc, f_fc, t_fc_parts),
     ], "launches_by_path": {"fused_chunk": launches, "staged": launches_a,
                             "legacy": launches_b}}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -92,13 +92,17 @@ def grid_from_jax(grid, device: torch.device | str | None = None
 
 def fat_cache_from_jax(cache, device: torch.device | str | None = None
                        ) -> FatCache:
-    """A JAX fused-layout FatCache (kmeta/kpay set) -> port FatCache."""
+    """A JAX fused-layout FatCache (kmeta/kpay set) -> port FatCache:
+    the channel-major kpay [max_q, PK, C] is transposed once into the
+    candidate-major kcand, and its xyz planes are copied into kxyz."""
     device = resolve_device(device)
     if cache.kmeta is None or cache.kpay is None:
         raise ValueError("the cache has no kernel-facing layout; build it "
                          "with chunk_mode='fused'")
+    kpay = _t(cache.kpay, device, torch.bfloat16)
     return FatCache(
         coor_2_qslot=_t(cache.coor_2_qslot, device, torch.int32),
         kmeta=_t(cache.kmeta, device, torch.int32),
-        kpay=_t(cache.kpay, device, torch.bfloat16),
+        kcand=kpay.transpose(1, 2).contiguous(),
+        kxyz=kpay[:, :3, :].contiguous(),
         n_q=_t(cache.n_q, device, torch.int32))

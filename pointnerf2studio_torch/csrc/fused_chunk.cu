@@ -13,26 +13,27 @@
 // What bounds it on Hopper: tensor-core operations. The tower is ~0.27
 // MFLOP per valid (slot, neighbour) pair and the colour tower ~0.14
 // MFLOP per slot, and every pair needs 42 of the 48 payload channels of
-// one candidate gathered from a 6 KB candidate row. The TPU kernel
-// consumed an XLA-gathered [M, 48, C] block (1.8 GB per 65k-ray chunk at
-// chair scale) and ran the tower on all K lanes, valid or not. On the
-// TPU one kernel did all of it; here its parts want different shapes,
-// so the entry point launches three kernels back to back:
+// one candidate. The TPU kernel consumed an XLA-gathered channel-major
+// [M, 48, C] block (1.8 GB per 65k-ray chunk at chair scale) and ran the
+// tower on all K lanes, valid or not. On the TPU one kernel did all of
+// it; here its parts want different shapes, so the entry point launches
+// three kernels back to back:
 //   * chunk_select_kernel, many small blocks (the gathers are bound by
 //     memory latency and need warps in flight, which a tower block of 8
-//     consumer warps does not have): it reads kmeta/kpay rows itself
+//     consumer warps does not have): it reads the cache rows itself
 //     through qslot, so the gathered candidate block never exists in
-//     device memory: a slot costs its 64 metas, 3 xyz channels of 64
-//     candidates and the 42 channels of each selected neighbour. Eight
-//     lanes per slot hold the 64 candidates, eight per lane (16-byte
-//     loads), and find the K nearest by K rounds of an arg-min on (d2,
-//     column), in registers and then by three shuffles - the
-//     smallest-index tie-break of the reference; a warp selects for four
-//     slots in lockstep. Then a lane per neighbour does the geometry. It
-//     writes, for the valid (slot, k) pairs only, the
-//     tower's inputs (embedding bf16 [32], dists f32 [6], colour/dirdot
-//     f32 [7], weight) to a scratch buffer of 120 bytes a pair, and per
-//     slot the neighbour count and the rotated view direction;
+//     device memory: a slot costs its 64 metas, the 3 xyz planes of its
+//     64 candidates (kxyz) and, for each selected neighbour, its 96-byte
+//     row of the candidate-major payload (kcand): three 32-byte sectors,
+//     read as 16-byte loads. The selection is the one of csrc/select.cuh
+//     (eight lanes a slot, eight candidates a lane, K rounds of an
+//     arg-min on (d2, column), four slots a warp in lockstep), with the
+//     neighbour's inverse-distance weight taken in each round. Then a
+//     lane per neighbour does the geometry. It writes, for the valid
+//     (slot, k) pairs only, the tower's inputs (embedding bf16 [32] as
+//     four 16-byte stores, dists f32 [6], colour/dirdot f32 [7], weight)
+//     to a scratch buffer of 120 bytes a pair, and per slot the
+//     neighbour count and the rotated view direction;
 //   * chunk_tower_kernel, the tower of csrc/tower.cuh on those pairs
 //     (invalid neighbours contribute exactly 0 to every sum, so skipping
 //     them changes no result): one persistent block per SM of 2 consumer
@@ -60,8 +61,7 @@
 // every multiply and add rounds separately, in the reference's order.
 // Slots whose mask is false output (0, 0, false).
 
-#include <math_constants.h>
-
+#include "select.cuh"
 #include "tower.cuh"
 
 using namespace tower;
@@ -69,8 +69,6 @@ using namespace tower;
 namespace {
 
 constexpr int kHC = 128;                // colour tower width
-constexpr int kPK = 48;                 // payload channels
-constexpr int kCMax = 64;               // candidates per slot
 constexpr int kNvf = 4;                 // PE octaves of the view direction
 constexpr int kColourSeq = 5;           // stage uses of a colour tile
 constexpr int kSelectThreads = 128;     // chunk_select_kernel: 16 slots
@@ -115,7 +113,8 @@ __host__ __device__ inline Scratch carve(void* base, int M, int K) {
 // ---------------------------------------------------------------------
 __global__ void __launch_bounds__(kSelectThreads)
 chunk_select_kernel(const int32_t* __restrict__ kmeta,
-                    const bf16* __restrict__ kpay,
+                    const bf16* __restrict__ kcand,
+                    const bf16* __restrict__ kxyz,
                     const int32_t* __restrict__ qslot,
                     const float* __restrict__ locs,
                     const float* __restrict__ center,
@@ -138,15 +137,6 @@ chunk_select_kernel(const int32_t* __restrict__ kmeta,
   const bool act = j < M && mask[m] != 0;   // uniform in the 8-lane group
   int q = 0;
   float key[8], px[3][8], loc[3], cen[3];
-  int shell[8];
-  bool ok[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    key[i] = CUDART_INF_F;
-    shell[i] = 0;
-    ok[i] = false;
-    px[0][i] = px[1][i] = px[2][i] = 0.f;
-  }
 #pragma unroll
   for (int i = 0; i < 3; ++i) loc[i] = cen[i] = 0.f;
   if (act) {
@@ -156,98 +146,19 @@ chunk_select_kernel(const int32_t* __restrict__ kmeta,
       loc[i] = locs[(size_t)m * 3 + i];
       cen[i] = center[(size_t)m * 3 + i];
     }
-    const float cl0 = cen[0] - loc[0], cl1 = cen[1] - loc[1],
-                cl2 = cen[2] - loc[2];
-    const int32_t* meta_row = kmeta + (size_t)q * C;
-    const bf16* pay_row = kpay + (size_t)q * kPK * C;
-    alignas(16) int32_t meta[8];
-    if ((C & 7) == 0) {   // 16-byte loads
-      if (l * 8 < C) {
-        *(int4*)&meta[0] = *(const int4*)(meta_row + l * 8);
-        *(int4*)&meta[4] = *(const int4*)(meta_row + l * 8 + 4);
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const uint4 v = *(const uint4*)(pay_row + a * C + l * 8);
-          const __nv_bfloat162* h = (const __nv_bfloat162*)&v;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            px[a][2 * i] = __low2float(h[i]);
-            px[a][2 * i + 1] = __high2float(h[i]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) meta[i] = -1;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int c = l * 8 + i;
-        meta[i] = c < C ? meta_row[c] : -1;
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-          px[a][i] =
-              c < C ? __bfloat162float(pay_row[a * C + c]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float dx = px[0][i] + cl0, dy = px[1][i] + cl1,
-                  dz = px[2][i] + cl2;
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      ok[i] = l * 8 + i < C && meta[i] >= 0 &&
-              (radius2 <= 0.f || d2 <= radius2);
-      shell[i] = meta[i] & 3;
-      key[i] = d2;
-    }
   }
-  if (num_shells > 1) {
-    // layered eligibility: shell s is searchable only while fewer
-    // than K candidates were accepted in shells < s
-    bool elig[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) elig[i] = shell[i] == 0;
-    int before = 0;
-    for (int sh = 1; sh < num_shells; ++sh) {
-      int n = 0;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) n += ok[i] && shell[i] == sh - 1;
-      n += __shfl_xor_sync(0xffffffffu, n, 1);
-      n += __shfl_xor_sync(0xffffffffu, n, 2);
-      n += __shfl_xor_sync(0xffffffffu, n, 4);
-      before += n;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        elig[i] = elig[i] || (shell[i] == sh && before < K);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) ok[i] = ok[i] && elig[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) key[i] = ok[i] ? key[i] : CUDART_INF_F;
+  knn::candidate_keys(kmeta, kxyz, q, C, K, l, act, cen[0] - loc[0],
+                      cen[1] - loc[1], cen[2] - loc[2], radius2, num_shells,
+                      key, px);
 
   // K rounds; lane k of the group keeps neighbour k's column and weight
   float wsum = 0.f, my_w = 0.f;
   int nk = 0, my_c = 0;
   for (int k = 0; k < K; ++k) {
     // the smallest (d2, column) of the slot's 64 candidates
-    float bk = key[0];
-    int bc = l * 8;
-#pragma unroll
-    for (int i = 1; i < 8; ++i)
-      if (key[i] < bk) {
-        bk = key[i];
-        bc = l * 8 + i;
-      }
-#pragma unroll
-    for (int o = 4; o > 0; o >>= 1) {
-      const float ok2 = __shfl_xor_sync(0xffffffffu, bk, o);
-      const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
-      if (ok2 < bk || (ok2 == bk && oc < bc)) {
-        bk = ok2;
-        bc = oc;
-      }
-    }
+    float bk;
+    int bc;
+    knn::group_argmin(key, l, bk, bc);
     // group-uniform; once false it stays false (no key is left)
     const bool got = bk < CUDART_INF_F;
     if (!__any_sync(0xffffffffu, got)) break;
@@ -309,41 +220,49 @@ chunk_select_kernel(const int32_t* __restrict__ kmeta,
     }
   }
 
-  // extract: for neighbour k the group's lane l gathers channels 6 l ..
-  // 6 l + 5 of column c_k (0-2 rel xyz, 3-34 emb, 35 conf, 36-38 dir,
-  // 39-41 colour), copies the embedding channels out, and hands xyz (lane
-  // 0) and dir / colour (lane 6) to lane k, which does row k's geometry
-  const bf16* pay_row = kpay + (size_t)q * kPK * C;
+  // extract: neighbour k's payload row is 96 contiguous bytes of kcand
+  // (channels 0-2 rel xyz, 3-34 emb, 35 conf, 36-38 dir, 39-41 colour);
+  // the group's lanes 0-5 load 16 bytes of it each, channels 8 l .. 8 l + 7
+  // as the 32-bit words 4 l .. 4 l + 3 of the row. The embedding starts
+  // three channels in, so lane l < 4 forms its 16 bytes of the scratch row
+  // from its words 1-3 and the next lane's words 0-1, shifted by one
+  // channel; xyz (lane 0) and dir / colour (lanes 4 and 5) go to lane k,
+  // which does row k's geometry
+  const bf16* cand_rows = kcand + (size_t)q * C * knn::kPK;
   float pv[3] = {0.f, 0.f, 0.f}, ndir[3] = {0.f, 0.f, 0.f},
         ncol[3] = {0.f, 0.f, 0.f};
   const int kmax = __reduce_max_sync(0xffffffffu, nk);
   for (int k = 0; k < kmax; ++k) {
     const int c = __shfl_sync(0xffffffffu, my_c, gbase | k);
     const bool row = k < nk;
-    bf16 v[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-      v[i] = row ? pay_row[(l * 6 + i) * C + c] : __float2bfloat16(0.f);
-    if (row) {
-      bf16* e = out.emb + ((size_t)m * K + k) * kC;
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        const int ch = l * 6 + i - 3;
-        if (ch >= 0 && ch < kC) e[ch] = v[i];
-      }
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row && l < 6)
+      v = *(const uint4*)(cand_rows + (size_t)c * knn::kPK + l * 8);
+    const uint32_t n0 = __shfl_down_sync(0xffffffffu, v.x, 1, 8);
+    const uint32_t n1 = __shfl_down_sync(0xffffffffu, v.y, 1, 8);
+    if (row && l < 4) {
+      uint4 e;
+      e.x = __funnelshift_r(v.y, v.z, 16);
+      e.y = __funnelshift_r(v.z, v.w, 16);
+      e.z = __funnelshift_r(v.w, n0, 16);
+      e.w = __funnelshift_r(n0, n1, 16);
+      *(uint4*)(out.emb + ((size_t)m * K + k) * kC + l * 8) = e;
     }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float a = __shfl_sync(0xffffffffu, __bfloat162float(v[i]), gbase);
-      const float b =
-          __shfl_sync(0xffffffffu, __bfloat162float(v[i]), gbase | 6);
-      const float d =
-          __shfl_sync(0xffffffffu, __bfloat162float(v[3 + i]), gbase | 6);
-      if (l == k) {
-        pv[i] = a;
-        ndir[i] = b;
-        ncol[i] = d;
-      }
+    const uint32_t x0 = __shfl_sync(0xffffffffu, v.x, gbase);
+    const uint32_t x1 = __shfl_sync(0xffffffffu, v.y, gbase);
+    const uint32_t d0 = __shfl_sync(0xffffffffu, v.z, gbase | 4);
+    const uint32_t d1 = __shfl_sync(0xffffffffu, v.w, gbase | 4);
+    const uint32_t c0 = __shfl_sync(0xffffffffu, v.x, gbase | 5);
+    if (l == k) {
+      pv[0] = knn::bf_lo(x0);
+      pv[1] = knn::bf_hi(x0);
+      pv[2] = knn::bf_lo(x1);
+      ndir[0] = knn::bf_lo(d0);
+      ndir[1] = knn::bf_hi(d0);
+      ndir[2] = knn::bf_lo(d1);
+      ncol[0] = knn::bf_hi(d1);
+      ncol[1] = knn::bf_lo(c0);
+      ncol[2] = knn::bf_hi(c0);
     }
   }
   if (l < nk) {
@@ -622,26 +541,28 @@ extern "C" long long fused_chunk_scratch_bytes(int M, int K) {
   return (long long)M * K * kPairBytes + (long long)M * kSlotBytes;
 }
 
-extern "C" int fused_chunk_decode(const void* kmeta, const void* kpay,
-                                  const void* qslot, const void* locs,
-                                  const void* center, const void* rd,
-                                  const void* mask, const void* consts,
-                                  const void* weights, const void* params,
-                                  void* scratch, void* sig, void* rgb,
-                                  void* found, int M, int C, int K,
-                                  float radius2, int num_shells,
-                                  int act_super, void* stream) {
-  if (C < 1 || C > kCMax || K < 1 || K > kKMax)
+extern "C" int fused_chunk_decode(const void* kmeta, const void* kcand,
+                                  const void* kxyz, const void* qslot,
+                                  const void* locs, const void* center,
+                                  const void* rd, const void* mask,
+                                  const void* consts, const void* weights,
+                                  const void* params, void* scratch,
+                                  void* sig, void* rgb, void* found, int M,
+                                  int C, int K, float radius2,
+                                  int num_shells, int act_super,
+                                  void* stream) {
+  if (C < 1 || C > knn::kCMax || K < 1 || K > kKMax)
     return (int)cudaErrorInvalidValue;
   if (M <= 0) return 0;
   const Scratch s = carve(scratch, M, K);
   const int per_block = kSelectThreads / 32 * 4;
   chunk_select_kernel<<<(M + per_block - 1) / per_block, kSelectThreads, 0,
                         (cudaStream_t)stream>>>(
-      (const int32_t*)kmeta, (const bf16*)kpay, (const int32_t*)qslot,
-      (const float*)locs, (const float*)center, (const float*)rd,
-      (const uint8_t*)mask, (const float*)consts, s, (float*)sig,
-      (float*)rgb, (uint8_t*)found, M, C, K, radius2, num_shells);
+      (const int32_t*)kmeta, (const bf16*)kcand, (const bf16*)kxyz,
+      (const int32_t*)qslot, (const float*)locs, (const float*)center,
+      (const float*)rd, (const uint8_t*)mask, (const float*)consts, s,
+      (float*)sig, (float*)rgb, (uint8_t*)found, M, C, K, radius2,
+      num_shells);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;

@@ -9,146 +9,123 @@
 // _select_kernel (fused_candidate_select).
 //
 // What bounds it on Hopper: device-memory bytes. A valid slot needs its
-// 64 metas, the 3 xyz channels of its 64 candidates and the 48 channels
-// of each selected neighbour out of a 6.4 KB candidate row, and writes
-// K * 48 bf16 + K bytes; the arithmetic is a few hundred float ops. The
-// TPU kernel consumed an XLA-gathered [M, 48, C] block and extracted
-// each payload with a one-hot contraction on the MXU, writing f32. Here:
-//   * the kernel reads kmeta/kpay rows in place through qslot, so the
+// 64 metas, the 3 xyz values of its 64 candidates and the 48 channels
+// of each selected neighbour, and writes K * 48 bf16 + K bytes; the
+// arithmetic is a few hundred float ops. The TPU kernel consumed an
+// XLA-gathered channel-major [M, 48, C] block (channels on the sublane
+// axis) and extracted each payload with a one-hot contraction on the MXU,
+// writing f32. On this card a load moves whole 32-byte sectors, so the
+// cache is laid out for that (csrc/select.cuh):
+//   * the kernel reads the cache rows in place through qslot, so the
 //     gathered block never exists in device memory;
-//   * one warp per slot holds the candidates, two per lane, and finds
-//     the K nearest by K rounds of a shuffle arg-min on (d2, column) -
-//     lax.top_k's order, smallest column first among equal distances;
-//   * the extract is a plain load: lane c reads channel c (and c + 32)
-//     of the chosen column and stores it, so the payload keeps its bf16
-//     bits and the output is bf16, half the reference's f32 bytes.
-// masks, radius test and tie-breaks must equal the plain version bit for
-// bit, so this file is compiled with -fmad=false: d2 = dx*dx + dy*dy +
-// dz*dz rounds every multiply and add separately, in that order.
+//   * the distance pass reads kmeta and the three kxyz planes as 16-byte
+//     loads, eight lanes a slot, four slots a warp, and finds the K
+//     nearest by K rounds of the arg-min of select.cuh;
+//   * the payload is candidate-major (kcand [max_q, C, 48]): a chosen
+//     neighbour is 96 contiguous bytes, three sectors, where the
+//     channel-major layout cost one sector for each 2-byte channel. The
+//     slot's K rows are K * 6 pieces of 16 bytes; the group's eight lanes
+//     take them in turn, so each load and each store of a warp covers four
+//     runs of 128 contiguous bytes, and all of a lane's loads are started
+//     before its first store. The payload keeps its bf16 bits and the
+//     output is bf16, half the reference's f32 bytes.
+// Masks, radius test and tie-breaks must equal the plain version bit for
+// bit, so this file is compiled with -fmad=false (see select.cuh).
 // A slot whose mask is false writes zeros and an all-false pmask.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "select.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kWarps = 8;    // slots per block, one warp each
-constexpr int kKMax = 8;
-constexpr int kPK = 48;      // payload channels
-constexpr int kCMax = 64;    // candidates per slot
+constexpr int kThreads = 128;                     // 16 slots a block
+constexpr int kSlotsPerBlock = kThreads / knn::kGroup;
+constexpr int kPieces = knn::kPK * 2 / 16;        // 16-byte pieces of a row
+constexpr int kTurns = knn::kKMax * kPieces / knn::kGroup;
 
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 fused_select_kernel(const int32_t* __restrict__ kmeta,
-                    const bf16* __restrict__ kpay,
+                    const bf16* __restrict__ kcand,
+                    const bf16* __restrict__ kxyz,
                     const int32_t* __restrict__ qslot,
                     const float* __restrict__ cd0,
                     const uint8_t* __restrict__ mask,
                     bf16* __restrict__ nsel, uint8_t* __restrict__ pmask,
                     int M, int C, int K, float radius2, int num_shells) {
-  const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (m >= M) return;  // whole warps exit together
-  bf16* out = nsel + (size_t)m * K * kPK;
-  int nk = 0;
-  if (mask[m] != 0) {
-    const int q = qslot[m];
-    const float c0 = cd0[(size_t)m * 3 + 0], c1 = cd0[(size_t)m * 3 + 1],
-                c2 = cd0[(size_t)m * 3 + 2];
-    const int32_t* meta_row = kmeta + (size_t)q * C;
-    const bf16* pay_row = kpay + (size_t)q * kPK * C;
-    float key[2];
-    int shell[2];
-    bool ok[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = lane + 32 * h;
-      ok[h] = false;
-      shell[h] = 0;
-      key[h] = CUDART_INF_F;
-      if (c < C) {
-        const int32_t meta = meta_row[c];
-        const float dx = __bfloat162float(pay_row[0 * C + c]) + c0;
-        const float dy = __bfloat162float(pay_row[1 * C + c]) + c1;
-        const float dz = __bfloat162float(pay_row[2 * C + c]) + c2;
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        ok[h] = meta >= 0 && (radius2 <= 0.f || d2 <= radius2);
-        shell[h] = meta & 3;
-        key[h] = d2;
-      }
-    }
-    if (num_shells > 1) {
-      // layered eligibility: shell s is searchable only while fewer
-      // than K candidates were accepted in shells < s
-      bool elig[2] = {shell[0] == 0, shell[1] == 0};
-      int before = 0;
-      for (int s = 1; s < num_shells; ++s) {
-        before += __popc(__ballot_sync(0xffffffffu,
-                                       ok[0] && shell[0] == s - 1)) +
-                  __popc(__ballot_sync(0xffffffffu,
-                                       ok[1] && shell[1] == s - 1));
-        elig[0] = elig[0] || (shell[0] == s && before < K);
-        elig[1] = elig[1] || (shell[1] == s && before < K);
-      }
-      ok[0] = ok[0] && elig[0];
-      ok[1] = ok[1] && elig[1];
-    }
-    key[0] = ok[0] ? key[0] : CUDART_INF_F;
-    key[1] = ok[1] ? key[1] : CUDART_INF_F;
+  const int lane = threadIdx.x & 31, l = lane & 7, gbase = lane & ~7;
+  const int j = blockIdx.x * kSlotsPerBlock + (threadIdx.x >> 3);
+  const int m = min(j, M - 1);
+  const bool act = j < M && mask[m] != 0;   // uniform in the 8-lane group
+  int q = 0;
+  float c0 = 0.f, c1 = 0.f, c2 = 0.f;
+  if (act) {
+    q = qslot[m];
+    c0 = cd0[(size_t)m * 3 + 0];
+    c1 = cd0[(size_t)m * 3 + 1];
+    c2 = cd0[(size_t)m * 3 + 2];
+  }
+  float key[8], px[3][8];
+  knn::candidate_keys(kmeta, kxyz, q, C, K, l, act, c0, c1, c2, radius2,
+                      num_shells, key, px);
 
-    for (int k = 0; k < K; ++k) {
-      float bk = key[0];
-      int bc = lane;
-      if (key[1] < bk) {
-        bk = key[1];
-        bc = lane + 32;
-      }
+  // K rounds; lane k of the group keeps neighbour k's column
+  int nk = 0, my_c = 0;
+  for (int k = 0; k < K; ++k) {
+    float bk;
+    int bc;
+    knn::group_argmin(key, l, bk, bc);
+    // group-uniform; once false it stays false (no key is left)
+    const bool got = bk < CUDART_INF_F;
+    if (!__any_sync(0xffffffffu, got)) break;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ok2 = __shfl_xor_sync(0xffffffffu, bk, o);
-        const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
-        if (ok2 < bk || (ok2 == bk && oc < bc)) {
-          bk = ok2;
-          bc = oc;
-        }
-      }
-      if (!(bk < CUDART_INF_F)) break;  // warp-uniform: no candidate left
-      if (bc == lane) key[0] = CUDART_INF_F;
-      if (bc == lane + 32) key[1] = CUDART_INF_F;
-      // extract: channel `lane` and `lane + 32` of column bc
-      out[k * kPK + lane] = pay_row[lane * C + bc];
-      if (lane < kPK - 32)
-        out[k * kPK + 32 + lane] = pay_row[(32 + lane) * C + bc];
+    for (int i = 0; i < 8; ++i)
+      if (bc == l * 8 + i) key[i] = CUDART_INF_F;
+    if (got) {
       nk = k + 1;
+      if (l == k) my_c = bc;
     }
   }
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int k = nk; k < K; ++k) {
-    out[k * kPK + lane] = zero;
-    if (lane < kPK - 32) out[k * kPK + 32 + lane] = zero;
+
+  // extract: piece p = l + 8 t of the slot's K * 6 pieces is piece p % 6
+  // of neighbour p / 6; zeros past the count
+  const uint4* rows = (const uint4*)(kcand + (size_t)q * C * knn::kPK);
+  uint4 v[kTurns];
+#pragma unroll
+  for (int t = 0; t < kTurns; ++t) {
+    const int p = l + knn::kGroup * t;
+    const int k = min(p / kPieces, knn::kKMax - 1);
+    const int c = __shfl_sync(0xffffffffu, my_c, gbase | k);
+    v[t] = make_uint4(0u, 0u, 0u, 0u);
+    if (k < nk) v[t] = rows[c * kPieces + p % kPieces];
   }
-  // min-extraction takes the valid candidates first: the mask is a prefix
-  if (lane < K) pmask[(size_t)m * K + lane] = lane < nk;
+  if (j < M) {
+    uint4* out = (uint4*)(nsel + (size_t)m * K * knn::kPK);
+#pragma unroll
+    for (int t = 0; t < kTurns; ++t) {
+      const int p = l + knn::kGroup * t;
+      if (p < K * kPieces) out[p] = v[t];
+    }
+    // min-extraction takes the valid candidates first: the mask is a prefix
+    if (l < K) pmask[(size_t)m * K + l] = l < nk;
+  }
 }
 
 }  // namespace
 
-extern "C" int fused_candidate_select(const void* kmeta, const void* kpay,
-                                      const void* qslot, const void* cd0,
-                                      const void* mask, void* nsel,
-                                      void* pmask, int M, int C, int K,
-                                      float radius2, int num_shells,
+extern "C" int fused_candidate_select(const void* kmeta, const void* kcand,
+                                      const void* kxyz, const void* qslot,
+                                      const void* cd0, const void* mask,
+                                      void* nsel, void* pmask, int M, int C,
+                                      int K, float radius2, int num_shells,
                                       void* stream) {
-  if (C < 1 || C > kCMax || K < 1 || K > kKMax)
+  if (C < 1 || C > knn::kCMax || K < 1 || K > knn::kKMax)
     return (int)cudaErrorInvalidValue;
   if (M <= 0) return 0;
-  const int blocks = (M + kWarps - 1) / kWarps;
-  fused_select_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)kmeta, (const bf16*)kpay, (const int32_t*)qslot,
-      (const float*)cd0, (const uint8_t*)mask, (bf16*)nsel,
-      (uint8_t*)pmask, M, C, K, radius2, num_shells);
+  const int blocks = (M + kSlotsPerBlock - 1) / kSlotsPerBlock;
+  fused_select_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)kmeta, (const bf16*)kcand, (const bf16*)kxyz,
+      (const int32_t*)qslot, (const float*)cd0, (const uint8_t*)mask,
+      (bf16*)nsel, (uint8_t*)pmask, M, C, K, radius2, num_shells);
   return (int)cudaGetLastError();
 }

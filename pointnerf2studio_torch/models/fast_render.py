@@ -2,7 +2,8 @@
 decode + packed composite.
 
 Port of the served subset of `pointnerf2studio_tpu/models/fast_render.py`:
-the kernel-facing ("fused") cache layout, `build_fat_cache`,
+the kernel-facing cache (the reference's "fused" layout, stored
+candidate-major), `build_fat_cache`,
 `fit_cand_cap`, `make_fast_scene`, and `fast_render_rays` through
 
   ray packing (QueryConfig.ray_budget) ->
@@ -65,31 +66,46 @@ TAIL_CHUNK = 1 << 16      # slots per piece of the decode_radiance tail
 
 @dataclasses.dataclass
 class FatCache:
-    """Per-query-voxel candidate rows, kernel-facing ("fused") layout.
+    """Per-query-voxel candidate rows, laid out for the card's kernels.
 
     kmeta [max_q, C] int32: pidx * 4 + shell, or -1 for an empty slot.
-    kpay [max_q, PK, C] bf16, channel-major: xyz RELATIVE to the query
-    voxel's centre (3), embedding (32), conf (1), dir (3), colour (3),
-    zero padding to PK = 48. Candidates are ordered by (Chebyshev shell,
-    distance to the voxel centre) as the reference's f32 key orders them.
+    kcand [max_q, C, PK] bf16, candidate-major and contiguous: per
+    candidate its xyz RELATIVE to the query voxel's centre (3), embedding
+    (32), conf (1), dir (3), colour (3), zero padding to PK = 48: 96
+    contiguous bytes, three whole 32-byte sectors, so a kernel reads a
+    chosen neighbour with 16-byte loads.
+    kxyz [max_q, 3, C] bf16, contiguous: the three relative-xyz planes
+    once more (6% of kcand's bytes), for the distance pass, which wants
+    all C candidates of one axis in a row. Channels 0-2 stay in kcand too:
+    the payload that leaves the selection carries them.
+    `kpay` is the reference's logical layout [max_q, PK, C], channel-major,
+    as a strided view of kcand: same values, no copy. The plain versions
+    and the comparisons with the reference's cache read it.
+    Candidates are ordered by (Chebyshev shell, distance to the voxel
+    centre) as the reference's f32 key orders them.
     """
     coor_2_qslot: torch.Tensor     # [gx, gy, gz] int32, -1 = not query
     kmeta: torch.Tensor            # [max_q, C] int32
-    kpay: torch.Tensor             # [max_q, PK, C] bf16
+    kcand: torch.Tensor            # [max_q, C, PK] bf16
+    kxyz: torch.Tensor             # [max_q, 3, C] bf16
     n_q: torch.Tensor              # [] int32
 
     @property
     def cand(self) -> int:
         return self.kmeta.shape[1]
 
+    @property
+    def kpay(self) -> torch.Tensor:
+        return self.kcand.transpose(1, 2)
+
 
 @torch.no_grad()
 def build_fat_cache(grid: PointGrid, cloud: NeuralPointCloud,
                     kernel_size: Tuple[int, int, int], max_q: int,
                     cand_cap: int = 64, chunk: int = 32768) -> FatCache:
-    """Build the candidate cache in the kernel-facing layout (the
-    reference's layout="fused"; the "rows" layout is not ported), once
-    per point/attribute change.
+    """Build the candidate cache for the kernels (the content of the
+    reference's layout="fused", stored candidate-major: see `FatCache`;
+    the "rows" layout is not ported), once per point/attribute change.
 
     Candidate order is the reference's f32 key shell * 1e12 + min(d2,
     1e9), sorted stably: beyond shell 0 the d2 term is below one ulp of
@@ -130,7 +146,8 @@ def build_fat_cache(grid: PointGrid, cloud: NeuralPointCloud,
                       -1).to(torch.bfloat16)                    # [N, 39]
     c2o = grid.coor_2_occ.reshape(-1)
     kmeta = torch.empty((max_q, C), dtype=torch.int32, device=dev)
-    kpay = torch.empty((max_q, PK, C), dtype=torch.bfloat16, device=dev)
+    kcand = torch.empty((max_q, C, PK), dtype=torch.bfloat16, device=dev)
+    kxyz = torch.empty((max_q, 3, C), dtype=torch.bfloat16, device=dev)
     for s in range(0, max_q, chunk):
         qc, cw, live = q_coor[s:s + chunk], center_w[s:s + chunk], \
             q_live[s:s + chunk]
@@ -160,10 +177,11 @@ def build_fat_cache(grid: PointGrid, cloud: NeuralPointCloud,
         kmeta[s:s + B] = torch.where(sel_ok, sel_pidx * 4 + sel_sh,
                                      -1).to(torch.int32)
         sel_attr = attrs[torch.clamp(sel_pidx, 0, N - 1)]       # [B, C, 39]
-        pay = torch.cat([rel, sel_attr, rel.new_zeros((B, C, PK - 42))], -1)
-        kpay[s:s + B] = pay.transpose(1, 2)
-    return FatCache(coor_2_qslot=coor_2_qslot, kmeta=kmeta, kpay=kpay,
-                    n_q=n_q)
+        kcand[s:s + B] = torch.cat(
+            [rel, sel_attr, rel.new_zeros((B, C, PK - 42))], -1)
+        kxyz[s:s + B] = rel.transpose(1, 2)
+    return FatCache(coor_2_qslot=coor_2_qslot, kmeta=kmeta, kcand=kcand,
+                    kxyz=kxyz, n_q=n_q)
 
 
 def fit_cand_cap(max_q: int, cand_cap: int,
@@ -440,8 +458,8 @@ def fast_render_rays(
     if route == "chunk":
         # ---- selection + tower per slot in one kernel launch
         sig, rgb, found = fused_chunk_decode(
-            params, Rw2c, camrotc2w, campos, cache.kmeta, cache.kpay,
-            qslot_i, locs.contiguous(), center.contiguous(),
+            params, Rw2c, camrotc2w, campos, cache.kmeta, cache.kcand,
+            cache.kxyz, qslot_i, locs.contiguous(), center.contiguous(),
             rd_sel.contiguous(), mask_c, K=K, radius2=q.radius_limit ** 2,
             num_shells=num_shells,
             nff=cfg.agg.num_feat_freqs, ndf=cfg.agg.num_dist_freqs,
@@ -452,8 +470,9 @@ def fast_render_rays(
         # every stage is per slot, so the pieces change no result; they
         # bound the [M, K, 284] feature and its PE intermediates
         nsel, pnt_mask = fused_candidate_select(
-            cache.kmeta, cache.kpay, qslot_i, (center - locs).contiguous(),
-            mask_c, K, q.radius_limit ** 2, num_shells)
+            cache.kmeta, cache.kcand, cache.kxyz, qslot_i,
+            (center - locs).contiguous(), mask_c, K, q.radius_limit ** 2,
+            num_shells)
         piece = max(M, 1) if _use_fused2(cfg) else TAIL_CHUNK
         tails = [_decode_tail(params, cfg, Rw2c, camrotc2w, campos,
                               nsel[s:s + piece], pnt_mask[s:s + piece],

@@ -15,9 +15,14 @@ three kernels back to back: selection and gathers, the tower, the colour
 tower). On CUDA tensors it launches the
 kernel; on CPU tensors it runs the plain version
 `fused_chunk_decode_reference`, which mirrors the Pallas kernel op for
-op. Both read the candidate rows through `qslot` from the kernel-facing
-cache (kmeta [max_q, C] int32, kpay [max_q, PK, C] bf16); the plain
-version gathers them explicitly, the kernel reads them in place.
+op. Both read the candidate rows through `qslot` from the cache
+(`models/fast_render.py::FatCache`). The wrapper takes the cache's
+tensors as the kernel reads them: kmeta [max_q, C] int32, the
+candidate-major payload kcand [max_q, C, PK] bf16 and the relative-xyz
+planes kxyz [max_q, 3, C] bf16. The plain version takes the reference's
+logical layout kpay [max_q, PK, C], the view `kcand.transpose(1, 2)`,
+and gathers its rows explicitly; the kernel reads kcand and kxyz in
+place.
 
 The kernel is bound by its tensor-core products, not by the candidate
 bytes; its weights are packed once per set of weights in the
@@ -323,6 +328,15 @@ def fused_chunk_decode_reference(
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
+def fused_chunk_decode_plain(params, Rw2c, camrotc2w, campos, kmeta, kcand,
+                             kxyz, *rest, **kw):
+    """The plain version behind the wrapper's signature: it reads the
+    [max_q, PK, C] view of kcand and has no use for kxyz."""
+    return fused_chunk_decode_reference(
+        params, Rw2c, camrotc2w, campos, kmeta, kcand.transpose(1, 2), *rest,
+        **kw)
+
+
 @torch.no_grad()
 def fused_chunk_decode(
     params: Aggregator,
@@ -330,7 +344,8 @@ def fused_chunk_decode(
     camrotc2w: torch.Tensor,    # [3, 3]
     campos: torch.Tensor,       # [3]
     kmeta: torch.Tensor,        # [max_q, C] int32
-    kpay: torch.Tensor,         # [max_q, PK, C] bf16
+    kcand: torch.Tensor,        # [max_q, C, PK] bf16, candidate-major
+    kxyz: torch.Tensor,         # [max_q, 3, C] bf16, == kcand[:, :, :3].mT
     qslot: torch.Tensor,        # [M] candidate row of each slot
     locs: torch.Tensor,         # [M, 3] float32
     center: torch.Tensor,       # [M, 3] float32
@@ -340,23 +355,25 @@ def fused_chunk_decode(
     nff: int, ndf: int, nvf: int, act_super: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(sig [M] f32, rgb [M, 3] f32, found [M] bool) for all M slots.
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
-    if not kmeta.is_cuda:
-        return fused_chunk_decode_reference(
-            params, Rw2c, camrotc2w, campos, kmeta, kpay, qslot, locs,
-            center, rd, mask, K=K, radius2=radius2, num_shells=num_shells,
-            nff=nff, ndf=ndf, nvf=nvf, act_super=act_super)
+    CUDA tensors launch the kernel; CPU tensors take the plain version on
+    the [max_q, PK, C] view of kcand."""
     dev = kmeta.device
     max_q, C = kmeta.shape
     M = qslot.shape[0]
+    _cuda.require(kmeta, "kmeta", torch.int32, (max_q, C), dev)
+    _cuda.require(kcand, "kcand", torch.bfloat16, (max_q, C, PK), dev)
+    _cuda.require(kxyz, "kxyz", torch.bfloat16, (max_q, 3, C), dev)
+    if not kmeta.is_cuda:
+        return fused_chunk_decode_plain(
+            params, Rw2c, camrotc2w, campos, kmeta, kcand, kxyz, qslot, locs,
+            center, rd, mask, K=K, radius2=radius2, num_shells=num_shells,
+            nff=nff, ndf=ndf, nvf=nvf, act_super=act_super)
     if (nff, ndf, nvf) != (3, 5, 4):
         raise ValueError("the CUDA fused chunk kernel is built for PE "
                          "freqs (3, 5, 4)")
     if not (1 <= K <= 8 and 1 <= C <= 64):
         raise ValueError(f"the CUDA fused chunk kernel needs K <= 8 and "
                          f"C <= 64, got K={K}, C={C}")
-    _cuda.require(kmeta, "kmeta", torch.int32, (max_q, C), dev)
-    _cuda.require(kpay, "kpay", torch.bfloat16, (max_q, PK, C), dev)
     _cuda.require(qslot, "qslot", torch.int32, (M,), dev)
     for name, t in (("locs", locs), ("center", center), ("rd", rd)):
         _cuda.require(t, name, torch.float32, (M, 3), dev)
@@ -385,14 +402,14 @@ def fused_chunk_decode(
     scratch = torch.empty(lib.fused_chunk_scratch_bytes(M, K),
                           dtype=torch.uint8, device=dev)
     fn = lib.fused_chunk_decode
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _cuda.LAUNCHES["fused_chunk_decode"] += 1
     _cuda.check(fn(*[_cuda.ptr(t) for t in (
-        kmeta, kpay, qslot, locs, center, rd, mask, consts, weights,
-        fparams, scratch, sig, rgb, found)], M, C, K, float(radius2), int(num_shells),
-        int(act_super), _cuda.stream_handle(dev)),
+        kmeta, kcand, kxyz, qslot, locs, center, rd, mask, consts, weights,
+        fparams, scratch, sig, rgb, found)], M, C, K, float(radius2),
+        int(num_shells), int(act_super), _cuda.stream_handle(dev)),
         "fused_chunk_decode launch")
     return sig, rgb, found

@@ -14,9 +14,14 @@ the kernel; on CPU tensors it runs the plain version
 `fused_candidate_select_reference`, which mirrors the Pallas kernel op
 for op. Unlike the reference, which consumes the XLA-gathered
 `kmeta[qslot]` / `kpay[qslot]` block, both read the candidate rows
-through `qslot` from the kernel-facing cache (kmeta [max_q, C] int32,
-kpay [max_q, PK, C] bf16): the plain version gathers them block by
-block, the kernel reads them in place.
+through `qslot` from the cache (`models/fast_render.py::FatCache`). The
+wrapper takes the cache's tensors as the kernel reads them: kmeta
+[max_q, C] int32, the candidate-major payload kcand [max_q, C, PK] bf16
+(a chosen neighbour is 96 contiguous bytes) and the relative-xyz planes
+kxyz [max_q, 3, C] bf16 for the distance pass. The plain version takes
+the reference's logical layout kpay [max_q, PK, C], which is the view
+`kcand.transpose(1, 2)`, and gathers its rows block by block; the kernel
+reads kcand and kxyz in place.
 
 Output: nsel [M, K, PK] **bfloat16** (the reference writes float32 and
 its caller casts to bf16 at once; the payload is bf16 bits passed
@@ -102,40 +107,50 @@ def fused_candidate_select_reference(
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
+def fused_candidate_select_plain(kmeta, kcand, kxyz, *rest):
+    """The plain version behind the wrapper's signature: it reads the
+    [max_q, PK, C] view of kcand and has no use for kxyz."""
+    return fused_candidate_select_reference(kmeta, kcand.transpose(1, 2),
+                                            *rest)
+
+
 @torch.no_grad()
 def fused_candidate_select(
     kmeta: torch.Tensor,        # [max_q, C] int32
-    kpay: torch.Tensor,         # [max_q, PK, C] bf16
+    kcand: torch.Tensor,        # [max_q, C, PK] bf16, candidate-major
+    kxyz: torch.Tensor,         # [max_q, 3, C] bf16, == kcand[:, :, :3].mT
     qslot: torch.Tensor,        # [M] int32 candidate row of each slot
     cdelta0: torch.Tensor,      # [M, 3] float32, center - locs
     mask: torch.Tensor,         # [M] bool
     K: int, radius2: float, num_shells: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(nsel [M, K, PK] bf16, pnt_mask [M, K] bool) for all M slots.
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
-    if not kmeta.is_cuda:
-        return fused_candidate_select_reference(
-            kmeta, kpay, qslot, cdelta0, mask, K, radius2, num_shells)
+    CUDA tensors launch the kernel; CPU tensors take the plain version on
+    the [max_q, PK, C] view of kcand."""
     dev = kmeta.device
     max_q, C = kmeta.shape
     M = qslot.shape[0]
+    _cuda.require(kmeta, "kmeta", torch.int32, (max_q, C), dev)
+    _cuda.require(kcand, "kcand", torch.bfloat16, (max_q, C, PK), dev)
+    _cuda.require(kxyz, "kxyz", torch.bfloat16, (max_q, 3, C), dev)
+    if not kmeta.is_cuda:
+        return fused_candidate_select_plain(
+            kmeta, kcand, kxyz, qslot, cdelta0, mask, K, radius2, num_shells)
     if not (1 <= K <= 8 and 1 <= C <= 64):
         raise ValueError(f"the CUDA fused select kernel needs K <= 8 and "
                          f"C <= 64, got K={K}, C={C}")
-    _cuda.require(kmeta, "kmeta", torch.int32, (max_q, C), dev)
-    _cuda.require(kpay, "kpay", torch.bfloat16, (max_q, PK, C), dev)
     _cuda.require(qslot, "qslot", torch.int32, (M,), dev)
     _cuda.require(cdelta0, "cdelta0", torch.float32, (M, 3), dev)
     _cuda.require(mask, "mask", torch.bool, (M,), dev)
     nsel = torch.empty((M, K, PK), dtype=torch.bfloat16, device=dev)
     pmask = torch.empty((M, K), dtype=torch.bool, device=dev)
     fn = _cuda.library("fused_select").fused_candidate_select
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _cuda.LAUNCHES["fused_candidate_select"] += 1
     _cuda.check(fn(*[_cuda.ptr(t) for t in (
-        kmeta, kpay, qslot, cdelta0, mask, nsel, pmask)], M, C, K,
+        kmeta, kcand, kxyz, qslot, cdelta0, mask, nsel, pmask)], M, C, K,
         float(radius2), int(num_shells), _cuda.stream_handle(dev)),
         "fused_candidate_select launch")
     return nsel, pmask

@@ -8,7 +8,11 @@ runs the plain version `first_valid_cols_reference`, the expression the
 reference's kernel replaces.
 
 The kernel is bound by device-memory bytes (one read of qs, BP + 1
-int32 written per row); see the source's header for its design.
+int32 written per row): a warp owns a row, loads it as int4 with every
+load started before the first ballot, ranks the valid columns by bit
+counts and writes the BP ids as whole lines through shared memory; rows
+that do not start on a 16-byte boundary take a scalar kernel. See the
+source's header.
 """
 
 from __future__ import annotations

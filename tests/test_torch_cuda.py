@@ -34,16 +34,40 @@ def dev():
 
 @pytest.mark.parametrize("R,D,BP,p", [(512, 180, 32, 0.1), (300, 64, 32, 0.5),
                                       (64, 20, 32, 0.9), (36864, 192, 32, 0.05),
-                                      (16, 300, 8, 1.0)])
+                                      (16, 300, 8, 1.0)]
+                         + [(301, D, BP, p) for D in (63, 190, 192, 400)
+                            for BP, p in ((1, 0.02), (32, 0.2), (80, 0.7))]
+                         + [(70, 1032, 1100, 0.5), (70, 1032, 40, 0.1)])
 def test_first_valid_cols_kernel_exact(dev, R, D, BP, p):
-    rng = np.random.default_rng(R + D)
-    qs = torch.as_tensor(np.where(rng.random((R, D)) < p,
-                                  rng.integers(0, 1 << 20, (R, D)),
-                                  -1).astype(np.int32), device=dev)
+    """Exact against the plain version: rows on 16-byte boundaries (the
+    int4 kernel) and not (D no multiple of 4: the scalar kernel), D below
+    one 128-column tile and above four, BP of 1, below and above a tile's
+    valid count, and past what the shared-memory rows hold; row 0 all
+    valid, row 1 with none."""
+    rng = np.random.default_rng(R + D + BP)
+    q = np.where(rng.random((R, D)) < p, rng.integers(0, 1 << 20, (R, D)),
+                 -1).astype(np.int32)
+    q[0], q[1] = 7, -1
+    qs = torch.as_tensor(q, device=dev)
     n0 = _cuda.LAUNCHES["first_valid_cols"]
     got = sel.first_valid_cols(qs, BP)
     want = sel.first_valid_cols_reference(qs, BP)
     assert _cuda.LAUNCHES["first_valid_cols"] == n0 + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1][0]) == D and int(got[1][1]) == 0
+    assert bool((got[0][1] == D).all())
+
+
+def test_first_valid_cols_kernel_unaligned_rows(dev):
+    """qs whose first row does not start on a 16-byte boundary (a
+    contiguous tensor at an odd storage offset) takes the scalar kernel."""
+    rng = np.random.default_rng(5)
+    flat = torch.as_tensor(np.where(
+        rng.random(1 + 200 * 192) < 0.1, 3, -1).astype(np.int32), device=dev)
+    qs = flat[1:].view(200, 192)
+    assert qs.is_contiguous() and qs.data_ptr() % 16 == 4
+    got = sel.first_valid_cols(qs, 32)
+    want = sel.first_valid_cols_reference(qs, 32)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -83,7 +107,7 @@ def _chunk_check(a, k):
     sig, rgb, found = fc.fused_chunk_decode(*a, **k)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["fused_chunk_decode"] == n0 + 1
-    sig_p, rgb_p, found_p = fc.fused_chunk_decode_reference(*a, **k)
+    sig_p, rgb_p, found_p = fc.fused_chunk_decode_plain(*a, **k)
     mask = a[-1]
     assert torch.equal(found, found_p)
     d_sig = (sig - sig_p).abs()
@@ -114,9 +138,9 @@ def test_fused_chunk_kernel_tile_edges(dev, edge):
     if edge in ("ragged", "one_slot"):
         n = 1001 if edge == "ragged" else 1
         # one_slot: a single slot that has neighbours
-        first = (int(torch.nonzero(fc.fused_chunk_decode_reference(
+        first = (int(torch.nonzero(fc.fused_chunk_decode_plain(
             *a, **k)[2])[0]) if edge == "one_slot" else 0)
-        for i in range(6, 11):          # qslot, locs, center, rd, mask
+        for i in range(7, 12):          # qslot, locs, center, rd, mask
             a[i] = a[i][first:first + n].contiguous()
     elif edge == "no_valid_slot":
         a[-1] = torch.zeros_like(a[-1])
@@ -128,11 +152,14 @@ def test_fused_chunk_kernel_tile_edges(dev, edge):
 
 @pytest.mark.parametrize("M,C,K,radius,shells,ties", [
     (5000, 64, 8, 0.03, 3, False), (777, 64, 8, 0.012, 1, True),
-    (4096, 32, 4, 0.0, 2, True), (3, 17, 3, 0.03, 3, False)])
+    (4096, 32, 4, 0.0, 2, True), (3, 17, 3, 0.03, 3, False),
+    (1001, 20, 8, 0.0, 1, True), (37, 63, 5, 0.03, 2, False),
+    (16, 8, 8, 0.0, 1, False), (1, 64, 1, 0.03, 3, False)])
 def test_fused_select_kernel_exact(dev, M, C, K, radius, shells, ties):
     """pnt_mask and every payload bit equal the plain version's, with
     layered shells, the radius test, masked slots, short rows and exact
-    distance ties."""
+    distance ties; C a multiple of 8 (16-byte loads of metas and xyz) and
+    not, M a multiple of the 16 slots a block serves and not, K < 8."""
     rng = np.random.default_rng(M + C)
     max_q = 300
     n = (rng.random(max_q) * C * 1.2).astype(np.int64).clip(0, C)
@@ -144,20 +171,39 @@ def test_fused_select_kernel_exact(dev, M, C, K, radius, shells, ties):
     pay = rng.normal(size=(max_q, fs.PK, C)).astype(np.float32) * 0.02
     if ties:
         pay[:, :3, 1::2] = pay[:, :3, 0::2][..., :pay[:, :3, 1::2].shape[-1]]
-    args = (torch.as_tensor(kmeta, device=dev),
-            torch.as_tensor(pay, device=dev).to(torch.bfloat16),
-            torch.as_tensor(rng.integers(0, max_q, M).astype(np.int32),
+    kpay = torch.as_tensor(pay, device=dev).to(torch.bfloat16)
+    rest = (torch.as_tensor(rng.integers(0, max_q, M).astype(np.int32),
                             device=dev),
             torch.as_tensor((rng.normal(size=(M, 3)) * 0.01).astype(
                 np.float32), device=dev),
-            torch.as_tensor(rng.random(M) < 0.85, device=dev),
+            torch.as_tensor(rng.random(M) < 0.85 if M > 1 else np.ones(1, bool),
+                            device=dev),
             K, radius ** 2, shells)
+    if M == 1:
+        rest[0][0] = 2            # the full row
+    kmeta = torch.as_tensor(kmeta, device=dev)
     n0 = _cuda.LAUNCHES["fused_candidate_select"]
-    nsel, pm = fs.fused_candidate_select(*args)
+    nsel, pm = fs.fused_candidate_select(
+        kmeta, kpay.transpose(1, 2).contiguous(),
+        kpay[:, :3, :].contiguous(), *rest)
+    torch.cuda.synchronize()
     assert _cuda.LAUNCHES["fused_candidate_select"] == n0 + 1
-    nsel_p, pm_p = fs.fused_candidate_select_reference(*args)
+    nsel_p, pm_p = fs.fused_candidate_select_reference(kmeta, kpay, *rest)
     assert torch.equal(pm, pm_p) and bool(pm.any())
     assert torch.equal(nsel.view(torch.int16), nsel_p.view(torch.int16))
+
+
+def test_cuda_wrappers_refuse_a_strided_payload(dev):
+    """On the card a wrapper launches its kernel or raises: the
+    channel-major view of the payload is not what the kernels read."""
+    kmeta = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    kpay = torch.zeros((4, fs.PK, 8), dtype=torch.bfloat16, device=dev)
+    z = torch.zeros
+    with pytest.raises(ValueError, match="kcand must be contiguous"):
+        fs.fused_candidate_select(
+            kmeta, kpay.transpose(1, 2), kpay[:, :3, :].contiguous(),
+            z(2, dtype=torch.int32, device=dev), z((2, 3), device=dev),
+            z(2, dtype=torch.bool, device=dev), 8, 0.0, 1)
 
 
 def _decode_inputs(dev, M, K, seed, fill="mixed"):
@@ -291,7 +337,7 @@ def test_staged_render_kernels_vs_plain(dev, fused2):
     assert _cuda.LAUNCHES["fused_candidate_select"] == 1
     assert _cuda.LAUNCHES["fused_decode2"] == int(fused2)
     orig = fr.fused_candidate_select, fr.fused_decode2
-    fr.fused_candidate_select = fs.fused_candidate_select_reference
+    fr.fused_candidate_select = fs.fused_candidate_select_plain
     fr.fused_decode2 = fd.fused_decode2_reference
     try:
         ref = render()

@@ -101,11 +101,11 @@ def test_plain_fused_chunk_matches_pallas_interpret(chunk, layered):
         c["params"], TAggConfig(**dataclasses.asdict(cfg.agg)),
         device="cpu")
     T = torch.as_tensor
+    cache_t = convert.fat_cache_from_jax(_Cache(c), device="cpu")
     _cuda.LAUNCHES.clear()
     sig, rgb, found = tfc.fused_chunk_decode(
         agg, T(np.array(s.cloud.Rw2c)), T(np.array(s.camrotc2w)),
-        T(np.array(s.campos)), T(c["kmeta"]),
-        convert.fat_cache_from_jax(_Cache(c), device="cpu").kpay,
+        T(np.array(s.campos)), T(c["kmeta"]), cache_t.kcand, cache_t.kxyz,
         T(c["qslot"]),
         T(c["locs"]), T(c["center"]), T(c["rd"]), T(c["mask"]), **kw)
     assert _cuda.LAUNCHES["fused_chunk_decode"] == 0

@@ -54,11 +54,21 @@ def _case(seed, max_q=96, M=256, C=64, fill=0.7, ties=False, shells=3):
     return kmeta, kpay, qslot, cd0, mask
 
 
+def _cache_tensors(kpay):
+    """The cache's two payload tensors from the reference's channel-major
+    kpay bits [max_q, PK, C]: the candidate-major kcand [max_q, C, PK]
+    and the xyz planes kxyz [max_q, 3, C], both contiguous."""
+    pay = torch.from_numpy(kpay.copy()).view(torch.bfloat16)
+    return pay.transpose(1, 2).contiguous(), pay[:, :3, :].contiguous()
+
+
 def _port(kmeta, kpay, qslot, cd0, mask, K, radius2, num_shells):
+    """The wrapper on the cache's tensors; on the CPU it runs the plain
+    version on the [max_q, PK, C] view of kcand."""
     _cuda.LAUNCHES.clear()
+    kcand, kxyz = _cache_tensors(kpay)
     nsel, pm = tfs.fused_candidate_select(
-        torch.from_numpy(kmeta),
-        torch.from_numpy(kpay.copy()).view(torch.bfloat16),
+        torch.from_numpy(kmeta), kcand, kxyz,
         torch.from_numpy(qslot), torch.from_numpy(cd0),
         torch.from_numpy(mask), K, radius2, num_shells)
     assert sum(_cuda.LAUNCHES.values()) == 0        # CPU: the plain version
@@ -151,3 +161,39 @@ def test_select_empty_and_all_masked():
     nsel0, pm0 = _port(kmeta, kpay, qslot[:0], cd0[:0], mask[:0], 8,
                        0.03 ** 2, 3)
     assert nsel0.shape == (0, 8, PK) and pm0.shape == (0, 8)
+
+
+@pytest.mark.parametrize("name", ["layered", "ties", "narrow"])
+def test_wrapper_on_cache_tensors_equals_plain_on_view(name):
+    """The wrapper called with kcand / kxyz gives the bits the plain
+    version gives on the reference's channel-major kpay itself."""
+    c = dict(CASES[name])
+    K, r2, ns = c.pop("K"), c.pop("radius") ** 2, c.pop("num_shells")
+    kmeta, kpay, qslot, cd0, mask = _case(**c)
+    got, got_pm = _port(kmeta, kpay, qslot, cd0, mask, K, r2, ns)
+    want, want_pm = tfs.fused_candidate_select_reference(
+        torch.from_numpy(kmeta),
+        torch.from_numpy(kpay.copy()).view(torch.bfloat16),
+        torch.from_numpy(qslot), torch.from_numpy(cd0),
+        torch.from_numpy(mask), K, r2, ns)
+    np.testing.assert_array_equal(got_pm, want_pm.numpy())
+    np.testing.assert_array_equal(got, want.view(torch.int16).numpy())
+    assert got_pm.any()
+
+
+@pytest.mark.parametrize("which", ["kcand", "kxyz"])
+def test_wrapper_refuses_a_strided_cache_tensor(which):
+    """The kernel reads kcand and kxyz as they lie in memory: a view of
+    another layout (the channel-major kpay transposed, say) raises."""
+    kmeta, kpay, qslot, cd0, mask = _case(seed=11, M=32)
+    kcand, kxyz = _cache_tensors(kpay)
+    pay = torch.from_numpy(kpay.copy()).view(torch.bfloat16)
+    if which == "kcand":
+        kcand = pay.transpose(1, 2)                 # right shape, strided
+    else:
+        kxyz = kcand[:, :, :3].transpose(1, 2)
+    assert not (kcand.is_contiguous() and kxyz.is_contiguous())
+    with pytest.raises(ValueError, match=f"{which} must be contiguous"):
+        tfs.fused_candidate_select(
+            torch.from_numpy(kmeta), kcand, kxyz, torch.from_numpy(qslot),
+            torch.from_numpy(cd0), torch.from_numpy(mask), 8, 0.03 ** 2, 3)

@@ -68,6 +68,33 @@ def test_fused_cache_matches(scene, cand_cap):
     assert torch.equal(conv.kpay.view(torch.int16), got.kpay.view(torch.int16))
 
 
+@pytest.mark.parametrize("cand_cap", [16, 64])
+def test_fused_cache_layout(scene, cand_cap):
+    """What lies in memory: the candidate-major kcand [max_q, C, PK] and
+    the xyz planes kxyz [max_q, 3, C], both contiguous; kpay is the
+    reference's [max_q, PK, C] as a view of kcand, not a copy; the cache
+    converted from the JAX one holds the same three tensors bit for bit."""
+    s, tq, cloud, g = scene
+    max_q = 32768
+    got = tfr.build_fat_cache(g, cloud, tq.kernel_size, max_q, cand_cap)
+    bits = lambda t: t.view(torch.int16)  # noqa: E731
+    assert got.kcand.shape == (max_q, cand_cap, tfr.PK)
+    assert got.kcand.is_contiguous() and got.kcand.dtype == torch.bfloat16
+    assert got.kxyz.shape == (max_q, 3, cand_cap)
+    assert got.kxyz.is_contiguous() and got.kxyz.dtype == torch.bfloat16
+    assert got.kpay.shape == (max_q, tfr.PK, cand_cap)
+    assert got.kpay.data_ptr() == got.kcand.data_ptr()
+    assert torch.equal(bits(got.kxyz), bits(got.kpay[:, :3, :].contiguous()))
+    assert bool((got.kmeta >= 0).any()) and bool(bits(got.kxyz).any())
+    want = jfr.build_fat_cache(s.grid, s.cloud, tq.kernel_size, max_q,
+                               cand_cap, layout="fused")
+    conv = convert.fat_cache_from_jax(want, device="cpu")
+    for f in ("kmeta", "kcand", "kxyz"):
+        a, b = getattr(conv, f), getattr(got, f)
+        assert a.shape == b.shape and a.is_contiguous(), f
+        assert torch.equal(bits(a), bits(b)), f
+
+
 def test_fit_cand_cap():
     assert tfr.fit_cand_cap(1000, 64) == jfr.fit_cand_cap(1000, 64)
     budget = 589_824 * 16 * tfr.ROWW * 4

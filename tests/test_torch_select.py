@@ -25,7 +25,11 @@ def _qs(R, D, p, seed):
     "R,D,BP,p",
     [(512, 180, 32, 0.1), (300, 64, 32, 0.5), (256, 400, 24, 0.02),
      (128, 100, 32, 0.0), (64, 20, 32, 0.9),
-     (256, 192, 32, 0.05)])     # the chair path's depth window
+     (256, 192, 32, 0.05),      # the chair path's depth window
+     (200, 63, 32, 0.3), (200, 190, 32, 0.1),   # D no multiple of 4
+     (96, 24, 8, 0.6), (96, 7, 4, 0.8),         # D < 32
+     (128, 400, 80, 0.9),       # more than BP valid in the first 128 columns
+     (64, 160, 32, 1.0)])       # every column valid
 def test_first_valid_cols_matches_jax(R, D, BP, p):
     qs = _qs(R, D, p, R + D)
     _cuda.LAUNCHES.clear()
