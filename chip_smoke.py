@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `pointnerf2studio_torch/csrc/` (four
+Builds the port's CUDA kernels from `pointnerf2studio_torch/csrc/` (five
 sources, the tower header and the selection header two of them share
 each) with nvcc (sm_90a), builds the 558k-point procedural chair scene,
 its voxel grid and its candidate cache (metas, candidate-major payload,
 xyz planes) on the GPU, and drives three
-paths at the full width of the chair model (focal 1111.1, 400 samples
+paths and then the reference's default frame front-ends (4 to 7 below)
+at the full width of the chair model (focal 1111.1, 400 samples
 per ray, K = 8, bf16 aggregator of hidden 256 / colour 128, random
 weights from seed 0), in 65,536-ray chunks, with the depth window and
 ray budget measured on the frame as the JAX bench sizes them:
@@ -22,7 +23,20 @@ ray budget measured on the frame as the JAX bench sizes them:
   3. one 65,536-ray chunk of the frame through the legacy `render_rays`
      on the point cloud and grid, fused_decode on (kernels
      first_valid_cols at BP = 80 / D = 400, fused_decode); its agreement
-     with the fast path on those rays is printed, not asserted.
+     with the fast path on those rays is printed, not asserted;
+  4. the march frame: the distance-field walk (kernel march_rays, one
+     launch a stage) planned on the host as the JAX bench plans it, in
+     front of the fused chunk, held to frame 1 bit for bit; march_rays
+     against its plain version on chunk 0's rays, as planned and with fuel
+     and buckets starved, and its iterations against `simulate_march`;
+  5. the raster frame: the footprint ladder measured on the camera, one
+     emit program a frame, its table equal to the march's on all 640,000
+     rays, the chunks rendered from it (`premarch`), held to frame 4;
+  6. `render_frame` (rays sorted on the host, dense chunks, the budget
+     escalation), walked and with `raster=`: the second must say that the
+     raster rendered it, and both equal frame 4 bit for bit;
+  7. the frame times of the depth window, the march, the raster and both
+     `render_frame` routes, best of 3 warm frames taken in turns.
 
 The launch counts are set to 0 just before each path and read just
 after it. It fails (non-zero exit, no result line) when there is no
@@ -34,7 +48,10 @@ chunk (first_valid_cols and fused_candidate_select: exactly;
 fused_chunk_decode: `found` exactly, rgb within 2e-2, sigma within
 2e-2 + 2^-7 |sigma|, mean |diff| < 2e-3; fused_decode and
 fused_decode2: aw within 2e-2 + 2^-7 |aw|, hw within 1e-3 + 2^-7 |hw|
-with mean |diff| of hw <= 2^-8 mean |hw|, mean over both < 2e-3), or when a path's first chunk rendered through the kernels
+with mean |diff| of hw <= 2^-8 mean |hw|, mean over both < 2e-3;
+march_rays: exactly), when a front-end's frame is not bit-equal to the
+frame it is held to, when first_valid_cols is launched behind the march
+or the raster, or when a path's first chunk rendered through the kernels
 differs from the same chunk rendered through the plain versions
 (ray_mask exactly, colour within the same bound). Printed before the
 last line: the card's name and power limit, build and phase times, each
@@ -53,8 +70,8 @@ last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile[=DIR]
 
-also runs one warm pass of each path under torch.profiler after its
-timing and prints, per path, the device time by kernel name (the ten
+also runs one warm pass of each path, the march frame and the raster
+frame included, under torch.profiler after its timing and prints, per path, the device time by kernel name (the ten
 largest), their sum and the device's idle share of the unprofiled pass
 (1 - device time / pass time); the full tables go to
 `DIR/profile_<path>.txt` (DIR defaults to `build/profile`).
@@ -243,6 +260,399 @@ def probe_tower(source: str, bits_list, name: str, fn) -> None:
         with _cuda.variant(source, f):
             t = cuda_ms(fn, 10, 2)
         log(f"probe {name}, TOWER_PROBE={bits} ({PROBES[bits]}): {t:.3f} ms")
+
+
+def check_launches(path: str, got: dict, want: dict) -> None:
+    """Fail unless each kernel of `want` was launched exactly that often
+    on `path` (0: not at all)."""
+    for name, n in want.items():
+        if got.get(name, 0) != n:
+            fail(f"{path}: kernel {name} launched {got.get(name, 0)} times, "
+                 f"expected {n}")
+
+
+def front_end_phases(c) -> dict:
+    """The reference's default frame front-ends on the scene and cache of
+    the first phase: the march frame, `march_rays` against its plain
+    version, the raster frame, `render_frame` with and without `raster=`,
+    and the four routes' frame times in turns. `c` carries main's scene,
+    cache, config, rays and first-phase frame. Returns the march kernel's
+    record fields, the launch counts by path and the frame times."""
+    import torch
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.ops import march as mr
+
+    scene, cache, cfg, dev = c.scene, c.cache, c.cfg, c.dev
+    q = cfg.query
+    D = q.z_depth_dim
+    cap = min(q.SR, q.ray_slot_budget or min(q.SR, 32), D)
+    near, far = float(scene.near), float(scene.far)
+    n_chunks, total = c.n_chunks, c.total
+    perm_t = torch.as_tensor(c.perm, device=dev)
+    fields = ("coarse_raycolor", "ray_mask", "acc", "depth")
+
+    def sl(i):
+        return slice(i * CHUNK, (i + 1) * CHUNK)
+
+    def render(rays, cf, premarch=None):
+        return fr.fast_render_rays(
+            scene.params, scene.cloud.Rw2c, cache, scene.campos,
+            scene.camrotc2w, rays, scene.near, scene.far, cf, c.rmin, c.svs,
+            premarch=premarch)
+
+    def chunks(cf, table=None):
+        """The frame in main's shuffled ray order, 65,536 rays a chunk;
+        with `table`, each chunk takes its rows of the raster's emit."""
+        return [render(c.raydirs[sl(i)], cf,
+                       None if table is None else (table, perm_t[sl(i)]))
+                for i in range(n_chunks)]
+
+    def frame_of(outs):
+        return {f: torch.cat([getattr(o, f) for o in outs]) for f in fields}
+
+    def counters(path, outs, names):
+        ctr = {f: [None if getattr(o, f) is None else int(getattr(o, f))
+                   for o in outs] for f in names}
+        log(f"{path}: counters per chunk {ctr}")
+        if any(v for vals in ctr.values() for v in vals):
+            fail(f"{path}: non-zero exactness counter: {ctr}")
+        return ctr
+
+    def same_frame(path, a, b, other):
+        for f in fields:
+            if not torch.equal(a[f], b[f]):
+                d = (a[f].float() - b[f].float()).abs()
+                fail(f"{path}: {f} differs from the {other} frame on "
+                     f"{int((a[f] != b[f]).sum())} entries, max |diff| "
+                     f"{float(d.max()):.3e}")
+        log(f"{path}: colour, ray_mask, acc and depth equal the {other} "
+            f"frame bit for bit ({a['ray_mask'].shape[0]} rays)")
+
+    # ---- the march table and the host plan (bench.py's sizing: the whole
+    # frame in render order, buckets at the worst chunk's active count)
+    t0 = time.perf_counter()
+    cache.march_table = mr.build_march_table(cache.coor_2_qslot)
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    table_np = cache.march_table.cpu().numpy()
+    geo = tuple(x.cpu().numpy() for x in (c.rmin, c.svs, scene.campos))
+    rays_np = c.raydirs.cpu().numpy()
+    t0 = time.perf_counter()
+    steps, buckets = mr.plan_march(
+        table_np, *geo, rays_np, near, far, D, cap, slack=1.35, chunk=CHUNK,
+        fuel_margin=10)
+    sim = mr.simulate_march(table_np, *geo, rays_np, near, far, D, cap)
+    log(f"march: table {tuple(table_np.shape)} built in {t_table:.2f} s; "
+        f"plan march_steps {steps} march_buckets {buckets} (cap {cap}, "
+        f"slack 1.35, chunk {CHUNK}, fuel margin 10); simulate_march: "
+        f"{int(sim.sum())} steps over {int((sim > 0).sum())} walking rays "
+        f"of {total}, most {int(sim.max())} a ray; planned on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg_m = dataclasses.replace(cfg, query=dataclasses.replace(
+        q, march_steps=steps, march_buckets=buckets, depth_window=0))
+
+    # ---- the march frame: the main path of this front-end, launches
+    # counted from 0
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    outs_m = chunks(cfg_m)
+    torch.cuda.synchronize()
+    launches_m = dict(_cuda.LAUNCHES)
+    log(f"march frame rendered (first pass) in "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches_m}")
+    check_launches("march frame", launches_m, {
+        "march_rays": len(steps) * n_chunks, "fused_chunk_decode": n_chunks,
+        "first_valid_cols": 0})
+    counters("march frame", outs_m,
+             ("mc_overflow", "rb_overflow", "cb_overflow"))
+    if any(o.dw_overflow is not None for o in outs_m):
+        fail("march frame: a dw_overflow counter on the march path")
+    frame_dw, frame_m = frame_of(c.outs), frame_of(outs_m)
+    same_frame("march frame", frame_m, frame_dw, "depth-window")
+
+    # ---- march_rays against its plain version on chunk 0's inputs (the
+    # chunk's packed rays and their live mask, as fast_render_rays makes
+    # them), as planned and with the fuel cut to a third and the buckets to
+    # a quarter (rays out of fuel, rays that fit no bucket); both versions
+    # count each ray's iterations (count_steps)
+    def march_kw(rays, **over):
+        kw = fr.march_args(cache, scene.campos, rays, scene.near, scene.far,
+                           cfg_m.query, c.rmin, c.svs)
+        return {**kw, **over}
+
+    ray_ids0, live0_t, _ = fr.pack_hit_rays(
+        cache, scene.campos, c.raydirs[sl(0)], scene.near, scene.far,
+        cfg_m.query, c.rmin, c.svs)
+    m_kw = march_kw(c.raydirs[sl(0)][ray_ids0], live=live0_t)
+    rays0 = m_kw["raydirs"]
+    R0 = rays0.shape[0]
+
+    def walk(fn, st, bk):
+        return fn(**{**m_kw, "steps": st, "buckets": bk}, count_steps=True)
+
+    starved = (tuple(max(1, t // 3) for t in steps),
+               tuple(b // 4 for b in buckets))
+    for name, (st, bk) in (("planned", (steps, buckets)),
+                           ("starved", starved)):
+        got = walk(mr.march_rays, st, bk)
+        want = walk(mr.march_rays_reference, st, bk)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("emit", "cnt", "mc_overflow", "steps"), got,
+                              want):
+            if not torch.equal(g, w):
+                fail(f"march_rays ({name}) differs from its plain version: "
+                     f"{what} on {int((g != w).sum())} entries")
+        lanes = torch.arange(cap, device=dev)[None] >= got[1][:, None]
+        if bool((got[0][lanes] != 0).any()):
+            fail(f"march_rays ({name}): emit lanes past cnt are not 0")
+        of = int(got[2])
+        log(f"march_rays == plain ({name}: steps {st} buckets {bk}) on "
+            f"{R0} rays: emit, cnt, mc_overflow {of} and "
+            f"{int(got[3].sum())} iterations equal")
+        if (of > 0) != (name == "starved"):
+            fail(f"march_rays ({name}): mc_overflow {of}")
+        if name == "planned":
+            used = got[3]
+    # the kernel's iterations against the host simulation with its slab
+    # test in float32, as the walk's is: equal on every ray. The planner's
+    # own slab test runs in float64 (simulate_march's docstring), so its
+    # count may differ on a few rays; that difference is logged, and the
+    # plan's fuel margin covers it
+    live0 = live0_t.cpu().numpy()
+
+    def sim_of(rays, live=None):
+        out = [mr.simulate_march(table_np, *geo, rays, near, far, D, cap,
+                                 slab_f32=f) for f in (True, False)]
+        if live is not None:
+            for s_ in out:
+                s_[~live] = 0
+        return out
+
+    def hold_steps(what, used_np, sim32, sim64):
+        bad = int((used_np != sim32).sum())
+        if bad:
+            fail(f"{what}: the kernel's iterations differ from "
+                 f"simulate_march (float32 slab test) on {bad} rays, by up "
+                 f"to {int(np.abs(used_np - sim32).max())}")
+        off = np.abs(used_np - sim64)
+        log(f"{what}: the kernel's iterations (its count_steps output) "
+            f"equal simulate_march's with the slab test in float32 on every "
+            f"ray: {int(used_np.sum())} steps, {int((used_np > 0).sum())} "
+            f"walking rays, most {int(used_np.max())}; the planner's "
+            f"float64 slab test gives {int(sim64.sum())} steps and differs "
+            f"on {int((off > 0).sum())} rays, by at most {int(off.max())}")
+
+    used_np = used.cpu().numpy()
+    n_steps = int(used_np.sum())
+    hold_steps("march_rays on chunk 0", used_np,
+               *sim_of(rays0.cpu().numpy(), live0))
+
+    # ---- march_rays' times at the main path's shapes. A stage's kernel
+    # runs shorter than the wrapper takes on the host (a few hundred
+    # microseconds of torch calls a chunk), so a few calls are queued
+    # behind a busy device, few enough that the host has enqueued them all
+    # before the device is free; a stage's time is the difference of the
+    # walks cut after it and before it. The stage kernels alone, without
+    # the wrapper's prefix counts and output ops, are read by the profiler
+    def call(st=steps, bk=buckets):
+        return mr.march_rays(**{**m_kw, "steps": st, "buckets": bk})
+
+    t_m_host = cuda_ms(call, 20, 2)
+    t_m = cuda_ms(call, 5, 2, queued=True)
+    stage_ms, prev = [], 0.0
+    for i in range(len(steps)):
+        t = cuda_ms(lambda: call(steps[:i + 1], buckets[:i]), 5, 2,
+                    queued=True)
+        stage_ms.append(t - prev)
+        prev = t
+    t_m_kernel = device_kernel_ms(call, ["march_stage_kernel"])[
+        "march_stage_kernel"] * len(steps)
+    t_m_plain = cuda_ms(lambda: mr.march_rays_reference(**m_kw), 1, 1)
+    # the least the card could take, by the bytes the function needs: 4 B
+    # of the table for each step taken (no more than the whole table: what
+    # is read twice is read once), the rays and the live mask read once,
+    # emit and cnt written once. What this kernel asks of the memory system
+    # is more, one 32-byte sector for each step's gather, and stands beside
+    # the bound, not in it. The walk is a chain of dependent gathers and
+    # IEEE divides per ray, so it is bound by latency, not by either count
+    m_table = min(4 * n_steps, 4 * table_np.size)
+    m_bytes = m_table + R0 * (12 + 1) + R0 * cap * 4 + R0 * 4
+    m_sector_bytes = 32 * n_steps
+    b_m = bound(m_bytes, 0)
+    log(f"march_rays {R0} rays, {len(steps)} stages a chunk: "
+        f"{t_m:.4f} ms a chunk queued behind a busy device (stages "
+        f"{[round(t, 4) for t in stage_ms]}; its {len(steps)} kernels alone "
+        f"by the profiler {t_m_kernel:.4f}), {t_m_host:.4f} ms at the "
+        f"host's pace; plain {t_m_plain:.2f} ms; bound {b_m[0]:.4f} ms by "
+        f"{b_m[1]} ({m_table} B of the table at 4 B a step + {R0 * 13} B "
+        f"of rays and live + {R0 * (cap + 1) * 4} B of emit and cnt = "
+        f"{m_bytes} B), kernel / bound {t_m / b_m[0]:.2f}; its gathers ask "
+        f"for {n_steps} sectors of 32 B = {m_sector_bytes} B, "
+        f"{m_sector_bytes / PEAK_BYTES * 1e3:.4f} ms at the memory "
+        f"rate if none were shared or cached; latency-bound on each ray's "
+        f"chain of dependent gathers and divides")
+
+    # ---- the raster: ladder measured on this camera, one emit program a
+    # frame; its table against the march's on every ray of the frame
+    raster = (H, W, FOCAL)
+    pc = {}
+
+    def emit_frame():
+        return fr.frame_raster_emit(
+            cache, scene.campos, scene.camrotc2w, c.raydirs_frame, near, far,
+            cfg_m.query, c.rmin, c.svs, raster, pc)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    emit_tbl, (classes, budgets_r, rows_r) = emit_frame()
+    torch.cuda.synchronize()
+    log(f"raster: footprint ladder {classes} budgets {budgets_r}: {rows_r} "
+        f"static rows; emit table {tuple(emit_tbl.shape)} with its four "
+        f"counters zero, first pass {time.perf_counter() - t0:.2f} s; peak "
+        f"device memory {torch.cuda.max_memory_allocated()} B")
+    em, cn, us = [], [], []
+    for i in range(n_chunks):
+        e, k, of, u = mr.march_rays(
+            **march_kw(c.raydirs_frame[sl(i)], steps=(2 * D + 8,),
+                       buckets=()), count_steps=True)
+        if int(of):
+            fail(f"march over the frame's rays: mc_overflow {int(of)}")
+        em.append(e)
+        cn.append(k)
+        us.append(u)
+    em, cn = torch.cat(em), torch.cat(cn)
+    hold_steps(f"march over the frame's {total} rays in one stage",
+               torch.cat(us).cpu().numpy(),
+               *sim_of(c.raydirs_frame.cpu().numpy()))
+    if not (torch.equal(emit_tbl, em)
+            and torch.equal((emit_tbl != 0).sum(-1).to(cn.dtype), cn)):
+        fail(f"raster emit differs from the march's on "
+             f"{int((emit_tbl != em).any(-1).sum())} of {total} rays")
+    log(f"raster emit == march emit on all {total} rays "
+        f"({int(cn.sum())} samples, {int((cn > 0).sum())} rays with one)")
+    del em
+
+    def raster_frame():
+        return chunks(cfg_m, emit_frame()[0])
+
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    outs_r = raster_frame()
+    torch.cuda.synchronize()
+    launches_r = dict(_cuda.LAUNCHES)
+    log(f"raster frame rendered in {time.perf_counter() - t0:.2f} s; "
+        f"launches {launches_r}")
+    check_launches("raster frame", launches_r, {
+        "fused_chunk_decode": n_chunks, "march_rays": 0,
+        "first_valid_cols": 0})
+    counters("raster frame", outs_r, ("rb_overflow", "cb_overflow"))
+    if any(o.mc_overflow is not None for o in outs_r):
+        fail("raster frame: the walk ran behind the raster's table")
+    same_frame("raster frame", frame_of(outs_r), frame_m, "march")
+
+    # ---- render_frame: rays sorted on the host, dense chunks, the budget
+    # escalation; the march planned for its chunks (the frame's rays in its
+    # order), once walked and once through the raster
+    host_rays = c.raydirs_frame.cpu().numpy()
+    dims = tuple(cache.coor_2_qslot.shape)
+    order, n_hit, _ = fr.frame_ray_order(geo[2], host_rays, near, far, D,
+                                         c.rmin, dims, c.svs)
+    n_used = -(-n_hit // CHUNK) * CHUNK
+    if n_used > total:
+        order = np.concatenate([order, order[total - (n_used - total):]])
+    steps_f, buckets_f = mr.plan_march(
+        table_np, *geo, host_rays[order[:n_used]], near, far, D, cap,
+        slack=1.35, chunk=CHUNK, fuel_margin=10)
+    cfg_f = dataclasses.replace(cfg, query=dataclasses.replace(
+        q, march_steps=steps_f, march_buckets=buckets_f, depth_window=0,
+        ray_budget=0))
+    log(f"render_frame: {n_hit} hitting rays in {n_used // CHUNK} chunks of "
+        f"{CHUNK}; plan march_steps {steps_f} march_buckets {buckets_f}")
+
+    def frame(r):
+        return fr.render_frame(
+            scene.params, scene.cloud.Rw2c, cache, scene.campos,
+            scene.camrotc2w, c.raydirs_frame, scene.near, scene.far, cfg_f,
+            c.rmin, c.svs, chunk=CHUNK, raster=r, program_cache=pc,
+            host_rays=host_rays)
+
+    frames_f, launches_f = {}, {}
+    for name, r in (("march", None), ("raster", raster)):
+        _cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = frame(r)
+        torch.cuda.synchronize()
+        got = launches_f[name] = dict(_cuda.LAUNCHES)
+        log(f"render_frame(raster={r}) rendered through the {out.front_end} "
+            f"front-end in {time.perf_counter() - t0:.2f} s; launches {got}")
+        if out.front_end != name:
+            fail(f"render_frame(raster={r}) went through {out.front_end}")
+        n_fc = got.get("fused_chunk_decode", 0)
+        if n_fc < n_used // CHUNK:
+            fail(f"render_frame: {n_fc} chunk launches")
+        check_launches(f"render_frame {name}", got, {
+            "march_rays": len(steps_f) * n_fc if r is None else 0,
+            "first_valid_cols": 0})
+        counters(f"render_frame {name}", [out],
+                 ("mc_overflow", "cb_overflow", "dw_overflow", "rb_overflow"))
+        frames_f[name] = {f: getattr(out, f) for f in fields}
+    same_frame("render_frame raster", frames_f["raster"], frames_f["march"],
+               "render_frame walked")
+    # against the march frame, brought back to pixel order: rays are
+    # independent, so the frame-level order should change no bit
+    frame_m_px = {}
+    for f in fields:
+        frame_m_px[f] = torch.empty_like(frame_m[f])
+        frame_m_px[f][perm_t] = frame_m[f]
+    same_frame("render_frame", frames_f["march"], frame_m_px, "march")
+
+    # ---- times: the four front-end routes in turns inside this run
+    qv = pc[("raster_qvox", id(cache))]
+    prog = next(v for k, v in pc.items() if k[0] == "raster_prog")
+    near_t, step_t = m_kw["near"], m_kw["step_t"]
+    t_prog = cuda_ms(lambda: prog(qv, c.rmin, c.svs, scene.campos,
+                                  scene.camrotc2w, c.raydirs_frame, near_t,
+                                  step_t), 3, 1)
+    t_emit = cuda_ms(emit_frame, 3, 1)
+    routes = {"depth_window": lambda: chunks(cfg),
+              "march": lambda: chunks(cfg_m), "raster": raster_frame,
+              "render_frame": lambda: frame(None),
+              "render_frame_raster": lambda: frame(raster)}
+    times = {name: [] for name in routes}
+    for _ in range(3):
+        for name, fn in routes.items():
+            times[name].append(cuda_ms(fn, 1, 0))
+    log(f"raster emit program {t_prog:.2f} ms; with the footprint pull and "
+        f"the ladder on the host {t_emit:.2f} ms ({c.smi})")
+    for name, ts in times.items():
+        log(f"front-end {name}: full frame {total} rays "
+            f"{[round(t, 2) for t in ts]} ms -> "
+            f"{total / min(ts) * 1e3:.1f} rays/s (best of 3, in turns; "
+            f"{c.smi})")
+    if c.prof_dir:
+        profile_pass("march", routes["march"], min(times["march"]),
+                     c.prof_dir)
+        profile_pass("raster", raster_frame, min(times["raster"]),
+                     c.prof_dir)
+    return {
+        "record": dict(n=launches_m["march_rays"], err=0.0, ms=t_m,
+                       plain_ms=t_m_plain, bnd=b_m,
+                       extra={"pallas_kernel": False,
+                              "launches_a_chunk": len(steps),
+                              "stage_ms": stage_ms,
+                              "device_kernels_ms": t_m_kernel,
+                              "host_paced_ms": t_m_host,
+                              "sectors": n_steps,
+                              "sector_bytes": m_sector_bytes,
+                              "bytes": m_bytes}),
+        "launches": {"march": launches_m, "raster": launches_r,
+                     "render_frame": launches_f["march"],
+                     "render_frame_raster": launches_f["raster"]},
+        "frame_ms": {k: min(v) for k, v in times.items()},
+        "emit_program_ms": t_prog, "emit_ms": t_emit,
+        "march_plan": {"steps": steps, "buckets": buckets},
+    }
 
 
 def main() -> int:
@@ -690,6 +1100,15 @@ def main() -> int:
                      prof_dir)
         profile_pass("legacy", render_b, min(chunk_b_ms), prof_dir)
 
+    # =================================================================
+    # The reference's default front-ends: march, raster, render_frame
+    # =================================================================
+    import types
+    fe = front_end_phases(types.SimpleNamespace(
+        scene=scene, cache=cache, cfg=cfg, dev=dev, rmin=rmin, svs=svs,
+        raydirs=raydirs, raydirs_frame=raydirs_frame, perm=perm, outs=outs,
+        n_chunks=n_chunks, total=total, smi=smi, prof_dir=prof_dir))
+
     # ---- the least time the card could take for each kernel's work at
     # these inputs: every input read once, every output written once,
     # over the memory rate; the tower's operations on the rows and slots
@@ -806,8 +1225,13 @@ def main() -> int:
         record("fused_chunk_decode", "fused_chunk.cu", "fused_chunk.py:86",
                launches["fused_chunk_decode"], fused_err, t_fc_k, t_fc_p,
                b_fc, f_fc, t_fc_parts),
+        record("march_rays", "march.cu", "march.py:70", **fe["record"]),
     ], "launches_by_path": {"fused_chunk": launches, "staged": launches_a,
-                            "legacy": launches_b}}), flush=True)
+                            "legacy": launches_b, **fe["launches"]},
+        "front_end_frame_ms": fe["frame_ms"],
+        "raster_emit_program_ms": fe["emit_program_ms"],
+        "raster_emit_ms": fe["emit_ms"], "march_plan": fe["march_plan"]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

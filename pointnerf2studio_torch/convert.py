@@ -94,15 +94,19 @@ def fat_cache_from_jax(cache, device: torch.device | str | None = None
                        ) -> FatCache:
     """A JAX fused-layout FatCache (kmeta/kpay set) -> port FatCache:
     the channel-major kpay [max_q, PK, C] is transposed once into the
-    candidate-major kcand, and its xyz planes are copied into kxyz."""
+    candidate-major kcand, and its xyz planes are copied into kxyz; the
+    march table, where the cache has one, comes along."""
     device = resolve_device(device)
     if cache.kmeta is None or cache.kpay is None:
         raise ValueError("the cache has no kernel-facing layout; build it "
                          "with chunk_mode='fused'")
     kpay = _t(cache.kpay, device, torch.bfloat16)
+    march_table = getattr(cache, "march_table", None)
     return FatCache(
         coor_2_qslot=_t(cache.coor_2_qslot, device, torch.int32),
         kmeta=_t(cache.kmeta, device, torch.int32),
         kcand=kpay.transpose(1, 2).contiguous(),
         kxyz=kpay[:, :3, :].contiguous(),
-        n_q=_t(cache.n_q, device, torch.int32))
+        n_q=_t(cache.n_q, device, torch.int32),
+        march_table=(None if march_table is None
+                     else _t(march_table, device, torch.int32)))

@@ -23,9 +23,21 @@ decode is one of
   kernel (ops/fused_decode.py, AggregatorConfig.fused_decode2 with an
   eligible config) or as `decode_radiance`.
 
+With `QueryConfig.march_steps` the front-end is the distance-field ray
+march instead (ops/march.py; the CUDA walk `csrc/march.cu`): it emits
+each ray's first min(SR, BP) occupied samples directly, so the qslot
+table, the depth window and the column selection drop out (mc_overflow
+takes dw_overflow's place). `premarch` hands a chunk the same packed
+rows from the frame-level raster (ops/raster.py), and the walk is
+skipped too. `render_frame` renders a whole frame: rays sorted on the
+host (box hits first, ascending span), chunks at the smallest
+depth-window tier, the compaction budget escalated where it overflowed,
+and, for a pinhole pixel grid (`raster=`), one raster program per frame
+in place of the per-chunk march.
+
 Not ported yet: the "rows" cache layout and the XLA candidate stages,
-span tiers, coarse windows, the march and raster front-ends, prob mode,
-hash grids and sharding; a config that asks for them raises.
+span tiers, coarse windows, prob mode, pair decode, the plane
+background, hash grids and sharding; a config that asks for them raises.
 
 No host synchronisation happens per chunk: ray packing and slot packing
 are cumsum/scatter compactions on the device, and the kernels skip
@@ -36,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
@@ -54,7 +67,11 @@ from pointnerf2studio_torch.ops.fused_decode import (
     fused_decode2, fused_decode_served, tower_inputs)
 from pointnerf2studio_torch.ops.fused_select import fused_candidate_select
 from pointnerf2studio_torch.ops.grid import PointGrid
+from pointnerf2studio_torch.ops.march import (
+    build_march_table, march_rays, slab, to_i32)
 from pointnerf2studio_torch.ops.query import neighbor_offsets
+from pointnerf2studio_torch.ops.raster import (
+    RasterUnserved, _voxel_footprint, build_qvox, make_raster_program)
 from pointnerf2studio_torch.ops.select import (
     rank_gather_pack, select_first_cols)
 
@@ -83,12 +100,16 @@ class FatCache:
     and the comparisons with the reference's cache read it.
     Candidates are ordered by (Chebyshev shell, distance to the voxel
     centre) as the reference's f32 key orders them.
+    march_table [gx, gy, gz] int32 (ops/march.build_march_table): the
+    qslot table packed with a Chebyshev distance field, present when the
+    config routes the front-end through the march.
     """
     coor_2_qslot: torch.Tensor     # [gx, gy, gz] int32, -1 = not query
     kmeta: torch.Tensor            # [max_q, C] int32
     kcand: torch.Tensor            # [max_q, C, PK] bf16
     kxyz: torch.Tensor             # [max_q, 3, C] bf16
     n_q: torch.Tensor              # [] int32
+    march_table: Optional[torch.Tensor] = None
 
     @property
     def cand(self) -> int:
@@ -228,6 +249,8 @@ def make_fast_scene(cfg: PointNerfConfig, cloud: NeuralPointCloud,
         max_q = (nq + 32767) // 32768 * 32768
     cc = fit_cand_cap(max_q, q.cand_cap, device=cloud.xyz.device)
     cache = build_fat_cache(grid, cloud, q.kernel_size, max_q, cc)
+    if march_active(q):
+        cache.march_table = build_march_table(cache.coor_2_qslot)
     return cache, grid.ranges_min, grid.scaled_vsize
 
 
@@ -244,21 +267,41 @@ class FastRenderOutput:
     # valid samples past M = R * compact_budget (None when M cannot
     # overflow)
     cb_overflow: Optional[torch.Tensor] = None
+    # march front-end only: rays whose in-box span was not fully tested
+    # within the staged fuel and buckets (non-zero: raise march_steps /
+    # march_buckets, samples may be missing). None when the march is off
+    # or a raster emit table (`premarch`) took the walk's place.
+    mc_overflow: Optional[torch.Tensor] = None
     # valid compacted sample slots (the rows the tower shades)
     n_valid_slots: Optional[torch.Tensor] = None
+    # render_frame only: the front-end that produced the frame's samples,
+    # "raster", "march" or "depth_window"
+    front_end: Optional[str] = None
 
 
-def _slab(raydirs, campos, ranges_min, rmax):
-    """Entry/exit t of each ray through the grid bounding box."""
-    tiny = torch.full_like(raydirs, 1e-9)
-    safe = torch.where(torch.abs(raydirs) < 1e-9,
-                       torch.where(raydirs >= 0, tiny, -tiny), raydirs)
-    inv = 1.0 / safe
-    ta = (ranges_min - campos) * inv
-    tb = (rmax - campos) * inv
-    t_enter = torch.minimum(ta, tb).max(-1).values
-    t_exit = torch.maximum(ta, tb).min(-1).values
-    return t_enter, t_exit
+def march_active(q) -> bool:
+    """Whether this query config routes the front-end through the
+    distance-field ray march (ops/march.py). Config-only; the render
+    raises if a march config meets a cache without a march table."""
+    return (len(q.march_steps) > 0 and not q.span_tiers
+            and q.coarse_step <= 1 and q.compact_mode == "topk")
+
+
+def has_cb_overflow(q) -> bool:
+    """Whether fast_render_rays emits a cb_overflow counter for this
+    query config (the M = R * compact_budget cap can drop samples)."""
+    D = q.z_depth_dim
+    SR = q.SR
+    BP = q.ray_slot_budget or min(SR, 32)
+    budget = q.compact_budget if q.compact_budget > 0 else SR
+    if march_active(q):
+        # the march emits up to min(SR, BP) samples over the full D
+        Dax = D
+    elif q.depth_window > 0:
+        Dax = min(q.depth_window, D)
+    else:
+        Dax = D
+    return min(budget, D) < min(SR, BP, Dax)
 
 
 def _use_fused2(cfg: PointNerfConfig) -> bool:
@@ -277,8 +320,7 @@ def _check_served(cfg: PointNerfConfig, Rw2c: torch.Tensor) -> str:
              and fused_chunk_eligible(cfg.agg, Rw2c.ndim == 4, q.K))
     staged = q.chunk_mode == "xla" and q.knn_mode == "fused"
     unported = {
-        "span_tiers": bool(q.span_tiers), "march_steps": bool(q.march_steps),
-        "coarse_step": q.coarse_step > 1,
+        "span_tiers": bool(q.span_tiers), "coarse_step": q.coarse_step > 1,
         "compact_mode": q.compact_mode != "topk",
         "composite_mode": q.composite_mode != "packed",
         "chunk_mode/knn_mode/agg": not (whole or staged),
@@ -290,8 +332,9 @@ def _check_served(cfg: PointNerfConfig, Rw2c: torch.Tensor) -> str:
     if bad:
         raise NotImplementedError(
             f"fast_render_rays: not ported for this config ({bad}); the "
-            f"port serves depth_window/ray_budget + topk compaction + "
-            f"packed composite with chunk_mode='fused' (an eligible "
+            f"port serves depth_window/ray_budget or march_steps + topk "
+            f"compaction + packed composite with chunk_mode='fused' (an "
+            f"eligible "
             f"aggregator, fused_decode2 off) or with knn_mode='fused', "
             f"chunk_mode='xla'")
     return "chunk" if whole else "staged"
@@ -328,6 +371,63 @@ def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
     return sig, rgb, pnt_mask.any(-1)
 
 
+def pack_hit_rays(cache: FatCache, campos, raydirs, near, far, q,
+                  ranges_min, scaled_vsize):
+    """Ray packing of one chunk: (ray_ids [RB] long, valid [RB] bool,
+    rb_overflow [] int32) for RB = min(q.ray_budget, R). `ray_ids` holds
+    the first RB box-hitting rays in ray order (cumsum + scatter, no
+    sync); the padding rows repeat ray 0, as in the reference, and are
+    False in `valid`."""
+    dev = raydirs.device
+    f32 = torch.float32
+    R = raydirs.shape[0]
+    RB = min(q.ray_budget, R)
+    near = torch.as_tensor(near, dtype=f32, device=dev)
+    far = torch.as_tensor(far, dtype=f32, device=dev)
+    step_t = (far - near) / q.z_depth_dim
+    dims_f = torch.tensor(cache.coor_2_qslot.shape, device=dev).to(f32)
+    rmax = ranges_min + dims_f * scaled_vsize
+    t_enter, t_exit = slab(raydirs, campos, ranges_min, rmax)
+    hit = ((t_exit + step_t >= t_enter) & (t_exit >= near - step_t)
+           & (t_enter <= far + step_t))
+    pos = torch.cumsum(hit.long(), 0) - 1
+    dest = torch.where(hit & (pos < RB), pos, RB)
+    ray_ids = torch.zeros(RB + 1, dtype=torch.long, device=dev).scatter_(
+        0, dest, torch.arange(R, device=dev))[:RB]
+    n_hit = hit.sum()
+    valid = torch.arange(RB, device=dev) < n_hit
+    rb_overflow = torch.clamp(n_hit - RB, min=0).to(torch.int32)
+    return ray_ids, valid, rb_overflow
+
+
+def march_args(cache: FatCache, campos, raydirs, near, far, q, ranges_min,
+               scaled_vsize, ray_live=None) -> dict:
+    """The keyword arguments `fast_render_rays` gives `march_rays` for
+    these rays under query config `q`; raises where the cache or the
+    packing cannot serve the walk."""
+    if cache.march_table is None:
+        raise ValueError(
+            "march_steps needs a cache with march_table "
+            "(make_fast_scene builds it when march_steps is set)")
+    D = q.z_depth_dim
+    if cache.kmeta.shape[0] > (1 << 22) - 2 or D > 512:
+        raise ValueError("march packing needs max_q < 2^22 - 1 and "
+                         "z_depth_dim <= 512")
+    dev = raydirs.device
+    dims = cache.coor_2_qslot.shape
+    near = torch.as_tensor(near, dtype=torch.float32, device=dev)
+    far = torch.as_tensor(far, dtype=torch.float32, device=dev)
+    BP = q.ray_slot_budget or min(q.SR, 32)
+    return dict(
+        table_flat=cache.march_table.reshape(-1),
+        dims_arr=torch.tensor(dims, dtype=torch.int32, device=dev),
+        gy=dims[1], gz=dims[2], ranges_min=ranges_min,
+        scaled_vsize=scaled_vsize, campos=campos,
+        raydirs=raydirs.contiguous(), near=near, far=far,
+        step_t=(far - near) / D, D=D, cap=min(q.SR, BP, D),
+        steps=q.march_steps, buckets=q.march_buckets, live=ray_live)
+
+
 @torch.no_grad()
 def fast_render_rays(
     params: Aggregator,
@@ -341,10 +441,22 @@ def fast_render_rays(
     cfg: PointNerfConfig,
     ranges_min: torch.Tensor,       # [3]
     scaled_vsize: torch.Tensor,     # [3]
+    ray_live: Optional[torch.Tensor] = None,    # [R] bool: rows that carry
+                                    # real rays (ray packing pads with
+                                    # copies of row 0; the march must not
+                                    # walk them)
+    premarch=None,                  # [R, cap] packed (qslot + 1) << 9 | d
+                                    # emit rows of ops/raster, or (frame
+                                    # emit table [HW, cap], this chunk's
+                                    # frame ray ids [R]); takes the walk's
+                                    # place when march_active(q)
 ) -> FastRenderOutput:
     """Render R rays through the fast path (see the module docstring)."""
     route = _check_served(cfg, Rw2c)
     q = cfg.query
+    if isinstance(premarch, tuple):
+        table, ids = premarch
+        premarch = table[ids.long()]
     dev = raydirs.device
     f32 = torch.float32
     R = raydirs.shape[0]
@@ -369,22 +481,15 @@ def fast_render_rays(
         # so this is exact while rb_overflow == 0. Ordered compaction
         # of the first RB hitting rays (cumsum + scatter, no sync); the
         # padding rows repeat ray 0, as in the reference.
-        RB = min(q.ray_budget, R)
-        t_enter, t_exit = _slab(raydirs, campos, ranges_min, rmax)
-        hit = ((t_exit + step_t >= t_enter) & (t_exit >= near - step_t)
-               & (t_enter <= far + step_t))
-        pos = torch.cumsum(hit.long(), 0) - 1
-        dest = torch.where(hit & (pos < RB), pos, RB)
-        ray_ids = torch.zeros(RB + 1, dtype=torch.long, device=dev).scatter_(
-            0, dest, torch.arange(R, device=dev))[:RB]
-        n_hit = hit.sum()
-        valid = torch.arange(RB, device=dev) < n_hit
-        rb_overflow = torch.clamp(n_hit - RB, min=0).to(torch.int32)
+        ray_ids, valid, rb_overflow = pack_hit_rays(
+            cache, campos, raydirs, near, far, q, ranges_min, scaled_vsize)
         cfg0 = dataclasses.replace(cfg, query=dataclasses.replace(
             q, ray_budget=0))
         sub = fast_render_rays(params, Rw2c, cache, campos, camrotc2w,
                                raydirs[ray_ids], near, far, cfg0,
-                               ranges_min, scaled_vsize)
+                               ranges_min, scaled_vsize, ray_live=valid,
+                               premarch=(None if premarch is None
+                                         else premarch[ray_ids]))
         ids = torch.where(valid, ray_ids, R)       # padding rows drop
 
         def scatter(base, x):
@@ -400,7 +505,8 @@ def fast_render_rays(
             acc=scatter(torch.zeros(R, dtype=f32, device=dev), sub.acc),
             depth=scatter(torch.zeros(R, dtype=f32, device=dev), sub.depth),
             dw_overflow=sub.dw_overflow, rb_overflow=rb_overflow,
-            cb_overflow=sub.cb_overflow, n_valid_slots=sub.n_valid_slots)
+            cb_overflow=sub.cb_overflow, mc_overflow=sub.mc_overflow,
+            n_valid_slots=sub.n_valid_slots)
 
     qslot_flat = cache.coor_2_qslot.reshape(-1)
 
@@ -411,17 +517,50 @@ def fast_render_rays(
         fi = (gcc[..., 0] * gy + gcc[..., 1]) * gz + gcc[..., 2]
         return torch.where(inb, qslot_flat[torch.where(inb, fi, 0)], -1)
 
-    if q.depth_window > 0:
+    mc_overflow = dw_overflow = None
+    if march_active(q):
+        # ---- distance-field ray march (ops/march.py): tests about the
+        # samples a sphere trace visits instead of the dense [R, D(W)]
+        # table, and emits each ray's first-cap occupied samples directly,
+        # so the column selection below is skipped too. Exact while
+        # mc_overflow == 0. With `premarch` the walk is skipped as well:
+        # the frame-level raster already binned these rays' first-cap
+        # samples in the same packed format (exact while the raster's
+        # counters read zero, which the caller checks per frame).
+        cap = min(SR, BP, D)
+        if premarch is not None:
+            if tuple(premarch.shape) != (R, cap):
+                raise ValueError(
+                    f"premarch shape {tuple(premarch.shape)} != {(R, cap)}")
+            if cache.kmeta.shape[0] > (1 << 22) - 2:
+                raise ValueError("premarch packing needs max_q < 2^22 - 1")
+            emit = premarch
+            cnt = (premarch != 0).sum(-1).to(torch.int32)
+            if ray_live is not None:
+                cnt = torch.where(ray_live, cnt, 0)
+        else:
+            emit, cnt, mc_overflow = march_rays(**march_args(
+                cache, campos, raydirs, near, far, q, ranges_min,
+                scaled_vsize, ray_live=ray_live))
+        ray_hit = cnt > 0
+        iota = torch.arange(cap, dtype=torch.int32, device=dev).expand(R, cap)
+        sel_ray, _, _, _, packed_m, mask_c = rank_gather_pack(
+            emit, iota, cnt, M)
+        qslot_c = torch.clamp((packed_m >> 9) - 1, min=0)
+        sel_d = packed_m & 511
+        Dax = D
+    elif q.depth_window > 0:
         # ---- per-ray depth window: the lookup domain is [R, DW]
         # samples from the ray's slab entry; exact while DW covers each
         # ray's in-box span (dw_overflow counts the dropped samples)
         DW = min(q.depth_window, D)
-        t_enter, t_exit = _slab(raydirs, campos, ranges_min, rmax)
-        d_lo = torch.floor((t_enter - near) / step_t - 0.5).to(torch.int32)
+        t_enter, t_exit = slab(raydirs, campos, ranges_min, rmax)
+        # to_i32: a ray nearly parallel to a slab has |t_enter| past
+        # int32, where the cast differs between devices
+        d_lo = to_i32(torch.floor((t_enter - near) / step_t - 0.5))
         d0 = torch.clamp(d_lo, 0, max(D - DW, 0))
-        d_hi = torch.clamp(torch.ceil(
-            (torch.minimum(t_exit, far) - near) / step_t - 0.5
-        ).to(torch.int32), max=D - 1)
+        d_hi = torch.clamp(to_i32(torch.ceil(
+            (torch.minimum(t_exit, far) - near) / step_t - 0.5)), max=D - 1)
         hit_box = (t_exit >= t_enter) & (d_hi >= 0)
         dw_overflow = torch.where(
             hit_box, torch.clamp(d_hi - (d0 + DW - 1), min=0),
@@ -434,16 +573,15 @@ def fast_render_rays(
         t_mid = near + (torch.arange(D, device=dev, dtype=f32) + 0.5) * step_t
         qs = qs_lookup(campos + raydirs[:, None, :] * t_mid[None, :, None])
         d0 = torch.zeros(R, dtype=torch.int32, device=dev)
-        dw_overflow = None
         Dax = D
-    qs = qs.to(torch.int32).contiguous()
-
-    # ---- first min(SR, BP) valid columns per ray, packed to M slots
-    col_sel, cnt, ray_hit = select_first_cols(qs, BP, min(SR, BP, Dax),
-                                              q.select_mode)
-    sel_ray, sel_slot, colm, _, qslot_c, mask_c = rank_gather_pack(
-        qs, col_sel, cnt, M)
-    sel_d = d0.long()[sel_ray] + colm
+    if not march_active(q):
+        # ---- first min(SR, BP) valid columns per ray, packed to M slots
+        qs = qs.to(torch.int32).contiguous()
+        col_sel, cnt, ray_hit = select_first_cols(qs, BP, min(SR, BP, Dax),
+                                                  q.select_mode)
+        sel_ray, _, colm, _, qslot_c, mask_c = rank_gather_pack(
+            qs, col_sel, cnt, M)
+        sel_d = d0.long()[sel_ray] + colm
     pack_end = torch.cumsum(cnt.long(), 0)
     cb_overflow = (torch.clamp(pack_end[-1] - M, min=0).to(torch.int32)
                    if M < R * min(SR, BP, Dax) else None)
@@ -495,7 +633,7 @@ def fast_render_rays(
     return FastRenderOutput(
         coarse_raycolor=color, ray_mask=ray_mask, acc=acc, depth=depth,
         dw_overflow=dw_overflow, cb_overflow=cb_overflow,
-        n_valid_slots=mask_c.sum().to(torch.int32))
+        mc_overflow=mc_overflow, n_valid_slots=mask_c.sum().to(torch.int32))
 
 
 def _np(x, dtype):
@@ -542,6 +680,18 @@ def frame_ray_spans(campos, raydirs, near, far, D: int,
     return span, hit
 
 
+def frame_ray_order(campos, raydirs, near, far, D: int, ranges_min, dims,
+                    scaled_vsize):
+    """(order [R] int64, n_hit, span [R]) of a frame's rays as
+    `render_frame` renders them: box-hitting rays first, by ascending
+    in-box span, miss rays last. A host planner (ops/march.plan_march)
+    that sizes buckets for `render_frame`'s chunks takes its rays in this
+    order."""
+    span, hit = frame_ray_spans(campos, raydirs, near, far, D, ranges_min,
+                                dims, scaled_vsize)
+    return np.lexsort((span, ~hit)), int(hit.sum()), span
+
+
 def measured_depth_window(campos, raydirs, near, far, D: int,
                           ranges_min, dims, scaled_vsize,
                           slack: int = 4) -> int:
@@ -575,3 +725,199 @@ def slab_hit_mask(campos, raydirs, near, far, D: int, ranges_min, dims,
     far_slack = np.float32(jitter) * np.float32(0.5) * (far - near) + step
     return ((t_exit + step >= t_enter)
             & (t_exit >= near - step) & (t_enter <= far + far_slack))
+
+
+@torch.no_grad()
+def frame_raster_emit(cache: FatCache, campos, camrotc2w, raydirs, near, far,
+                      q, ranges_min, scaled_vsize, raster, pcache: dict):
+    """(emit table [H*W, cap], ladder) of a frame from the raster front-end
+    (ops/raster.py), the footprint ladder measured on this camera: `ladder`
+    is (classes, class budgets, static rows). `pcache` keeps the scene's
+    qvox table and the programs by ladder. Raises RasterUnserved where the
+    raster does not serve the frame (a packing bound, the frame's shape, a
+    camera inside or behind the grid box, a ladder past the row limit, a
+    non-zero raster counter)."""
+    Hr, Wr, foc = raster
+    Rtot = raydirs.shape[0]
+    D = q.z_depth_dim
+    if Hr * Wr != Rtot:
+        raise RasterUnserved(f"raster frame {Hr}x{Wr} != {Rtot}")
+    qv = pcache.get(("raster_qvox", id(cache)))
+    if qv is None:
+        qv = build_qvox(cache.coor_2_qslot, cache.kmeta.shape[0])
+        pcache[("raster_qvox", id(cache))] = qv
+    dev = raydirs.device
+    near_t = torch.tensor(float(near), dtype=torch.float32, device=dev)
+    step_t = torch.tensor((float(far) - float(near)) / D,
+                          dtype=torch.float32, device=dev)
+    _, _, _, fw, fh, fnd, fok = _voxel_footprint(
+        qv, ranges_min, scaled_vsize, campos, camrotc2w, Hr, Wr, foc,
+        near_t, float(far), D, step_t)
+    fok = fok.cpu().numpy()
+    fw, fh, fnd = (a.cpu().numpy()[fok] for a in (fw, fh, fnd))
+    if fw.size == 0 or fw.max() >= (1 << 30):
+        raise RasterUnserved("camera inside/behind the grid box")
+    # the ladder: footprint percentiles 55 / 80 / 95 and the maximum;
+    # budgets in steps of 65,536 so that nearby frames share a program
+    cls_l = [tuple(int(np.percentile(a, p)) for a in (fw, fh, fnd))
+             for p in (55, 80, 95)]
+    cls_l.append((int(fw.max()), int(fh.max()), int(fnd.max())))
+    cls_l = tuple(dict.fromkeys(cls_l))
+    rem = np.ones(fw.shape[0], bool)
+    buds, rows_s = [], 0
+    for (px, py, ndc) in cls_l:
+        fits = rem & (fw <= px) & (fh <= py) & (fnd <= ndc)
+        nb = -(-(int(fits.sum() * 1.2) + 2048) // 65536) * 65536
+        buds.append(nb)
+        rows_s += nb * px * py * ndc
+        rem &= ~fits
+    if rows_s > 40_000_000:
+        raise RasterUnserved(f"emit ladder needs {rows_s:,} static rows")
+    cap = min(q.SR, q.ray_slot_budget or min(q.SR, 32), D)
+    pkey = ("raster_prog", Hr, Wr, cls_l, tuple(buds), cap)
+    prog = pcache.get(pkey)
+    if prog is None:
+        prog = make_raster_program(Hr, Wr, foc, D, cap, classes=cls_l,
+                                   class_budgets=tuple(buds),
+                                   live_budget=4_194_304)
+        pcache[pkey] = prog
+    emit_tbl, ctrs = prog(qv, ranges_min, scaled_vsize, campos, camrotc2w,
+                          raydirs, near_t, step_t)
+    ctrs = ctrs.cpu().numpy()
+    if ctrs.sum() != 0:
+        raise RasterUnserved(f"raster counters {ctrs.tolist()}")
+    return emit_tbl, (cls_l, tuple(buds), rows_s)
+
+
+@torch.no_grad()
+def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
+                 camrotc2w, raydirs, near, far, cfg: PointNerfConfig,
+                 ranges_min, scaled_vsize, *, chunk: int = 65536,
+                 dw_slack: int = 4, tier_quant: int = 32,
+                 budget_tier: int = 0,
+                 program_cache: Optional[dict] = None,
+                 host_rays: Optional[np.ndarray] = None,
+                 raster: Optional[tuple] = None,
+                 verbose: bool = False) -> FastRenderOutput:
+    """Full-frame render with frame-level ray packing and per-chunk
+    depth-window tiers. Exact (the outputs of rendering the raw ray order
+    with depth_window off) while every chunk's counters read zero.
+
+    A frame's rays come from one camera, so about half miss the grid box
+    and the rest have widely varying in-box chords:
+
+      1. slab-test every ray on the host (frame_ray_spans);
+      2. sort: box-hitting rays first, ascending in-box span; miss rays
+         render exact background and never enter the pipeline;
+      3. render ceil(n_hit / chunk) dense chunks, each at the smallest
+         depth-window tier (multiples of `tier_quant`) covering its
+         largest span + slack; the last chunk is padded with copies of
+         the last ordered rays (identical outputs land on identical
+         targets). Under a march config the tier changes nothing;
+      4. re-render any chunk whose cb_overflow tripped at a doubled
+         compaction budget, up to the per-ray column cap, where M cannot
+         overflow: a frame render never drops samples to the M cap;
+      5. scatter per-ray outputs back through the sort permutation.
+
+    `raster` = (H, W, focal or (fx, fy, cx, cy)) with a march config and
+    a pinhole pixel-grid frame in row-major order: one raster program
+    (ops/raster.py) bins every chunk's packed emit rows up front and the
+    per-chunk walk is skipped. Where the raster does not serve the frame
+    (`RasterUnserved`: the reference's own ValueError / RuntimeError
+    conditions, a non-zero raster counter) the frame is walked instead;
+    any other exception, a kernel that fails to build or launch included,
+    propagates. The output's
+    `front_end` says which front-end rendered the frame.
+
+    `budget_tier` > 0 (below cfg.query.compact_budget) renders every
+    chunk at that lower compaction budget first. `program_cache` (a dict
+    kept across frames) holds the scene's qvox table and the raster
+    programs by ladder. `host_rays`: a host copy of `raydirs`, which
+    saves the device pull. dw_overflow, cb_overflow and mc_overflow are
+    summed over chunks; rb_overflow is None (the packing happens here, by
+    a conservative slab test that cannot drop a hitting ray). Unlike the
+    reference there is no `render_maker` or `bg_ray_colors`: the port has
+    no sharded renderer and no plane background."""
+    q = cfg.query
+    D = q.z_depth_dim
+    dev = raydirs.device
+    Rtot = raydirs.shape[0]
+    dims = tuple(cache.coor_2_qslot.shape)
+    rd_np = _np(host_rays if host_rays is not None else raydirs, np.float32)
+    order, n_hit, span = frame_ray_order(
+        _np(campos, np.float32), rd_np, near, far, D, ranges_min, dims,
+        scaled_vsize)
+
+    pcache = program_cache if program_cache is not None else {}
+    emit_tbl = None
+    front_end = "march" if march_active(q) else "depth_window"
+    if raster is not None and march_active(q):
+        try:
+            emit_tbl, _ = frame_raster_emit(
+                cache, campos, camrotc2w, raydirs, near, far, q, ranges_min,
+                scaled_vsize, raster, pcache)
+            front_end = "raster"
+        except RasterUnserved as e:
+            if verbose:
+                print(f"render_frame: raster disabled ({e}); walking this "
+                      f"frame", file=sys.stderr)
+
+    f32 = torch.float32
+    bg = torch.as_tensor(cfg.bg_color, dtype=f32, device=dev)
+    color = bg.expand(Rtot, 3).contiguous()
+    ray_mask = torch.zeros(Rtot, dtype=torch.bool, device=dev)
+    acc = torch.zeros(Rtot, dtype=f32, device=dev)
+    depth = torch.zeros(Rtot, dtype=f32, device=dev)
+    sums = {"dw_overflow": None, "cb_overflow": None, "mc_overflow": None}
+
+    n_chunks = (n_hit + chunk - 1) // chunk
+    if n_chunks:
+        n_used = n_chunks * chunk
+        if n_used > Rtot:
+            order = np.concatenate([order, order[Rtot - (n_used - Rtot):]])
+        perm = torch.as_tensor(order[:n_used], device=dev)
+        rays_p = raydirs[perm]
+        span_sorted = span[order[:n_used]]
+
+        def render(i, dw, b):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            cfg_t = dataclasses.replace(cfg, query=dataclasses.replace(
+                q, depth_window=dw, ray_budget=0, compact_budget=b))
+            return fast_render_rays(
+                params, Rw2c, cache, campos, camrotc2w, rays_p[sl], near,
+                far, cfg_t, ranges_min, scaled_vsize,
+                premarch=None if emit_tbl is None else (emit_tbl, perm[sl]))
+
+        b_full = q.compact_budget if q.compact_budget > 0 else q.SR
+        b_cap = min(q.SR, q.ray_slot_budget or min(q.SR, 32))
+        b_now = budget_tier if 0 < budget_tier < b_full else b_full
+        results, dws = [], []
+        for i in range(n_chunks):
+            smax = int(span_sorted[i * chunk:(i + 1) * chunk].max())
+            tier = min(D, -(-(smax + dw_slack) // tier_quant) * tier_quant)
+            dws.append(tier if tier < D else 0)
+            results.append(render(i, dws[i], b_now))
+        # budget escalation: one deferred device sync per level, usually
+        # none or one
+        while b_now < b_cap:
+            trip = [i for i, r in enumerate(results)
+                    if r.cb_overflow is not None and int(r.cb_overflow) > 0]
+            if not trip:
+                break
+            b_now = min(max(2 * b_now, b_full), b_cap)
+            for i in trip:
+                results[i] = render(i, dws[i], b_now)
+        for i, res in enumerate(results):
+            ids = perm[i * chunk:(i + 1) * chunk]
+            color[ids] = res.coarse_raycolor
+            ray_mask[ids] = res.ray_mask
+            acc[ids] = res.acc.to(f32)
+            depth[ids] = res.depth.to(f32)
+            for f in sums:
+                v = getattr(res, f)
+                if v is not None:
+                    sums[f] = v if sums[f] is None else sums[f] + v
+
+    return FastRenderOutput(
+        coarse_raycolor=color, ray_mask=ray_mask, acc=acc, depth=depth,
+        rb_overflow=None, front_end=front_end, **sums)

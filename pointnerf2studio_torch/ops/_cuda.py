@@ -37,12 +37,16 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # float multiply and add separately rounded (no FMA contraction) so that
 # the candidate distances, radius test and tie-breaks equal the plain
 # version's; fused_decode does so to round its biases, activations and
-# weighted sums as its plain version does.
+# weighted sums as its plain version does; march does so because the
+# render path recomputes each emitted sample's position and voxel with
+# separately rounded torch ops, and a sample on a voxel face must fall to
+# the same side in both.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "first_valid_cols": [],
     "fused_chunk": ["-fmad=false"],
     "fused_select": ["-fmad=false"],
     "fused_decode": ["-fmad=false"],
+    "march": ["-fmad=false"],
 }
 
 # slots per step of the plain versions (bounds their memory)

@@ -20,6 +20,7 @@ from pointnerf2studio_torch.ops import _cuda
 from pointnerf2studio_torch.ops import fused_chunk as fc
 from pointnerf2studio_torch.ops import fused_decode as fd
 from pointnerf2studio_torch.ops import fused_select as fs
+from pointnerf2studio_torch.ops import march
 from pointnerf2studio_torch.ops import select as sel
 
 pytestmark = pytest.mark.cuda
@@ -346,3 +347,152 @@ def test_staged_render_kernels_vs_plain(dev, fused2):
     assert torch.equal(out.ray_mask, ref.ray_mask) and bool(out.ray_mask.any())
     d = (out.coarse_raycolor - ref.coarse_raycolor).abs()
     assert float(d.max()) <= 2e-2 and float(d.mean()) < 2e-3
+
+
+# ---- march_rays (csrc/march.cu) against march_rays_reference
+
+def _march_world(dev, seed=0, dims=(40, 36, 44), fill=0.02):
+    """A random query-voxel grid with its packed march table, and a camera
+    outside it looking at its centre."""
+    rng = np.random.default_rng(seed)
+    occ = rng.random(dims) < fill
+    occ[dims[0] // 2 - 8:dims[0] // 2 + 8, dims[1] // 2 - 8:dims[1] // 2 + 8,
+        dims[2] // 2 - 10:dims[2] // 2 + 10] = True      # a solid core
+    qs = np.where(occ.reshape(-1), np.cumsum(occ.reshape(-1)) - 1,
+                  -1).astype(np.int32).reshape(dims)
+    table = march.build_march_table(torch.as_tensor(qs, device=dev))
+    svs = torch.tensor([0.05, 0.055, 0.045], device=dev)
+    rmin = torch.tensor([-1.0, -0.99, -0.99], device=dev)
+    campos = torch.tensor([0.3, -0.2, -3.5], device=dev)
+    return dict(table=table.reshape(-1).contiguous(), dims=dims, svs=svs,
+                rmin=rmin, campos=campos,
+                dims_t=torch.tensor(dims, dtype=torch.int32, device=dev))
+
+
+def _march_dirs(dev, R, seed, spread=0.25):
+    """R unit directions from campos around the one to the grid's centre
+    (ray 0): most cross the grid, the widest miss it."""
+    rng = np.random.default_rng(seed)
+    d = np.concatenate([rng.normal(size=(R, 2)) * spread, np.ones((R, 1))], -1)
+    d[0, :2] = 0.0
+    d[:, :2] += (-0.3 / 3.5, 0.2 / 3.5)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.as_tensor(d.astype(np.float32), device=dev)
+
+
+def _march_both(w, rays, D, cap, steps, buckets, **kw):
+    near = torch.tensor(1.5, device=rays.device)
+    far = torch.tensor(5.5, device=rays.device)
+    args = (w["table"], w["dims_t"], w["dims"][1], w["dims"][2], w["rmin"],
+            w["svs"], w["campos"], rays, near, far, (far - near) / D, D, cap,
+            steps, buckets)
+    n0 = _cuda.LAUNCHES["march_rays"]
+    got = march.march_rays(*args, count_steps=True, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["march_rays"] == n0 + (len(steps) if len(rays)
+                                                 else 0)
+    want = march.march_rays_reference(*args, count_steps=True, **kw)
+    return got, want
+
+
+def _march_equal(got, want, cap):
+    emit, cnt, of, used = got
+    emit_p, cnt_p, of_p, used_p = want
+    assert torch.equal(cnt, cnt_p)
+    assert torch.equal(emit, emit_p)
+    lanes = torch.arange(cap, device=cnt.device)[None] >= cnt[:, None]
+    assert bool((emit[lanes] == 0).all())
+    assert int(of) == int(of_p)
+    assert torch.equal(used, used_p)
+
+
+@pytest.mark.parametrize("R,D,cap,steps,buckets", [
+    (1, 96, 8, (200,), ()),                      # one ray
+    (1000, 96, 8, (6, 10, 200), (1000, 900)),    # R no multiple of the block
+    (4099, 200, 32, (4, 8, 16, 400), (4099, 4000, 3900)),
+    (777, 96, 8, (5, 200), (0,)),                # a bucket of 0 rays
+    (513, 64, 1, (64, 200), (513,)),             # cap reached on stage one
+    (900, 96, 8, (3, 4), (64,)),                 # fuel and bucket starved
+    (640, 512, 16, (1100,), ()),                 # the largest D
+])
+def test_march_rays_kernel_exact(dev, R, D, cap, steps, buckets):
+    """emit, cnt, mc_overflow and the iterations per ray equal the plain
+    version's at odd sizes, with buckets and fuel too small too."""
+    w = _march_world(dev, seed=R)
+    rays = _march_dirs(dev, R, seed=D)
+    got, want = _march_both(w, rays, D, cap, steps, buckets)
+    _march_equal(got, want, cap)
+    starved = (steps, buckets) in (((3, 4), (64,)), ((5, 200), (0,)))
+    assert (int(got[2]) > 0) == starved
+    assert int(got[1].max()) == cap or starved
+
+
+def test_march_rays_kernel_all_miss_and_live(dev):
+    """Every ray a miss: nothing walks, nothing is emitted. And rows that
+    are not live do not walk, take no bucket room and do not count."""
+    w = _march_world(dev, seed=3)
+    rays = -_march_dirs(dev, 300, seed=4)
+    got, want = _march_both(w, rays, 96, 8, (4, 100), (128,))
+    _march_equal(got, want, 8)
+    assert int(got[1].sum()) == 0 and int(got[2]) == 0
+    assert int(got[3].sum()) == 0
+    rays = _march_dirs(dev, 700, seed=5)
+    rays[600:] = rays[0]
+    live = torch.arange(700, device=dev) < 600
+    got, want = _march_both(w, rays, 96, 8, (2, 200), (384,), live=live)
+    _march_equal(got, want, 8)
+    assert int(got[1][600:].sum()) == 0 and int(got[3][600:].sum()) == 0
+    assert march.march_rays(
+        w["table"], w["dims_t"], w["dims"][1], w["dims"][2], w["rmin"],
+        w["svs"], w["campos"], rays[:0], 1.5, 5.5, 4.0 / 96, 96, 8, (4,),
+        ())[0].shape == (0, 8)
+
+
+@pytest.mark.parametrize("jitter", [0.3, 1.0])
+def test_march_rays_kernel_jittered(dev, jitter):
+    """The train path's branch: sample times read from t_tab, the free
+    radius divided by 1 + jitter/2, the walk ended at the true t."""
+    w = _march_world(dev, seed=7)
+    R, D = 1500, 128
+    rays = _march_dirs(dev, R, seed=8)
+    u = torch.as_tensor(np.random.default_rng(9).random(
+        (R, D), dtype=np.float32), device=dev)
+    seg = (4.0 / D) * (1.0 + jitter * (u - 0.5))
+    tab = (1.5 + torch.cumsum(seg, -1) - 0.5 * seg).contiguous()
+    got, want = _march_both(w, rays, D, 8, (6, 300), (1500,), t_tab=tab,
+                            jitter=jitter)
+    _march_equal(got, want, 8)
+    plain, _ = _march_both(w, rays, D, 8, (6, 300), (1500,))
+    assert not torch.equal(plain[0], got[0])
+
+
+def test_march_render_kernels_vs_plain(dev):
+    """A march config on the card: the frame through csrc/march.cu equals,
+    bit for bit, the frame through the depth-window front-end, and the
+    walk and the fused chunk were launched, first_valid_cols was not."""
+    cfg = sphere_config(sr=16, d=48)
+    cfg = dataclasses.replace(
+        cfg, agg=dataclasses.replace(cfg.agg, compute_dtype="bfloat16"),
+        query=dataclasses.replace(
+            cfg.query, ray_slot_budget=16, chunk_mode="fused",
+            select_mode="pallas", compact_budget=16,
+            march_steps=(4, 8, 120), march_buckets=(4096, 2048)))
+    s = make_sphere_scene(4000, cfg=cfg, device=dev)
+    rays = camera_rays(s.camrotc2w, 64, 64, 48.0)
+    cache, rmin, svs = fr.make_fast_scene(cfg, s.cloud, s.grid)
+
+    def render(c):
+        return fr.fast_render_rays(s.params, s.cloud.Rw2c, cache, s.campos,
+                                   s.camrotc2w, rays, s.near, s.far, c, rmin,
+                                   svs)
+
+    _cuda.LAUNCHES.clear()
+    out = render(cfg)
+    assert _cuda.LAUNCHES["march_rays"] == 3
+    assert _cuda.LAUNCHES["fused_chunk_decode"] == 1
+    assert _cuda.LAUNCHES["first_valid_cols"] == 0
+    assert int(out.mc_overflow) == 0 and bool(out.ray_mask.any())
+    dense = render(dataclasses.replace(cfg, query=dataclasses.replace(
+        cfg.query, march_steps=(), march_buckets=())))
+    for f in ("coarse_raycolor", "ray_mask", "acc", "depth"):
+        assert torch.equal(getattr(out, f), getattr(dense, f)), f

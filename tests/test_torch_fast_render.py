@@ -192,8 +192,8 @@ def test_depth_window_helpers_match(scene):
 def test_unported_config_raises(scene):
     s, cache, rmin, svs, rays = scene
     cfg = _port_cfg(dataclasses.replace(s.cfg, query=dataclasses.replace(
-        s.cfg.query, march_steps=(8,), march_buckets=())))
-    with pytest.raises(NotImplementedError):
+        s.cfg.query, compact_mode="onehot")))
+    with pytest.raises(NotImplementedError, match="compact_mode"):
         tfr.fast_render_rays(None, torch.eye(3), None, None, None,
                              torch.zeros(4, 3), 1.0, 3.0, cfg, None, None)
 

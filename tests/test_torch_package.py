@@ -36,7 +36,8 @@ def _imported_roots(path: Path):
 def test_sources_found():
     assert "chip_smoke.py" in SOURCES
     for mod in ("ops/fused_select.py", "ops/fused_decode.py",
-                "models/render.py", "ops/raygen.py"):
+                "models/render.py", "ops/raygen.py", "ops/march.py",
+                "ops/raster.py", "models/fast_render.py"):
         assert f"pointnerf2studio_torch/{mod}" in SOURCES
 
 
@@ -102,6 +103,50 @@ def test_library_key_covers_shared_headers(name, tmp_path, monkeypatch):
     assert after != before and after.parent == before.parent
     monkeypatch.setattr(_cuda, "_nvcc", lambda: "nvcc")
     assert f"-I{csrc}" in _cuda._command(name, after, csrc)
+
+
+def test_march_source_is_in_the_library_key(tmp_path, monkeypatch):
+    """csrc/march.cu is one of the sources `build()` compiles, without
+    FMA contraction and without fast math (the walk's positions must
+    round as the render path's torch ops do), and its library is keyed by
+    its source and flags."""
+    import shutil
+
+    from pointnerf2studio_torch.ops import _cuda
+    assert "march" in _cuda.EXTRA_FLAGS
+    assert sorted(p.stem for p in _cuda.CSRC.glob("*.cu")) == sorted(
+        _cuda.EXTRA_FLAGS)
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: "nvcc")
+    cmd = _cuda._command("march", _cuda._lib_path("march"))
+    assert "-fmad=false" in cmd and _cuda.ARCH in cmd
+    assert not any("fast" in flag for flag in cmd[:-1])
+    assert cmd[-1].endswith("csrc/march.cu")
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    before = _cuda._lib_path("march", csrc)
+    assert before == _cuda._lib_path("march")
+    with open(csrc / "march.cu", "a") as f:
+        f.write("// edited\n")
+    assert _cuda._lib_path("march", csrc) != before
+    monkeypatch.setitem(_cuda.EXTRA_FLAGS, "march", [])
+    assert _cuda._lib_path("march") != before
+
+
+def test_march_rays_on_the_cpu_launches_nothing():
+    """CPU tensors run the plain version: no library is asked for."""
+    from pointnerf2studio_torch.ops import _cuda, march
+    table = march.build_march_table(torch.full((4, 4, 4), -1).index_put(
+        (torch.tensor([2]),) * 3, torch.tensor(0)))
+    n0 = sum(_cuda.LAUNCHES.values())
+    emit, cnt, of = march.march_rays(
+        table.reshape(-1), torch.tensor([4, 4, 4], dtype=torch.int32), 4, 4,
+        torch.zeros(3), torch.ones(3), torch.tensor([2.5, 2.5, -2.0]),
+        torch.tensor([[0.0, 0.0, 1.0], [0.0, 1.0, 0.0]]), 1.0, 7.0,
+        6.0 / 24, 24, 4, (40,), ())
+    assert sum(_cuda.LAUNCHES.values()) == n0 and int(of) == 0
+    assert cnt.tolist() == [4, 0]
+    assert ((emit[0] >> 9) == 1).all() and (emit[1] == 0).all()
+    assert (emit[0] & 511).tolist() == [12, 13, 14, 15]
 
 
 def test_library_variant_is_keyed_by_its_flags(monkeypatch):
