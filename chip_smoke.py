@@ -36,7 +36,26 @@ ray budget measured on the frame as the JAX bench sizes them:
      escalation), walked and with `raster=`: the second must say that the
      raster rendered it, and both equal frame 4 bit for bit;
   7. the frame times of the depth window, the march, the raster and both
-     `render_frame` routes, best of 3 warm frames taken in turns.
+     `render_frame` routes, best of 3 warm frames taken in turns;
+  8. the payload check: chunks 0-1 with the tower's payload inputs scaled
+     by PAYLOAD_SCALE, through the fused-chunk kernels, the staged kernels
+     and the plain versions, held together at ATOL / MEAN_TOL; the plain
+     route on a payload whose 16-byte pieces are rotated must fail that
+     bound (its difference under the scene's own weights is printed too);
+  9. the train path (`models/fast_train.py`, `train/`): 4 views of 800x800
+     at the frame's focal on the chair's camera ring, one constant colour,
+     4096-ray steps at jitter 0.3 with the chair's query config and the
+     scene's random bf16 weights, the ray budget sized on the views. On
+     one fixed batch and jitter draw the dense step (first_valid_cols)
+     and the march step (march_rays, planned by `plan_train_march`) each
+     equal their plain-route step, the dense step run twice equals itself
+     and the march step equals the dense step: loss, every gradient and
+     every updated weight bit for bit, counters 0. Then `fit()` takes 100
+     steps per front-end (sampling on the device) with first_valid_cols
+     launched once a dense step and march_rays once a stage of every
+     march step; the loss of steps 91-100 must be at most a quarter of
+     steps 1-10's, and both runs end bit-equal. Train it/s per front-end:
+     10 warm-up steps, then the median of 3 windows of 20, in turns.
 
 The launch counts are set to 0 just before each path and read just
 after it. It fails (non-zero exit, no result line) when there is no
@@ -53,7 +72,8 @@ march_rays: exactly), when a front-end's frame is not bit-equal to the
 frame it is held to, when first_valid_cols is launched behind the march
 or the raster, or when a path's first chunk rendered through the kernels
 differs from the same chunk rendered through the plain versions
-(ray_mask exactly, colour within the same bound). Printed before the
+(ray_mask exactly, colour within the same bound), when a check of the
+payload phase or of the train phase fails. Printed before the
 last line: the card's name and power limit, build and phase times, each
 kernel's and its plain version's time at its path's shapes beside the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -74,7 +94,10 @@ also runs one warm pass of each path, the march frame and the raster
 frame included, under torch.profiler after its timing and prints, per path, the device time by kernel name (the ten
 largest), their sum and the device's idle share of the unprofiled pass
 (1 - device time / pass time); the full tables go to
-`DIR/profile_<path>.txt` (DIR defaults to `build/profile`).
+`DIR/profile_<path>.txt` (DIR defaults to `build/profile`). A train step
+of each front-end is profiled in three parts, its forward (the render
+and the losses), its backward and its optimizer update, each under its
+own profiler pass, beside the unprofiled step's time.
 
     python3 chip_smoke.py --probe
 
@@ -110,6 +133,10 @@ SIG_RTOL = 2.0 ** -7
 # flipped bf16 rounding of an earlier layer still moves h by some 1e-4;
 # its mean |diff| is held to a fraction of mean |hw|
 HW_RTOL, HW_ATOL, HW_MEAN_RTOL = 2.0 ** -7, 1e-3, 2.0 ** -8
+# the payload check's scale of the tower's payload inputs
+PAYLOAD_SCALE = 4.0
+# the train phase: rays a step, steps of each fit() run, the views' colour
+TRAIN_RAYS, TRAIN_STEPS, TRAIN_COLOUR = 4096, 100, (0.8, 0.3, 0.1)
 # the card's published peaks (H100 SXM): device memory bytes/s and dense
 # bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
@@ -655,6 +682,461 @@ def front_end_phases(c) -> dict:
     }
 
 
+def rotate_payload(cache):
+    """The payload mutant: each candidate's 96-byte payload row with its six
+    16-byte pieces rotated by one (what an extract that deals the pieces to
+    the wrong lanes hands the tower)."""
+    kc = cache.kcand
+    return dataclasses.replace(cache, kcand=kc.view(
+        kc.shape[0], kc.shape[1], 6, 8).roll(1, 2).reshape(kc.shape))
+
+
+def payload_phase(c) -> dict:
+    """The frame check that depends on the payload: the tower's payload
+    inputs scaled by PAYLOAD_SCALE (mlp_base layer 0's emb and PE(emb)
+    columns, mlp_head layer 0's colour, dir-difference and dot columns),
+    chunks 0-1 of the frame through the fused-chunk kernels, the staged
+    kernels and the plain versions, held together at ATOL / MEAN_TOL; the
+    plain route on the rotated payload must fail that bound, with these
+    weights, and its difference under the scene's own weights is printed
+    beside it."""
+    import copy
+
+    import torch
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.ops.fused_chunk import (
+        fused_chunk_decode_plain)
+
+    scene, cache, cfg = c.scene, c.cache, c.cfg
+    rays = c.raydirs[:2 * CHUNK]
+    params = copy.deepcopy(scene.params)
+    with torch.no_grad():
+        params.mlp_base[0].weight[:, :224] *= PAYLOAD_SCALE
+        params.mlp_head[0].weight[:, 256:263] *= PAYLOAD_SCALE
+    cfg_a = dataclasses.replace(
+        cfg, query=dataclasses.replace(cfg.query, knn_mode="fused",
+                                       chunk_mode="xla"),
+        agg=dataclasses.replace(cfg.agg, fused_decode2=True))
+    cfg_p = dataclasses.replace(cfg, query=dataclasses.replace(
+        cfg.query, select_mode="topk"))
+
+    def frame(p, cf, ca=cache, plain=False):
+        orig = fr.fused_chunk_decode
+        if plain:
+            fr.fused_chunk_decode = fused_chunk_decode_plain
+        try:
+            outs = [fr.fast_render_rays(
+                p, scene.cloud.Rw2c, ca, scene.campos, scene.camrotc2w,
+                rays[i * CHUNK:(i + 1) * CHUNK], scene.near, scene.far, cf,
+                c.rmin, c.svs) for i in range(2)]
+        finally:
+            fr.fused_chunk_decode = orig
+        return (torch.cat([o.coarse_raycolor for o in outs]),
+                torch.cat([o.ray_mask for o in outs]))
+
+    def diff(a, b):
+        d = (a[0] - b[0]).abs()
+        return float(d.max()), float(d.mean())
+
+    fused, staged, plain = (frame(params, cfg), frame(params, cfg_a),
+                            frame(params, cfg_p, plain=True))
+    mutant_cache = rotate_payload(cache)
+    mutant = frame(params, cfg_p, mutant_cache, plain=True)
+    mutant0 = frame(scene.params, cfg_p, mutant_cache, plain=True)
+    plain0 = frame(scene.params, cfg_p, plain=True)
+    del mutant_cache
+    out = {"fused_vs_plain": diff(fused, plain),
+           "staged_vs_plain": diff(staged, plain),
+           "mutant_vs_fused": diff(mutant, fused),
+           "mutant_vs_plain_scene_weights": diff(mutant0, plain0)}
+    log(f"payload check ({2 * CHUNK} rays, payload inputs x{PAYLOAD_SCALE}): "
+        + ", ".join(f"{k} max |diff| {v[0]:.3e} mean {v[1]:.3e}"
+                    for k, v in out.items())
+        + f"; bound {ATOL} / mean {MEAN_TOL}")
+    for name in ("fused_vs_plain", "staged_vs_plain"):
+        if not (torch.equal(fused[1], plain[1]) and torch.equal(staged[1],
+                                                                plain[1])):
+            fail("payload check: ray_mask differs between the routes")
+        mx, mn = out[name]
+        if not (mx <= ATOL and mn < MEAN_TOL):
+            fail(f"payload check: {name} outside the bound")
+    if out["mutant_vs_fused"][0] <= ATOL and out["mutant_vs_fused"][1] < \
+            MEAN_TOL:
+        fail("payload check: the rotated payload passes the frame check")
+    return out
+
+
+def orbit_pose(az_deg: float):
+    """c2w [4, 4] of a camera on the chair's blender ring (radius 4.031,
+    elevation 30 degrees) at azimuth `az_deg`, looking at the origin, as
+    `make_chair_scene` places its camera (azimuth 30)."""
+    radius, el, az = 4.0311289, np.deg2rad(30.0), np.deg2rad(az_deg)
+    campos = radius * np.array([np.cos(el) * np.sin(az),
+                                -np.cos(el) * np.cos(az), np.sin(el)])
+    fwd = -campos / np.linalg.norm(campos)
+    right = np.cross(fwd, np.array([0.0, 0.0, 1.0]))
+    right /= np.linalg.norm(right)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = np.stack([right, np.cross(fwd, right), fwd], -1)
+    pose[:3, 3] = campos
+    return pose
+
+
+def train_phases(c) -> dict:
+    """The train path at full width (section "Train phase" of the module
+    docstring). Returns the kernels' train records, it/s and the checks'
+    numbers."""
+    import torch
+    from pointnerf2studio_torch.config import TrainConfig
+    from pointnerf2studio_torch.data.blender import BlenderDataset
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.models import fast_train as ft
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.ops import march as mr
+    from pointnerf2studio_torch.ops import select as sl
+    from pointnerf2studio_torch.train import loop
+    from pointnerf2studio_torch.train.loss import compute_losses, masked_psnr
+    from pointnerf2studio_torch.train.trainer import (
+        apply_updates, create_train_state)
+
+    scene, dev, grid = c.scene, c.dev, c.scene.grid
+    q = c.cfg.query
+    B, D = TRAIN_RAYS, q.z_depth_dim
+    # ---- the data: 4 views of one constant colour on the chair's ring
+    poses = np.stack([orbit_pose(30.0 + 90.0 * v) for v in range(4)])
+    intr = np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]],
+                    np.float32)
+    ds = BlenderDataset(
+        images=np.broadcast_to(np.asarray(TRAIN_COLOUR, np.float32),
+                               (4, H, W, 3)).copy(),
+        poses=poses, intrinsics=intr, near=scene.near, far=scene.far,
+        split="train")
+    # ray budget: the views' largest share of box-hitting rays (train
+    # margin) of a 4096-ray batch, with 10% and 128 rays of slack
+    hit = max(float(fr.slab_hit_mask(
+        ds.campos(v), ds.full_image_rays(v), scene.near, scene.far, D,
+        grid.ranges_min, grid.dims, q.scaled_vsize, jitter=0.3).mean())
+        for v in range(4))
+    rb = min(B, (int(hit * B * 1.1) + 128 + 255) // 256 * 256)
+    cfg_d = dataclasses.replace(
+        c.cfg, query=dataclasses.replace(
+            q, depth_window=0, ray_budget=rb, select_mode="pallas"),
+        train=TrainConfig(rays_per_batch=B, jitter=0.3, lr_fields=5e-4,
+                          lr_points=2e-3, zero_one_loss_weight=1e-4,
+                          fast_path=True, device_sampling=True,
+                          prune_iter=0, prob_freq=0))
+    t0 = time.perf_counter()
+    cfg_m = loop.plan_train_march(dataclasses.replace(cfg_d, train=(
+        dataclasses.replace(cfg_d.train, march_auto=True))), ds, grid)
+    t_plan = time.perf_counter() - t0
+    steps = cfg_m.query.march_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    geo, rmin, svs = ft.make_geo_scene(cfg_m, scene.cloud, grid)
+    torch.cuda.synchronize()
+    t_geo = time.perf_counter() - t0
+    geo_bytes = nbytes(geo.meta, geo.rel, geo.coor_2_qslot, geo.march_table)
+    log(f"train: 4 views {H}x{W} of colour {TRAIN_COLOUR}, {B} rays a step, "
+        f"views' box-hit share {hit:.4f} -> ray_budget {rb}; geo cache "
+        f"meta {tuple(geo.meta.shape)} + rel {tuple(geo.rel.shape)} + qslot "
+        f"and march tables = {geo_bytes} B built in {t_geo:.2f} s; march "
+        f"plan steps {steps} buckets {cfg_m.query.march_buckets} in "
+        f"{t_plan:.2f} s on the host")
+    near = torch.tensor(scene.near, device=dev)
+    far = torch.tensor(scene.far, device=dev)
+
+    # ---- one fixed batch and jitter: kernel step == plain step, twice the
+    # same, march == dense, all bit for bit (updated weights and gradients)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    batch = loop.DeviceSampler(ds, B, gen).next_batch()[:4]
+    u = torch.rand((B, D), generator=gen, device=dev)
+    captured = {}
+
+    def one_step(cf, plain=False):
+        if plain:
+            cf = dataclasses.replace(cf, query=dataclasses.replace(
+                cf.query, select_mode="topk"))
+        st = create_train_state(scene.params, scene.cloud, cf)
+        fn = ft.make_fast_train_step(cf)
+        orig_sel, orig_m = ft.select_first_cols, ft.march_rays
+
+        def cap_sel(*a):
+            captured.setdefault("qs", a[0])
+            return orig_sel(*a)
+
+        def cap_m(*a, **k):
+            captured.setdefault("march", (a, k))
+            return orig_m(*a, **k)
+
+        ft.select_first_cols, ft.march_rays = cap_sel, cap_m
+        if plain:
+            ft.march_rays = mr.march_rays_reference
+        _cuda.LAUNCHES.clear()
+        try:
+            st, aux = fn(st, geo, rmin, svs, *batch, near, far, jitter_u=u)
+        finally:
+            ft.select_first_cols, ft.march_rays = orig_sel, orig_m
+        torch.cuda.synchronize()
+        pts = list(st.points.trainable().values())
+        ten = [p.grad for p in st.params.parameters()] + [p.grad for p in pts]
+        ten += [p.detach() for p in st.params.parameters()] + pts
+        return aux, ten, dict(_cuda.LAUNCHES)
+
+    def same(what, a, b):
+        if float(a[0]["total"]) != float(b[0]["total"]):
+            fail(f"train: {what}: loss {float(a[0]['total'])!r} against "
+                 f"{float(b[0]['total'])!r}")
+        bad = [i for i, (x, y) in enumerate(zip(a[1], b[1]))
+               if not torch.equal(x, y)]
+        if bad:
+            fail(f"train: {what}: {len(bad)} of {len(a[1])} gradient and "
+                 f"weight tensors differ")
+        log(f"train: {what}: loss {float(a[0]['total']):.9g} and all "
+            f"{len(a[1])} gradient and updated weight tensors bit-equal")
+
+    dense_k = one_step(cfg_d)
+    dense_k2 = one_step(cfg_d)
+    dense_p = one_step(cfg_d, plain=True)
+    march_k = one_step(cfg_m)
+    march_p = one_step(cfg_m, plain=True)
+    for name, s_, want in (("dense", dense_k, {"first_valid_cols": 1,
+                                               "march_rays": 0}),
+                           ("march", march_k, {"first_valid_cols": 0,
+                                               "march_rays": len(steps)}),
+                           ("dense plain", dense_p, {"first_valid_cols": 0}),
+                           ("march plain", march_p, {"march_rays": 0})):
+        check_launches(f"train step ({name})", s_[2], want)
+        for k in ("rb_overflow", "mc_overflow"):
+            if k in s_[0] and float(s_[0][k]) != 0:
+                fail(f"train step ({name}): {k} {float(s_[0][k])}")
+    if "mc_overflow" not in march_k[0] or "rb_overflow" not in dense_k[0]:
+        fail("train: a counter is missing from the step's aux")
+    same("dense kernel step vs plain step", dense_k, dense_p)
+    same("dense kernel step run twice", dense_k, dense_k2)
+    same("march kernel step vs plain step", march_k, march_p)
+    same("march step vs dense step", march_k, dense_k)
+    qs = captured["qs"]
+    BP = min(q.ray_slot_budget or q.SR, q.SR)
+    sel_k, sel_p = sl.first_valid_cols(qs, BP), \
+        sl.first_valid_cols_reference(qs, BP)
+    if not all(torch.equal(a, b) for a, b in zip(sel_k, sel_p)):
+        fail("train: first_valid_cols differs from its plain version")
+    m_a, m_k = captured["march"]
+    walk_k = mr.march_rays(*m_a, **m_k)
+    walk_p = mr.march_rays_reference(*m_a, **m_k)
+    if not all(torch.equal(a, b) for a, b in zip(walk_k, walk_p)):
+        fail("train: march_rays differs from its plain version")
+    t_sel = cuda_ms(lambda: sl.first_valid_cols(qs, BP), 48, 3, queued=True)
+    t_sel_p = cuda_ms(lambda: sl.first_valid_cols_reference(qs, BP), 20, 2)
+    t_walk = cuda_ms(lambda: mr.march_rays(*m_a, **m_k), 5, 2, queued=True)
+    t_walk_p = cuda_ms(lambda: mr.march_rays_reference(*m_a, **m_k), 1, 1)
+    b_sel = bound(nbytes(qs) + qs.shape[0] * (BP + 1) * 4, 0)
+    n_walk = int(mr.march_rays(*m_a, **m_k, count_steps=True)[3].sum())
+    R_m, cap = rb, min(q.SR, BP, D)          # the packed rays, the lanes
+    # 4 B of the table and 4 B of t_tab a step, the rays and live read
+    # once, emit and cnt written once
+    b_walk = bound(8 * n_walk + R_m * (12 + 1) + R_m * (cap + 1) * 4, 0)
+    log(f"train: first_valid_cols == plain on qs {tuple(qs.shape)} BP {BP}: "
+        f"{t_sel:.4f} ms queued, plain {t_sel_p:.4f}, bound {b_sel[0]:.4f}; "
+        f"march_rays == plain on {R_m} packed rays ({n_walk} steps, t_tab "
+        f"read): {t_walk:.4f} ms queued, plain {t_walk_p:.2f}, bound "
+        f"{b_walk[0]:.4f} by {b_walk[1]}")
+
+    # ---- fit(): the user's entry point, 100 steps per front-end, launches
+    # counted over the whole run
+    fits = {}
+    for name, cf in (("dense", cfg_d), ("march", dataclasses.replace(
+            cfg_d, train=dataclasses.replace(cfg_d.train,
+                                             march_auto=True)))):
+        _cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = loop.fit(cf, ds, scene.params, scene.cloud,
+                       f"build/train_{name}", max_steps=TRAIN_STEPS,
+                       print_freq=10, seed=3, device=dev)
+        torch.cuda.synchronize()
+        got = dict(_cuda.LAUNCHES)
+        first, last = res.log[0], res.log[-1]
+        with torch.no_grad():
+            out = ft.fast_train_render(
+                res.state.params, res.state.points, geo, batch[0], batch[1],
+                batch[2], near, far, cfg_d, rmin, svs, training=False)
+            psnr = float(masked_psnr(out, batch[3]))
+        ctr = {k: max(r.get(k, 0.0) for r in res.log)
+               for k in ("rb_overflow", "mc_overflow")}
+        fits[name] = dict(launches=got, first=first["total"],
+                          last=last["total"], psnr=psnr, counters=ctr,
+                          s=time.perf_counter() - t0, state=res.state,
+                          totals=[r["total"] for r in res.log])
+        log(f"fit {name}: {TRAIN_STEPS} steps in {fits[name]['s']:.1f} s "
+            f"(geo cache and plan included); launches {got}; loss over "
+            f"steps 1-10 {first['total']:.6f} (masked PSNR "
+            f"{first['ray_masked_coarse_raycolor_psnr']:.2f} dB), steps "
+            f"{TRAIN_STEPS - 9}-{TRAIN_STEPS} {last['total']:.6f} "
+            f"({last['ray_masked_coarse_raycolor_psnr']:.2f} dB): "
+            f"{first['total'] / last['total']:.1f}x; masked PSNR of the "
+            f"fixed batch after training {psnr:.2f} dB; counters {ctr}")
+        want = ({"first_valid_cols": TRAIN_STEPS, "march_rays": 0}
+                if name == "dense" else
+                {"first_valid_cols": 0,
+                 "march_rays": TRAIN_STEPS * len(steps)})
+        check_launches(f"fit {name}", got, want)
+        if any(ctr.values()) or len(res.log) != TRAIN_STEPS // 10:
+            fail(f"fit {name}: counters {ctr} or log {len(res.log)}")
+        if not first["total"] >= 4.0 * last["total"]:
+            fail(f"fit {name}: the loss fell {first['total']:.6f} -> "
+                 f"{last['total']:.6f}, less than 4x")
+
+    # the two front-ends take the same steps: every window's loss and the
+    # trained weights bit for bit
+    fs_ = [fits[k]["state"] for k in ("dense", "march")]
+    w_ = [list(f.params.parameters()) + list(f.points.trainable().values())
+          for f in fs_]
+    if fits["dense"]["totals"] != fits["march"]["totals"] or not all(
+            torch.equal(a, b) for a, b in zip(*w_)):
+        fail("fit: the march run's losses or weights differ from the dense "
+             "run's")
+    log(f"fit: march and dense runs bit-equal: {len(w_[0])} trained tensors "
+        f"and the {len(fits['dense']['totals'])} window losses")
+    for f in fits.values():
+        del f["state"]
+
+    # ---- it/s: 10 warm-up steps, then 3 windows of 20, front-ends in turns
+    # two variants of the dense steps for comparisons inside this call:
+    # "dense_index_backward" with torch's own backward of the attribute
+    # gather (an indexing: a sorted index_put_ accumulate) in place of
+    # gather_rows', "dense_one_pass" with fast_chunk = M, one chunk a step
+    cfg_1 = dataclasses.replace(cfg_d, query=dataclasses.replace(
+        cfg_d.query, fast_chunk=rb * q.compact_budget))
+    runs = {}
+    for name, cf in (("dense", cfg_d), ("march", cfg_m),
+                     ("dense_index_backward", cfg_d),
+                     ("dense_one_pass", cfg_1)):
+        g = torch.Generator(device=dev).manual_seed(5)
+        runs[name] = dict(cf=cf, st=create_train_state(scene.params,
+                                                       scene.cloud, cf),
+                          fn=ft.make_fast_train_step(cf), g=g,
+                          smp=loop.DeviceSampler(ds, B, g), ips=[],
+                          ctr=torch.zeros((), device=dev),
+                          index=name.endswith("index_backward"))
+
+    def go(r, n):
+        orig = ft.gather_rows
+        if r["index"]:
+            ft.gather_rows = lambda table, idx: table[idx]
+        try:
+            for _ in range(n):
+                cp, cr, rd, gt, _ = r["smp"].next_batch()
+                r["st"], aux = r["fn"](r["st"], geo, rmin, svs, cp, cr, rd,
+                                       gt, near, far, generator=r["g"])
+                r["ctr"] += (aux.get("rb_overflow", 0)
+                             + aux.get("mc_overflow", 0))
+        finally:
+            ft.gather_rows = orig
+
+    for r in runs.values():
+        go(r, 10)
+    for _ in range(3):
+        for r in runs.values():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            go(r, 20)
+            torch.cuda.synchronize()
+            r["ips"].append(20 / (time.perf_counter() - t0))
+    ips = {}
+    for name, r in runs.items():
+        if float(r["ctr"]):
+            fail(f"train {name}: a counter was non-zero in the timed steps")
+        v = sorted(r["ips"])
+        ips[name] = {"median": v[1], "min": v[0], "max": v[2]}
+        log(f"train {name}: {v[1]:.2f} it/s of {B}-ray steps (median of 3 "
+            f"windows of 20 after 10 warm-up steps; spread {v[0]:.2f}-"
+            f"{v[2]:.2f}; in turns; {c.smi})")
+
+    # ---- --profile: one step per front-end, split into its forward, its
+    # backward and its optimizer update
+    prof = {}
+    if c.prof_dir:
+        for name, r in runs.items():
+            if r["index"]:
+                continue
+            cf = r["cf"]
+            cp, cr, rd, gt, _ = r["smp"].next_batch()
+            st = r["st"]
+            parts = {}
+
+            def fwd():
+                st.zero_grad()
+                parts["out"] = compute_losses(ft.fast_train_render(
+                    st.params, st.points, geo, cp, cr, rd, near, far, cf,
+                    rmin, svs, generator=r["g"]), gt, cf.train)[0]
+
+            step_ms = cuda_ms(lambda: (fwd(), parts["out"].backward(),
+                                       apply_updates(st, cf)), 3, 1)
+            rows = {}
+            for part, fn in (("forward", fwd),
+                             ("backward", lambda: parts["out"].backward()),
+                             ("optimizer", lambda: apply_updates(st, cf))):
+                if part != "forward":
+                    fwd()
+                if part == "optimizer":
+                    parts["out"].backward()
+                rows[part] = device_rows_once(fn)
+            tot = {p: sum(x[0] for x in v) for p, v in rows.items()}
+            merged = {}
+            for v in rows.values():
+                for ms, n, key in v:
+                    a = merged.setdefault(key, [0.0, 0])
+                    a[0] += ms
+                    a[1] += n
+            top = sorted(((ms, n, k) for k, (ms, n) in merged.items()),
+                         reverse=True)
+            dev_ms = sum(tot.values())
+            prof[name] = {"step_ms": step_ms, **{f"{p}_ms": t for p, t in
+                                                 tot.items()},
+                          "idle": 1 - dev_ms / step_ms,
+                          "launches": sum(x[1] for x in top)}
+            c.prof_dir.mkdir(parents=True, exist_ok=True)
+            (c.prof_dir / f"profile_train_{name}.txt").write_text("".join(
+                f"{ms:10.3f} ms {n:6d} x {key}\n" for ms, n, key in top))
+            log(f"profile train {name}: step {step_ms:.2f} ms; device forward "
+                f"{tot['forward']:.2f}, backward {tot['backward']:.2f}, "
+                f"optimizer {tot['optimizer']:.2f} ms ({dev_ms:.2f} in "
+                f"{prof[name]['launches']} launches); idle share "
+                f"{prof[name]['idle']:.3f}")
+            for ms, n, key in top[:10]:
+                log(f"  {ms:9.3f} ms {100 * ms / dev_ms:5.1f}% {n:5d} x "
+                    f"{key[:90]}")
+    return {
+        "select": dict(launches=fits["dense"]["launches"].get(
+            "first_valid_cols", 0),
+                       per_step=1, ms=t_sel, plain_ms=t_sel_p,
+                       bound_ms=b_sel[0], qs=list(qs.shape)),
+        "march": dict(launches=fits["march"]["launches"].get("march_rays", 0),
+                      per_step=len(steps), ms=t_walk, plain_ms=t_walk_p,
+                      bound_ms=b_walk[0], rays=R_m, steps=n_walk),
+        "it_per_s": ips, "fit": {k: {x: v[x] for x in ("first", "last",
+                                                       "psnr", "s")}
+                                 for k, v in fits.items()},
+        "profile": prof, "ray_budget": rb, "march_steps": steps,
+        "geo_s": t_geo, "geo_bytes": geo_bytes, "plan_s": t_plan,
+    }
+
+
+def device_rows_once(fn):
+    """[(device ms, launches, kernel name)] of one call of `fn` under
+    torch.profiler (no warm-up call: `fn` may change state)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1104,10 +1586,17 @@ def main() -> int:
     # The reference's default front-ends: march, raster, render_frame
     # =================================================================
     import types
-    fe = front_end_phases(types.SimpleNamespace(
+    ns = types.SimpleNamespace(
         scene=scene, cache=cache, cfg=cfg, dev=dev, rmin=rmin, svs=svs,
         raydirs=raydirs, raydirs_frame=raydirs_frame, perm=perm, outs=outs,
-        n_chunks=n_chunks, total=total, smi=smi, prof_dir=prof_dir))
+        n_chunks=n_chunks, total=total, smi=smi, prof_dir=prof_dir)
+    fe = front_end_phases(ns)
+
+    # =================================================================
+    # The frame check that depends on the payload, and the train path
+    # =================================================================
+    payload = payload_phase(ns)
+    train = train_phases(ns)
 
     # ---- the least time the card could take for each kernel's work at
     # these inputs: every input read once, every output written once,
@@ -1212,7 +1701,8 @@ def main() -> int:
                                  "scalar_kernel_ms": t_selb_sc,
                                  "host_paced_ms": t_selb_host,
                                  "plain_ms": t_selb_p,
-                                 "bound_ms": b_selb[0]}}),
+                                 "bound_ms": b_selb[0]},
+                             "train": train["select"]}),
         record("fused_candidate_select", "fused_select.cu",
                "fused_select.py:60", launches_a["fused_candidate_select"],
                fsel_err, t_fs_k, t_fs_p, b_fs),
@@ -1225,12 +1715,17 @@ def main() -> int:
         record("fused_chunk_decode", "fused_chunk.cu", "fused_chunk.py:86",
                launches["fused_chunk_decode"], fused_err, t_fc_k, t_fc_p,
                b_fc, f_fc, t_fc_parts),
-        record("march_rays", "march.cu", "march.py:70", **fe["record"]),
+        record("march_rays", "march.cu", "march.py:70", **{
+            **fe["record"], "extra": {**fe["record"]["extra"],
+                                      "train": train["march"]}}),
     ], "launches_by_path": {"fused_chunk": launches, "staged": launches_a,
                             "legacy": launches_b, **fe["launches"]},
         "front_end_frame_ms": fe["frame_ms"],
         "raster_emit_program_ms": fe["emit_program_ms"],
-        "raster_emit_ms": fe["emit_ms"], "march_plan": fe["march_plan"]}),
+        "raster_emit_ms": fe["emit_ms"], "march_plan": fe["march_plan"],
+        "payload_check": payload,
+        "train": {k: v for k, v in train.items()
+                  if k not in ("select", "march")}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

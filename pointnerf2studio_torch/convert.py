@@ -5,10 +5,12 @@ as {tower: [{"kernel": [in, out], "bias": [out]}, ...]}, and flax
 dataclasses of arrays for the point cloud and the fat cache. These
 functions take numpy arrays (np.asarray of each JAX leaf) and build the
 port's objects, so a test can run both packages on the same weights,
-the same cloud, the same grid and the same cache. Everything is built
+the same cloud, the same grid and the same caches. Everything is built
 on `device`: the card by default (`device=None`), the CPU where the
-caller asks for it; without a card the default raises. Nothing here
-imports JAX.
+caller asks for it; without a card the default raises.
+`aggregator_to_jax` goes the other way: an Aggregator's weights or
+gradients in the JAX tree's layout, for comparing leaf by leaf. Nothing
+here imports JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from pointnerf2studio_torch.config import AggregatorConfig
 from pointnerf2studio_torch.models.aggregator import TOWERS, Aggregator
 from pointnerf2studio_torch.models.fast_render import FatCache
+from pointnerf2studio_torch.models.fast_train import GEOW, GeoCache
 from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
 from pointnerf2studio_torch.ops._cuda import resolve_device
 from pointnerf2studio_torch.ops.grid import PointGrid
@@ -110,3 +113,39 @@ def fat_cache_from_jax(cache, device: torch.device | str | None = None
         n_q=_t(cache.n_q, device, torch.int32),
         march_table=(None if march_table is None
                      else _t(march_table, device, torch.int32)))
+
+
+def geo_cache_from_jax(geo, device: torch.device | str | None = None
+                       ) -> GeoCache:
+    """A JAX train GeoCache (dense grid) -> port GeoCache: its rows
+    [max_q, C * 4] f32 split into meta (the first word of each candidate,
+    an int32 bit pattern) and rel (the other three); the march table, where
+    the cache has one, comes along."""
+    device = resolve_device(device)
+    if getattr(geo, "coor_2_qslot", None) is None:
+        raise ValueError("a hash-grid geo cache has no port counterpart")
+    rows = np.asarray(geo.rows, np.float32)
+    rows = rows.reshape(rows.shape[0], -1, GEOW)
+    march_table = getattr(geo, "march_table", None)
+    return GeoCache(
+        coor_2_qslot=_t(geo.coor_2_qslot, device, torch.int32),
+        meta=_t(np.ascontiguousarray(rows[..., 0]).view(np.int32), device,
+                torch.int32),
+        rel=_t(np.ascontiguousarray(rows[..., 1:]), device, torch.float32),
+        n_q=_t(geo.n_q, device, torch.int32),
+        march_table=(None if march_table is None
+                     else _t(march_table, device, torch.int32)))
+
+
+def aggregator_to_jax(agg: Aggregator, grad: bool = False) -> dict:
+    """An Aggregator's weights (or, with `grad`, their gradients) as numpy
+    arrays in the JAX tree's layout: {tower: [{"kernel": [in, out],
+    "bias": [out]}, ...]}."""
+    def leaf(p):
+        x = p.grad if grad else p
+        if x is None:
+            raise ValueError("a weight has no gradient")
+        return x.detach().cpu().numpy()
+
+    return {name: [{"kernel": leaf(lin.weight).T, "bias": leaf(lin.bias)}
+                   for lin in getattr(agg, name)] for name in TOWERS}

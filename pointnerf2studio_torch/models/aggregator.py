@@ -13,7 +13,10 @@ Tower (all LeakyReLU(0.1), including output activations):
 
 Weights live in `Aggregator`, an nn.Module whose towers are ModuleLists
 of nn.Linear (weight [out, in]; the JAX tree keeps kernels [in, out],
-see convert.py). Forward-only in this port: nothing here needs autograd.
+see convert.py). An Aggregator is built with its gradients off, as the
+render paths use it (they run under `torch.no_grad`); the train state
+(train/trainer.py) holds a copy with them on, and `decode_radiance`,
+`aggregation_weight` and `conf_gradient_clamp` are differentiable.
 """
 
 from __future__ import annotations
@@ -82,7 +85,7 @@ class Aggregator(nn.Module):
                         (torch.rand(o, generator=gen) * 2 - 1) * bound)
                 layers.append(lin)
             setattr(self, name, nn.ModuleList(layers).to(device))
-        # forward-only in this port: nothing trains through it yet
+        # the render paths' default; create_train_state turns a copy's on
         self.requires_grad_(False)
 
 
@@ -106,10 +109,13 @@ def _density_act(raw: torch.Tensor, act_super: bool) -> torch.Tensor:
     return F.softplus(raw - 1.0) if act_super else F.relu(raw)
 
 
-def aggregation_weight(cfg: AggregatorConfig, dists: torch.Tensor,
-                       pnt_mask: torch.Tensor) -> torch.Tensor:
+def aggregation_weight(cfg: AggregatorConfig, neigh_emb: torch.Tensor,
+                       dists: torch.Tensor, pnt_mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`linear` kernel: masked 1/||world delta|| normalised over K
-    (reference studio_model.py:467-475 and :286)."""
+    (reference studio_model.py:467-475 and :286). Returns (weights
+    [..., K], the embedding left for the tower), as the reference does:
+    the `linear` kernel consumes no embedding channels."""
     if cfg.agg_distance_kernel != "linear":
         raise NotImplementedError(
             f"agg_distance_kernel={cfg.agg_distance_kernel!r} is not ported")
@@ -124,10 +130,18 @@ def aggregation_weight(cfg: AggregatorConfig, dists: torch.Tensor,
             + torch.abs(dists[..., 2]) * aw[1], min=1e-6)
     if cfg.agg_weight_norm:
         w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-8)
-    return w
+    return w, neigh_emb
 
 
-@torch.no_grad()
+def conf_gradient_clamp(conf: torch.Tensor, lo: float = 1e-4,
+                        hi: float = 1.0) -> torch.Tensor:
+    """conf - stop_gradient(conf - clip(conf)), the reference's expression
+    (models/aggregator.py:260-264): clip(conf) forward and a gradient of 1
+    everywhere, inside [lo, hi] and outside it. (The reference's docstring
+    says the gradient is zeroed outside; its expression does not.)"""
+    return conf - (conf - torch.clamp(conf, lo, hi)).detach()
+
+
 def decode_radiance(
     agg: Aggregator,
     cfg: AggregatorConfig,
@@ -140,7 +154,8 @@ def decode_radiance(
     viewdirs: torch.Tensor,      # [M, 3] Rw2c-rotated view directions
     Rw2c: torch.Tensor,          # [3, 3] global rotation
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decode (sigma [M], rgb [M, 3]) for M shading points."""
+    """Decode (sigma [M], rgb [M, 3]) for M shading points; builds an
+    autograd graph where the weights or inputs ask for one."""
     if cfg.agg_intrp_order not in (1, 2) or Rw2c.ndim != 2:
         raise NotImplementedError(
             "decode_radiance is ported for agg_intrp_order 1/2 with a "

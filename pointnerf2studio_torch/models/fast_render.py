@@ -120,30 +120,14 @@ class FatCache:
         return self.kcand.transpose(1, 2)
 
 
-@torch.no_grad()
-def build_fat_cache(grid: PointGrid, cloud: NeuralPointCloud,
-                    kernel_size: Tuple[int, int, int], max_q: int,
-                    cand_cap: int = 64, chunk: int = 32768) -> FatCache:
-    """Build the candidate cache for the kernels (the content of the
-    reference's layout="fused", stored candidate-major: see `FatCache`;
-    the "rows" layout is not ported), once per point/attribute change.
-
-    Candidate order is the reference's f32 key shell * 1e12 + min(d2,
-    1e9), sorted stably: beyond shell 0 the d2 term is below one ulp of
-    the shell term, so outer-shell candidates keep their scan order."""
-    dev = cloud.xyz.device
-    offs_np, shells_np = neighbor_offsets(kernel_size)
-    offsets = torch.as_tensor(offs_np, dtype=torch.long, device=dev)
-    shells = torch.as_tensor(shells_np, dtype=torch.long, device=dev)
-    V = offsets.shape[0]
-    P = grid.occ_2_pnts.shape[1]
-    C = min(cand_cap, V * P)
+def query_voxels(grid: PointGrid, max_q: int):
+    """The query voxels of a grid as the caches number them: (coor_2_qslot
+    [gx, gy, gz] int32, -1 = not a query voxel; n_q [] int32; q_coor
+    [max_q, 3] int64; q_live [max_q] bool; center_w [max_q, 3] f32, each
+    voxel's centre)."""
+    dev = grid.coor_occ.device
     gx, gy, gz = grid.dims
     nvox = gx * gy * gz
-    dims_t = torch.tensor(grid.dims, device=dev)
-    xyz = cloud.xyz
-    N = xyz.shape[0]
-
     occ_flat = grid.coor_occ.reshape(-1)
     qslot = torch.cumsum(occ_flat.long(), 0) - 1
     n_q = occ_flat.sum().to(torch.int32)
@@ -155,45 +139,91 @@ def build_fat_cache(grid: PointGrid, cloud: NeuralPointCloud,
     q_flat[:live_ids.shape[0]] = live_ids
     q_coor = torch.stack([q_flat // (gy * gz), (q_flat // gz) % gy,
                           q_flat % gz], -1)
-    q_live = q_flat < nvox
     # one rounding of rmin + (q + 0.5) * svs, as the reference's compiled
-    # build gets from a fused multiply-add; the bf16 relative xyz below
-    # inherits this value bit for bit
+    # build gets from a fused multiply-add; the relative xyz of both caches
+    # inherit this value bit for bit
     center_w = (grid.ranges_min.double() + (q_coor.double() + 0.5)
                 * grid.scaled_vsize.double()).float()
+    return coor_2_qslot, n_q, q_coor, q_flat < nvox, center_w
 
+
+def ordered_candidates(grid: PointGrid, xyz: torch.Tensor,
+                       kernel_size: Tuple[int, int, int], C: int,
+                       qc: torch.Tensor, cw: torch.Tensor,
+                       live: torch.Tensor):
+    """The first C candidates of each query voxel of a chunk (coordinates
+    qc [B, 3], centres cw [B, 3], live [B]): (sel_ok [B, C] bool, sel_pidx
+    [B, C] int64, sel_sh [B, C] int64 Chebyshev shell, sel_xyz [B, C, 3]).
+
+    Candidate order is the reference's f32 key shell * 1e12 + min(d2,
+    1e9), sorted stably: beyond shell 0 the d2 term is below one ulp of
+    the shell term, so outer-shell candidates keep their scan order. Both
+    caches (this module's and models/fast_train.py's) take it from here."""
+    dev = xyz.device
+    offs_np, shells_np = neighbor_offsets(kernel_size)
+    offsets = torch.as_tensor(offs_np, dtype=torch.long, device=dev)
+    shells = torch.as_tensor(shells_np, dtype=torch.long, device=dev)
+    V = offsets.shape[0]
+    P = grid.occ_2_pnts.shape[1]
+    _, gy, gz = grid.dims
+    dims_t = torch.tensor(grid.dims, device=dev)
+    N = xyz.shape[0]
+    B = qc.shape[0]
+    nb = qc[:, None, :] + offsets[None]                         # [B, V, 3]
+    inb = ((nb >= 0) & (nb < dims_t)).all(-1) & live[:, None]
+    nbc = torch.minimum(torch.clamp(nb, min=0), dims_t - 1)
+    slot = grid.coor_2_occ.reshape(-1)[
+        (nbc[..., 0] * gy + nbc[..., 1]) * gz + nbc[..., 2]]
+    slot_ok = inb & (slot >= 0)
+    cand = grid.occ_2_pnts[torch.where(slot_ok, slot, 0).long()]
+    ok = slot_ok[..., None] & (cand >= 0)                       # [B, V, P]
+    cxyz = xyz[torch.clamp(cand, 0, N - 1).long()]              # [B,V,P,3]
+    dd = cxyz - cw[:, None, None, :]
+    d2c = dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1] \
+        + dd[..., 2] * dd[..., 2]
+    okf = ok.reshape(B, V * P)
+    sh = shells[None, :, None].expand(B, V, P).reshape(B, V * P)
+    key = sh.float() * 1e12 + torch.clamp(d2c.reshape(B, V * P), max=1e9)
+    key = torch.where(okf, key, float("inf"))
+    top = torch.sort(key, dim=-1, stable=True).indices[:, :C]
+    return (torch.gather(okf, 1, top),
+            torch.gather(cand.reshape(B, V * P).long(), 1, top),
+            torch.gather(sh, 1, top),
+            torch.gather(cxyz.reshape(B, V * P, 3), 1,
+                         top[..., None].expand(B, C, 3)))
+
+
+def cand_width(grid: PointGrid, kernel_size: Tuple[int, int, int],
+               cand_cap: int) -> int:
+    """C = min(cand_cap, candidates a voxel's neighbourhood can hold)."""
+    V = neighbor_offsets(kernel_size)[0].shape[0]
+    return min(cand_cap, V * grid.occ_2_pnts.shape[1])
+
+
+@torch.no_grad()
+def build_fat_cache(grid: PointGrid, cloud: NeuralPointCloud,
+                    kernel_size: Tuple[int, int, int], max_q: int,
+                    cand_cap: int = 64, chunk: int = 32768) -> FatCache:
+    """Build the candidate cache for the kernels (the content of the
+    reference's layout="fused", stored candidate-major: see `FatCache`;
+    the "rows" layout is not ported), once per point/attribute change.
+    Candidates in the order of `ordered_candidates`."""
+    dev = cloud.xyz.device
+    C = cand_width(grid, kernel_size, cand_cap)
+    N = cloud.xyz.shape[0]
+    coor_2_qslot, n_q, q_coor, q_live, center_w = query_voxels(grid, max_q)
     attrs = torch.cat([cloud.points_embeding, cloud.points_conf,
                        cloud.points_dir, cloud.points_color],
                       -1).to(torch.bfloat16)                    # [N, 39]
-    c2o = grid.coor_2_occ.reshape(-1)
     kmeta = torch.empty((max_q, C), dtype=torch.int32, device=dev)
     kcand = torch.empty((max_q, C, PK), dtype=torch.bfloat16, device=dev)
     kxyz = torch.empty((max_q, 3, C), dtype=torch.bfloat16, device=dev)
     for s in range(0, max_q, chunk):
-        qc, cw, live = q_coor[s:s + chunk], center_w[s:s + chunk], \
-            q_live[s:s + chunk]
-        B = qc.shape[0]
-        nb = qc[:, None, :] + offsets[None]                     # [B, V, 3]
-        inb = ((nb >= 0) & (nb < dims_t)).all(-1) & live[:, None]
-        nbc = torch.minimum(torch.clamp(nb, min=0), dims_t - 1)
-        slot = c2o[(nbc[..., 0] * gy + nbc[..., 1]) * gz + nbc[..., 2]]
-        slot_ok = inb & (slot >= 0)
-        cand = grid.occ_2_pnts[torch.where(slot_ok, slot, 0).long()]
-        ok = slot_ok[..., None] & (cand >= 0)                   # [B, V, P]
-        cxyz = xyz[torch.clamp(cand, 0, N - 1).long()]          # [B,V,P,3]
-        dd = cxyz - cw[:, None, None, :]
-        d2c = dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1] \
-            + dd[..., 2] * dd[..., 2]
-        okf = ok.reshape(B, V * P)
-        sh = shells[None, :, None].expand(B, V, P).reshape(B, V * P)
-        key = sh.float() * 1e12 + torch.clamp(d2c.reshape(B, V * P), max=1e9)
-        key = torch.where(okf, key, float("inf"))
-        top = torch.sort(key, dim=-1, stable=True).indices[:, :C]
-        sel_ok = torch.gather(okf, 1, top)
-        sel_pidx = torch.gather(cand.reshape(B, V * P).long(), 1, top)
-        sel_sh = torch.gather(sh, 1, top)
-        sel_xyz = torch.gather(cxyz.reshape(B, V * P, 3), 1,
-                               top[..., None].expand(B, C, 3))
+        cw = center_w[s:s + chunk]
+        sel_ok, sel_pidx, sel_sh, sel_xyz = ordered_candidates(
+            grid, cloud.xyz, kernel_size, C, q_coor[s:s + chunk], cw,
+            q_live[s:s + chunk])
+        B = cw.shape[0]
         rel = (sel_xyz - cw[:, None, :]).to(torch.bfloat16)     # [B, C, 3]
         kmeta[s:s + B] = torch.where(sel_ok, sel_pidx * 4 + sel_sh,
                                      -1).to(torch.int32)
@@ -207,27 +237,30 @@ def build_fat_cache(grid: PointGrid, cloud: NeuralPointCloud,
 
 def fit_cand_cap(max_q: int, cand_cap: int,
                  budget_bytes: Optional[int] = None,
-                 device: torch.device | str | None = None) -> int:
-    """Halve cand_cap (floor 8) until max_q * cand_cap * ROWW * 4 bytes
-    (the reference's sizing) fit the budget: 60% of the CUDA device's
-    memory (torch.cuda.mem_get_info), or of 16 GiB for other devices."""
+                 device: torch.device | str | None = None,
+                 row_words: int = ROWW, what: str = "fat cache") -> int:
+    """Halve cand_cap (floor 8) until max_q * cand_cap * row_words * 4
+    bytes (the reference's sizing) fit the budget: 60% of the CUDA
+    device's memory (torch.cuda.mem_get_info), or of 16 GiB for other
+    devices."""
     if budget_bytes is None:
         dev = torch.device(device) if device is not None else None
         if dev is not None and dev.type == "cuda":
             budget_bytes = int(torch.cuda.mem_get_info(dev)[1] * 0.6)
         else:
             budget_bytes = int((16 << 30) * 0.6)
+    row = row_words * 4
     cc = cand_cap
-    while cc > 8 and max_q * cc * ROWW * 4 > budget_bytes:
+    while cc > 8 and max_q * cc * row > budget_bytes:
         cc //= 2
-    if max_q * cc * ROWW * 4 > budget_bytes:
+    if max_q * cc * row > budget_bytes:
         raise ValueError(
-            f"fat cache infeasible: {max_q} query voxels x cand_cap {cc} x "
-            f"{ROWW * 4} B = {max_q * cc * ROWW * 4 / 2 ** 30:.1f}"
+            f"{what} infeasible: {max_q} query voxels x cand_cap {cc} x "
+            f"{row} B = {max_q * cc * row / 2 ** 30:.1f}"
             f" GiB exceeds the {budget_bytes / 2 ** 30:.1f} GiB budget "
             f"even at the minimum candidate width; coarsen vsize")
     if cc != cand_cap:
-        print(f"fat cache: cand_cap {cand_cap} -> {cc} to fit {max_q} query "
+        print(f"{what}: cand_cap {cand_cap} -> {cc} to fit {max_q} query "
               f"voxels in {budget_bytes / 2 ** 30:.1f} GiB (degraded "
               f"exactness: dense neighbourhoods truncate to the {cc} "
               f"nearest-to-centre per shell)")
@@ -353,7 +386,7 @@ def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
     ndir = nsel[..., 36:39]
     ncol = nsel[..., 39:42]
     dists = neighbor_dists(nxyz, locs, camrotc2w, campos)
-    weight = aggregation_weight(cfg.agg, dists, pnt_mask)
+    weight, emb = aggregation_weight(cfg.agg, emb, dists, pnt_mask)
     if cfg.agg.conf_in_weight:
         weight = weight * conf
     vd = rotate(rd_sel, Rw2c)
@@ -371,13 +404,15 @@ def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
     return sig, rgb, pnt_mask.any(-1)
 
 
-def pack_hit_rays(cache: FatCache, campos, raydirs, near, far, q,
-                  ranges_min, scaled_vsize):
+def pack_hit_rays(cache, campos, raydirs, near, far, q, ranges_min,
+                  scaled_vsize, jitter: float = 0.0):
     """Ray packing of one chunk: (ray_ids [RB] long, valid [RB] bool,
     rb_overflow [] int32) for RB = min(q.ray_budget, R). `ray_ids` holds
     the first RB box-hitting rays in ray order (cumsum + scatter, no
     sync); the padding rows repeat ray 0, as in the reference, and are
-    False in `valid`."""
+    False in `valid`. `jitter` (the train path's) widens the far margin
+    by jitter/2 * (far - near): jittered segment lengths sum past far.
+    `cache` is a FatCache or a GeoCache (its qslot table sizes the box)."""
     dev = raydirs.device
     f32 = torch.float32
     R = raydirs.shape[0]
@@ -388,8 +423,9 @@ def pack_hit_rays(cache: FatCache, campos, raydirs, near, far, q,
     dims_f = torch.tensor(cache.coor_2_qslot.shape, device=dev).to(f32)
     rmax = ranges_min + dims_f * scaled_vsize
     t_enter, t_exit = slab(raydirs, campos, ranges_min, rmax)
+    far_slack = jitter * 0.5 * (far - near) + step_t if jitter else step_t
     hit = ((t_exit + step_t >= t_enter) & (t_exit >= near - step_t)
-           & (t_enter <= far + step_t))
+           & (t_enter <= far + far_slack))
     pos = torch.cumsum(hit.long(), 0) - 1
     dest = torch.where(hit & (pos < RB), pos, RB)
     ray_ids = torch.zeros(RB + 1, dtype=torch.long, device=dev).scatter_(
@@ -398,6 +434,21 @@ def pack_hit_rays(cache: FatCache, campos, raydirs, near, far, q,
     valid = torch.arange(RB, device=dev) < n_hit
     rb_overflow = torch.clamp(n_hit - RB, min=0).to(torch.int32)
     return ray_ids, valid, rb_overflow
+
+
+def qslot_lookup(coor_2_qslot: torch.Tensor, pos: torch.Tensor,
+                 ranges_min: torch.Tensor, scaled_vsize: torch.Tensor
+                 ) -> torch.Tensor:
+    """The qslot of the voxel each position [..., 3] lies in, -1 outside
+    the grid or outside every query voxel."""
+    dims = coor_2_qslot.shape
+    dims_t = torch.tensor(dims, device=pos.device)
+    gc = torch.floor((pos - ranges_min) / scaled_vsize).to(torch.int32)
+    inb = ((gc >= 0) & (gc < dims_t)).all(-1)
+    gcc = torch.minimum(torch.clamp(gc, min=0), dims_t - 1).long()
+    fi = (gcc[..., 0] * dims[1] + gcc[..., 1]) * dims[2] + gcc[..., 2]
+    qslot_flat = coor_2_qslot.reshape(-1)
+    return torch.where(inb, qslot_flat[torch.where(inb, fi, 0)], -1)
 
 
 def march_args(cache: FatCache, campos, raydirs, near, far, q, ranges_min,
@@ -465,10 +516,7 @@ def fast_render_rays(
     BP = q.ray_slot_budget or min(SR, 32)
     budget = q.compact_budget if q.compact_budget > 0 else SR
     M = min(R * budget, R * D)
-    dims = cache.coor_2_qslot.shape
-    gy, gz = dims[1], dims[2]
-    dims_t = torch.tensor(dims, device=dev)
-    dims_f = dims_t.to(f32)
+    dims_f = torch.tensor(cache.coor_2_qslot.shape, device=dev).to(f32)
     near = torch.as_tensor(near, dtype=f32, device=dev)
     far = torch.as_tensor(far, dtype=f32, device=dev)
     step_t = (far - near) / D
@@ -508,14 +556,9 @@ def fast_render_rays(
             cb_overflow=sub.cb_overflow, mc_overflow=sub.mc_overflow,
             n_valid_slots=sub.n_valid_slots)
 
-    qslot_flat = cache.coor_2_qslot.reshape(-1)
-
     def qs_lookup(pos):
-        gc = torch.floor((pos - ranges_min) / scaled_vsize).to(torch.int32)
-        inb = ((gc >= 0) & (gc < dims_t)).all(-1)
-        gcc = torch.minimum(torch.clamp(gc, min=0), dims_t - 1).long()
-        fi = (gcc[..., 0] * gy + gcc[..., 1]) * gz + gcc[..., 2]
-        return torch.where(inb, qslot_flat[torch.where(inb, fi, 0)], -1)
+        return qslot_lookup(cache.coor_2_qslot, pos, ranges_min,
+                            scaled_vsize)
 
     mc_overflow = dw_overflow = None
     if march_active(q):

@@ -1,7 +1,8 @@
 """Neural point cloud: the point store.
 
-Port of `pointnerf2studio_tpu/models/neural_points.py` (NeuralPointCloud,
-from_arrays and the single-device gather_neighbors). Static-capacity layout: arrays are allocated at
+Port of `pointnerf2studio_tpu/models/neural_points.py` (NeuralPointCloud
+with its trainable set, from_arrays and the single-device
+gather_neighbors). Static-capacity layout: arrays are allocated at
 `capacity` rows with an `alive` mask; names match the reference
 checkpoint keys (xyz, points_embeding, points_conf, points_dir,
 points_color, Rw2c).
@@ -18,6 +19,9 @@ import torch
 from pointnerf2studio_torch.ops._cuda import resolve_device
 
 
+TRAINABLE = ("points_embeding", "points_conf", "points_dir", "points_color")
+
+
 @dataclasses.dataclass
 class NeuralPointCloud:
     xyz: torch.Tensor               # [N, 3] float32
@@ -31,6 +35,19 @@ class NeuralPointCloud:
     @property
     def capacity(self) -> int:
         return self.xyz.shape[0]
+
+    @property
+    def num_alive(self) -> torch.Tensor:
+        return self.alive.sum().to(torch.int32)
+
+    def trainable(self) -> Dict[str, torch.Tensor]:
+        """The point attributes the `neural_points` optimizer group
+        trains; xyz, Rw2c and alive stay frozen."""
+        return {name: getattr(self, name) for name in TRAINABLE}
+
+    def with_trainable(self, t: Dict[str, torch.Tensor]
+                       ) -> "NeuralPointCloud":
+        return dataclasses.replace(self, **t)
 
 
 def from_arrays(

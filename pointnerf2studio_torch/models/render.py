@@ -129,8 +129,8 @@ def render_rays(
 
     dists = neighbor_dists(neigh["xyz"], locs, camrotc2w, campos)
 
-    weight = aggregation_weight(cfg.agg, dists, pnt_mask)
-    emb = neigh["embeding"]
+    weight, emb = aggregation_weight(cfg.agg, neigh["embeding"], dists,
+                                     pnt_mask)
     conf = neigh["conf"][..., 0]
     if cfg.agg.conf_in_weight:
         weight = weight * conf

@@ -6,11 +6,12 @@ Port of `near_far_linear_ray_generation` and
 [near, far] segments, each optionally jittered by a +-jitter/2 fraction
 of its own length, sample positions at the segment midpoints.
 
-The jitter draws are always supplied by the caller (`jitter_u`, uniform
-[0, 1) per sample): the reference's key-based draw is not ported, so a
-test or a train step hands both packages the same numbers. Without
-`jitter_u` the closed form runs, as it does in the reference when no
-key is given.
+The jitter draws are supplied by the caller (`jitter_u`, uniform [0, 1)
+per sample). The reference draws them from a JAX key through the rbg
+generator, which torch cannot reproduce; the port's train step draws its
+own from a `torch.Generator` on the device (`jitter_uniform`), and a
+parity test hands both packages the same numbers. Without `jitter_u`
+the closed form runs, as it does in the reference when no key is given.
 """
 
 from __future__ import annotations
@@ -18,6 +19,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+
+def jitter_uniform(shape, generator: torch.Generator) -> torch.Tensor:
+    """Uniform [0, 1) float32 draws of `shape` from `generator`, on the
+    generator's device."""
+    return torch.rand(shape, generator=generator, device=generator.device)
 
 
 def _unit_steps(num: int, dtype, device) -> torch.Tensor:

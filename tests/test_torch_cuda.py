@@ -496,3 +496,97 @@ def test_march_render_kernels_vs_plain(dev):
         cfg.query, march_steps=(), march_buckets=())))
     for f in ("coarse_raycolor", "ray_mask", "acc", "depth"):
         assert torch.equal(getattr(out, f), getattr(dense, f)), f
+
+
+# ---- the train step (models/fast_train.py) through the kernels on the card
+
+def _train_world(dev):
+    """A small sphere scene on the card, a 48x48 batch of its camera's rays
+    with fixed jitter draws, a march plan for them and the geometry cache
+    with its march table."""
+    from pointnerf2studio_torch.models import fast_train as ft
+    cfg = sphere_config(sr=16, d=48)
+    cfg = dataclasses.replace(
+        cfg, agg=dataclasses.replace(cfg.agg, compute_dtype="bfloat16"),
+        query=dataclasses.replace(cfg.query, ray_slot_budget=16,
+                                  select_mode="pallas", compact_budget=8,
+                                  ray_budget=2048))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, fast_path=True, jitter=0.3))
+    s = make_sphere_scene(4000, cfg=cfg, device=dev)
+    rays = camera_rays(s.camrotc2w, 48, 48, 30.0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    u = torch.rand((rays.shape[0], 48), generator=g, device=dev)
+    gt = torch.rand((rays.shape[0], 3), generator=g, device=dev)
+    cfg_m = dataclasses.replace(cfg, query=dataclasses.replace(
+        cfg.query, march_steps=(8, 16, 120), march_buckets=(2048, 1024)))
+    geo, rmin, svs = ft.make_geo_scene(cfg_m, s.cloud, s.grid)
+    return dict(s=s, cfg=cfg, cfg_m=cfg_m, rays=rays, u=u, gt=gt, geo=geo,
+                rmin=rmin, svs=svs)
+
+
+def _train_step(w, cfg, plain=False):
+    """One step from a fresh state: (aux, launches, every gradient and
+    updated weight)."""
+    from pointnerf2studio_torch.models import fast_train as ft
+    from pointnerf2studio_torch.train.trainer import create_train_state
+    s = w["s"]
+    st = create_train_state(s.params, s.cloud, cfg)
+    orig = ft.march_rays
+    if plain:
+        cfg = dataclasses.replace(cfg, query=dataclasses.replace(
+            cfg.query, select_mode="topk"))
+        ft.march_rays = march.march_rays_reference
+    _cuda.LAUNCHES.clear()
+    try:
+        st, aux = ft.make_fast_train_step(cfg)(
+            st, w["geo"], w["rmin"], w["svs"], s.campos, s.camrotc2w,
+            w["rays"], w["gt"], torch.tensor(s.near, device=s.campos.device),
+            torch.tensor(s.far, device=s.campos.device), jitter_u=w["u"])
+    finally:
+        ft.march_rays = orig
+    torch.cuda.synchronize()
+    pts = list(st.points.trainable().values())
+    ten = ([p.grad for p in st.params.parameters()] + [p.grad for p in pts]
+           + [p.detach() for p in st.params.parameters()] + pts)
+    return aux, dict(_cuda.LAUNCHES), ten
+
+
+def _train_equal(a, b):
+    assert float(a[0]["total"]) == float(b[0]["total"])
+    for i, (x, y) in enumerate(zip(a[2], b[2])):
+        assert torch.equal(x, y), i
+
+
+def test_train_step_kernels_vs_plain(dev):
+    """The train step through first_valid_cols, and through march_rays,
+    equals the step through their plain versions bit for bit: loss,
+    every gradient and every updated weight; the counters read 0."""
+    w = _train_world(dev)
+    for cfg, kern, n in ((w["cfg"], "first_valid_cols", 1),
+                         (w["cfg_m"], "march_rays", 3)):
+        got = _train_step(w, cfg)
+        assert got[1].get(kern, 0) == n, got[1]
+        want = _train_step(w, cfg, plain=True)
+        assert want[1].get(kern, 0) == 0
+        _train_equal(got, want)
+        assert float(got[0]["rb_overflow"]) == 0
+        assert float(got[0].get("mc_overflow", 0)) == 0
+        n_params = len(list(w["s"].params.parameters()))
+        assert float(got[2][n_params].abs().sum()) > 0  # points_embeding
+
+
+def test_train_step_deterministic(dev):
+    """The same step twice on the card gives the same loss, gradients and
+    weights bit for bit (the attribute gather's backward included)."""
+    w = _train_world(dev)
+    _train_equal(_train_step(w, w["cfg"]), _train_step(w, w["cfg"]))
+
+
+def test_train_march_equals_dense(dev):
+    """The march front-end's step equals the dense front-end's bit for
+    bit, as the reference holds its own two front-ends."""
+    w = _train_world(dev)
+    m = _train_step(w, w["cfg_m"])
+    assert m[1].get("first_valid_cols", 0) == 0
+    _train_equal(m, _train_step(w, w["cfg"]))

@@ -284,13 +284,15 @@ def test_aggregation_weight_matches(axis_weight):
     pm = rng.random((40, 8)) < 0.6
     emb = rng.normal(size=(40, 8, 32)).astype(np.float32)
     cfg = AggregatorConfig(axis_weight=axis_weight)
-    want, _ = jagg.aggregation_weight(cfg, jnp.asarray(emb),
+    want, want_emb = jagg.aggregation_weight(cfg, jnp.asarray(emb),
                                       jnp.asarray(dists), jnp.asarray(pm),
                                       0.008)
-    got = tagg.aggregation_weight(TAggConfig(**dataclasses.asdict(cfg)),
-                                  torch.as_tensor(dists), torch.as_tensor(pm))
+    got, got_emb = tagg.aggregation_weight(
+        TAggConfig(**dataclasses.asdict(cfg)), torch.as_tensor(emb),
+        torch.as_tensor(dists), torch.as_tensor(pm))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-7)
+    np.testing.assert_array_equal(got_emb.numpy(), np.asarray(want_emb))
 
 
 def test_aggregator_init_is_seeded():

@@ -15,6 +15,7 @@ from pointnerf2studio_torch import convert
 from pointnerf2studio_torch.config import AggregatorConfig
 from pointnerf2studio_torch.data import synthetic
 from pointnerf2studio_torch.models import aggregator, neural_points
+from pointnerf2studio_torch.train import loop
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted(
@@ -37,7 +38,9 @@ def test_sources_found():
     assert "chip_smoke.py" in SOURCES
     for mod in ("ops/fused_select.py", "ops/fused_decode.py",
                 "models/render.py", "ops/raygen.py", "ops/march.py",
-                "ops/raster.py", "models/fast_render.py"):
+                "ops/raster.py", "models/fast_render.py",
+                "models/fast_train.py", "train/loop.py", "train/loss.py",
+                "train/trainer.py", "data/blender.py", "utils/logger.py"):
         assert f"pointnerf2studio_torch/{mod}" in SOURCES
 
 
@@ -63,6 +66,9 @@ DEFAULT_DEVICE_CALLS = {
     "grid_from_jax": lambda **kw: convert.grid_from_jax(_Fields(), **kw),
     "fat_cache_from_jax": lambda **kw: convert.fat_cache_from_jax(
         _Fields(), **kw),
+    "geo_cache_from_jax": lambda **kw: convert.geo_cache_from_jax(
+        _Fields(), **kw),
+    "fit": lambda **kw: loop.fit(None, None, None, None, "unused", **kw),
     "from_arrays": lambda **kw: neural_points.from_arrays(
         *(np.zeros((2, c), np.float32) for c in (3, 32, 1, 3, 3)), **kw),
     "Aggregator": lambda **kw: aggregator.Aggregator(AggregatorConfig(), **kw),

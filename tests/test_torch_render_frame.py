@@ -266,3 +266,58 @@ def test_program_cache_and_budget_tier(setup):
     assert a.front_end == b.front_end == "raster"
     _same(a, b)
     _same(a, _frame(s, memo="walk"))
+
+
+# the tower's inputs that carry the payload, scaled so that the colour
+# depends on it: mlp_base layer 0's rows for emb and PE(emb) (the first
+# 32 + 192 of its 284 inputs) and mlp_head layer 0's rows for the
+# neighbour colour, the dir difference and their dot (inputs 256 to 262)
+PAYLOAD_SCALE = 4.0
+
+
+def payload_weights(params):
+    p = jax.tree.map(lambda x: np.array(x, np.float32), params)
+    p["mlp_base"][0]["kernel"][:224] *= PAYLOAD_SCALE
+    p["mlp_head"][0]["kernel"][256:263] *= PAYLOAD_SCALE
+    return p
+
+
+def rotate_payload(cache):
+    """The payload mutant: each candidate's 96-byte payload row with its
+    six 16-byte pieces rotated by one (what a selection extract that deals
+    the pieces to the wrong lanes would hand the tower)."""
+    kc = cache.kcand
+    return dataclasses.replace(cache, kcand=kc.view(
+        kc.shape[0], kc.shape[1], 6, 8).roll(1, 2).reshape(kc.shape))
+
+
+def test_frame_check_depends_on_payload(setup):
+    """With weights under which the colour depends on the payload, the
+    port's frame (the plain fused chunk body) matches the reference's
+    within the bf16 bound (atol 2e-2, mean < 2e-3; measured 2.2e-4 /
+    4.2e-5), and the same frame rendered from a payload with its pieces
+    rotated fails that bound by far (measured max 0.379, mean 0.196): the
+    check sees a wrong payload."""
+    s = setup
+    scene = s["scene"]
+    jp = payload_weights(scene.params)
+    tp = convert.aggregator_from_jax(jp, _port_cfg(s["cfg"]).agg,
+                                     device="cpu")
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jfr.render_frame(
+            jax.tree.map(jnp.asarray, jp), scene.cloud.Rw2c, s["cache"],
+            scene.campos, scene.camrotc2w, jnp.asarray(s["rays"]),
+            scene.near, scene.far, s["cfg"], s["rmin"], s["svs"],
+            raster=(H, W, PINHOLE), **KW).coarse_raycolor, np.float32)
+    p = dict(s["port"], params=tp)
+    diffs = []
+    for cache in (p["cache"], rotate_payload(p["cache"])):
+        got = tfr.render_frame(
+            tp, p["Rw2c"], cache, p["campos"], p["camrotc2w"], T(s["rays"]),
+            scene.near, scene.far, _port_cfg(s["cfg"]), p["rmin"], p["svs"],
+            raster=(H, W, PINHOLE), **KW)
+        d = np.abs(got.coarse_raycolor.numpy() - want)
+        diffs.append((float(d.max()), float(d.mean())))
+    (good_max, good_mean), (bad_max, bad_mean) = diffs
+    assert good_max <= 2e-2 and good_mean < 2e-3, diffs
+    assert bad_max > 5 * 2e-2 and bad_mean > 5 * 2e-3, diffs
