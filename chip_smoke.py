@@ -56,6 +56,26 @@ ray budget measured on the frame as the JAX bench sizes them:
      march step; the loss of steps 91-100 must be at most a quarter of
      steps 1-10's, and both runs end bit-equal. Train it/s per front-end:
      10 warm-up steps, then the median of 3 windows of 20, in turns.
+ 10. the reference's default route (`QueryConfig.use_cache`, `fit` with
+     `fast_path=False`): the grid's candidate cache (max_q of the fat
+     cache, cand_cap 64) built on the card; chunk 0 through the legacy
+     `render_rays` on it with fused_decode on (first_valid_cols once on
+     the qslot table, fused_decode once a decode piece), held to the plain
+     versions (ray_mask exactly, colour within 2e-2, mean < 2e-3); a cache
+     at cand_cap = V * P against the grid K-NN on the same samples (the
+     neighbour sets of every slot bit for bit, the reference's guarantee;
+     the slots in the same order are counted); each of the five weight
+     kernels of fused_decode's gate on 8,192 rays through the kernel and
+     through `decode_radiance` within the same bound; the chunk's time on
+     the cache and on the grid in turns. Then the legacy train step on the
+     train phase's batch and jitter (first_valid_cols once on qs [4096,
+     400], fused_decode never): kernel step == plain step and a step twice,
+     bit for bit; at float32 against the fast step without ray packing and
+     with SR slots a ray, loss within rtol 1e-4 and every gradient within
+     rtol 2e-3 / atol 1e-6; `fit(fast_path=False)` 100 steps, the loss down
+     at least 4x; its it/s beside the fast dense step's, in turns; one step
+     under the profiler split into forward, backward and optimizer, where
+     torch's `indexing_backward_kernel` must not appear.
 
 The launch counts are set to 0 just before each path and read just
 after it. It fails (non-zero exit, no result line) when there is no
@@ -73,8 +93,8 @@ frame it is held to, when first_valid_cols is launched behind the march
 or the raster, or when a path's first chunk rendered through the kernels
 differs from the same chunk rendered through the plain versions
 (ray_mask exactly, colour within the same bound), when a check of the
-payload phase or of the train phase fails. Printed before the
-last line: the card's name and power limit, build and phase times, each
+payload phase, of the train phase or of the legacy phase fails. Printed
+before the last line: the card's name and power limit, build and phase times, each
 kernel's and its plain version's time at its path's shapes beside the
 least time the card could take (bytes over 3.35 TB/s or operations over
 989 TFLOP/s bf16, whichever is larger), the ratio of the two and, for
@@ -176,6 +196,17 @@ def bound(n_bytes: float, flops: float):
     """(least ms the card could take, what bounds it)."""
     t_b, t_f = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def tower_bound(a, outs_):
+    """The bound of a decode kernel (fused_decode, fused_decode2) on its
+    inputs `a` and outputs `outs_`: its inputs and weights read and its
+    outputs written once, the tower's multiply-adds on the rows with a
+    weight."""
+    rows = int((a[5] != 0).sum())
+    w_tower = 2 * ROW_MACS + 4 * (4 * 256 + 1)
+    return bound(nbytes(*a[1:6]) + w_tower + nbytes(*outs_),
+                 2 * rows * ROW_MACS)
 
 
 def fused_chunk_weight_bytes(agg) -> int:
@@ -287,6 +318,51 @@ def probe_tower(source: str, bits_list, name: str, fn) -> None:
         with _cuda.variant(source, f):
             t = cuda_ms(fn, 10, 2)
         log(f"probe {name}, TOWER_PROBE={bits} ({PROBES[bits]}): {t:.3f} ms")
+
+
+def tower_check(name, kern, plain, a, k):
+    """Hold a tower kernel (`kern`) to its plain version on inputs (a, k):
+    aw within ATOL + SIG_RTOL |aw|, hw within HW_ATOL + HW_RTOL |hw| and
+    mean |diff| <= HW_MEAN_RTOL mean |hw|, the mean over both < MEAN_TOL.
+    Returns the largest |diff|."""
+    import torch
+    aw_k, hw_k = kern(*a, **k)
+    aw_p, hw_p = plain(*a, **k)
+    torch.cuda.synchronize()
+    d_aw = (aw_k - aw_p).abs()
+    hw_abs = hw_p.float().abs()
+    d_hw = (hw_k.float() - hw_p.float()).abs()
+    mean = float(torch.cat([d_aw.reshape(-1), d_hw.reshape(-1)]).mean())
+    hw_mean, hw_scale = float(d_hw.mean()), float(hw_abs.mean())
+    hw_worst = float((d_hw / (HW_ATOL + HW_RTOL * hw_abs)).max())
+    log(f"{name} vs plain on emb {tuple(a[1].shape)} "
+        f"({int((a[5] != 0).sum())} rows with a weight): max |diff| "
+        f"aw {float(d_aw.max()):.3e} hw {float(d_hw.max()):.3e}, "
+        f"mean {mean:.3e}; plain mean aw {float(aw_p.mean()):.4f}, "
+        f"mean |hw| {hw_scale:.4f}; hw: largest |diff| / (1e-3 + 2^-7 "
+        f"|hw|) {hw_worst:.3f}, mean |diff| / mean |hw| "
+        f"{hw_mean / hw_scale:.3e}")
+    if not (bool((d_aw <= ATOL + SIG_RTOL * aw_p.abs()).all())
+            and hw_worst <= 1.0 and hw_mean <= HW_MEAN_RTOL * hw_scale
+            and mean < MEAN_TOL):
+        fail(f"{name} disagrees with its plain version")
+    return float(max(d_aw.max(), d_hw.max()))
+
+
+def same_step(what, a, b):
+    """Fail unless two train steps (aux, tensors, launches) agree bit for
+    bit: the loss and every gradient and updated weight tensor."""
+    import torch
+    if float(a[0]["total"]) != float(b[0]["total"]):
+        fail(f"train: {what}: loss {float(a[0]['total'])!r} against "
+             f"{float(b[0]['total'])!r}")
+    bad = [i for i, (x, y) in enumerate(zip(a[1], b[1]))
+           if not torch.equal(x, y)]
+    if bad:
+        fail(f"train: {what}: {len(bad)} of {len(a[1])} gradient and "
+             f"weight tensors differ")
+    log(f"train: {what}: loss {float(a[0]['total']):.9g} and all "
+        f"{len(a[1])} gradient and updated weight tensors bit-equal")
 
 
 def check_launches(path: str, got: dict, want: dict) -> None:
@@ -882,18 +958,6 @@ def train_phases(c) -> dict:
         ten += [p.detach() for p in st.params.parameters()] + pts
         return aux, ten, dict(_cuda.LAUNCHES)
 
-    def same(what, a, b):
-        if float(a[0]["total"]) != float(b[0]["total"]):
-            fail(f"train: {what}: loss {float(a[0]['total'])!r} against "
-                 f"{float(b[0]['total'])!r}")
-        bad = [i for i, (x, y) in enumerate(zip(a[1], b[1]))
-               if not torch.equal(x, y)]
-        if bad:
-            fail(f"train: {what}: {len(bad)} of {len(a[1])} gradient and "
-                 f"weight tensors differ")
-        log(f"train: {what}: loss {float(a[0]['total']):.9g} and all "
-            f"{len(a[1])} gradient and updated weight tensors bit-equal")
-
     dense_k = one_step(cfg_d)
     dense_k2 = one_step(cfg_d)
     dense_p = one_step(cfg_d, plain=True)
@@ -911,10 +975,10 @@ def train_phases(c) -> dict:
                 fail(f"train step ({name}): {k} {float(s_[0][k])}")
     if "mc_overflow" not in march_k[0] or "rb_overflow" not in dense_k[0]:
         fail("train: a counter is missing from the step's aux")
-    same("dense kernel step vs plain step", dense_k, dense_p)
-    same("dense kernel step run twice", dense_k, dense_k2)
-    same("march kernel step vs plain step", march_k, march_p)
-    same("march step vs dense step", march_k, dense_k)
+    same_step("dense kernel step vs plain step", dense_k, dense_p)
+    same_step("dense kernel step run twice", dense_k, dense_k2)
+    same_step("march kernel step vs plain step", march_k, march_p)
+    same_step("march step vs dense step", march_k, dense_k)
     qs = captured["qs"]
     BP = min(q.ray_slot_budget or q.SR, q.SR)
     sel_k, sel_p = sl.first_valid_cols(qs, BP), \
@@ -1033,24 +1097,10 @@ def train_phases(c) -> dict:
         finally:
             ft.gather_rows = orig
 
-    for r in runs.values():
-        go(r, 10)
-    for _ in range(3):
-        for r in runs.values():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            go(r, 20)
-            torch.cuda.synchronize()
-            r["ips"].append(20 / (time.perf_counter() - t0))
-    ips = {}
+    ips = steps_in_turns(runs, go, c.smi)
     for name, r in runs.items():
         if float(r["ctr"]):
             fail(f"train {name}: a counter was non-zero in the timed steps")
-        v = sorted(r["ips"])
-        ips[name] = {"median": v[1], "min": v[0], "max": v[2]}
-        log(f"train {name}: {v[1]:.2f} it/s of {B}-ray steps (median of 3 "
-            f"windows of 20 after 10 warm-up steps; spread {v[0]:.2f}-"
-            f"{v[2]:.2f}; in turns; {c.smi})")
 
     # ---- --profile: one step per front-end, split into its forward, its
     # backward and its optimizer update
@@ -1062,50 +1112,19 @@ def train_phases(c) -> dict:
             cf = r["cf"]
             cp, cr, rd, gt, _ = r["smp"].next_batch()
             st = r["st"]
-            parts = {}
 
-            def fwd():
+            def fwd(st=st, cf=cf, cp=cp, cr=cr, rd=rd, gt=gt, g=r["g"]):
                 st.zero_grad()
-                parts["out"] = compute_losses(ft.fast_train_render(
+                return compute_losses(ft.fast_train_render(
                     st.params, st.points, geo, cp, cr, rd, near, far, cf,
-                    rmin, svs, generator=r["g"]), gt, cf.train)[0]
+                    rmin, svs, generator=g), gt, cf.train)[0]
 
-            step_ms = cuda_ms(lambda: (fwd(), parts["out"].backward(),
-                                       apply_updates(st, cf)), 3, 1)
-            rows = {}
-            for part, fn in (("forward", fwd),
-                             ("backward", lambda: parts["out"].backward()),
-                             ("optimizer", lambda: apply_updates(st, cf))):
-                if part != "forward":
-                    fwd()
-                if part == "optimizer":
-                    parts["out"].backward()
-                rows[part] = device_rows_once(fn)
-            tot = {p: sum(x[0] for x in v) for p, v in rows.items()}
-            merged = {}
-            for v in rows.values():
-                for ms, n, key in v:
-                    a = merged.setdefault(key, [0.0, 0])
-                    a[0] += ms
-                    a[1] += n
-            top = sorted(((ms, n, k) for k, (ms, n) in merged.items()),
-                         reverse=True)
-            dev_ms = sum(tot.values())
-            prof[name] = {"step_ms": step_ms, **{f"{p}_ms": t for p, t in
-                                                 tot.items()},
-                          "idle": 1 - dev_ms / step_ms,
-                          "launches": sum(x[1] for x in top)}
-            c.prof_dir.mkdir(parents=True, exist_ok=True)
-            (c.prof_dir / f"profile_train_{name}.txt").write_text("".join(
-                f"{ms:10.3f} ms {n:6d} x {key}\n" for ms, n, key in top))
-            log(f"profile train {name}: step {step_ms:.2f} ms; device forward "
-                f"{tot['forward']:.2f}, backward {tot['backward']:.2f}, "
-                f"optimizer {tot['optimizer']:.2f} ms ({dev_ms:.2f} in "
-                f"{prof[name]['launches']} launches); idle share "
-                f"{prof[name]['idle']:.3f}")
-            for ms, n, key in top[:10]:
-                log(f"  {ms:9.3f} ms {100 * ms / dev_ms:5.1f}% {n:5d} x "
-                    f"{key[:90]}")
+            prof[name] = step_profile(
+                f"train {name}", fwd,
+                lambda st=st, cf=cf: apply_updates(st, cf), c.prof_dir)
+            del prof[name]["names"]
+    c.train_setup = dict(ds=ds, cfg=cfg_d, batch=batch, u=u, near=near,
+                         far=far, geo=(geo, rmin, svs))
     return {
         "select": dict(launches=fits["dense"]["launches"].get(
             "first_valid_cols", 0),
@@ -1120,6 +1139,530 @@ def train_phases(c) -> dict:
         "profile": prof, "ray_budget": rb, "march_steps": steps,
         "geo_s": t_geo, "geo_bytes": geo_bytes, "plan_s": t_plan,
     }
+
+
+LEGACY_KERNELS = ("linear", "quadric", "avg", "numlinear", "numquadric")
+
+
+def legacy_phases(c) -> dict:
+    """The reference's default route (section 10 of the module docstring):
+    the served chunk on the grid's candidate cache, the cache route against
+    the grid route, the five weight kernels through fused_decode, and the
+    legacy train step and fit(fast_path=False) on the train phase's views.
+    Returns the kernels' legacy records and the checks' numbers."""
+    import torch
+    from pointnerf2studio_torch.models import fast_train as ft
+    from pointnerf2studio_torch.models import neural_points as npm
+    from pointnerf2studio_torch.models import render as lr
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.ops import fused_decode as fd
+    from pointnerf2studio_torch.ops import query as qy
+    from pointnerf2studio_torch.ops import select as sl
+    from pointnerf2studio_torch.ops.grid import build_candidate_cache
+    from pointnerf2studio_torch.ops.raygen import (
+        near_far_linear_ray_generation)
+    from pointnerf2studio_torch.train import loop
+    from pointnerf2studio_torch.train.loss import compute_losses
+    from pointnerf2studio_torch.train.trainer import (
+        apply_updates, create_train_state, make_train_step)
+
+    scene, dev, grid = c.scene, c.dev, c.scene.grid
+    q = c.cfg.query
+    max_q = c.cache.kmeta.shape[0]
+    rays0 = c.raydirs[:CHUNK]
+    bg = torch.tensor(c.cfg.bg_color, device=dev)
+    none_else = {"fused_chunk_decode": 0, "fused_candidate_select": 0,
+                 "fused_decode2": 0, "march_rays": 0}
+
+    def build(cap):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cc = build_candidate_cache(grid, scene.cloud.xyz, q.kernel_size,
+                                   max_q, cap)
+        torch.cuda.synchronize()
+        return cc, time.perf_counter() - t0
+
+    cc, t_cache = build(q.cand_cap)
+    grid_c = dataclasses.replace(grid, cache=cc)
+    cache_bytes = nbytes(cc.cand_pack, cc.coor_2_qslot)
+    log(f"legacy: candidate cache cand_pack {tuple(cc.cand_pack.shape)} + "
+        f"qslot table = {cache_bytes} B (max_q {max_q}, C {q.cand_cap}) "
+        f"built in {t_cache:.2f} s")
+    cfg_s = dataclasses.replace(
+        c.cfg, query=dataclasses.replace(q, use_cache=True, max_q=max_q),
+        agg=dataclasses.replace(c.cfg.agg, fused_decode=True))
+
+    def served(rays, cf=cfg_s, g=grid_c):
+        with torch.no_grad():
+            return lr.render_rays(scene.params, scene.cloud, g, scene.campos,
+                                  scene.camrotc2w, rays, scene.near,
+                                  scene.far, cf)
+
+    # ---- (a) the served chunk on the cache: the main path of this phase
+    captured = {}
+    orig_fvc, orig_pair = lr.first_valid_cols, fd.pair_tower
+
+    def cap_fvc(qs_, bp_):
+        captured.setdefault("fvc", (qs_, bp_))
+        return orig_fvc(qs_, bp_)
+
+    def cap_pair(*a, **k):
+        captured.setdefault("pair", (a, k))
+        return orig_pair(*a, **k)
+
+    lr.first_valid_cols, fd.pair_tower = cap_fvc, cap_pair
+    _cuda.LAUNCHES.clear()
+    try:
+        out = served(rays0)
+        torch.cuda.synchronize()
+    finally:
+        lr.first_valid_cols, fd.pair_tower = orig_fvc, orig_pair
+    got_s = dict(_cuda.LAUNCHES)
+    M = CHUNK * q.compact_budget
+    n_pieces = -(-M // q.decode_chunk)
+    check_launches("legacy served chunk (cache)", got_s,
+                   {"first_valid_cols": 1, "fused_decode": n_pieces,
+                    **none_else})
+    col, mask = out.coarse_raycolor, out.ray_mask
+    if col.shape != (CHUNK, 3) or not torch.isfinite(col).all():
+        fail("legacy served chunk: colour is not finite or misshapen")
+    if not torch.equal(col[~mask], bg.expand(int((~mask).sum()), 3)):
+        fail("legacy served chunk: miss rays are not exactly background")
+    if not 0.05 < float(mask.float().mean()) < 0.95:
+        fail("legacy served chunk: implausible ray_mask")
+    qs_s, bp_s = captured["fvc"]
+    if not all(torch.equal(a, b) for a, b in zip(
+            sl.first_valid_cols(qs_s, bp_s),
+            sl.first_valid_cols_reference(qs_s, bp_s))):
+        fail("legacy: first_valid_cols differs from its plain version on "
+             "the cache route's qslot table")
+    pair_a, pair_k = captured["pair"]
+    pair_err = tower_check("fused_decode (cache route)", fd.pair_tower,
+                           fd.pair_tower_reference, pair_a, pair_k)
+    lr.first_valid_cols = sl.first_valid_cols_reference
+    lr.fused_decode = fd.fused_decode_reference
+    try:
+        out_p = served(rays0)
+    finally:
+        lr.first_valid_cols, lr.fused_decode = orig_fvc, fd.fused_decode
+    if not torch.equal(mask, out_p.ray_mask):
+        fail("legacy served chunk: ray_mask differs between kernels and plain")
+    dc = (col - out_p.coarse_raycolor).abs()
+    served_diff = (float(dc.max()), float(dc.mean()))
+    log(f"legacy served chunk ({CHUNK} rays, cache route): launches {got_s}; "
+        f"kernels vs plain: ray_mask equal, colour max |diff| "
+        f"{served_diff[0]:.3e}, mean {served_diff[1]:.3e}; ray_mask fraction "
+        f"{float(mask.float().mean()):.4f}")
+    if not (served_diff[0] <= ATOL and served_diff[1] < MEAN_TOL):
+        fail("legacy served chunk: colour through the kernels disagrees")
+
+    # ---- the cache route against the grid route at cand_cap = V * P: the
+    # same samples, the same neighbour sets
+    V_P = 27 * grid.occ_2_pnts.shape[1]
+    cc_full, t_full = build(V_P)
+    g_full = dataclasses.replace(grid, cache=cc_full)
+    D, SR, K = q.z_depth_dim, q.SR, q.K
+    r2 = q.radius_limit ** 2
+    with torch.no_grad():
+        raypos = near_far_linear_ray_generation(
+            scene.campos, rays0, D, scene.near, scene.far)[0]
+        qs_c = qy.mask_raypos_qslot(g_full, raypos)
+        qs_g = qy.mask_raypos(grid, raypos)
+        if not torch.equal(qs_c >= 0, qs_g):
+            fail("legacy: the cache's query slots and the grid's occupancy "
+                 "disagree")
+        sel, mask_c, _ = lr.compact_samples(qs_c, SR, M)
+        locs = raypos.reshape(-1, 3)[sel]
+        p_c = qy.knn_from_cache(g_full, qs_c.reshape(-1)[sel], locs, mask_c,
+                                K, r2, (q.kernel_size[0] + 1) // 2,
+                                layered=q.layered_search)
+        p_g = qy.knn_for_locs(grid, scene.cloud.xyz, locs, mask_c, K, r2,
+                              q.kernel_size, layered=q.layered_search)
+    torch.cuda.synchronize()
+    same_set = torch.equal(torch.sort(p_c, -1).values,
+                           torch.sort(p_g, -1).values)
+    in_order = int((p_c == p_g).all(-1).sum())
+    log(f"legacy: cache route (cand_cap {V_P}: cand_pack "
+        f"{nbytes(cc_full.cand_pack)} B built in {t_full:.2f} s) vs grid "
+        f"route on {int(mask_c.sum())} slots: neighbour sets "
+        f"{'bit-equal' if same_set else 'DIFFER'}, in the same order on "
+        f"{in_order} of {M} slots; {int((p_c >= 0).sum())} neighbours")
+    if not same_set:
+        fail("legacy: the cache route's neighbours differ from the grid "
+             "route's")
+    del cc_full, g_full, p_c, p_g, raypos, qs_c, qs_g
+
+    # ---- the five weight kernels of fused_decode's gate, one 8,192-ray
+    # piece each through the kernels, held to their plain versions and to
+    # decode_radiance in float32 (the decoder without bf16 rounding), both
+    # at ATOL / MEAN_TOL; decode_radiance in bf16 is printed beside them:
+    # under the count-normalised kernels (numlinear, numquadric) the weights
+    # reach 1 / (8 |d|^2), and the bf16 rounding of the tower's K-sums moves
+    # that decoder's colour further from the float32 one than the kernel's
+    piece = rays0[:8192]
+    kernels = {}
+    for kind in LEGACY_KERNELS:
+        cf = dataclasses.replace(cfg_s, agg=dataclasses.replace(
+            cfg_s.agg, agg_distance_kernel=kind))
+        _cuda.LAUNCHES.clear()
+        o_k = served(piece, cf)
+        torch.cuda.synchronize()
+        n_k = _cuda.LAUNCHES.get("fused_decode", 0)
+        lr.first_valid_cols = sl.first_valid_cols_reference
+        lr.fused_decode = fd.fused_decode_reference
+        try:
+            o_p = served(piece, cf)
+        finally:
+            lr.first_valid_cols, lr.fused_decode = orig_fvc, fd.fused_decode
+        o_r = {dt: served(piece, dataclasses.replace(
+            cf, agg=dataclasses.replace(cf.agg, fused_decode=False,
+                                        compute_dtype=dt)))
+            for dt in ("float32", "bfloat16")}
+        if n_k < 1 or not all(torch.equal(o_k.ray_mask, o.ray_mask)
+                              for o in (o_p, *o_r.values())):
+            fail(f"legacy {kind}: fused_decode launched {n_k} times or "
+                 f"ray_mask differs between the routes")
+
+        def dif(a, b):
+            d = (a.coarse_raycolor - b.coarse_raycolor).abs()
+            return float(d.max()), float(d.mean())
+
+        kernels[kind] = {
+            "plain": dif(o_k, o_p),
+            "decode_radiance_f32": dif(o_k, o_r["float32"]),
+            "decode_radiance_bf16": dif(o_k, o_r["bfloat16"]),
+            "bf16_decode_radiance_vs_f32": dif(o_r["bfloat16"],
+                                               o_r["float32"])}
+        if not all(kernels[kind][n][0] <= ATOL
+                   and kernels[kind][n][1] < MEAN_TOL
+                   for n in ("plain", "decode_radiance_f32")):
+            fail(f"legacy {kind}: fused_decode disagrees: {kernels[kind]}")
+    log("legacy weight kernels through fused_decode (8192 rays), colour max "
+        "|diff| / mean against the plain route and against decode_radiance "
+        "in float32 (held), against decode_radiance in bf16 and bf16 "
+        "decode_radiance against float32 (printed): " + "; ".join(
+            f"{k} " + ", ".join(f"{v[0]:.3e}/{v[1]:.3e}" for v in d.values())
+            for k, d in kernels.items()))
+
+    # ---- times: the chunk with the cache and on the grid, in turns
+    cfg_g = dataclasses.replace(cfg_s, query=dataclasses.replace(
+        cfg_s.query, use_cache=False))
+    t_c, t_g = [], []
+    for _ in range(3):
+        t_c.append(cuda_ms(lambda: served(rays0), 1))
+        t_g.append(cuda_ms(lambda: served(rays0, cfg_g, grid), 1))
+    log(f"legacy chunk {CHUNK} rays: cache route "
+        f"{[round(t, 2) for t in t_c]} ms, grid route "
+        f"{[round(t, 2) for t in t_g]} ms (in turns; best {min(t_c):.2f} / "
+        f"{min(t_g):.2f}; {c.smi})")
+    t_pt = cuda_ms(lambda: fd.pair_tower(*pair_a, **pair_k), 10, 2)
+    t_pt_p = cuda_ms(lambda: fd.pair_tower_reference(*pair_a, **pair_k), 2, 1)
+    b_pt = tower_bound(pair_a, fd.pair_tower(*pair_a, **pair_k))
+    if c.prof_dir:
+        profile_pass("legacy_cache", lambda: served(rays0), min(t_c),
+                     c.prof_dir)
+        profile_pass("legacy_grid", lambda: served(rays0, cfg_g, grid),
+                     min(t_g), c.prof_dir)
+
+    # ---- (b) the legacy train step on the train phase's views and batch
+    ts = c.train_setup
+    ds, batch, u, near, far = (ts["ds"], ts["batch"], ts["u"], ts["near"],
+                               ts["far"])
+    cfg_l = dataclasses.replace(
+        ts["cfg"], query=dataclasses.replace(ts["cfg"].query, use_cache=True,
+                                             max_q=max_q),
+        train=dataclasses.replace(ts["cfg"].train, fast_path=False))
+
+    def one_step(cf, plain=False, rays_gt=None, u_=None):
+        st = create_train_state(scene.params, scene.cloud, cf)
+        fn = make_train_step(cf)
+
+        def cap(qs_, bp_):
+            captured.setdefault("fvc_train", (qs_, bp_))
+            return orig_fvc(qs_, bp_)
+
+        lr.first_valid_cols = sl.first_valid_cols_reference if plain else cap
+        _cuda.LAUNCHES.clear()
+        try:
+            st, aux = fn(st, grid_c, *batch[:2],
+                         *(rays_gt or batch[2:4]), near, far,
+                         jitter_u=u if u_ is None else u_)
+        finally:
+            lr.first_valid_cols = orig_fvc
+        torch.cuda.synchronize()
+        pts = list(st.points.trainable().values())
+        ten = [p.grad for p in st.params.parameters()] + [p.grad for p in pts]
+        ten += [p.detach() for p in st.params.parameters()] + pts
+        return aux, ten, dict(_cuda.LAUNCHES)
+
+    step_k = one_step(cfg_l)
+    step_k2 = one_step(cfg_l)
+    step_p = one_step(cfg_l, plain=True)
+    check_launches("legacy train step", step_k[2],
+                   {"first_valid_cols": 1, "fused_decode": 0, **none_else})
+    check_launches("legacy train step (plain)", step_p[2],
+                   {"first_valid_cols": 0})
+    same_step("legacy kernel step vs plain step", step_k, step_p)
+    same_step("legacy kernel step run twice", step_k, step_k2)
+    del step_k2, step_p
+
+    # ---- the legacy step against the fast step at float32: no ray packing
+    # and SR slots a ray on both, one batch, one jitter draw. The two
+    # routes round a candidate's distance in other orders (the legacy
+    # route from its absolute xyz, the fast one from its offset to the
+    # voxel centre), as the reference's two routes do, so at a near tie
+    # they can pick other neighbours: such slots are counted, bounded by
+    # 1e-3 of the valid slots (the bound tests/test_native_parity.py
+    # gives neighbour mismatches), and their rays leave the batch before
+    # the reference's contract is checked on the rest
+    f32 = {"compute_dtype": "float32"}
+    cfg_l32 = dataclasses.replace(cfg_l, agg=dataclasses.replace(
+        cfg_l.agg, **f32))
+    cfg_f32 = dataclasses.replace(
+        ts["cfg"], agg=dataclasses.replace(ts["cfg"].agg, **f32),
+        query=dataclasses.replace(ts["cfg"].query, ray_budget=0,
+                                  ray_slot_budget=q.SR))
+    geo, rmin, svs = ts["geo"]
+    ids = {}
+    orig_g_np, orig_g_ft, orig_cs = npm.gather_rows, ft.gather_rows, \
+        lr.compact_samples
+
+    def cap_l(t_, i_):
+        ids["legacy"] = i_
+        return orig_g_np(t_, i_)
+
+    def cap_f(t_, i_):
+        ids.setdefault("fast", []).append(i_)
+        return orig_g_ft(t_, i_)
+
+    def cap_cs(*a):
+        ids["compact"] = orig_cs(*a)
+        return ids["compact"]
+
+    npm.gather_rows, ft.gather_rows, lr.compact_samples = cap_l, cap_f, \
+        cap_cs
+    try:
+        with torch.no_grad():
+            o_l = lr.render_rays(scene.params, scene.cloud, grid_c, *batch[:3],
+                                 near, far, cfg_l32, training=True,
+                                 jitter_u=u)
+            o_f = ft.fast_train_render(scene.params, scene.cloud, geo,
+                                       *batch[:3], near, far, cfg_f32, rmin,
+                                       svs, training=True, jitter_u=u)
+    finally:
+        npm.gather_rows, ft.gather_rows, lr.compact_samples = orig_g_np, \
+            orig_g_ft, orig_cs
+    K = q.K
+    i_l = ids["legacy"].view(-1, K)
+    i_f = torch.cat(ids["fast"]).view(-1, K)[:i_l.shape[0]]
+    flip = (torch.sort(torch.where(o_l.pnt_mask, i_l, -1), -1).values
+            != torch.sort(torch.where(o_f.pnt_mask, i_f, -1), -1).values
+            ).any(-1)
+    _, mask_c, ray_id = ids["compact"]
+    n_valid = int(mask_c.sum())
+    bad_rays = torch.unique(ray_id[flip & mask_c])
+    keep = torch.ones(TRAIN_RAYS, dtype=torch.bool, device=dev)
+    keep[bad_rays] = False
+    if not torch.equal(o_l.ray_mask, o_f.ray_mask):
+        fail("legacy vs fast step: ray_mask differs")
+    if int(flip.sum()) > 1e-3 * n_valid:
+        fail(f"legacy vs fast step: {int(flip.sum())} of {n_valid} slots "
+             f"with other neighbours")
+
+    def compare(sub):
+        b_ = [x[sub] for x in batch[2:4]]
+        a_l = one_step(cfg_l32, rays_gt=b_, u_=u[sub])
+        st_f = create_train_state(scene.params, scene.cloud, cfg_f32)
+        st_f, aux_f = ft.make_fast_train_step(cfg_f32)(
+            st_f, geo, rmin, svs, *batch[:2], *b_, near, far,
+            jitter_u=u[sub])
+        g_l = a_l[1][:len(a_l[1]) // 2]
+        g_f = ([p.grad for p in st_f.params.parameters()]
+               + [p.grad for p in st_f.points.trainable().values()])
+        l_l, l_f = float(a_l[0]["total"]), float(aux_f["total"])
+        worst = max(float(((x - y).abs() / (1e-6 + 2e-3 * y.abs())).max())
+                    for x, y in zip(g_l, g_f))
+        return l_l, l_f, abs(l_l - l_f) / abs(l_f), worst
+
+    full = compare(torch.ones_like(keep))
+    kept = compare(keep)
+    log(f"legacy vs fast step at float32: {int(flip.sum())} of {n_valid} "
+        f"slots pick other neighbours (on {bad_rays.numel()} rays); all "
+        f"{TRAIN_RAYS} rays: loss {full[0]:.9g} / {full[1]:.9g} (rel "
+        f"{full[2]:.2e}), largest gradient |diff| / (1e-6 + 2e-3 |fast|) "
+        f"{full[3]:.3f}; the {int(keep.sum())} other rays: loss rel "
+        f"{kept[2]:.2e}, largest ratio {kept[3]:.3f}")
+    if kept[2] > 1e-4 or kept[3] > 1.0:
+        fail("legacy step differs from the fast step at float32")
+    legacy_vs_fast = {"flipped_slots": int(flip.sum()), "valid_slots": n_valid,
+                      "flipped_rays": int(bad_rays.numel()),
+                      "all_rays": full, "other_rays": kept}
+    del o_l, o_f, ids
+
+    # ---- fit(fast_path=False): the user's entry point, 100 steps
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = loop.fit(cfg_l, ds, scene.params, scene.cloud, "build/train_legacy",
+                   max_steps=TRAIN_STEPS, print_freq=10, seed=3, device=dev)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    got_f = dict(_cuda.LAUNCHES)
+    first, last = res.log[0]["total"], res.log[-1]["total"]
+    log(f"fit legacy: {TRAIN_STEPS} steps in {t_fit:.1f} s (grid and cache "
+        f"build included); launches {got_f}; loss over steps 1-10 "
+        f"{first:.6f}, steps {TRAIN_STEPS - 9}-{TRAIN_STEPS} {last:.6f}: "
+        f"{first / last:.1f}x")
+    check_launches("fit legacy", got_f, {"first_valid_cols": TRAIN_STEPS,
+                                         "fused_decode": 0, **none_else})
+    if len(res.log) != TRAIN_STEPS // 10 or not first >= 4.0 * last:
+        fail(f"fit legacy: the loss fell {first:.6f} -> {last:.6f}, less "
+             f"than 4x")
+    del res
+
+    # ---- it/s: the legacy step and the fast dense step in turns
+    runs = {}
+    for name, cf in (("legacy", cfg_l), ("fast dense", ts["cfg"])):
+        g = torch.Generator(device=dev).manual_seed(5)
+        if name == "legacy":
+            fn_l = make_train_step(cf)
+
+            def fn(st, cp, cr, rd, gt, g, fn_l=fn_l):
+                return fn_l(st, grid_c, cp, cr, rd, gt, near, far,
+                            generator=g)
+        else:
+            fn_f = ft.make_fast_train_step(cf)
+
+            def fn(st, cp, cr, rd, gt, g, fn_f=fn_f):
+                return fn_f(st, geo, rmin, svs, cp, cr, rd, gt, near, far,
+                            generator=g)
+        runs[name] = dict(cf=cf, fn=fn, g=g, ips=[],
+                          st=create_train_state(scene.params, scene.cloud,
+                                                cf),
+                          smp=loop.DeviceSampler(ds, TRAIN_RAYS, g))
+
+    def go(r, n):
+        for _ in range(n):
+            cp, cr, rd, gt, _ = r["smp"].next_batch()
+            r["st"], _ = r["fn"](r["st"], cp, cr, rd, gt, r["g"])
+
+    ips = steps_in_turns(runs, go, c.smi)
+
+    # ---- a legacy step split into forward, backward and optimizer; the
+    # attribute gather's backward must be gather_rows', not torch's
+    # indexing backward
+    r = runs["legacy"]
+    cp, cr, rd, gt, _ = r["smp"].next_batch()
+    st = r["st"]
+
+    def fwd():
+        st.zero_grad()
+        return compute_losses(lr.render_rays(
+            st.params, st.points, grid_c, cp, cr, rd, near, far, cfg_l,
+            training=True, generator=r["g"]), gt, cfg_l.train)[0]
+
+    prof = step_profile("train legacy", fwd, lambda: apply_updates(st, cfg_l),
+                        c.prof_dir)
+    bad = [n for n in prof.pop("names") if "indexing_backward" in n]
+    if bad:
+        fail(f"legacy train step: torch's indexing backward ran: {bad}")
+
+    qs_t, bp_t = captured["fvc_train"]
+    t_sel = cuda_ms(lambda: sl.first_valid_cols(qs_t, bp_t), 48, 3,
+                    queued=True)
+    t_sel_p = cuda_ms(lambda: sl.first_valid_cols_reference(qs_t, bp_t), 20,
+                      2)
+    b_sel = bound(nbytes(qs_t) + qs_t.shape[0] * (bp_t + 1) * 4, 0)
+    log(f"legacy train: first_valid_cols == plain on qs {tuple(qs_t.shape)} "
+        f"BP {bp_t}: {t_sel:.4f} ms queued, plain {t_sel_p:.4f}, bound "
+        f"{b_sel[0]:.4f}; fused_decode (cache route, M "
+        f"{pair_a[1].shape[0]}): {t_pt:.3f} ms, plain {t_pt_p:.3f}, bound "
+        f"{b_pt[0]:.3f} by {b_pt[1]}")
+    return {
+        "select": dict(launches=got_f.get("first_valid_cols", 0), per_step=1,
+                       ms=t_sel, plain_ms=t_sel_p, bound_ms=b_sel[0],
+                       qs=list(qs_t.shape), bp=bp_t),
+        "decode": dict(launches=got_s["fused_decode"], ms=t_pt,
+                       plain_ms=t_pt_p, bound_ms=b_pt[0], err=pair_err,
+                       m=pair_a[1].shape[0]),
+        "launches": {"legacy_cache_chunk": got_s, "fit_legacy": got_f},
+        "cache_bytes": cache_bytes, "cache_s": t_cache,
+        "chunk_ms": {"cache": t_c, "grid": t_g},
+        "served_vs_plain": served_diff, "weight_kernels": kernels,
+        "legacy_vs_fast_f32": legacy_vs_fast,
+        "it_per_s": ips, "fit": {"first": first, "last": last, "s": t_fit},
+        "profile": prof,
+    }
+
+
+def steps_in_turns(runs: dict, go, smi: str) -> dict:
+    """Train it/s of each run (`go(run, n)` takes n steps): 10 warm-up
+    steps each, then 3 windows of 20 steps, the runs in turns; the median
+    window and the spread, by the host clock to a synchronise."""
+    import torch
+    for r in runs.values():
+        go(r, 10)
+    for _ in range(3):
+        for r in runs.values():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            go(r, 20)
+            torch.cuda.synchronize()
+            r["ips"].append(20 / (time.perf_counter() - t0))
+    ips = {}
+    for name, r in runs.items():
+        v = sorted(r["ips"])
+        ips[name] = {"median": v[1], "min": v[0], "max": v[2]}
+        log(f"train {name}: {v[1]:.2f} it/s of {TRAIN_RAYS}-ray steps "
+            f"(median of 3 windows of 20 after 10 warm-up steps; spread "
+            f"{v[0]:.2f}-{v[2]:.2f}; in turns; {smi})")
+    return ips
+
+
+def step_profile(name: str, fwd, update, out_dir=None) -> dict:
+    """A train step split into its forward (`fwd()`: zero the gradients,
+    render, return the loss), its backward and its optimizer update
+    (`update()`), each under its own profiler pass, beside the unprofiled
+    step's time: device ms of each part, launches, idle share, and the
+    kernel names seen; the table goes to `out_dir/profile_<name>.txt`."""
+    def step():
+        fwd().backward()
+        update()
+
+    step_ms = cuda_ms(step, 3, 1)
+    rows = {}
+    for part in ("forward", "backward", "optimizer"):
+        if part == "forward":
+            rows[part] = device_rows_once(fwd)
+            continue
+        loss = fwd()
+        if part == "backward":
+            rows[part] = device_rows_once(loss.backward)
+        else:
+            loss.backward()
+            rows[part] = device_rows_once(update)
+    tot = {p: sum(x[0] for x in v) for p, v in rows.items()}
+    merged = {}
+    for v in rows.values():
+        for ms, n, key in v:
+            a = merged.setdefault(key, [0.0, 0])
+            a[0] += ms
+            a[1] += n
+    top = sorted(((ms, n, k) for k, (ms, n) in merged.items()), reverse=True)
+    dev_ms = sum(tot.values())
+    out = {"step_ms": step_ms, **{f"{p}_ms": t for p, t in tot.items()},
+           "idle": 1 - dev_ms / step_ms, "launches": sum(x[1] for x in top),
+           "names": sorted(merged)}
+    if out_dir:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"profile_{name.replace(' ', '_')}.txt").write_text(
+            "".join(f"{ms:10.3f} ms {n:6d} x {key}\n" for ms, n, key in top))
+    log(f"profile {name}: step {step_ms:.2f} ms; device forward "
+        f"{tot['forward']:.2f}, backward {tot['backward']:.2f}, optimizer "
+        f"{tot['optimizer']:.2f} ms ({dev_ms:.2f} in {out['launches']} "
+        f"launches); idle share {out['idle']:.3f}")
+    for ms, n, key in top[:10]:
+        log(f"  {ms:9.3f} ms {100 * ms / dev_ms:5.1f}% {n:5d} x {key[:90]}")
+    return out
 
 
 def device_rows_once(fn):
@@ -1419,29 +1962,6 @@ def main() -> int:
         f"{n_pairs / max(int(m_a.sum()), 1):.2f} per valid slot): "
         f"pnt_mask and payload bits equal")
 
-    def tower_check(name, kern, plain, a, k):
-        aw_k, hw_k = kern(*a, **k)
-        aw_p, hw_p = plain(*a, **k)
-        torch.cuda.synchronize()
-        d_aw = (aw_k - aw_p).abs()
-        hw_abs = hw_p.float().abs()
-        d_hw = (hw_k.float() - hw_p.float()).abs()
-        mean = float(torch.cat([d_aw.reshape(-1), d_hw.reshape(-1)]).mean())
-        hw_mean, hw_scale = float(d_hw.mean()), float(hw_abs.mean())
-        hw_worst = float((d_hw / (HW_ATOL + HW_RTOL * hw_abs)).max())
-        log(f"{name} vs plain on emb {tuple(a[1].shape)} "
-            f"({int((a[5] != 0).sum())} rows with a weight): max |diff| "
-            f"aw {float(d_aw.max()):.3e} hw {float(d_hw.max()):.3e}, "
-            f"mean {mean:.3e}; plain mean aw {float(aw_p.mean()):.4f}, "
-            f"mean |hw| {hw_scale:.4f}; hw: largest |diff| / (1e-3 + 2^-7 "
-            f"|hw|) {hw_worst:.3f}, mean |diff| / mean |hw| "
-            f"{hw_mean / hw_scale:.3e}")
-        if not (bool((d_aw <= ATOL + SIG_RTOL * aw_p.abs()).all())
-                and hw_worst <= 1.0 and hw_mean <= HW_MEAN_RTOL * hw_scale
-                and mean < MEAN_TOL):
-            fail(f"{name} disagrees with its plain version")
-        return float(max(d_aw.max(), d_hw.max()))
-
     kacc_a, kacc_k = captured["kacc"]
     kacc_err = tower_check("fused_decode2", fd.kacc_tower,
                            fd.kacc_tower_reference, kacc_a, kacc_k)
@@ -1481,9 +2001,10 @@ def main() -> int:
         return orig_pair(*a, **k)
 
     def render_b():
-        return lr.render_rays(scene.params, scene.cloud, grid, scene.campos,
-                              scene.camrotc2w, rays0, scene.near, scene.far,
-                              cfg_b)
+        with torch.no_grad():
+            return lr.render_rays(scene.params, scene.cloud, grid,
+                                  scene.campos, scene.camrotc2w, rays0,
+                                  scene.near, scene.far, cfg_b)
 
     lr.first_valid_cols, fd.pair_tower = capture_fvc, capture_pair
     _cuda.LAUNCHES.clear()
@@ -1598,6 +2119,11 @@ def main() -> int:
     payload = payload_phase(ns)
     train = train_phases(ns)
 
+    # =================================================================
+    # The reference's default route: the candidate cache, the legacy step
+    # =================================================================
+    legacy = legacy_phases(ns)
+
     # ---- the least time the card could take for each kernel's work at
     # these inputs: every input read once, every output written once,
     # over the memory rate; the tower's operations on the rows and slots
@@ -1619,12 +2145,6 @@ def main() -> int:
                  2 * (n_pairs * ROW_MACS + n_found * SLOT_MACS))
     b_fs = bound(int(m_a.sum()) * slot_bytes + n_pairs * pair_bytes
                  + m_a.shape[0] * (4 + 12 + 1) + nbytes(ns_k, pm_k), 0)
-
-    def tower_bound(a, outs_):
-        rows = int((a[5] != 0).sum())
-        w_tower = 2 * ROW_MACS + 4 * (4 * 256 + 1)
-        return bound(nbytes(*a[1:6]) + w_tower + nbytes(*outs_),
-                     2 * rows * ROW_MACS)
 
     b_ka = tower_bound(kacc_a, fd.kacc_tower(*kacc_a, **kacc_k))
     b_pt = tower_bound(pair_a, fd.pair_tower(*pair_a, **pair_k))
@@ -1702,13 +2222,14 @@ def main() -> int:
                                  "host_paced_ms": t_selb_host,
                                  "plain_ms": t_selb_p,
                                  "bound_ms": b_selb[0]},
-                             "train": train["select"]}),
+                             "train": train["select"],
+                             "legacy_train": legacy["select"]}),
         record("fused_candidate_select", "fused_select.cu",
                "fused_select.py:60", launches_a["fused_candidate_select"],
                fsel_err, t_fs_k, t_fs_p, b_fs),
         record("fused_decode", "fused_decode.cu", "fused_decode.py:91",
                launches_b["fused_decode"], pair_err, t_pt_k, t_pt_p, b_pt,
-               f_pt),
+               f_pt, extra={"cache_route": legacy["decode"]}),
         record("fused_decode2", "fused_decode.cu", "fused_decode.py:235",
                launches_a["fused_decode2"], kacc_err, t_ka_k, t_ka_p, b_ka,
                f_ka),
@@ -1719,13 +2240,16 @@ def main() -> int:
             **fe["record"], "extra": {**fe["record"]["extra"],
                                       "train": train["march"]}}),
     ], "launches_by_path": {"fused_chunk": launches, "staged": launches_a,
-                            "legacy": launches_b, **fe["launches"]},
+                            "legacy": launches_b, **fe["launches"],
+                            **legacy["launches"]},
         "front_end_frame_ms": fe["frame_ms"],
         "raster_emit_program_ms": fe["emit_program_ms"],
         "raster_emit_ms": fe["emit_ms"], "march_plan": fe["march_plan"],
         "payload_check": payload,
         "train": {k: v for k, v in train.items()
-                  if k not in ("select", "march")}}),
+                  if k not in ("select", "march")},
+        "legacy": {k: v for k, v in legacy.items()
+                   if k not in ("select", "decode", "launches")}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

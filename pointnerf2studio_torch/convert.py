@@ -21,12 +21,12 @@ import numpy as np
 import torch
 
 from pointnerf2studio_torch.config import AggregatorConfig
-from pointnerf2studio_torch.models.aggregator import TOWERS, Aggregator
+from pointnerf2studio_torch.models.aggregator import Aggregator
 from pointnerf2studio_torch.models.fast_render import FatCache
 from pointnerf2studio_torch.models.fast_train import GEOW, GeoCache
 from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
 from pointnerf2studio_torch.ops._cuda import resolve_device
-from pointnerf2studio_torch.ops.grid import PointGrid
+from pointnerf2studio_torch.ops.grid import CandidateCache, PointGrid
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -46,7 +46,7 @@ def aggregator_from_jax(tree: Mapping[str, Any], cfg: AggregatorConfig,
     an nn.Linear weight is [out, in], so each kernel is transposed."""
     device = resolve_device(device)
     agg = Aggregator(cfg, device=device)
-    for name in TOWERS:
+    for name in agg.towers:
         layers = getattr(agg, name)
         if len(tree[name]) != len(layers):
             raise ValueError(f"{name}: {len(tree[name])} layers in the tree, "
@@ -78,10 +78,17 @@ def cloud_from_jax(cloud, device: torch.device | str | None = None
 
 def grid_from_jax(grid, device: torch.device | str | None = None
                   ) -> PointGrid:
-    """A JAX PointGrid as built (its candidate cache, if any, is left
-    behind: the port's legacy render queries the grid itself)."""
+    """A JAX PointGrid as built, with its candidate cache where it has one
+    (cand_pack keeps its bit-cast point ids): the port's legacy render
+    queries that cache as the reference does, and the grid without one."""
     device = resolve_device(device)
     i32 = torch.int32
+    cache = None
+    if grid.cache is not None:
+        cache = CandidateCache(
+            coor_2_qslot=_t(grid.cache.coor_2_qslot, device, i32),
+            cand_pack=_t(grid.cache.cand_pack, device, torch.float32),
+            n_q=_t(grid.cache.n_q, device, i32))
     return PointGrid(
         ranges_min=_t(grid.ranges_min, device, torch.float32),
         scaled_vsize=_t(grid.scaled_vsize, device, torch.float32),
@@ -90,7 +97,7 @@ def grid_from_jax(grid, device: torch.device | str | None = None
         occ_2_pnts=_t(grid.occ_2_pnts, device, i32),
         occ_numpnts=_t(grid.occ_numpnts, device, i32),
         n_occ=_t(grid.n_occ, device, i32),
-        occ_2_coor=_t(grid.occ_2_coor, device, i32))
+        occ_2_coor=_t(grid.occ_2_coor, device, i32), cache=cache)
 
 
 def fat_cache_from_jax(cache, device: torch.device | str | None = None
@@ -148,4 +155,4 @@ def aggregator_to_jax(agg: Aggregator, grad: bool = False) -> dict:
         return x.detach().cpu().numpy()
 
     return {name: [{"kernel": leaf(lin.weight).T, "bias": leaf(lin.bias)}
-                   for lin in getattr(agg, name)] for name in TOWERS}
+                   for lin in getattr(agg, name)] for name in agg.towers}

@@ -1,8 +1,11 @@
 """Radiance decoder: the per-neighbour MLP tower and K-aggregation.
 
-Port of `pointnerf2studio_tpu/models/aggregator.py` for the served
-configuration: aggregation orders 1 and 2, the `linear` inverse-distance
-weight, a global Rw2c, float32 or bfloat16 compute.
+Port of `pointnerf2studio_tpu/models/aggregator.py`: aggregation orders
+0, 1 and 2, all nine aggregation weight kernels (`raw_aggregation_weight`:
+linear, numlinear, quadric, numquadric, avg, trilinear, sh_intrp,
+gau_intrp, feat_intrp, with the learned `feat_weight_mlp` tower of the
+last) and their three normalisations, a global or a per-point Rw2c,
+float32 or bfloat16 compute.
 
 Tower (all LeakyReLU(0.1), including output activations):
   mlp_base:  [emb(32), PE_3(emb)(192), PE_5(dists@Rw2c)(60)] -> 2x256
@@ -21,6 +24,7 @@ render paths use it (they run under `torch.no_grad`); the train state
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Tuple
 
 import torch
@@ -29,9 +33,12 @@ import torch.nn.functional as F
 
 from pointnerf2studio_torch.config import AggregatorConfig
 from pointnerf2studio_torch.ops._cuda import resolve_device
+from pointnerf2studio_torch.ops.camera import world2local_dist
 from pointnerf2studio_torch.ops.encoding import positional_encoding
+from pointnerf2studio_torch.utils.spherical import sh_basis
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the towers of every config; feat_intrp adds "feat_weight_mlp"
 TOWERS = ("mlp_base", "mlp_head", "mlp_color", "density_head", "color_head")
 
 
@@ -51,7 +58,7 @@ def _mlp_dims(cfg: AggregatorConfig) -> Dict[str, List[Tuple[int, int]]]:
     def tower(in_dim, width, n):
         return [(in_dim, width)] + [(width, width)] * (n - 1)
 
-    return {
+    dims = {
         "mlp_base": tower(base_in, cfg.hidden_size, cfg.num_mlp_base_layers),
         "mlp_head": tower(head_in, cfg.hidden_size, cfg.num_mlp_head_layers),
         "mlp_color": tower(color_in, cfg.hidden_size_color,
@@ -59,16 +66,24 @@ def _mlp_dims(cfg: AggregatorConfig) -> Dict[str, List[Tuple[int, int]]]:
         "density_head": [(cfg.hidden_size, 1)],
         "color_head": [(cfg.hidden_size_color, 3)],
     }
+    if cfg.agg_distance_kernel == "feat_intrp":
+        # the learned weight: two halving layers and a scalar head
+        w_in = 2 * cfg.weight_xyz_freq * 3 + cfg.weight_feat_dim
+        half = w_in // 2
+        dims["feat_weight_mlp"] = [(w_in, half), (half, half), (half, 1)]
+    return dims
 
 
 class Aggregator(nn.Module):
     """The decoder's weights: one ModuleList of nn.Linear per tower, on
-    `device` (None: the card; raises without one)."""
+    `device` (None: the card; raises without one). `towers` names them:
+    TOWERS, and "feat_weight_mlp" under the feat_intrp weight kernel."""
 
     def __init__(self, cfg: AggregatorConfig, seed: int = 0,
                  device: torch.device | str | None = None):
         super().__init__()
         device = resolve_device(device)
+        self.towers = tuple(_mlp_dims(cfg))
         for t, (name, dims) in enumerate(_mlp_dims(cfg).items()):
             # torch nn.Linear's default distribution, U(+-1/sqrt(in)),
             # drawn from a generator seeded per tower so the weights
@@ -109,28 +124,106 @@ def _density_act(raw: torch.Tensor, act_super: bool) -> torch.Tensor:
     return F.softplus(raw - 1.0) if act_super else F.relu(raw)
 
 
-def aggregation_weight(cfg: AggregatorConfig, neigh_emb: torch.Tensor,
-                       dists: torch.Tensor, pnt_mask: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`linear` kernel: masked 1/||world delta|| normalised over K
-    (reference studio_model.py:467-475 and :286). Returns (weights
-    [..., K], the embedding left for the tower), as the reference does:
-    the `linear` kernel consumes no embedding channels."""
-    if cfg.agg_distance_kernel != "linear":
-        raise NotImplementedError(
-            f"agg_distance_kernel={cfg.agg_distance_kernel!r} is not ported")
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.norm(x, dim=-1)
+
+
+def raw_aggregation_weight(cfg: AggregatorConfig, neigh_emb: torch.Tensor,
+                           dists: torch.Tensor, pnt_mask: torch.Tensor,
+                           grid_vox_sz: float, params: "Aggregator" = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor, str]:
+    """The un-normalised per-lane weight of `cfg.agg_distance_kernel`
+    (every kernel is per lane up to its normalisation over K), in the
+    dtype of `dists`. Returns (w [...], the embedding left for the tower,
+    norm_kind): "norm" (divide by the weight sum, floor 1e-8), "count"
+    (divide by the valid-lane count, floor 1) or "none". sh_intrp,
+    gau_intrp and feat_intrp consume a prefix of the embedding channels;
+    feat_intrp needs `params` with its `feat_weight_mlp`."""
+    kind = cfg.agg_distance_kernel
     mask = pnt_mask.to(dists.dtype)
+    emb = neigh_emb
     aw = cfg.axis_weight
-    if aw[0] == 1.0 and aw[2] == 1.0:
-        w = mask / torch.clamp(torch.linalg.norm(dists[..., :3], dim=-1),
-                               min=1e-6)
-    else:
+    if kind == "linear":
+        if aw[0] == 1.0 and aw[2] == 1.0:
+            w = mask / torch.clamp(_norm(dists[..., :3]), min=1e-6)
+        else:
+            w = mask / torch.clamp(
+                torch.sqrt((dists[..., :2] ** 2).sum(-1)) * aw[0]
+                + torch.abs(dists[..., 2]) * aw[1], min=1e-6)
+    elif kind == "numlinear":
+        w = mask / torch.clamp(_norm(dists), min=1e-6)
+    elif kind == "quadric":
         w = mask / torch.clamp(
-            torch.sqrt((dists[..., :2] ** 2).sum(-1)) * aw[0]
-            + torch.abs(dists[..., 2]) * aw[1], min=1e-6)
-    if cfg.agg_weight_norm:
+            (dists[..., :3] ** 2 * torch.tensor(aw, dtype=dists.dtype,
+                                                device=dists.device)
+             ).sum(-1), min=1e-8)
+    elif kind == "numquadric":
+        w = mask / torch.clamp((dists ** 2).sum(-1), min=1e-8)
+    elif kind == "avg":
+        w = mask
+    elif kind == "trilinear":
+        d = 1.0 - torch.abs(dists[..., :3] * mask[..., None] / grid_vox_sz)
+        w = mask * d[..., 0] * d[..., 1] * d[..., 2]
+    elif kind == "sh_intrp":
+        n = cfg.sh_degree ** 2
+        coefs, emb = emb[..., :n], emb[..., n:]
+        dn = _norm(dists[..., :3])
+        ddir = dists[..., :3] / torch.clamp(dn[..., None], min=1e-8)
+        act = torch.sigmoid if cfg.sh_act == "sigmoid" else torch.tanh
+        radial = (1.0 / torch.clamp(dn, min=1e-8)
+                  if cfg.sh_dist_func == "sh_linear"
+                  else 1.0 / torch.clamp(dn * dn, min=1e-8))
+        w = mask * act(sh_basis(ddir, cfg.sh_degree) * coefs).sum(-1) \
+            * radial
+    elif kind == "gau_intrp":
+        scale = torch.abs(emb[..., 0])
+        radii = grid_vox_sz * 20.0 * torch.sigmoid(emb[..., 1:4])
+        rot = torch.clamp(emb[..., 4:7], -math.pi / 4, math.pi / 4)
+        emb = emb[..., 7:]
+        local = world2local_dist(dists[..., :3], radii, rot)
+        w = mask * scale * torch.exp(-0.5 * (local ** 2).sum(-1))
+    elif kind == "feat_intrp":
+        # sigmoid(MLP([PE(world delta), feature prefix])), LeakyReLU(0.01)
+        if params is None or "feat_weight_mlp" not in params.towers:
+            raise ValueError(
+                "feat_intrp needs aggregator params (feat_weight_mlp)")
+        wf, emb = (emb[..., :cfg.weight_feat_dim],
+                   emb[..., cfg.weight_feat_dim:])
+        x = torch.cat([positional_encoding(dists[..., :3].float(),
+                                           cfg.weight_xyz_freq),
+                       wf.float()], -1)
+        layers = params.feat_weight_mlp
+        for lyr in layers[:-1]:
+            x = F.leaky_relu(x @ lyr.weight.T + lyr.bias, 0.01)
+        x = x @ layers[-1].weight.T + layers[-1].bias
+        w = mask * torch.sigmoid(x[..., 0]).to(dists.dtype)
+    else:
+        raise ValueError(f"unknown agg_distance_kernel: {kind}")
+    if kind.startswith("num"):
+        norm_kind = "count"
+    elif kind == "trilinear" or cfg.agg_weight_norm:
+        norm_kind = "norm"
+    else:
+        norm_kind = "none"
+    return w, emb, norm_kind
+
+
+def aggregation_weight(cfg: AggregatorConfig, neigh_emb: torch.Tensor,
+                       dists: torch.Tensor, pnt_mask: torch.Tensor,
+                       grid_vox_sz: float, params: "Aggregator" = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-neighbour weights [..., K] of any weight kernel, normalised
+    over K as `raw_aggregation_weight` says (reference
+    point_aggregators.py:353-483 and :818-819), and the embedding left
+    for the tower."""
+    w, emb, norm_kind = raw_aggregation_weight(
+        cfg, neigh_emb, dists, pnt_mask, grid_vox_sz, params)
+    if norm_kind == "norm":
         w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-8)
-    return w, neigh_emb
+    elif norm_kind == "count":
+        w = w / torch.clamp(pnt_mask.to(w.dtype).sum(-1, keepdim=True),
+                            min=1.0)
+    return w, emb
 
 
 def conf_gradient_clamp(conf: torch.Tensor, lo: float = 1e-4,
@@ -151,48 +244,67 @@ def decode_radiance(
     dists: torch.Tensor,         # [M, K, 6] world + perspective offsets
     weight: torch.Tensor,        # [M, K] normalised aggregation weights
     pnt_mask: torch.Tensor,      # [M, K] bool
-    viewdirs: torch.Tensor,      # [M, 3] Rw2c-rotated view directions
-    Rw2c: torch.Tensor,          # [3, 3] global rotation
+    viewdirs: torch.Tensor,      # [M, 3] Rw2c-rotated under a global Rw2c
+    Rw2c: torch.Tensor,          # [3, 3] global, or [M, K, 3, 3] per point
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode (sigma [M], rgb [M, 3]) for M shading points; builds an
-    autograd graph where the weights or inputs ask for one."""
-    if cfg.agg_intrp_order not in (1, 2) or Rw2c.ndim != 2:
-        raise NotImplementedError(
-            "decode_radiance is ported for agg_intrp_order 1/2 with a "
-            "global Rw2c")
+    autograd graph where the weights or inputs ask for one.
+
+    Order 0 sums the embeddings over K first and runs the towers once a
+    slot, without distance features (point colour and direction modes
+    must be off). Orders 1 and 2 run the per-neighbour tower; with a
+    per-point Rw2c (edited scenes) the offsets, the point directions and
+    the view direction of the direction features rotate per neighbour,
+    while the colour branch keeps the slot's own view encoding."""
     dtype = _DTYPES[cfg.compute_dtype]
+    order = cfg.agg_intrp_order
+    per_point = Rw2c.ndim == 4
     dir_enc = positional_encoding(viewdirs, cfg.num_viewdir_freqs, ori=True)
     ov, dir_pe = dir_enc[..., :3], dir_enc[..., 3:]
     w = (weight * pnt_mask.to(weight.dtype))[..., None].to(dtype)
-
-    dists_w = (dists[..., :3, None] * Rw2c).sum(-2)
-    dists_rot = torch.cat([dists_w, dists[..., 3:]], -1)
-    dists_pe = positional_encoding(dists_rot.to(dtype), cfg.num_dist_freqs,
-                                   mode=cfg.pe_mode)
-    emb_c = neigh_emb.to(dtype)
-    feat = torch.cat([emb_c, positional_encoding(
-        emb_c, cfg.num_feat_freqs, mode=cfg.pe_mode), dists_pe], -1)
-    feat = _mlp(agg.mlp_base, feat, dtype)
-
-    extras = [feat]
-    if cfg.point_color_mode:
-        extras.append(neigh_color.to(dtype))
-    if cfg.point_dir_mode:
-        ndir = (neigh_dir[..., :, None] * Rw2c).sum(-2)
-        ovk = ov[:, None, :]
-        extras.append((ndir - ovk).to(dtype))
-        extras.append((ndir * ovk).sum(-1, keepdim=True).to(dtype))
-    feat = _mlp(agg.mlp_head, torch.cat(extras, -1), dtype)
-
     dens = agg.density_head[0]
-    if cfg.agg_intrp_order == 1:
-        agg_feat = (feat * w).sum(-2)
-        sigma = _density_act(_linear_head(dens, agg_feat, dtype),
+
+    if order == 0:
+        if cfg.point_color_mode or cfg.point_dir_mode:
+            raise ValueError("agg_intrp_order=0 requires point color/dir "
+                             "modes off")
+        agg_emb = (neigh_emb.to(dtype) * w).sum(-2)               # [M, C]
+        feat = torch.cat([agg_emb, positional_encoding(
+            agg_emb, cfg.num_feat_freqs, mode=cfg.pe_mode)], -1)
+        feat = _mlp(agg.mlp_head, _mlp(agg.mlp_base, feat, dtype), dtype)
+        sigma = _density_act(_linear_head(dens, feat, dtype),
                              cfg.act_super)[..., 0]
+        agg_feat = feat
     else:
-        alpha = _density_act(_linear_head(dens, feat, dtype), cfg.act_super)
-        sigma = (alpha * w).sum(-2)[..., 0]
-        agg_feat = (feat * w).sum(-2)
+        dists_w = (dists[..., :3, None] * Rw2c).sum(-2)
+        dists_rot = torch.cat([dists_w, dists[..., 3:]], -1)
+        dists_pe = positional_encoding(dists_rot.to(dtype),
+                                       cfg.num_dist_freqs, mode=cfg.pe_mode)
+        emb_c = neigh_emb.to(dtype)
+        feat = torch.cat([emb_c, positional_encoding(
+            emb_c, cfg.num_feat_freqs, mode=cfg.pe_mode), dists_pe], -1)
+        feat = _mlp(agg.mlp_base, feat, dtype)
+
+        extras = [feat]
+        if cfg.point_color_mode:
+            extras.append(neigh_color.to(dtype))
+        if cfg.point_dir_mode:
+            ndir = (neigh_dir[..., :, None] * Rw2c).sum(-2)
+            ovk = ((ov[:, None, :, None] * Rw2c).sum(-2) if per_point
+                   else ov[:, None, :])
+            extras.append((ndir - ovk).to(dtype))
+            extras.append((ndir * ovk).sum(-1, keepdim=True).to(dtype))
+        feat = _mlp(agg.mlp_head, torch.cat(extras, -1), dtype)
+
+        if order == 1:
+            agg_feat = (feat * w).sum(-2)
+            sigma = _density_act(_linear_head(dens, agg_feat, dtype),
+                                 cfg.act_super)[..., 0]
+        else:
+            alpha = _density_act(_linear_head(dens, feat, dtype),
+                                 cfg.act_super)
+            sigma = (alpha * w).sum(-2)[..., 0]
+            agg_feat = (feat * w).sum(-2)
     color_in = torch.cat([agg_feat, dir_pe.to(dtype)], -1)
     cfeat = _mlp(agg.mlp_color, color_in, dtype)
     rgb = torch.sigmoid(_linear_head(agg.color_head[0], cfeat, dtype))

@@ -386,7 +386,8 @@ def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
     ndir = nsel[..., 36:39]
     ncol = nsel[..., 39:42]
     dists = neighbor_dists(nxyz, locs, camrotc2w, campos)
-    weight, emb = aggregation_weight(cfg.agg, emb, dists, pnt_mask)
+    weight, emb = aggregation_weight(cfg.agg, emb, dists, pnt_mask,
+                                     max(cfg.query.scaled_vsize), params)
     if cfg.agg.conf_in_weight:
         weight = weight * conf
     vd = rotate(rd_sel, Rw2c)

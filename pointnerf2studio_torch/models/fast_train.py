@@ -22,18 +22,16 @@ gradient by construction.
 The chunk body is plain tensor code under torch autograd: the reference
 computes it with XLA too (its Pallas kernels are forward-only). Every
 chunk is computed, none skipped, so a step reads nothing back to the host.
-Gradients do not depend on launch order: the attribute gather's backward
-(`gather_rows`) sorts the row ids stably and sums each row's run of
-gradients from float64 prefix sums, then writes each row once; no
-atomic accumulation sits on the gradient's path. (torch's own backward of
-an indexing, a sorted `index_put_` accumulate, is deterministic too, but
-it runs each row's duplicates in series: 64 of a chair step's 78 ms of
-device time on the card.)
+Gradients do not depend on launch order: the attribute gather is
+`models/neural_points.gather_rows`, whose backward is a stable sort, one
+flat float64 prefix scan and one write a row; no atomic accumulation
+sits on the gradient's path.
 
 Not ported (each raises): the hash grid, the one-hot compaction
 (compact_mode != "topk"), the grid composite (composite_mode !=
-"packed"), per-point Rw2c, `remat` other than "none" and the perf probes
-(`debug_prefix`). `make_geo_scene` raises where the reference would retry
+"packed"), `remat` other than "none" and the perf probes
+(`debug_prefix`). A per-point Rw2c raises, as in the reference: edited
+scenes train through the legacy step (train/trainer.make_train_step). `make_geo_scene` raises where the reference would retry
 an out-of-memory build at half the candidate width.
 """
 
@@ -50,12 +48,14 @@ from pointnerf2studio_torch.models.aggregator import (
 from pointnerf2studio_torch.models.fast_render import (
     cand_width, fit_cand_cap, march_active, ordered_candidates,
     pack_hit_rays, qslot_lookup, query_voxels)
-from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
+from pointnerf2studio_torch.models.neural_points import (
+    NeuralPointCloud, gather_rows)
 from pointnerf2studio_torch.ops.camera import neighbor_dists, rotate, w2pers
 from pointnerf2studio_torch.ops.compositing import (
     TONE_MAPS, packed_alpha_composite)
 from pointnerf2studio_torch.ops.grid import PointGrid
 from pointnerf2studio_torch.ops.march import build_march_table, march_rays
+from pointnerf2studio_torch.ops.query import candidate_keep_mask
 from pointnerf2studio_torch.ops.raygen import (
     jitter_uniform, near_far_disparity_linear_ray_generation,
     near_far_linear_ray_generation)
@@ -85,30 +85,6 @@ class GeoCache:
     @property
     def cand(self) -> int:
         return self.meta.shape[1]
-
-
-def candidate_keep_mask(rel, shell, valid, half, radius2: float, K: int,
-                        max_shell: int) -> torch.Tensor:
-    """Exact build-time candidate pruning (reference
-    ops/query.py::candidate_keep_mask): drop a candidate that no shading
-    location inside the voxel could select, by the radius (its least
-    distance to the voxel cube past the radius) or, in the outermost
-    shell only, by K feasible candidates all nearer at their farthest
-    than it is at its nearest."""
-    a = torch.abs(rel)
-
-    def norm(v):
-        return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
-                          + v[..., 2] * v[..., 2])
-
-    lo = norm(torch.clamp(a - half, min=0.0))                  # [B, C]
-    hi = norm(a + half)
-    feasible = valid
-    if radius2 > 0:
-        feasible = feasible & (lo * lo <= radius2)
-    dom_cnt = ((hi[:, None, :] < lo[:, :, None])
-               & feasible[:, None, :]).sum(-1)
-    return feasible & ~((shell >= max_shell) & (dom_cnt >= K))
 
 
 @torch.no_grad()
@@ -195,61 +171,20 @@ class TrainRenderOutput:
     mc_overflow: Optional[torch.Tensor] = None
 
 
-def _segment_sum_rows(g: torch.Tensor, idx: torch.Tensor, n_rows: int
-                      ) -> torch.Tensor:
-    """sum over i with idx[i] == r of g[i], for every r < n_rows: the rows
-    of g [n, C] sorted stably by idx, float64 prefix sums, each run's sum
-    as the difference of its ends, written once to its row. No step
-    depends on the order in which threads run. The prefix sums run as one
-    scan of the flat [C, n] array (a scan down dim 0 of [n, C] runs only C
-    parallel chains: 6 ms a chunk on the card), each column's sums then
-    taken relative to its start."""
-    n, C = g.shape
-    sidx, perm = torch.sort(idx, stable=True)
-    flat = torch.cumsum(g[perm].double().t().reshape(-1), 0).view(C, n)
-    before_col = torch.cat([flat.new_zeros(1), flat[:-1, -1]])
-    cs = (flat - before_col[:, None]).t()                        # [n, C]
-    pos = torch.arange(n, device=g.device)
-    last = torch.ones(n, dtype=torch.bool, device=g.device)
-    last[:-1] = sidx[1:] != sidx[:-1]
-    first = torch.ones_like(last)
-    first[1:] = last[:-1]
-    start = torch.cummax(torch.where(first, pos, 0), 0).values
-    before = torch.where((start > 0)[:, None], cs[start - 1],
-                         torch.zeros_like(cs[:1]))
-    out = g.new_zeros((n_rows + 1, C))
-    out[torch.where(last, sidx, n_rows)] = (cs - before).to(g.dtype)
-    return out[:n_rows]
-
-
-class _GatherRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
-        ctx.n_rows = table.shape[0]
-        return table[idx]
-
-    @staticmethod
-    def backward(ctx, g):
-        idx, = ctx.saved_tensors
-        return _segment_sum_rows(g.contiguous(), idx, ctx.n_rows), None
-
-
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] for table [N, C] and idx [n] int64, with a backward
-    (`_segment_sum_rows`) that does not depend on launch order."""
-    return _GatherRows.apply(table, idx.long())
-
-
 def _check_served(cfg: PointNerfConfig, points: NeuralPointCloud,
                   training: bool, debug_prefix) -> None:
     q = cfg.query
+    if points.Rw2c.ndim != 2:
+        # as in the reference: edited scenes train on the legacy path
+        raise NotImplementedError(
+            "fast_train_render: a per-point Rw2c (edited scenes) trains "
+            "through the legacy step, fit(fast_path=False) (ROADMAP queue 1 "
+            "item 6)")
     unported = (
         (q.compact_mode != "topk", "compact_mode (the one-hot compaction)",
          5),
         (q.composite_mode != "packed", "composite_mode (the grid composite)",
          5),
-        (points.Rw2c.ndim != 2, "per-point Rw2c", 6),
         (training and cfg.train.remat != "none", "remat", 7),
         (debug_prefix is not None, "debug_prefix (the perf probes)", 7),
     )
@@ -313,7 +248,8 @@ def _chunk_body(params: Aggregator, cfg: PointNerfConfig,
     ncol = vals[..., CA + 4:CA + 7]
 
     dists = neighbor_dists(nxyz, locs, camrotc2w, campos)
-    weight, emb2 = aggregation_weight(cfg.agg, emb, dists, pnt_mask)
+    weight, emb2 = aggregation_weight(cfg.agg, emb, dists, pnt_mask,
+                                      max(q.scaled_vsize), params)
     conf_c = conf_gradient_clamp(conf) if training else conf
     if cfg.agg.conf_in_weight:
         weight = weight * conf_c

@@ -5,7 +5,15 @@ with its trainable set, from_arrays and the single-device
 gather_neighbors). Static-capacity layout: arrays are allocated at
 `capacity` rows with an `alive` mask; names match the reference
 checkpoint keys (xyz, points_embeding, points_conf, points_dir,
-points_color, Rw2c).
+points_color, Rw2c: [3, 3] global or [N, 3, 3] per point).
+
+The attributes are gathered by `gather_rows`, whose backward does not
+depend on launch order: it sorts the row ids stably and sums each row's
+run of gradients from float64 prefix sums, then writes each row once; no
+atomic accumulation sits on the gradient's path. (torch's own backward
+of an indexing, a sorted `index_put_` accumulate, is deterministic too,
+but it runs each row's duplicates in series: 64 of a chair train step's
+78 ms of device time on an NVIDIA H100.)
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ class NeuralPointCloud:
     points_conf: torch.Tensor       # [N, 1]
     points_dir: torch.Tensor        # [N, 3]
     points_color: torch.Tensor      # [N, 3]
-    Rw2c: torch.Tensor              # [3, 3] global (per-point not ported)
+    Rw2c: torch.Tensor              # [3, 3] global or [N, 3, 3] per point
     alive: torch.Tensor             # [N] bool
 
     @property
@@ -82,16 +90,70 @@ def from_arrays(
         alive=(torch.arange(cap) < n).to(device))
 
 
+def _segment_sum_rows(g: torch.Tensor, idx: torch.Tensor, n_rows: int
+                      ) -> torch.Tensor:
+    """sum over i with idx[i] == r of g[i], for every r < n_rows: the rows
+    of g [n, C] sorted stably by idx, float64 prefix sums, each run's sum
+    as the difference of its ends, written once to its row. No step
+    depends on the order in which threads run. The prefix sums run as one
+    scan of the flat [C, n] array (a scan down dim 0 of [n, C] runs only C
+    parallel chains: 6 ms a chunk on the card), each column's sums then
+    taken relative to its start."""
+    n, C = g.shape
+    sidx, perm = torch.sort(idx, stable=True)
+    flat = torch.cumsum(g[perm].double().t().reshape(-1), 0).view(C, n)
+    before_col = torch.cat([flat.new_zeros(1), flat[:-1, -1]])
+    cs = (flat - before_col[:, None]).t()                        # [n, C]
+    pos = torch.arange(n, device=g.device)
+    last = torch.ones(n, dtype=torch.bool, device=g.device)
+    last[:-1] = sidx[1:] != sidx[:-1]
+    first = torch.ones_like(last)
+    first[1:] = last[:-1]
+    start = torch.cummax(torch.where(first, pos, 0), 0).values
+    before = torch.where((start > 0)[:, None], cs[start - 1],
+                         torch.zeros_like(cs[:1]))
+    out = g.new_zeros((n_rows + 1, C))
+    out[torch.where(last, sidx, n_rows)] = (cs - before).to(g.dtype)
+    return out[:n_rows]
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return _segment_sum_rows(g.contiguous(), idx, ctx.n_rows), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for table [N, C] and idx [n] int64, with a backward
+    (`_segment_sum_rows`) that does not depend on launch order."""
+    return _GatherRows.apply(table, idx.long())
+
+
 def gather_neighbors(points: NeuralPointCloud, sample_pidx: torch.Tensor
                      ) -> Dict[str, torch.Tensor]:
     """Per-neighbour attributes for point ids sample_pidx [..., K]
     (-1 = empty) as padded [..., K, .] tensors: xyz, embeding, conf,
-    dir, color. Empty slots gather a clamped index and must be masked
-    downstream via `sample_pidx >= 0`. Single device only: the
-    reference's row-sharded gather is not ported."""
+    dir, color, and Rw2c [..., K, 3, 3] for a per-point Rw2c. Empty slots
+    gather a clamped index and must be masked downstream via
+    `sample_pidx >= 0`. The trainable attributes go through one
+    `gather_rows`, so their gradient takes its backward. Single device
+    only: the reference's row-sharded gather is not ported."""
     idx = torch.clamp(sample_pidx, 0, points.capacity - 1).long()
-    return {"xyz": points.xyz[idx],
-            "embeding": points.points_embeding[idx],
-            "conf": points.points_conf[idx],
-            "dir": points.points_dir[idx],
-            "color": points.points_color[idx]}
+    attrs = torch.cat([points.points_embeding, points.points_conf,
+                       points.points_dir, points.points_color], -1)
+    vals = gather_rows(attrs, idx.reshape(-1)).reshape(
+        idx.shape + (attrs.shape[1],))
+    C = points.points_embeding.shape[1]
+    out = {"xyz": points.xyz[idx], "embeding": vals[..., :C],
+           "conf": vals[..., C:C + 1], "dir": vals[..., C + 1:C + 4],
+           "color": vals[..., C + 4:C + 7]}
+    if points.Rw2c.ndim == 3:
+        out["Rw2c"] = points.Rw2c[idx]
+    return out

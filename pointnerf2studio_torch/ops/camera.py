@@ -3,7 +3,9 @@
 Port of `pointnerf2studio_tpu/ops/camera.py`: `w2pers` maps world points
 to (x/z, y/z, z) with R_c2w^T (p - campos). Written as elementwise
 multiply-adds in the reference's order, not as a matmul, so the
-geometry keeps plain float32 arithmetic on every device.
+geometry keeps plain float32 arithmetic on every device. Also the
+`gau_intrp` weight kernel's local frames (`roll_pitch_yaw_to_rotation`,
+`world2local_dist`).
 """
 
 from __future__ import annotations
@@ -45,3 +47,26 @@ def neighbor_dists(neigh_xyz: torch.Tensor, locs: torch.Tensor,
          nei[..., 1] * nei[..., 2] - lp[..., 1] * lp[..., 2],
          nei[..., 2] - lp[..., 2]], -1)
     return torch.cat([neigh_xyz - locs[..., None, :], pdist], -1)
+
+
+def roll_pitch_yaw_to_rotation(rpy: torch.Tensor) -> torch.Tensor:
+    """[..., 3] roll/pitch/yaw (radians, applied x then y then z) ->
+    [..., 3, 3] rotation matrices (ZYX Euler composition)."""
+    cx, cy, cz = (torch.cos(rpy[..., i]) for i in range(3))
+    sx, sy, sz = (torch.sin(rpy[..., i]) for i in range(3))
+    rows = torch.stack(
+        [cz * cy, cz * sy * sx - sz * cx, cz * sy * cx + sz * sx,
+         sz * cy, sz * sy * sx + cz * cx, sz * sy * cx - cz * sx,
+         -sy, cy * sx, cy * cx], -1)
+    return rows.reshape(rpy.shape[:-1] + (3, 3))
+
+
+def world2local_dist(dists: torch.Tensor, radii: torch.Tensor,
+                     rotations: torch.Tensor) -> torch.Tensor:
+    """Offsets dists [..., 3] rotated into per-point local frames
+    (roll/pitch/yaw `rotations` [..., 3]) and scaled by 1 / radii [..., 3]:
+    the anisotropic-gaussian footprint of the `gau_intrp` weight kernel.
+    The rotation is elementwise multiply-adds, rot @ dists."""
+    rot = roll_pitch_yaw_to_rotation(rotations)
+    local = (rot * dists[..., None, :]).sum(-1)
+    return local / (radii + 1e-8)

@@ -72,20 +72,19 @@ def fused_decode_served(cfg: AggregatorConfig, per_point_rw2c: bool,
                         K: int) -> bool:
     """`fused_decode_eligible`, and for an eligible config a check that
     the port has its kernel: csrc/fused_decode.cu is built for 32
-    features, 6 dists, hidden 256, PE freqs (3, 5) and K <= 8, and only
-    the `linear` weight kernel is ported. An eligible config outside
-    that raises NotImplementedError on either device; it does not take
+    features, 6 dists, hidden 256, PE freqs (3, 5) and K <= 8. Every
+    weight kernel of the gate is served: the weights reach the kernels
+    from outside (`tower_inputs`). An eligible config outside that
+    raises NotImplementedError on either device; it does not take
     `decode_radiance` quietly."""
     if not fused_decode_eligible(cfg, per_point_rw2c, K):
         return False
-    got = {"agg_distance_kernel": cfg.agg_distance_kernel,
-           "shading_feature_dim": cfg.shading_feature_dim,
+    got = {"shading_feature_dim": cfg.shading_feature_dim,
            "dist_dim": cfg.dist_dim, "hidden_size": cfg.hidden_size,
            "num_feat_freqs": cfg.num_feat_freqs,
            "num_dist_freqs": cfg.num_dist_freqs}
-    want = {"agg_distance_kernel": "linear", "shading_feature_dim": FEAT,
-            "dist_dim": DIST, "hidden_size": HIDDEN, "num_feat_freqs": 3,
-            "num_dist_freqs": 5}
+    want = {"shading_feature_dim": FEAT, "dist_dim": DIST,
+            "hidden_size": HIDDEN, "num_feat_freqs": 3, "num_dist_freqs": 5}
     bad = {k: v for k, v in got.items() if v != want[k]}
     if not 1 <= K <= 8:
         bad["K"] = K

@@ -1,24 +1,49 @@
 """Voxel-grid construction over a neural point cloud.
 
 Port of `pointnerf2studio_tpu/ops/grid.py` (compute_grid_geometry,
-build_grid, _dilate_occupancy, build_grid_from_points). The build is a
+build_grid, _dilate_occupancy, CandidateCache, build_candidate_cache,
+build_grid_from_points). The build is a
 stable sort by voxel id plus scatters whose live indices are unique, so
 it is deterministic on every device: when a voxel holds more than P
 points the first P by point index are kept, and the first `max_o`
 occupied voxels in flat-id order. The only scatter with repeated
 indices is an integer count, whose result does not depend on order.
+The candidate cache takes its candidates, in their order, from
+`models/fast_render.ordered_candidates`, as the fat and geometry caches
+do: sorts and gathers, no scatter.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from pointnerf2studio_torch.config import QueryConfig
+
+
+@dataclasses.dataclass
+class CandidateCache:
+    """Per-query-voxel candidate lists of the legacy render's K-NN
+    (`ops/query.knn_from_cache`): for each query voxel (a dilated-occupied
+    voxel) the first C candidates of its kernel_size neighbourhood by
+    (Chebyshev shell, distance to the voxel centre), each packed as [x, y,
+    z, bitcast_f32(pidx), shell] with pidx -1 and shell 127 on an empty
+    slot, flattened to cand_pack [max_q, C * 5] float32 as the reference
+    lays it out."""
+    coor_2_qslot: torch.Tensor      # [gx, gy, gz] int32 query slot or -1
+    cand_pack: torch.Tensor         # [max_q, C * 5] float32
+    n_q: torch.Tensor               # [] int32 query voxels
+
+    def unpack(self, rows: torch.Tensor):
+        """rows [M, C * 5] -> (xyz [M, C, 3], pidx int32 [M, C],
+        shell int32 [M, C])."""
+        rows = rows.reshape(*rows.shape[:-1], -1, 5)
+        return (rows[..., :3], rows[..., 3].contiguous().view(torch.int32),
+                rows[..., 4].to(torch.int32))
 
 
 @dataclasses.dataclass
@@ -32,6 +57,7 @@ class PointGrid:
     occ_numpnts: torch.Tensor       # [max_o] int32 points per voxel
     n_occ: torch.Tensor             # [] int32 occupied voxels
     occ_2_coor: torch.Tensor        # [max_o, 3] int32 voxel coord per slot
+    cache: Optional[CandidateCache] = None
 
     @property
     def dims(self) -> Tuple[int, int, int]:
@@ -125,9 +151,38 @@ def build_grid(xyz: torch.Tensor, alive: torch.Tensor,
         n_occ=n_occ, occ_2_coor=occ_2_coor)
 
 
+@torch.no_grad()
+def build_candidate_cache(grid: PointGrid, xyz: torch.Tensor,
+                          kernel_size: Tuple[int, int, int], max_q: int,
+                          cand_cap: int, chunk: int = 32768
+                          ) -> CandidateCache:
+    """The legacy render's candidate cache of `grid` (see CandidateCache),
+    C = min(cand_cap, V * P) candidates a query voxel, built once per grid
+    in pieces of `chunk` query voxels."""
+    from pointnerf2studio_torch.models.fast_render import (
+        cand_width, ordered_candidates, query_voxels)
+    C = cand_width(grid, kernel_size, cand_cap)
+    coor_2_qslot, n_q, q_coor, q_live, center_w = query_voxels(grid, max_q)
+    pack = torch.empty((max_q, C, 5), dtype=torch.float32,
+                       device=xyz.device)
+    for s in range(0, max_q, chunk):
+        sel_ok, sel_pidx, sel_sh, sel_xyz = ordered_candidates(
+            grid, xyz, kernel_size, C, q_coor[s:s + chunk],
+            center_w[s:s + chunk], q_live[s:s + chunk])
+        B = sel_ok.shape[0]
+        pack[s:s + B, :, :3] = sel_xyz
+        pack[s:s + B, :, 3] = torch.where(sel_ok, sel_pidx, -1).to(
+            torch.int32).view(torch.float32)
+        pack[s:s + B, :, 4] = torch.where(sel_ok, sel_sh, 127).float()
+    return CandidateCache(coor_2_qslot=coor_2_qslot,
+                          cand_pack=pack.reshape(max_q, C * 5), n_q=n_q)
+
+
 def build_grid_from_points(xyz: torch.Tensor, alive: torch.Tensor,
                            cfg: QueryConfig) -> PointGrid:
-    """Host-side geometry from the live-point bbox, then the build."""
+    """Host-side geometry from the live-point bbox, then the build; with
+    `cfg.use_cache` the grid carries its candidate cache (max_q defaults
+    to 4 * max_o, as in the reference)."""
     big = torch.tensor(1e30, device=xyz.device)
     a3 = alive[:, None]
     xyz_min = torch.where(a3, xyz, big).min(0).values.cpu().numpy()
@@ -136,8 +191,13 @@ def build_grid_from_points(xyz: torch.Tensor, alive: torch.Tensor,
     if dims[0] * dims[1] * dims[2] > 2 ** 30:
         raise ValueError(f"dense grid dims {dims} exceed the dense table "
                          f"budget (the sparse grid is not ported)")
-    return build_grid(
+    grid = build_grid(
         xyz, alive, torch.as_tensor(ranges_min, device=xyz.device),
         torch.tensor(cfg.scaled_vsize, dtype=torch.float32,
                      device=xyz.device),
         dims, cfg.max_o, cfg.P, cfg.query_size)
+    if cfg.use_cache:
+        grid.cache = build_candidate_cache(
+            grid, xyz, cfg.kernel_size, cfg.max_q or 4 * cfg.max_o,
+            cfg.cand_cap)
+    return grid

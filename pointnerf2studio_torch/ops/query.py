@@ -1,21 +1,29 @@
-"""Ray-sample masking and the K-nearest-neighbour query on the voxel grid.
+"""Ray-sample masking, shading-slot compaction and the K-nearest-neighbour
+query.
 
-Port of `neighbor_offsets`, `mask_raypos`, `_knn_chunk` and
-`knn_for_locs` from `pointnerf2studio_tpu/ops/query.py`: the route the
-legacy render takes without a candidate cache (`use_cache=False`). The
-cache route (`mask_raypos_qslot`, `knn_from_cache`) is not ported.
+Port of `pointnerf2studio_tpu/ops/query.py`: the grid route of the
+legacy render (`mask_raypos`, `_knn_chunk`, `knn_for_locs`; a grid
+without a candidate cache), its cache route (`mask_raypos_qslot`,
+`knn_from_cache`; a grid built with `QueryConfig.use_cache`), the
+build-time candidate pruning of the fast caches (`candidate_keep_mask`),
+and the whole fixed-shape query (`compact_shading_locs`,
+`query_grid_point_index`).
 
 Selection semantics are the reference's: candidates are scanned shell
 by shell in Chebyshev layers; a shell is searched only while the shells
 inside it yielded fewer than K candidates; within the searched shells
 the K nearest within `radius_limit` win, earlier scan order breaking
 ties. `lax.top_k` breaks ties by smallest index and `torch.topk`
-promises no order, so the selection here is a stable sort of the keys.
+promises no order, so every selection here is a stable sort of the keys.
+Distances are plain float32 sums of squares (the reference's compiled
+CPU program may contract them into fused multiply-adds; parity inputs
+stay off exact ties).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +49,39 @@ def neighbor_offsets(kernel_size: Tuple[int, int, int]
     return np.asarray(offs, np.int32), np.asarray(shells, np.int32)
 
 
+@dataclasses.dataclass
+class QueryResult:
+    """Fixed-shape output of the neighbour query (padded + masked)."""
+    sample_pidx: torch.Tensor     # [R, SR, K] int32 point ids, -1 = empty
+    sample_loc_w: torch.Tensor    # [R, SR, 3] shading locations (0 pad)
+    sample_mask: torch.Tensor     # [R, SR] bool: slot holds a sample
+    ray_mask: torch.Tensor        # [R] bool: a sample found neighbours
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+                      + v[..., 2] * v[..., 2])
+
+
+def candidate_keep_mask(rel, shell, valid, half, radius2: float, K: int,
+                        max_shell: int) -> torch.Tensor:
+    """Exact build-time candidate pruning of the fast caches: drop a
+    candidate that no shading location inside the voxel could select, by
+    the radius (its least distance to the voxel cube, rel [B, C, 3] being
+    the offset from the voxel centre, past the radius) or, in the
+    outermost shell only, by K feasible candidates all nearer at their
+    farthest than it is at its nearest. Survivors keep their order."""
+    a = torch.abs(rel)
+    lo = _norm3(torch.clamp(a - half, min=0.0))                # [B, C]
+    hi = _norm3(a + half)
+    feasible = valid
+    if radius2 > 0:
+        feasible = feasible & (lo * lo <= radius2)
+    dom_cnt = ((hi[:, None, :] < lo[:, :, None])
+               & feasible[:, None, :]).sum(-1)
+    return feasible & ~((shell >= max_shell) & (dom_cnt >= K))
+
+
 def voxel_coords(xyz: torch.Tensor, ranges_min: torch.Tensor,
                  scaled_vsize: torch.Tensor) -> torch.Tensor:
     """World position -> integer voxel coordinate (floor), int64."""
@@ -54,6 +95,39 @@ def mask_raypos(grid: PointGrid, raypos: torch.Tensor) -> torch.Tensor:
     inb = ((gcoor >= 0) & (gcoor < dims)).all(-1)
     gc = torch.minimum(torch.clamp(gcoor, min=0), dims - 1)
     return inb & grid.coor_occ[gc[..., 0], gc[..., 1], gc[..., 2]]
+
+
+def mask_raypos_qslot(grid: PointGrid, raypos: torch.Tensor) -> torch.Tensor:
+    """[R, D] int32 query slot of each sample in the grid's candidate
+    cache, -1 where it is not a query voxel (outside the grid, not
+    dilated-occupied, or past max_q)."""
+    dims = torch.tensor(grid.dims, device=raypos.device)
+    gcoor = voxel_coords(raypos, grid.ranges_min, grid.scaled_vsize)
+    inb = ((gcoor >= 0) & (gcoor < dims)).all(-1)
+    gc = torch.minimum(torch.clamp(gcoor, min=0), dims - 1)
+    q = grid.cache.coor_2_qslot[gc[..., 0], gc[..., 1], gc[..., 2]]
+    return torch.where(inb, q, -1)
+
+
+def compact_shading_locs(raypos: torch.Tensor, raypos_mask: torch.Tensor,
+                         SR: int, extra: Optional[torch.Tensor] = None):
+    """The first SR masked samples of each ray in SR fixed slots:
+    (sample_loc_w [R, SR, 3], 0 on empty slots; sample_mask [R, SR][,
+    extra_slots [R, SR], `extra`'s value there, -1 on empty slots])."""
+    R, D, _ = raypos.shape
+    col = torch.arange(D, device=raypos.device)
+    key = torch.where(raypos_mask, col, D)
+    d_sel = torch.sort(key, dim=-1, stable=True).values[:, :SR]
+    if d_sel.shape[1] < SR:
+        d_sel = torch.cat([d_sel, d_sel.new_full((R, SR - D), D)], -1)
+    sample_mask = d_sel < D
+    d_c = torch.clamp(d_sel, max=D - 1)
+    sample_loc_w = torch.gather(raypos, 1, d_c[..., None].expand(R, SR, 3)
+                                ) * sample_mask[..., None].to(raypos.dtype)
+    if extra is None:
+        return sample_loc_w, sample_mask
+    return sample_loc_w, sample_mask, torch.where(
+        sample_mask, torch.gather(extra, 1, d_c), -1)
 
 
 def _knn_chunk(grid: PointGrid, xyz: torch.Tensor, locs: torch.Tensor,
@@ -127,3 +201,55 @@ def knn_for_locs(grid: PointGrid, xyz: torch.Tensor, locs: torch.Tensor,
         _knn_chunk(grid, xyz, locs[s:s + chunk], loc_mask[s:s + chunk],
                    offsets, shells, num_shells, K, radius2, layered)
         for s in range(0, total, chunk)])
+
+
+@torch.no_grad()
+def knn_from_cache(grid: PointGrid, qslot: torch.Tensor, locs: torch.Tensor,
+                   loc_mask: torch.Tensor, K: int, radius2: float,
+                   num_shells: int, layered: bool = True) -> torch.Tensor:
+    """The K nearest candidates of each location from its query voxel's
+    row of the candidate cache (qslot [M], locs [M, 3], loc_mask [M])
+    -> [M, K] int32 point ids, -1 = empty. Candidates out of the radius
+    are dropped; with `layered` a shell is searched only while the shells
+    inside it kept fewer than K; the K smallest d2 win, ties to the
+    earlier column (a stable sort)."""
+    cache = grid.cache
+    rows = cache.cand_pack[torch.clamp(qslot, min=0).long()]   # [M, C*5]
+    cxyz, pidx, shell = cache.unpack(rows)
+    ok = ((qslot >= 0) & loc_mask)[:, None] & (pidx >= 0)
+    delta = cxyz - locs[:, None, :]
+    d2 = (delta[..., 0] * delta[..., 0] + delta[..., 1] * delta[..., 1]
+          + delta[..., 2] * delta[..., 2])
+    if radius2 > 0.0:
+        ok = ok & (d2 <= radius2)
+    if layered:
+        eligible = shell == 0
+        before = torch.zeros_like(shell[:, :1])
+        for s in range(1, num_shells):
+            before = before + (ok & (shell == s - 1)).sum(-1, keepdim=True)
+            eligible = eligible | ((shell == s) & (before < K))
+        ok = ok & eligible
+    key = torch.where(ok, d2, float("inf"))
+    top_key, top = torch.sort(key, dim=-1, stable=True)
+    top_key, top = top_key[:, :K], top[:, :K]
+    return torch.where(top_key < float("inf"), torch.gather(pidx, 1, top),
+                       -1).to(torch.int32)
+
+
+@torch.no_grad()
+def query_grid_point_index(grid: PointGrid, xyz: torch.Tensor,
+                           raypos: torch.Tensor, SR: int, K: int,
+                           radius2: float, kernel_size: Tuple[int, int, int],
+                           layered: bool = True,
+                           chunk: int = 8192) -> QueryResult:
+    """The whole query on the grid: mask -> the first SR samples of each
+    ray -> K-NN, at fixed shapes. A ray is in `ray_mask` when it hit
+    occupied space and one of its samples found a neighbour."""
+    R = raypos.shape[0]
+    rp_mask = mask_raypos(grid, raypos)
+    loc, smask = compact_shading_locs(raypos, rp_mask, SR)
+    pidx = knn_for_locs(grid, xyz, loc.reshape(R * SR, 3),
+                        smask.reshape(R * SR), K, radius2, kernel_size,
+                        layered=layered, chunk=chunk).reshape(R, SR, K)
+    return QueryResult(sample_pidx=pidx, sample_loc_w=loc, sample_mask=smask,
+                       ray_mask=rp_mask.any(-1) & (pidx >= 0).any(-1).any(-1))

@@ -1,20 +1,23 @@
 """The per-scene fine-tuning loop.
 
-Port of `pointnerf2studio_tpu/train/loop.py` for the fast train path on a
-dense grid: build the grid and the geometry cache, plan the jitter-aware
-march (TrainConfig.march_auto), then take steps of
-`models/fast_train.make_fast_train_step` on ray batches sampled on the
-device (TrainConfig.device_sampling, from a `torch.Generator` on the
-device) or on the host (`data/blender.PixelSampler`), with the loss log
-of `utils/logger.Logger`. A step reads nothing back to the host; the log
-reads each window back once.
+Port of `pointnerf2studio_tpu/train/loop.py` on a dense grid: build the
+grid, then either (TrainConfig.fast_path) the geometry cache and the
+jitter-aware march plan (TrainConfig.march_auto) for steps of
+`models/fast_train.make_fast_train_step`, or (the reference's default)
+the grid's candidate cache (QueryConfig.use_cache) for steps of the
+legacy `train/trainer.make_train_step`; the steps take ray batches
+sampled on the device (TrainConfig.device_sampling, from a
+`torch.Generator` on the device) or on the host
+(`data/blender.PixelSampler`), with the loss log of
+`utils/logger.Logger`. A step reads nothing back to the host; the log
+reads each window back once. The candidate cache is built for the
+legacy step only: the fast step never reads it.
 
 Not ported, each raising NotImplementedError that names its ROADMAP
 item: sharding (`mesh`), the hash grid, pruning (`prune_iter`), point
 growing (`prob_freq`), evaluation (`eval_dataset`, `eval_freq`),
 checkpoints (`save_freq > 0`, `resume` with a checkpoint on disk; the
-port writes none), the plane background, tensorboard and the legacy
-train step (`fast_path=False`).
+port writes none), the plane background and tensorboard.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
 from pointnerf2studio_torch.ops._cuda import resolve_device
 from pointnerf2studio_torch.ops.grid import build_grid_from_points
 from pointnerf2studio_torch.ops.march import build_march_table, plan_march
-from pointnerf2studio_torch.train.trainer import TrainState, create_train_state
+from pointnerf2studio_torch.train.trainer import (
+    TrainState, create_train_state, make_train_step)
 from pointnerf2studio_torch.utils.logger import Logger
 
 
@@ -64,7 +68,6 @@ def _unported(cfg: PointNerfConfig, out_dir: str, mesh, eval_dataset,
          "resuming from a checkpoint", 8),
         (cfg.bgmodel.endswith("plane"), "the plane background", 9),
         (tensorboard, "tensorboard", 10),
-        (not t.fast_path, "the legacy train step (fast_path=False)", 6),
     ]
     for bad, what, item in checks:
         if bad:
@@ -182,16 +185,28 @@ def fit(
     max_steps = max_steps or cfg.train.max_iterations
     t = cfg.train
     state = create_train_state(params, points, cfg)
-    grid = build_grid_from_points(state.points.xyz, state.points.alive,
-                                  cfg.query)
     q = cfg.query
-    if (t.march_auto and not q.march_steps and not cfg.inverse
-            and q.compact_mode == "topk" and q.z_depth_dim <= 512):
-        cfg = plan_train_march(cfg, dataset, grid)
-        print(f"train march auto-plan: steps {cfg.query.march_steps} "
-              f"buckets {cfg.query.march_buckets}")
-    geo, rmin, svs = make_geo_scene(cfg, state.points, grid)
-    step_fn = make_fast_train_step(cfg)
+    grid = build_grid_from_points(
+        state.points.xyz, state.points.alive,
+        dataclasses.replace(q, use_cache=q.use_cache and not t.fast_path))
+    if t.fast_path:
+        if (t.march_auto and not q.march_steps and not cfg.inverse
+                and q.compact_mode == "topk" and q.z_depth_dim <= 512):
+            cfg = plan_train_march(cfg, dataset, grid)
+            print(f"train march auto-plan: steps {cfg.query.march_steps} "
+                  f"buckets {cfg.query.march_buckets}")
+        geo, rmin, svs = make_geo_scene(cfg, state.points, grid)
+        fast_step = make_fast_train_step(cfg)
+
+        def step_fn(st, campos, camrot, rays, gt, near, far, **kw):
+            return fast_step(st, geo, rmin, svs, campos, camrot, rays, gt,
+                             near, far, **kw)
+    else:
+        legacy_step = make_train_step(cfg)
+
+        def step_fn(st, campos, camrot, rays, gt, near, far, **kw):
+            return legacy_step(st, grid, campos, camrot, rays, gt, near,
+                               far, **kw)
     gen = torch.Generator(device=device).manual_seed(seed)
     need_mask = (dataset.alphas is not None
                  and any(n.startswith("ray_depth_masked_")
@@ -223,8 +238,8 @@ def fit(
                     for k in ("campos", "camrotc2w", "raydirs", "gt_rgb"))
                 gtm = (torch.as_tensor(b["gt_mask"], device=device)
                        if need_mask and "gt_mask" in b else None)
-            state, aux = step_fn(state, geo, rmin, svs, campos, camrot, rays,
-                                 gt, near, far, generator=gen, gt_mask=gtm)
+            state, aux = step_fn(state, campos, camrot, rays, gt, near, far,
+                                 generator=gen, gt_mask=gtm)
             logger.accumulate(aux)
         s0, step = step, step + k_eff
         s_end = step - 1

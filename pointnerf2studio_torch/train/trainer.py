@@ -16,14 +16,15 @@ xyz, Rw2c and alive stay frozen. torch's Adam has eps outside the square
 root, as optax's `adam` does. Under TrainConfig.alter_step the group that
 sits a phase out keeps its parameters and its Adam moments: its `step()`
 is not called, and its gradients are cleared before the next backward.
-The legacy train step (through `render_rays`) is not ported.
+`make_train_step` is the legacy step, through `models/render.render_rays`
+(the fast step is `models/fast_train.make_fast_train_step`).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -97,8 +98,35 @@ def apply_updates(state: TrainState, cfg: PointNerfConfig) -> None:
 
 
 def make_train_step(cfg: PointNerfConfig):
-    """The legacy train step through `render_rays` is not ported."""
-    raise NotImplementedError(
-        "the legacy train step (render_rays with use_cache=True) waits for "
-        "ROADMAP queue 1 item 6; train with TrainConfig.fast_path=True "
-        "(models/fast_train.make_fast_train_step)")
+    """The legacy train step, one forward and backward of
+    `render_rays(training=True)` and the losses, then the optimizer update
+    (`apply_updates`):
+
+        step(state, grid, campos, camrotc2w, raydirs, gt_rgb, near, far,
+             generator=None, jitter_u=None, bg_rgb=None, gt_mask=None)
+             -> (state, aux)
+
+    `state` is updated in place and returned; `aux` holds the loss parts
+    as device scalars, nothing read back to the host. Jitter draws come
+    from `jitter_u` [R, D] where given, else from `generator`."""
+    from pointnerf2studio_torch.models.render import render_rays
+    from pointnerf2studio_torch.train.loss import compute_losses
+
+    def train_step(state: TrainState, grid, campos, camrotc2w, raydirs,
+                   gt_rgb, near, far,
+                   generator: Optional[torch.Generator] = None,
+                   jitter_u: Optional[torch.Tensor] = None,
+                   bg_rgb: Optional[torch.Tensor] = None,
+                   gt_mask: Optional[torch.Tensor] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        state.zero_grad()
+        out = render_rays(state.params, state.points, grid, campos,
+                          camrotc2w, raydirs, near, far, cfg, training=True,
+                          bg_ray_colors=bg_rgb, generator=generator,
+                          jitter_u=jitter_u)
+        total, aux = compute_losses(out, gt_rgb, cfg.train, gt_mask=gt_mask)
+        total.backward()
+        apply_updates(state, cfg)
+        return state, {k: v.detach() for k, v in aux.items()}
+
+    return train_step

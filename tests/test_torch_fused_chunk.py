@@ -289,7 +289,7 @@ def test_aggregation_weight_matches(axis_weight):
                                       0.008)
     got, got_emb = tagg.aggregation_weight(
         TAggConfig(**dataclasses.asdict(cfg)), torch.as_tensor(emb),
-        torch.as_tensor(dists), torch.as_tensor(pm))
+        torch.as_tensor(dists), torch.as_tensor(pm), 0.008)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-7)
     np.testing.assert_array_equal(got_emb.numpy(), np.asarray(want_emb))

@@ -206,8 +206,8 @@ SERVED = {
     "bf16": (dict(compute_dtype="bfloat16"), True),
     "order1": (dict(agg_intrp_order=1), False),
     "no_dir": (dict(point_dir_mode=False), False),
-    "quadric": (dict(agg_distance_kernel="quadric"), None),
-    "numlinear": (dict(agg_distance_kernel="numlinear"), None),
+    "quadric": (dict(agg_distance_kernel="quadric"), True),
+    "numlinear": (dict(agg_distance_kernel="numlinear"), True),
     "hidden128": (dict(hidden_size=128), None),
     "features16": (dict(point_features_dim=16), None),
     "feat_freqs2": (dict(num_feat_freqs=2), None),

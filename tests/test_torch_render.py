@@ -99,7 +99,8 @@ def test_mask_and_compaction_match(scene):
     t_mask = tquery.mask_raypos(scene["grid"], t_raypos)
     np.testing.assert_array_equal(t_mask.numpy(), np.asarray(rp_mask))
     _cuda.LAUNCHES.clear()
-    t_sel, t_mask_c, t_ray = trender.compact_samples(t_mask, q.SR, M)
+    t_sel, t_mask_c, t_ray = trender.compact_samples(
+        t_mask.to(torch.int32) - 1, q.SR, M)
     assert sum(_cuda.LAUNCHES.values()) == 0
     np.testing.assert_array_equal(t_mask_c.numpy(), np.asarray(mask_c))
     np.testing.assert_array_equal(t_sel.numpy(), np.asarray(sel))
@@ -233,20 +234,107 @@ def test_padded_slots_leave_ray_zero_alone(scene):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(training=True), dict(prob=True),
-    dict(bg_ray_colors=torch.zeros(4, 3)), dict(use_cache=True),
-    dict(agg=dict(fused_decode=True, agg_distance_kernel="quadric")),
     dict(agg=dict(fused_decode=True, hidden_size=128))])
 def test_unported_render_options_raise(scene, kw):
     s = scene["s"]
     cfg = _port_cfg(scene["cfg"])
-    if "agg" in kw:
-        cfg = dataclasses.replace(cfg, agg=dataclasses.replace(
-            cfg.agg, **kw.pop("agg")))
-    if kw.pop("use_cache", False):
-        cfg = dataclasses.replace(cfg, query=dataclasses.replace(
-            cfg.query, use_cache=True))
+    cfg = dataclasses.replace(cfg, agg=dataclasses.replace(
+        cfg.agg, **kw.pop("agg")))
     with pytest.raises(NotImplementedError):
         trender.render_rays(None, scene["cloud"], scene["grid"],
                             _T(s.campos), _T(s.camrotc2w), torch.zeros(4, 3),
                             s.near, s.far, cfg, **kw)
+
+
+@pytest.fixture(scope="module")
+def cached():
+    """The sphere at sr 16, D 48 (tests/test_fast_train.py's scene) with
+    the reference's default route: the grid's candidate cache (max_q cut
+    to 32768, above the scene's query voxels)."""
+    cfg = sphere_config(sr=16, d=48)
+    cfg = dataclasses.replace(cfg, query=dataclasses.replace(
+        cfg.query, use_cache=True, max_q=32768, compact_budget=8))
+    s = make_sphere_scene(n_points=4000, cfg=cfg)
+    assert s.grid.cache is not None
+    assert int(s.grid.cache.n_q) < 32768
+    rays = np.asarray(camera_rays(s.campos, s.camrotc2w, 16, 16, 12.0))
+    rot = np.linalg.qr(np.random.default_rng(8).normal(
+        size=(4000, 3, 3)))[0].astype(np.float32)
+    return dict(
+        s=s, cfg=cfg, rays=rays, rot=rot,
+        bg=np.random.default_rng(9).random((rays.shape[0], 3)).astype(
+            np.float32),
+        cloud=convert.cloud_from_jax(jax.tree.map(np.asarray, s.cloud),
+                                     device="cpu"),
+        grid=convert.grid_from_jax(s.grid, device="cpu"))
+
+
+PROB_KEYS = ("ray_max_shading_opacity", "ray_max_sample_loc_w",
+             "shading_avg_color", "shading_avg_dir", "shading_avg_conf",
+             "shading_avg_embedding")
+
+
+@pytest.mark.parametrize("case", [
+    "use_cache", "use_cache_bf16_fused", "quadric_bf16_fused", "prob",
+    "bg_ray_colors", "per_point_rw2c"])
+def test_cache_route_matches_jax(cached, case):
+    """render_rays on the candidate cache against the reference's
+    render_rays_jit: ray_mask and pnt_mask exactly; colour, acc and depth
+    within 2e-4 (mean 2e-5) at float32 and within the bf16 bound (atol
+    2e-2, mean 2e-3) with the bf16 tower, each relative to max(1, the
+    largest value); the prob outputs and the per-ray background at
+    float32 too; with a per-point Rw2c [N, 3, 3]. The corner ray (ray 0)
+    misses, so the reference's padded-slot scatter onto (ray 0, sample 0)
+    changes nothing."""
+    s, rays = cached["s"], cached["rays"]
+    dtype = "bfloat16" if "bf16" in case else "float32"
+    agg = dict(compute_dtype=dtype, fused_decode="fused" in case)
+    if case.startswith("quadric"):
+        agg["agg_distance_kernel"] = "quadric"
+    cfg = dataclasses.replace(cached["cfg"], agg=dataclasses.replace(
+        cached["cfg"].agg, **agg))
+    cloud_j, cloud_t = s.cloud, cached["cloud"]
+    if case == "per_point_rw2c":
+        cloud_j = s.cloud.replace(Rw2c=jnp.asarray(cached["rot"]))
+        cloud_t = dataclasses.replace(cloud_t, Rw2c=_T(cached["rot"]))
+    kw = {}
+    if case == "prob":
+        kw["prob"] = True
+    bg_j = bg_t = None
+    if case == "bg_ray_colors":
+        bg_j, bg_t = jnp.asarray(cached["bg"]), _T(cached["bg"])
+    with jax.default_matmul_precision("highest"):
+        want = render_rays_jit(s.params, cloud_j, s.grid, s.campos,
+                               s.camrotc2w, jnp.asarray(rays), s.near,
+                               s.far, cfg, bg_ray_colors=bg_j, **kw)
+    tc = _port_cfg(cfg)
+    _cuda.LAUNCHES.clear()
+    with torch.no_grad():
+        got = trender.render_rays(
+            convert.aggregator_from_jax(jax.tree.map(np.asarray, s.params),
+                                        tc.agg, device="cpu"),
+            cloud_t, cached["grid"], _T(s.campos), _T(s.camrotc2w),
+            _T(rays), s.near, s.far, tc, bg_ray_colors=bg_t, **kw)
+    assert sum(_cuda.LAUNCHES.values()) == 0
+    mask = got.ray_mask.numpy()
+    np.testing.assert_array_equal(mask, np.asarray(want.ray_mask))
+    np.testing.assert_array_equal(got.pnt_mask.numpy(),
+                                  np.asarray(want.pnt_mask))
+    assert 0.1 < mask.mean() < 0.9 and not mask[0]
+    atol, mean_tol = (2e-4, 2e-5) if dtype == "float32" else (2e-2, 2e-3)
+    pairs = [(got.coarse_raycolor, want.coarse_raycolor),
+             (got.acc, want.acc), (got.depth, want.depth)]
+    if case == "prob":
+        pairs += [(getattr(got, k), getattr(want, k)) for k in PROB_KEYS]
+        assert float(got.ray_max_shading_opacity.max()) > 0.1
+    for g, w in pairs:
+        g = g.numpy()
+        d = np.abs(g - np.asarray(w, np.float32))
+        scale = max(1.0, float(np.abs(g).max()))
+        assert d.max() <= atol * scale, d.max()
+        assert d.mean() < mean_tol * scale
+    color = got.coarse_raycolor.numpy()
+    bg = (cached["bg"] if case == "bg_ray_colors"
+          else np.broadcast_to(np.asarray(cfg.bg_color, np.float32),
+                               color.shape))
+    assert np.all(color[~mask] == bg[~mask])

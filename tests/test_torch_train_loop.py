@@ -13,7 +13,8 @@ against the JAX reference, on the CPU.
     the reference's own two train paths to;
   * every part of fit() and fast_train_render that is not ported raises
     NotImplementedError naming its ROADMAP item, and fit() with no device
-    raises without a card."""
+    raises without a card. (The legacy step behind fit(fast_path=False)
+    is held to the reference in tests/test_torch_legacy_train.py.)"""
 
 import dataclasses
 
@@ -221,7 +222,6 @@ UNPORTED_FIT = {
     "save_freq": (dict(save_freq=5), {}, "item 8"),
     "plane background": ({}, dict(bgmodel="plane"), "item 9"),
     "tensorboard": (dict(tensorboard=True), {}, "item 10"),
-    "legacy step": ({}, dict(train=dict(fast_path=False)), "item 6"),
 }
 
 
@@ -275,8 +275,6 @@ def test_fast_train_render_unported_raises(s, name):
 
 
 def test_legacy_step_and_loader_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        ttrainer.make_train_step(tcfg.PointNerfConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
         tblender.load_blender("scene")
 
