@@ -76,6 +76,38 @@ ray budget measured on the frame as the JAX bench sizes them:
      at least 4x; its it/s beside the fast dense step's, in turns; one step
      under the profiler split into forward, backward and optimizer, where
      torch's `indexing_backward_kernel` must not appear.
+ 11. structure: growth, pruning, evaluation and checkpoints on the
+     chair-train scene, with the scene's weights rescaled for the phase
+     (mlp_base's first layer x4, the density head x30: at the scene's own
+     every hit ray's max opacity is the same to four digits) and a tenth
+     of the preset's learning rates (the preset's zero that tower's density
+     in two steps); the legacy step at the chair preset's compact_budget 0,
+     fused_decode on for evaluation, prob_mul 0.4, prune_thresh 0.1. Four
+     teacher views of the intact cloud through `render_frame`; the probe
+     threshold, the median of view 0's max shading opacity before the cut;
+     the probe's fat cache (bytes, seconds); one 65,536-ray chunk of view
+     0 through the XLA route on it against the fused-chunk route (ray_mask
+     exactly, colour within ATOL / MEAN_TOL), its prob outputs with
+     first_valid_cols and with the plain version bit for bit, and the two
+     chunks' times in turns; an azimuth wedge of 40 degrees facing view 0
+     cut from the cloud; view 0's 640,000 rays through the fast and the
+     legacy prob probe (ray_mask agreement >= 0.99, the max-opacity
+     location within a voxel on >= 0.9 of the rays both hit; where it is
+     the same sample, the opacity within 2e-2 and the averages within
+     3e-2 on >= 0.9 of them, the share printed); `probe_and_grow` (grown
+     > 0, >= 80% of the
+     grown points in the wedge widened by a voxel, n_alive up by the grown
+     count, the grown slots' Adam moments zero); `fit()` 100 steps with
+     prunes at 40 and 80 (each kills exactly the live points under the
+     threshold), growth at 50 and 100, saves and evaluations at 50 and 100
+     (first_valid_cols once a step and once a probe chunk, fused_decode
+     once a decode piece of the legacy evaluation), the colour loss of
+     steps 91-100 at most that of steps 1-10, three finite evaluations;
+     `fit()`
+     again on the same directory restores the finished run bit for bit
+     without a step, and with max_steps 110 resumes at 101; the `.pth`
+     export read back bit for bit; view 0 evaluated through the legacy
+     renderer and through `render_frame` within 0.5 dB of PSNR.
 
 The launch counts are set to 0 just before each path and read just
 after it. It fails (non-zero exit, no result line) when there is no
@@ -93,7 +125,8 @@ frame it is held to, when first_valid_cols is launched behind the march
 or the raster, or when a path's first chunk rendered through the kernels
 differs from the same chunk rendered through the plain versions
 (ray_mask exactly, colour within the same bound), when a check of the
-payload phase, of the train phase or of the legacy phase fails. Printed
+payload phase, of the train phase, of the legacy phase or of the structure
+phase fails. Printed
 before the last line: the card's name and power limit, build and phase times, each
 kernel's and its plain version's time at its path's shapes beside the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -131,7 +164,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -157,6 +192,13 @@ HW_RTOL, HW_ATOL, HW_MEAN_RTOL = 2.0 ** -7, 1e-3, 2.0 ** -8
 PAYLOAD_SCALE = 4.0
 # the train phase: rays a step, steps of each fit() run, the views' colour
 TRAIN_RAYS, TRAIN_STEPS, TRAIN_COLOUR = 4096, 100, (0.8, 0.3, 0.1)
+# the structure phase: the hole's azimuth wedge (degrees), fit()'s steps,
+# and the query voxels the grids keep beyond the frame cache's max_q for
+# the points that growth adds
+STRUCT_WEDGE_DEG, STRUCT_STEPS, STRUCT_MAXQ_MARGIN = 40.0, 100, 65_536
+# the structure phase's scales of the scene's random weights (see
+# structure_phase): mlp_base's first layer, the density head
+STRUCT_BASE_SCALE, STRUCT_DENSITY_SCALE, STRUCT_LR_SCALE = 4.0, 30.0, 0.1
 # the card's published peaks (H100 SXM): device memory bytes/s and dense
 # bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
@@ -1012,10 +1054,14 @@ def train_phases(c) -> dict:
     for name, cf in (("dense", cfg_d), ("march", dataclasses.replace(
             cfg_d, train=dataclasses.replace(cfg_d.train,
                                              march_auto=True)))):
+        # fit() resumes from a checkpoint in its out_dir and saves one at
+        # its end: each run starts from an empty directory
+        out_dir = f"build/train_{name}"
+        shutil.rmtree(out_dir, ignore_errors=True)
         _cuda.LAUNCHES.clear()
         t0 = time.perf_counter()
         res = loop.fit(cf, ds, scene.params, scene.cloud,
-                       f"build/train_{name}", max_steps=TRAIN_STEPS,
+                       out_dir, max_steps=TRAIN_STEPS,
                        print_freq=10, seed=3, device=dev)
         torch.cuda.synchronize()
         got = dict(_cuda.LAUNCHES)
@@ -1168,7 +1214,7 @@ def legacy_phases(c) -> dict:
 
     scene, dev, grid = c.scene, c.dev, c.scene.grid
     q = c.cfg.query
-    max_q = c.cache.kmeta.shape[0]
+    max_q = c.cache.max_q
     rays0 = c.raydirs[:CHUNK]
     bg = torch.tensor(c.cfg.bg_color, device=dev)
     none_else = {"fused_chunk_decode": 0, "fused_candidate_select": 0,
@@ -1499,7 +1545,9 @@ def legacy_phases(c) -> dict:
                       "all_rays": full, "other_rays": kept}
     del o_l, o_f, ids
 
-    # ---- fit(fast_path=False): the user's entry point, 100 steps
+    # ---- fit(fast_path=False): the user's entry point, 100 steps, from an
+    # empty out_dir (fit() resumes from a checkpoint there)
+    shutil.rmtree("build/train_legacy", ignore_errors=True)
     _cuda.LAUNCHES.clear()
     t0 = time.perf_counter()
     res = loop.fit(cfg_l, ds, scene.params, scene.cloud, "build/train_legacy",
@@ -1592,6 +1640,588 @@ def legacy_phases(c) -> dict:
         "it_per_s": ips, "fit": {"first": first, "last": last, "s": t_fit},
         "profile": prof,
     }
+
+
+def in_wedge(xyz, centre_deg: float, width_deg: float, widen: float = 0.0):
+    """[N] bool: points of xyz [N, 3] (numpy) whose azimuth about the z axis
+    lies within width_deg / 2 of centre_deg (tools/validate_chair.py's
+    hole wedge, turned to `centre_deg`), or, with `widen`, that lie within
+    that distance of the wedge."""
+    az = np.degrees(np.arctan2(xyz[:, 1], xyz[:, 0]))
+    off = np.abs((az - centre_deg + 180.0) % 360.0 - 180.0) - width_deg / 2
+    r = np.linalg.norm(xyz[:, :2], axis=-1)
+    gap = np.where(off < 90.0, r * np.sin(np.radians(np.clip(off, 0, 90))),
+                   r)
+    return (off <= 0) | (gap < widen)
+
+
+def structure_phase(c) -> dict:
+    """Growth, pruning, evaluation and checkpoints at full width (section
+    11 of the module docstring). Returns the numbers of its checks."""
+    import copy
+
+    import torch
+    from pointnerf2studio_torch.data.blender import BlenderDataset
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.models import neural_points as npm
+    from pointnerf2studio_torch.models import render as lr
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.ops.grid import build_grid_from_points
+    from pointnerf2studio_torch.train import evaluator as ev
+    from pointnerf2studio_torch.train import grow as gr
+    from pointnerf2studio_torch.train import loop
+    from pointnerf2studio_torch.train.trainer import (
+        create_train_state, make_train_step)
+    from pointnerf2studio_torch.utils import checkpoint_io as cio
+
+    scene, dev, ts = c.scene, c.dev, c.train_setup
+    sync = torch.cuda.synchronize
+    # the phase's weights: at the scene's own every hit ray's max opacity
+    # is 0.0198 to four digits (the density head's random part is some
+    # 1e-4 of its +5 bias), so no threshold separates rays and rounding
+    # decides the argmax; mlp_base's first layer x4 and the density head
+    # x30 make the density vary along a ray (max opacity 0.0059-0.0073
+    # between the 10th and 90th percentile of a view's hit rays). At the
+    # preset's learning rates two Adam steps move each weight of that
+    # tower far enough to zero the density everywhere; the phase trains at
+    # STRUCT_LR_SCALE of them
+    params = copy.deepcopy(scene.params)
+    with torch.no_grad():
+        params.mlp_base[0].weight.mul_(STRUCT_BASE_SCALE)
+        params.density_head[0].weight.mul_(STRUCT_DENSITY_SCALE)
+    near, far = scene.near, scene.far
+    q = c.cfg.query
+    svs = float(max(q.scaled_vsize))
+    # the legacy configuration of the chair-train cell: the cache route
+    # with fused_decode on for evaluation, the fit() default, and the chair
+    # preset's compact_budget 0 (SR slots a ray: the bench's 8 is sized for
+    # the fast path's packed batches, and the legacy route drops the
+    # samples of a dense full-image chunk past it with no counter)
+    cfg_l = dataclasses.replace(
+        ts["cfg"], query=dataclasses.replace(
+            ts["cfg"].query, use_cache=True, compact_budget=0,
+            max_q=c.cache.max_q + STRUCT_MAXQ_MARGIN),
+        agg=dataclasses.replace(ts["cfg"].agg, fused_decode=True),
+        train=dataclasses.replace(
+            ts["cfg"].train, fast_path=False,
+            lr_fields=ts["cfg"].train.lr_fields * STRUCT_LR_SCALE,
+            lr_points=ts["cfg"].train.lr_points * STRUCT_LR_SCALE))
+    # the fused-chunk configuration of the frame phases, for render_frame
+    cfg_f = dataclasses.replace(c.cfg, query=dataclasses.replace(
+        q, depth_window=0, ray_budget=0))
+
+    # ---- 1. teacher views of the intact cloud through render_frame
+    poses = np.stack([orbit_pose(30.0 + 90.0 * v) for v in range(4)])
+    intr = np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]],
+                    np.float32)
+    ds = BlenderDataset(images=np.zeros((4, H, W, 3), np.float32),
+                        poses=poses, intrinsics=intr, near=near, far=far,
+                        split="train")
+
+    def dev_t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    sync()
+    t0 = time.perf_counter()
+    for v in range(4):
+        out = fr.render_frame(
+            params, scene.cloud.Rw2c, c.cache, dev_t(ds.campos(v)),
+            dev_t(ds.camrotc2w(v)), dev_t(ds.full_image_rays(v)), near, far,
+            cfg_f, c.rmin, c.svs, host_rays=ds.full_image_rays(v))
+        ds.images[v] = out.coarse_raycolor.reshape(H, W, 3).cpu().numpy()
+    t_teach = time.perf_counter() - t0
+    bg = np.asarray(cfg_f.bg_color, np.float32)
+    fg = [float((np.abs(ds.images[v] - bg).sum(-1) > 0).mean())
+          for v in range(4)]
+    log(f"structure: 4 teacher views {H}x{W} of the intact cloud through "
+        f"render_frame in {t_teach:.2f} s; foreground share {fg}")
+
+    rays0 = dev_t(ds.full_image_rays(0))
+    cp0, cr0 = dev_t(ds.campos(0)), dev_t(ds.camrotc2w(0))
+    sync()
+    t0 = time.perf_counter()
+    cfg_p, pcache, rmin, svs_t = gr.make_probe_scene(cfg_l, scene.cloud,
+                                                     scene.grid)
+    sync()
+    t_pcache = time.perf_counter() - t0
+    pcache_bytes = nbytes(pcache.kmeta, pcache.kcand, pcache.kxyz)
+    log(f"structure: the probe's fat cache ({pcache.max_q} x {pcache.cand} "
+        f"candidates, kmeta, kcand and kxyz) {pcache_bytes} B built in "
+        f"{t_pcache:.2f} s; the reference's rows layout of the same "
+        f"candidates would be {pcache.max_q * pcache.cand * fr.ROWW * 4} B")
+
+    def xla_route(rays, cf=cfg_p, prob=False):
+        return fr.fast_render_rays(params, scene.cloud.Rw2c, pcache,
+                                   cp0, cr0, rays, near, far, cf, rmin,
+                                   svs_t, prob=prob)
+
+    # the fast probe keeps the first ray_slot_budget (32) samples of a ray,
+    # the legacy route the first SR (80); where the opacity is flat, the
+    # argmax over 80 samples is another sample than over 32, so the legacy
+    # probe is compared at SR 32
+    cfg_lp = dataclasses.replace(cfg_l, query=dataclasses.replace(
+        cfg_l.query, SR=min(cfg_l.query.SR, cfg_l.query.ray_slot_budget)))
+
+    def probe_maps(prm, cloud, grid, fs_):
+        """view 0's ray_mask and prob maps through the fast probe (`fs_`,
+        from make_probe_scene) or the legacy one (`fs_` None)."""
+        out = []
+        with torch.no_grad():
+            for i in range(0, H * W, CHUNK):
+                rd = rays0[i:i + CHUNK]
+                if fs_ is not None:
+                    cf, cch, rm, sv = fs_
+                    o = fr.fast_render_rays(prm, cloud.Rw2c, cch, cp0, cr0,
+                                            rd, near, far, cf, rm, sv,
+                                            prob=True)
+                else:
+                    o = lr.render_rays(prm, cloud, grid, cp0, cr0, rd, near,
+                                       far, cfg_lp, prob=True)
+                out.append([o.ray_mask] + [getattr(o, f)
+                                           for f in fr.PROB_FIELDS])
+        return [torch.cat(x) for x in zip(*out)]
+
+    def quantiles(mp):
+        ops = torch.sort(mp[1][mp[0]]).values
+        return [float(ops[int(p * (len(ops) - 1))]) for p in (0.1, 0.5, 0.9)]
+
+    # why the phase rescales the weights: view 0 at the scene's own
+    w_own = scene.params
+    mp_f = probe_maps(w_own, scene.cloud, None,
+                      (cfg_p, pcache, rmin, svs_t))
+    mp_l = probe_maps(w_own, scene.cloud, scene.grid, None)
+    both = mp_f[0] & mp_l[0]
+    own_within = float(((mp_f[2] - mp_l[2]).norm(dim=-1)[both] < svs)
+                       .float().mean())
+    log(f"structure: at the scene's own weights view 0's max shading "
+        f"opacity 10/50/90th {[round(x, 5) for x in quantiles(mp_f)]}, "
+        f"fast against legacy probe location within a voxel on "
+        f"{own_within:.4f} of the rays both hit (not held: the phase's "
+        f"weights are rescaled)")
+    del mp_f, mp_l, w_own
+
+    # the probe threshold: the median of the max shading opacity of view
+    # 0's hit rays, measured once on the intact cloud. The preset's 0.7 is
+    # out of reach at random weights, where a surface sample's alpha is
+    # some 1e-2
+    qs_op = quantiles(probe_maps(params, scene.cloud, None,
+                                 (cfg_p, pcache, rmin, svs_t)))
+    thresh = qs_op[1]
+    log(f"structure: probe threshold {thresh:.4f}, the median of the max "
+        f"shading opacity of view 0's hit rays before the cut (10/50/90th: "
+        f"{[round(x, 4) for x in qs_op]}); the preset's 0.7 is out of reach "
+        f"at random weights")
+
+    # ---- 2. the XLA route on one chunk of view 0 against the fused chunk
+    mid = (H * W) // 2 - CHUNK // 2
+    rc = rays0[mid:mid + CHUNK]
+    cfg_pf = dataclasses.replace(cfg_p, query=dataclasses.replace(
+        cfg_p.query, chunk_mode="fused"))
+
+    def fused_route(rays):
+        return fr.fast_render_rays(params, scene.cloud.Rw2c, c.cache,
+                                   cp0, cr0, rays, near, far, cfg_pf, c.rmin,
+                                   c.svs)
+
+    _cuda.LAUNCHES.clear()
+    o_x = xla_route(rc)
+    sync()
+    check_launches("XLA route chunk", dict(_cuda.LAUNCHES),
+                   {"first_valid_cols": 1, "fused_chunk_decode": 0,
+                    "fused_candidate_select": 0, "fused_decode2": 0})
+    o_f = fused_route(rc)
+    if not torch.equal(o_x.ray_mask, o_f.ray_mask):
+        fail("XLA route: ray_mask differs from the fused-chunk route")
+    d = (o_x.coarse_raycolor - o_f.coarse_raycolor).abs()
+    xla_diff = (float(d.max()), float(d.mean()))
+    if not (xla_diff[0] <= ATOL and xla_diff[1] < MEAN_TOL):
+        fail(f"XLA route: colour {xla_diff} off the fused-chunk route")
+    cfg_pp = dataclasses.replace(cfg_p, query=dataclasses.replace(
+        cfg_p.query, select_mode="topk"))
+    _cuda.LAUNCHES.clear()
+    p_k = xla_route(rc, prob=True)
+    sync()
+    got_pk = dict(_cuda.LAUNCHES)
+    _cuda.LAUNCHES.clear()
+    p_p = xla_route(rc, cfg_pp, prob=True)
+    sync()
+    check_launches("XLA route prob (kernel)", got_pk,
+                   {"first_valid_cols": 1})
+    check_launches("XLA route prob (plain)", dict(_cuda.LAUNCHES),
+                   {"first_valid_cols": 0})
+    for f in ("ray_mask", "coarse_raycolor") + fr.PROB_FIELDS:
+        if not torch.equal(getattr(p_k, f), getattr(p_p, f)):
+            fail(f"XLA route prob: {f} differs between first_valid_cols "
+                 f"and its plain version")
+    n_hit = int(o_x.ray_mask.sum())
+    t_x, t_f = [], []
+    for _ in range(3):
+        t_x.append(cuda_ms(lambda: xla_route(rc), 1, 0))
+        t_f.append(cuda_ms(lambda: fused_route(rc), 1, 0))
+    log(f"structure: XLA route chunk ({CHUNK} rays, {n_hit} hit, "
+        f"{int(o_x.n_valid_slots)} slots) vs fused chunk: ray_mask equal, "
+        f"colour max |diff| {xla_diff[0]:.3e} mean {xla_diff[1]:.3e}; "
+        f"prob outputs kernel == plain bit for bit; {min(t_x):.2f} ms "
+        f"against {min(t_f):.2f} ms, best of 3 in turns")
+    del o_x, o_f, p_k, p_p
+
+    # ---- the cut: an azimuth wedge facing view 0's camera, clean
+    # through the chair; the state trains 2 legacy steps first, so the cut
+    # slots carry Adam moments that growth must reset
+    xyz_np = scene.cloud.xyz.cpu().numpy()
+    cam_az = float(np.degrees(np.arctan2(poses[0, 1, 3], poses[0, 0, 3])))
+    wedge = in_wedge(xyz_np, cam_az, STRUCT_WEDGE_DEG)
+    cut_alive = scene.cloud.alive & ~torch.as_tensor(wedge, device=dev)
+    log(f"structure: hole wedge {STRUCT_WEDGE_DEG} deg at azimuth "
+        f"{cam_az:.1f}: {int(wedge.sum())} points cut of "
+        f"{scene.cloud.capacity}")
+    # two legacy steps at learning rate 0: Adam moments from real
+    # gradients on every live point, the weights as they were
+    st = create_train_state(params, scene.cloud, cfg_l)
+    step_fn = make_train_step(cfg_l)
+    smp = loop.DeviceSampler(ds, cfg_l.train.rays_per_batch,
+                             torch.Generator(device=dev).manual_seed(2))
+    nr, fa = torch.tensor(near, device=dev), torch.tensor(far, device=dev)
+    for _ in range(2):
+        for opt in (st.opt_fields, st.opt_points):
+            for g in opt.param_groups:
+                g["lr"] = 0.0
+        cp, cr, rd, gt, _ = smp.next_batch()
+        step_fn(st, scene.grid, cp, cr, rd, gt, nr, fa,
+                generator=smp.g)
+    st.points = dataclasses.replace(st.points, alive=cut_alive)
+    cut_cloud = st.points
+    sync()
+    t0 = time.perf_counter()
+    grid_cut = build_grid_from_points(cut_cloud.xyz, cut_cloud.alive,
+                                      cfg_l.query)
+    sync()
+    log(f"structure: grid and candidate cache of the cut cloud rebuilt in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- 3. the probes of view 0: fast against legacy on every ray
+    fast_scene = gr.make_probe_scene(cfg_l, cut_cloud, grid_cut)
+
+    # the reference's bounds (tests/test_grow.py:191-203): ray_mask
+    # agreement >= 0.99; the max-opacity location within a voxel on >= 0.9
+    # of the rays both hit; where it is the same sample, the opacity within
+    # 2e-2 and the neighbour averages within 3e-2. The last holds on >= 0.9
+    # of those rays here, not on all: the fast probe ranks candidates by
+    # d2 from bf16 offsets, the legacy by f32 positions, so near-equal
+    # distances at the K-th neighbour swap a neighbour, which moves a dir
+    # or embedding average by up to about 2 / K (largest error printed)
+    mp_f = probe_maps(st.params, cut_cloud, None, fast_scene)
+    mp_l = probe_maps(st.params, cut_cloud, grid_cut, None)
+    agree = float((mp_f[0] == mp_l[0]).float().mean())
+    both = mp_f[0] & mp_l[0]
+    dloc = (mp_f[2] - mp_l[2]).norm(dim=-1)
+    within = float((dloc[both] < svs).float().mean())
+    same = both & (dloc < 1e-4)
+    n_same = int(same.sum())
+    errs = {f: (a[same] - b[same]).abs().reshape(n_same, -1)
+            .amax(-1) for f, a, b in zip(fr.PROB_FIELDS, mp_f[1:], mp_l[1:])
+            if f != "ray_max_sample_loc_w"}
+    op_err = float(errs.pop("ray_max_shading_opacity").max())
+    avg_bad = int((torch.stack(list(errs.values())).amax(0) >= 3e-2).sum())
+    avg_ok = 1.0 - avg_bad / max(n_same, 1)
+    errs = {k: float(v.max()) for k, v in errs.items()}
+    if agree < 0.99 or within < 0.9 or op_err >= 2e-2 or avg_ok < 0.9:
+        fail(f"probe: fast against legacy mask agreement {agree:.4f} "
+             f"(>= 0.99), location within a voxel {within:.4f} (>= 0.9), "
+             f"where the sample is the same opacity error {op_err:.3e} "
+             f"(< 2e-2) and averages within 3e-2 on {avg_ok:.4f} (>= 0.9)")
+    del mp_f, mp_l
+    probe_s = {}
+    n_cand = {}
+    for name, fs_ in (("fast", fast_scene), ("legacy", None)):
+        _cuda.LAUNCHES.clear()
+        sync()
+        t0 = time.perf_counter()
+        cand = gr.probe_view(cfg_lp, st.params, cut_cloud, grid_cut, ds, 0,
+                             chunk=CHUNK, opacity_thresh=thresh,
+                             prob_mul=0.4, fast_scene=fs_)
+        sync()
+        probe_s[name] = time.perf_counter() - t0
+        n_cand[name] = int(cand["xyz"].shape[0])
+        if name == "fast":
+            check_launches("fast probe", dict(_cuda.LAUNCHES),
+                           {"first_valid_cols": -(-H * W // CHUNK),
+                            "fused_chunk_decode": 0, "fused_decode": 0})
+    del fast_scene
+    log(f"structure: probe of view 0 ({H * W} rays): fast against legacy "
+        f"mask agreement {agree:.5f}, location within a voxel on "
+        f"{within:.5f} of the rays both hit, the same sample on "
+        f"{n_same} rays: opacity error {op_err:.3e}, averages "
+        f"within 3e-2 on {avg_ok:.4f} ({avg_bad} rays off; largest {errs}); "
+        f"candidates "
+        f"{n_cand}; "
+        f"{probe_s['fast']:.2f} s fast, {probe_s['legacy']:.2f} s legacy")
+
+    alive0 = st.points.alive.clone()
+    n0 = int(alive0.sum())
+    tm = {}
+    _cuda.LAUNCHES.clear()
+    st, grid_g, n_new = gr.probe_and_grow(
+        cfg_l, st, grid_cut, ds, views=[0], chunk=CHUNK,
+        opacity_thresh=thresh, prob_mul=0.4, timings=tm)
+    got_g = dict(_cuda.LAUNCHES)
+    grown = torch.nonzero(st.points.alive & ~torch.cat(
+        [alive0, alive0.new_zeros(st.points.capacity - alive0.shape[0])])
+    ).squeeze(1)
+    if n_new <= 0 or grown.shape[0] != n_new:
+        fail(f"growth: {n_new} grown, {grown.shape[0]} new live slots")
+    if int(st.points.num_alive) != n0 + n_new:
+        fail("growth: n_alive after is not n_alive before + grown")
+    gxyz = st.points.xyz[grown].cpu().numpy()
+    in_w = float(in_wedge(gxyz, cam_az, STRUCT_WEDGE_DEG, widen=svs).mean())
+    if in_w < 0.8:
+        fail(f"growth: {in_w:.3f} of the grown points in the wedge "
+             f"widened by one voxel (>= 0.8)")
+    for p in st.points.trainable().values():
+        mom = st.opt_points.state[p]
+        if any(float(mom[k][grown].abs().max()) != 0.0
+               for k in ("exp_avg", "exp_avg_sq")):
+            fail("growth: a grown slot kept its Adam moments")
+    recycled = int(torch.as_tensor(wedge, device=dev)[
+        grown[grown < wedge.shape[0]]].sum())
+    log(f"structure: growth grew {n_new} points ({recycled} into slots of "
+        f"cut points whose moments were reset), {in_w:.4f} of them within "
+        f"the wedge widened by a voxel; n_alive {n0} -> "
+        f"{int(st.points.num_alive)}; launches {got_g}; probe "
+        f"{tm['probe_s']:.2f} s, grow {tm['grow_s']:.3f} s, grid rebuild "
+        f"{tm['rebuild_s']:.2f} s")
+    del st, grid_g, grid_cut
+
+    # ---- 4. fit(): prune at 40 and 80, grow at 50 and 100, save and
+    # evaluate at 50 and 100; a third of a percent of the points planted
+    # at conf 0.01 so that the first prune has points to kill
+    conf = scene.cloud.points_conf.clone()
+    conf[::300] = 0.01
+    cloud_fit = dataclasses.replace(scene.cloud, alive=cut_alive,
+                                    points_conf=conf)
+    cfg_fit = dataclasses.replace(cfg_l, train=dataclasses.replace(
+        cfg_l.train, prune_iter=40, prune_thresh=0.1, prune_max_iter=100_000,
+        prob_freq=50, prob_thresh=thresh, prob_mul=0.4,
+        color_loss_items=("ray_masked_coarse_raycolor",
+                          "ray_miss_coarse_raycolor"),
+        color_loss_weights=(1.0, 0.0)))
+    out_dir = "build/structure"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    prunes, parts = [], {"probe": [], "eval": []}
+    orig_prune, orig_pg, orig_ev = npm.prune, loop.probe_and_grow, \
+        loop.evaluate_dataset
+
+    def cap_prune(points, thr):
+        res = orig_prune(points, thr)
+        prunes.append((points.alive.clone(), points.points_conf.detach()
+                       [:, 0].clone(), thr, res.alive.clone()))
+        return res
+
+    def counted(name, fn):
+        def run(*a, **k):
+            before = dict(_cuda.LAUNCHES)
+            sync()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            sync()
+            parts[name].append((
+                {n: v - before.get(n, 0) for n, v in _cuda.LAUNCHES.items()},
+                time.perf_counter() - t0))
+            return res
+        return run
+
+    npm.prune = cap_prune
+    loop.probe_and_grow = counted("probe", orig_pg)
+    loop.evaluate_dataset = counted("eval", orig_ev)
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        res = loop.fit(cfg_fit, ds, params, cloud_fit, out_dir,
+                       max_steps=STRUCT_STEPS, print_freq=10, save_freq=50,
+                       eval_freq=50, eval_dataset=ds, eval_views=[0],
+                       eval_chunk=4096, seed=5, device=dev)
+        sync()
+    finally:
+        npm.prune, loop.probe_and_grow, loop.evaluate_dataset = (
+            orig_prune, orig_pg, orig_ev)
+    t_fit = time.perf_counter() - t0
+    got_fit = dict(_cuda.LAUNCHES)
+    # the checks
+    gh = res.grow_history
+    if [g["step"] for g in gh] != [50, 100] or gh[0]["grown_points"] <= 0:
+        fail(f"fit: growth history {gh}")
+    if len(prunes) != 2:
+        fail(f"fit: {len(prunes)} prunes, expected 2 (steps 40 and 80)")
+    killed = []
+    for alive_b, conf_b, thr, alive_a in prunes:
+        if not torch.equal(alive_a, alive_b & (conf_b >= thr)):
+            fail("fit: a prune killed other points than the live ones "
+                 "under the threshold")
+        killed.append(int((alive_b & ~alive_a).sum()))
+    if killed[0] <= 0:
+        fail("fit: the first prune killed no point")
+    n_eval_chunks = -(-H * W // 4096)
+    # fused_decode runs once per decode piece of each legacy chunk
+    qf = cfg_fit.query
+    n_pieces = 0
+    for s0 in range(0, H * W, 4096):
+        r = min(4096, H * W - s0)
+        m = min(r * (qf.compact_budget or qf.SR), r * qf.z_depth_dim)
+        n_pieces += -(-m // qf.decode_chunk) if m > qf.decode_chunk else 1
+    steps_fvc = got_fit.get("first_valid_cols", 0) - sum(
+        p[0].get("first_valid_cols", 0) for v in parts.values() for p in v)
+    if steps_fvc != STRUCT_STEPS:
+        fail(f"fit: first_valid_cols launched {steps_fvc} times by the "
+             f"steps, expected {STRUCT_STEPS}")
+    for lc, _ in parts["probe"]:
+        check_launches("fit probe", lc, {"first_valid_cols": n_eval_chunks,
+                                         "fused_decode": 0})
+    for lc, _ in parts["eval"]:
+        check_launches("fit legacy eval", lc,
+                       {"first_valid_cols": n_eval_chunks,
+                        "fused_decode": n_pieces, "fused_chunk_decode": 0})
+    # the colour loss (the total also holds the conf term, which falls
+    # whatever the colour does)
+    losses = [r["ray_masked_coarse_raycolor_loss"] for r in res.log
+              if "total" in r]
+    # it/s of the log windows clear of set-up and of the prunes (a growth
+    # event and an evaluation flush the log after them; a prune does not,
+    # so the window after it carries its time)
+    ips = sorted(r["it_per_sec"] for r in res.log if "total" in r
+                 and r["step"] not in (10, 50, 90))
+    if not losses[-1] <= losses[0]:
+        fail(f"fit: colour loss of steps 91-100 {losses[-1]:.3e} above "
+             f"steps 1-10's {losses[0]:.3e}")
+    eh = res.eval_history
+    if ([e["step"] for e in eh] != [50, 100, 100]
+            or not all(np.isfinite(e["psnr"]) for e in eh)):
+        fail(f"fit: eval history {eh}")
+    if res.state.step != STRUCT_STEPS:
+        fail(f"fit: state.step {res.state.step}")
+    log(f"structure fit: {STRUCT_STEPS} legacy steps in {t_fit:.1f} s "
+        f"({ips[len(ips) // 2]:.2f} it/s, the median log window clear of "
+        f"the events); "
+        f"prunes killed {killed}; growth {gh}; eval psnr "
+        f"{[round(e['psnr'], 3) for e in eh]}; colour loss {losses[0]:.3e} "
+        f"-> {losses[-1]:.3e}; launches {got_fit} (steps: first_valid_cols "
+        f"{steps_fvc}); probe events {[round(p[1], 2) for p in parts['probe']]}"
+        f" s, evaluations {[round(p[1], 2) for p in parts['eval']]} s")
+
+    # resume: a finished run returns without a step, bit for bit
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res2 = loop.fit(cfg_fit, ds, params, cloud_fit, out_dir,
+                    max_steps=STRUCT_STEPS, print_freq=10, save_freq=50,
+                    seed=5, device=dev)
+    sync()
+    t_restore = time.perf_counter() - t0
+    if res2.log or sum(_cuda.LAUNCHES.values()) or res2.state.step != 100:
+        fail("fit resume: the finished run took steps")
+    a, b = res.state, res2.state
+    same = [torch.equal(x.detach(), y.detach()) for x, y in zip(
+        list(a.params.parameters()) + list(a.points.trainable().values())
+        + [a.points.xyz, a.points.alive],
+        list(b.params.parameters()) + list(b.points.trainable().values())
+        + [b.points.xyz, b.points.alive])]
+    for oa, ob in ((a.opt_fields, b.opt_fields), (a.opt_points, b.opt_points)):
+        for pa, pb in zip(oa.param_groups[0]["params"],
+                          ob.param_groups[0]["params"]):
+            same += [torch.equal(oa.state[pa][k], ob.state[pb][k])
+                     for k in ("exp_avg", "exp_avg_sq")]
+            same.append(float(oa.state[pa]["step"])
+                        == float(ob.state[pb]["step"]))
+    if not all(same):
+        fail("fit resume: the restored state differs from the saved one")
+    _cuda.LAUNCHES.clear()
+    res3 = loop.fit(cfg_fit, ds, params, cloud_fit, out_dir,
+                    max_steps=STRUCT_STEPS + 10, print_freq=10, save_freq=50,
+                    seed=5, device=dev)
+    sync()
+    if ([r["step"] for r in res3.log] != [STRUCT_STEPS + 10]
+            or res3.state.step != STRUCT_STEPS + 10
+            or _cuda.LAUNCHES["first_valid_cols"] != 10):
+        fail("fit resume: max_steps 110 did not resume at step 101")
+    sync()
+    t0 = time.perf_counter()
+    cio.save_train_state(out_dir + "/ckpt", res.state, STRUCT_STEPS)
+    sync()
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = cio.restore_train_state(out_dir + "/ckpt", STRUCT_STEPS,
+                                   create_train_state(params,
+                                                      cloud_fit, cfg_fit),
+                                   cfg_fit)
+    sync()
+    t_load = time.perf_counter() - t0
+    path = out_dir + "/export.pth"
+    cio.export_torch_checkpoint(res.state.params, res.state.points, path)
+    p2, pts2 = cio.load_reference_checkpoint(path, cfg_fit.agg, device=dev)
+    live = res.state.points.alive
+    ok = all(torch.equal(x.weight, y.weight) and torch.equal(x.bias, y.bias)
+             for n in p2.towers if n != "feat_weight_mlp"
+             for x, y in zip(getattr(p2, n), getattr(res.state.params, n)))
+    for f in ("xyz", "points_embeding", "points_conf", "points_dir",
+              "points_color"):
+        ok = ok and torch.equal(getattr(pts2, f),
+                                getattr(res.state.points, f).detach()[live])
+    if not ok or back.step != STRUCT_STEPS:
+        fail("checkpoint: the .pth round trip or the native restore differs")
+    log(f"structure: resume of the finished run {t_restore:.2f} s (grid "
+        f"rebuild included), bit for bit; max_steps {STRUCT_STEPS + 10} "
+        f"resumed at {STRUCT_STEPS + 1}; native save {t_save:.2f} s, "
+        f"restore {t_load:.2f} s ({os.path.getsize(out_dir + '/ckpt/step_100/state.pt')} B); "
+        f".pth round trip of {int(live.sum())} live points bit for bit")
+    del res2, res3, back
+
+    # ---- 5. evaluation of view 0, legacy against render_frame
+    pts = res.state.points
+    grid_e = build_grid_from_points(pts.xyz, pts.alive, cfg_l.query)
+    ev_s, ev_m, ev_l = {}, {}, {}
+    for name, cf, kw in (("legacy", cfg_l, dict(chunk=4096)),
+                         ("fast", cfg_f, dict(chunk=CHUNK, fast=True))):
+        _cuda.LAUNCHES.clear()
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ev_m[name] = ev.evaluate_dataset(cf, res.state.params, pts,
+                                             grid_e, ds, views=[0], **kw)
+        sync()
+        ev_s[name] = time.perf_counter() - t0
+        ev_l[name] = dict(_cuda.LAUNCHES)
+    check_launches("legacy evaluation", ev_l["legacy"],
+                   {"first_valid_cols": n_eval_chunks,
+                    "fused_decode": n_pieces, "fused_chunk_decode": 0})
+    n_fc = ev_l["fast"].get("fused_chunk_decode", 0)
+    check_launches("fast evaluation", ev_l["fast"],
+                   {"first_valid_cols": n_fc, "fused_decode": 0,
+                    "march_rays": 0})
+    if n_fc <= 0:
+        fail("fast evaluation: fused_chunk_decode was not launched")
+    dpsnr = abs(ev_m["legacy"]["psnr"] - ev_m["fast"]["psnr"])
+    if not dpsnr <= 0.5:
+        fail(f"evaluation: legacy {ev_m['legacy']} against fast "
+             f"{ev_m['fast']}")
+    log(f"structure: evaluation of view 0: legacy psnr "
+        f"{ev_m['legacy']['psnr']:.4f} in {ev_s['legacy']:.2f} s, "
+        f"render_frame psnr {ev_m['fast']['psnr']:.4f} in "
+        f"{ev_s['fast']:.2f} s; launches {ev_l}")
+    return dict(
+        probe_cache_bytes=pcache_bytes, probe_cache_s=t_pcache,
+        own_weights_within_voxel=own_within, probe_threshold=thresh, n_cut=int(wedge.sum()),
+        xla_vs_fused_colour=xla_diff, xla_chunk_ms=min(t_x),
+        fused_chunk_ms=min(t_f), probe_agreement=agree,
+        probe_within_voxel=within, probe_avg_off=avg_bad,
+        probe_same_sample=n_same, probe_s=probe_s,
+        probe_candidates=n_cand,
+        grown=n_new, grown_in_wedge=in_w, grow_event_s=tm,
+        fit_s=t_fit, fit_it_per_s=ips[len(ips) // 2], prunes_killed=killed, grow_history=gh,
+        eval_history=eh, colour_loss_first_last=(losses[0], losses[-1]),
+        fit_launches=got_fit, fit_probe_launches=[p[0] for p in
+                                                  parts["probe"]],
+        fit_eval_launches=[p[0] for p in parts["eval"]],
+        resume_s=t_restore, save_s=t_save, restore_s=t_load,
+        eval_psnr={k: v["psnr"] for k, v in ev_m.items()}, eval_s=ev_s,
+        eval_launches=ev_l)
 
 
 def steps_in_turns(runs: dict, go, smi: str) -> dict:
@@ -1739,7 +2369,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"scene: {N_POINTS} points, grid {grid.dims}, n_occ "
         f"{int(grid.n_occ)}, n_q {int(cache.n_q)}, max_q "
-        f"{cache.kmeta.shape[0]}, C {cache.cand}; depth_window {dw}, "
+        f"{cache.max_q}, C {cache.cand}; depth_window {dw}, "
         f"ray_budget {rb}, hit rays {int(hits.sum())} of {total}; built in "
         f"{time.perf_counter() - t0:.1f} s")
     if (cache.kpay.data_ptr() != cache.kcand.data_ptr()
@@ -2124,6 +2754,12 @@ def main() -> int:
     # =================================================================
     legacy = legacy_phases(ns)
 
+    # =================================================================
+    # Growth, pruning, evaluation and checkpoints: fit() as the chair
+    # preset runs it
+    # =================================================================
+    structure = structure_phase(ns)
+
     # ---- the least time the card could take for each kernel's work at
     # these inputs: every input read once, every output written once,
     # over the memory rate; the tower's operations on the rows and slots
@@ -2223,19 +2859,34 @@ def main() -> int:
                                  "plain_ms": t_selb_p,
                                  "bound_ms": b_selb[0]},
                              "train": train["select"],
-                             "legacy_train": legacy["select"]}),
+                             "legacy_train": legacy["select"],
+                             "structure": {
+                                 "fit": structure["fit_launches"].get(
+                                     "first_valid_cols", 0),
+                                 "per_probe": [
+                                     p.get("first_valid_cols", 0) for p in
+                                     structure["fit_probe_launches"]],
+                                 "per_eval_view": structure["eval_launches"][
+                                     "legacy"].get("first_valid_cols", 0)}}),
         record("fused_candidate_select", "fused_select.cu",
                "fused_select.py:60", launches_a["fused_candidate_select"],
                fsel_err, t_fs_k, t_fs_p, b_fs),
         record("fused_decode", "fused_decode.cu", "fused_decode.py:91",
                launches_b["fused_decode"], pair_err, t_pt_k, t_pt_p, b_pt,
-               f_pt, extra={"cache_route": legacy["decode"]}),
+               f_pt, extra={"cache_route": legacy["decode"],
+                            "structure": {
+                                "per_eval_view": structure["eval_launches"][
+                                    "legacy"].get("fused_decode", 0),
+                                "fit": structure["fit_launches"].get(
+                                    "fused_decode", 0)}}),
         record("fused_decode2", "fused_decode.cu", "fused_decode.py:235",
                launches_a["fused_decode2"], kacc_err, t_ka_k, t_ka_p, b_ka,
                f_ka),
         record("fused_chunk_decode", "fused_chunk.cu", "fused_chunk.py:86",
                launches["fused_chunk_decode"], fused_err, t_fc_k, t_fc_p,
-               b_fc, f_fc, t_fc_parts),
+               b_fc, f_fc, t_fc_parts, extra={"structure": {
+                   "per_eval_view": structure["eval_launches"]["fast"].get(
+                       "fused_chunk_decode", 0)}}),
         record("march_rays", "march.cu", "march.py:70", **{
             **fe["record"], "extra": {**fe["record"]["extra"],
                                       "train": train["march"]}}),
@@ -2249,7 +2900,8 @@ def main() -> int:
         "train": {k: v for k, v in train.items()
                   if k not in ("select", "march")},
         "legacy": {k: v for k, v in legacy.items()
-                   if k not in ("select", "decode", "launches")}}),
+                   if k not in ("select", "decode", "launches")},
+        "structure": structure}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,10 @@ port's objects, so a test can run both packages on the same weights,
 the same cloud, the same grid and the same caches. Everything is built
 on `device`: the card by default (`device=None`), the CPU where the
 caller asks for it; without a card the default raises.
-`aggregator_to_jax` goes the other way: an Aggregator's weights or
-gradients in the JAX tree's layout, for comparing leaf by leaf. Nothing
-here imports JAX.
+`train_state_from_jax` carries a whole train state with its Adam
+moments, counts and step. `aggregator_to_jax` goes the other way: an
+Aggregator's weights or gradients in the JAX tree's layout, for comparing
+leaf by leaf. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from pointnerf2studio_torch.config import AggregatorConfig
 from pointnerf2studio_torch.models.aggregator import Aggregator
-from pointnerf2studio_torch.models.fast_render import FatCache
+from pointnerf2studio_torch.models.fast_render import PK, ROWW, FatCache
 from pointnerf2studio_torch.models.fast_train import GEOW, GeoCache
 from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
 from pointnerf2studio_torch.ops._cuda import resolve_device
@@ -102,21 +103,31 @@ def grid_from_jax(grid, device: torch.device | str | None = None
 
 def fat_cache_from_jax(cache, device: torch.device | str | None = None
                        ) -> FatCache:
-    """A JAX fused-layout FatCache (kmeta/kpay set) -> port FatCache:
-    the channel-major kpay [max_q, PK, C] is transposed once into the
-    candidate-major kcand, and its xyz planes are copied into kxyz; the
-    march table, where the cache has one, comes along."""
+    """A JAX FatCache in either layout -> port FatCache (one layout for
+    every route). The kernel-facing layout (kmeta/kpay set): the
+    channel-major kpay [max_q, PK, C] is transposed once into the
+    candidate-major kcand, and its xyz planes are copied into kxyz. The
+    rows layout (`rows` [max_q, C * ROWW] f32): each candidate's meta word
+    becomes kmeta and its 22 bf16 pairs kcand's first PAYW channels, bit
+    for bit, with kcand's zero padding after them. The march table, where
+    the cache has one, comes along."""
     device = resolve_device(device)
-    if cache.kmeta is None or cache.kpay is None:
-        raise ValueError("the cache has no kernel-facing layout; build it "
-                         "with chunk_mode='fused'")
-    kpay = _t(cache.kpay, device, torch.bfloat16)
+    if cache.kmeta is not None and cache.kpay is not None:
+        kmeta = _t(cache.kmeta, device, torch.int32)
+        kcand = _t(cache.kpay, device, torch.bfloat16).transpose(1, 2)
+    else:
+        words = np.asarray(cache.rows, np.float32).view(np.int32)
+        words = torch.from_numpy(words.reshape(words.shape[0], -1, ROWW)
+                                 .copy()).to(device)
+        kmeta = words[..., 0].contiguous()
+        pay = words[..., 1:].contiguous().view(torch.bfloat16)
+        kcand = torch.cat([pay, pay.new_zeros(pay.shape[:2]
+                                              + (PK - pay.shape[2],))], -1)
     march_table = getattr(cache, "march_table", None)
     return FatCache(
         coor_2_qslot=_t(cache.coor_2_qslot, device, torch.int32),
-        kmeta=_t(cache.kmeta, device, torch.int32),
-        kcand=kpay.transpose(1, 2).contiguous(),
-        kxyz=kpay[:, :3, :].contiguous(),
+        kmeta=kmeta, kcand=kcand.contiguous(),
+        kxyz=kcand[..., :3].transpose(1, 2).contiguous(),
         n_q=_t(cache.n_q, device, torch.int32),
         march_table=(None if march_table is None
                      else _t(march_table, device, torch.int32)))
@@ -156,3 +167,49 @@ def aggregator_to_jax(agg: Aggregator, grad: bool = False) -> dict:
 
     return {name: [{"kernel": leaf(lin.weight).T, "bias": leaf(lin.bias)}
                    for lin in getattr(agg, name)] for name in agg.towers}
+
+
+@torch.no_grad()
+def train_state_from_jax(state, cfg, device: torch.device | str | None = None):
+    """A JAX TrainState (params, points, opt_state_fields and
+    opt_state_points as optax adam states, step) -> the port's TrainState
+    of PointNerfConfig `cfg` on `device`: the same weights and cloud, each
+    tensor's Adam moments from the optax `ScaleByAdamState`'s mu and nu
+    (kernels transposed), its step count from the optax count, each
+    scheduler at that count, and `step`."""
+    from pointnerf2studio_torch.train.trainer import create_train_state
+    device = resolve_device(device)
+    port = create_train_state(
+        aggregator_from_jax(state.params, cfg.agg, device=device),
+        cloud_from_jax(state.points, device=device), cfg)
+
+    def fill(opt, sched, adam, pairs):
+        n = int(np.asarray(adam.count))
+        for p, (mu, nu) in pairs:
+            if n:
+                opt.state[p] = {
+                    "step": torch.tensor(float(n)),
+                    "exp_avg": _t(mu, device, torch.float32).reshape(p.shape),
+                    "exp_avg_sq": _t(nu, device,
+                                     torch.float32).reshape(p.shape)}
+        sched.last_epoch = n
+        for g, base, fn in zip(opt.param_groups, sched.base_lrs,
+                               sched.lr_lambdas):
+            g["lr"] = base * fn(n)
+        sched._last_lr = [g["lr"] for g in opt.param_groups]
+
+    adam_f = state.opt_state_fields[0]
+    fields = []
+    for name in port.params.towers:
+        for lin, m, v in zip(getattr(port.params, name), adam_f.mu[name],
+                             adam_f.nu[name]):
+            fields += [(lin.weight, (np.asarray(m["kernel"]).T,
+                                     np.asarray(v["kernel"]).T)),
+                       (lin.bias, (m["bias"], v["bias"]))]
+    fill(port.opt_fields, port.sched_fields, adam_f, fields)
+    adam_p = state.opt_state_points[0]
+    fill(port.opt_points, port.sched_points, adam_p,
+         [(t, (adam_p.mu[k], adam_p.nu[k]))
+          for k, t in port.points.trainable().items()])
+    port.step = int(np.asarray(state.step))
+    return port

@@ -1,21 +1,30 @@
 """Fast eval render path: fat candidate cache + slot compaction + chunk
-decode + packed composite.
+decode + composite.
 
-Port of the served subset of `pointnerf2studio_tpu/models/fast_render.py`:
-the kernel-facing cache (the reference's "fused" layout, stored
-candidate-major), `build_fat_cache`,
-`fit_cand_cap`, `make_fast_scene`, and `fast_render_rays` through
+Port of `pointnerf2studio_tpu/models/fast_render.py`: the candidate
+cache (the content of the reference's kernel-facing "fused" layout,
+stored candidate-major, which every route reads: see `FatCache`),
+`build_fat_cache`, `fit_cand_cap`, `make_fast_scene`, and
+`fast_render_rays` through
 
   ray packing (QueryConfig.ray_budget) ->
   dense qslot lookup, optionally clipped to a per-ray depth window ->
   first-BP valid columns per ray (ops/select.py; the CUDA kernel under
   select_mode="pallas") -> rank-gather pack to M = R * compact_budget
-  slots -> the chunk decode -> packed alpha composite,
+  slots -> the chunk decode -> packed alpha composite (or, under
+  `prob`, the [R, BP] slot-grid composite with the per-ray opacity
+  argmax),
 
 with every exactness counter the reference returns on that path
 (dw_overflow, rb_overflow, cb_overflow) and n_valid_slots. The chunk
 decode is one of
 
+  knn_mode="xla", chunk_mode="xla" (the reference's default): the XLA
+  candidate stages of `chunk_pipeline` as torch ops, in chunks of CH
+  slots (`_xla_chunk`: the fat-row gather, candidate d2, the radius /
+  valid / layered-shell masks, the exact K smallest by a stable sort,
+  the payload extract), then `_decode_tail`; the only route that gives
+  the prob outputs;
   chunk_mode="fused": the whole chunk in one kernel (ops/fused_chunk.py);
   knn_mode="fused", chunk_mode="xla" (the staged path): the candidate
   selection kernel (ops/fused_select.py), the decode tail in torch
@@ -35,13 +44,15 @@ depth-window tier, the compaction budget escalated where it overflowed,
 and, for a pinhole pixel grid (`raster=`), one raster program per frame
 in place of the per-chunk march.
 
-Not ported yet: the "rows" cache layout and the XLA candidate stages,
-span tiers, coarse windows, prob mode, pair decode, the plane
-background, hash grids and sharding; a config that asks for them raises.
+Not ported yet: `cand_prune` on the XLA route, the "krows" extract,
+span tiers, coarse windows, pair decode, the plane background, hash
+grids and sharding; a config that asks for them raises.
 
-No host synchronisation happens per chunk: ray packing and slot packing
-are cumsum/scatter compactions on the device, and the kernels skip
-masked slots themselves.
+Host synchronisation: none per chunk on the kernel routes (ray packing
+and slot packing are cumsum/scatter compactions on the device, and the
+kernels skip masked slots themselves); the XLA route reads the valid
+slot count back once per call, to skip its all-padding chunks as the
+reference's `chunk_or_skip` does.
 """
 
 from __future__ import annotations
@@ -60,7 +71,7 @@ from pointnerf2studio_torch.models.aggregator import (
 from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
 from pointnerf2studio_torch.ops.camera import neighbor_dists, rotate, w2pers
 from pointnerf2studio_torch.ops.compositing import (
-    TONE_MAPS, packed_alpha_composite)
+    BLEND_FUNCTIONS, TONE_MAPS, packed_alpha_composite, ray_dist_from_sample_z)
 from pointnerf2studio_torch.ops.fused_chunk import (
     PK, fused_chunk_decode, fused_chunk_eligible)
 from pointnerf2studio_torch.ops.fused_decode import (
@@ -69,7 +80,8 @@ from pointnerf2studio_torch.ops.fused_select import fused_candidate_select
 from pointnerf2studio_torch.ops.grid import PointGrid
 from pointnerf2studio_torch.ops.march import (
     build_march_table, march_rays, slab, to_i32)
-from pointnerf2studio_torch.ops.query import neighbor_offsets
+from pointnerf2studio_torch.ops.query import (
+    layered_k_nearest, neighbor_offsets)
 from pointnerf2studio_torch.ops.raster import (
     RasterUnserved, _voxel_footprint, build_qvox, make_raster_program)
 from pointnerf2studio_torch.ops.select import (
@@ -77,13 +89,15 @@ from pointnerf2studio_torch.ops.select import (
 
 PAYW = 44                 # bf16 payload per candidate: xyz_rel(3) +
                           # emb(32) + conf(1) + dir(3) + color(3) + pad(2)
-ROWW = 1 + PAYW // 2      # f32 words per candidate in the "rows" layout
+ROWW = 1 + PAYW // 2      # f32 words per candidate in the reference's
+                          # "rows" layout (its cache sizing counts them)
 TAIL_CHUNK = 1 << 16      # slots per piece of the decode_radiance tail
 
 
 @dataclasses.dataclass
 class FatCache:
-    """Per-query-voxel candidate rows, laid out for the card's kernels.
+    """Per-query-voxel candidate rows for the fast path (the content of
+    the reference's layout="fused", stored candidate-major):
 
     kmeta [max_q, C] int32: pidx * 4 + shell, or -1 for an empty slot.
     kcand [max_q, C, PK] bf16, candidate-major and contiguous: per
@@ -98,6 +112,13 @@ class FatCache:
     `kpay` is the reference's logical layout [max_q, PK, C], channel-major,
     as a strided view of kcand: same values, no copy. The plain versions
     and the comparisons with the reference's cache read it.
+
+    The reference's other layout, "rows" ([max_q, C * ROWW] f32: per
+    candidate the meta word, then the first PAYW = 44 payload channels as
+    22 bit-cast bf16 pairs), which its XLA candidate stages read, holds
+    exactly kmeta and kcand[..., :PAYW]: the port's XLA route gathers
+    those, and keeps no second copy of the cache.
+
     Candidates are ordered by (Chebyshev shell, distance to the voxel
     centre) as the reference's f32 key orders them.
     march_table [gx, gy, gz] int32 (ops/march.build_march_table): the
@@ -114,6 +135,10 @@ class FatCache:
     @property
     def cand(self) -> int:
         return self.kmeta.shape[1]
+
+    @property
+    def max_q(self) -> int:
+        return self.kmeta.shape[0]
 
     @property
     def kpay(self) -> torch.Tensor:
@@ -193,6 +218,29 @@ def ordered_candidates(grid: PointGrid, xyz: torch.Tensor,
                          top[..., None].expand(B, C, 3)))
 
 
+def candidate_pieces(grid: PointGrid, xyz: torch.Tensor,
+                     kernel_size: Tuple[int, int, int], C: int,
+                     q_coor: torch.Tensor, center_w: torch.Tensor,
+                     q_live: torch.Tensor, chunk: int):
+    """(rows, ordered_candidates of those rows) for every query voxel of
+    `query_voxels`, in pieces of `chunk` rows. The live voxels are a
+    prefix; every row past them stands for the same voxel (q_flat = the
+    voxel count), so their candidates are equal, and the last piece is
+    one such row for the whole slice (it broadcasts on assignment)."""
+    max_q = q_live.shape[0]
+    n_live = int(q_live.sum())
+    for s in range(0, n_live, chunk):
+        e = min(s + chunk, n_live)
+        yield slice(s, e), ordered_candidates(
+            grid, xyz, kernel_size, C, q_coor[s:e], center_w[s:e],
+            q_live[s:e])
+    if n_live < max_q:
+        e = n_live + 1
+        yield slice(n_live, max_q), ordered_candidates(
+            grid, xyz, kernel_size, C, q_coor[n_live:e],
+            center_w[n_live:e], q_live[n_live:e])
+
+
 def cand_width(grid: PointGrid, kernel_size: Tuple[int, int, int],
                cand_cap: int) -> int:
     """C = min(cand_cap, candidates a voxel's neighbourhood can hold)."""
@@ -204,10 +252,9 @@ def cand_width(grid: PointGrid, kernel_size: Tuple[int, int, int],
 def build_fat_cache(grid: PointGrid, cloud: NeuralPointCloud,
                     kernel_size: Tuple[int, int, int], max_q: int,
                     cand_cap: int = 64, chunk: int = 32768) -> FatCache:
-    """Build the candidate cache for the kernels (the content of the
-    reference's layout="fused", stored candidate-major: see `FatCache`;
-    the "rows" layout is not ported), once per point/attribute change.
-    Candidates in the order of `ordered_candidates`."""
+    """Build the candidate cache (see `FatCache`), once per
+    point/attribute change. Candidates in the order of
+    `ordered_candidates`."""
     dev = cloud.xyz.device
     C = cand_width(grid, kernel_size, cand_cap)
     N = cloud.xyz.shape[0]
@@ -218,19 +265,17 @@ def build_fat_cache(grid: PointGrid, cloud: NeuralPointCloud,
     kmeta = torch.empty((max_q, C), dtype=torch.int32, device=dev)
     kcand = torch.empty((max_q, C, PK), dtype=torch.bfloat16, device=dev)
     kxyz = torch.empty((max_q, 3, C), dtype=torch.bfloat16, device=dev)
-    for s in range(0, max_q, chunk):
-        cw = center_w[s:s + chunk]
-        sel_ok, sel_pidx, sel_sh, sel_xyz = ordered_candidates(
-            grid, cloud.xyz, kernel_size, C, q_coor[s:s + chunk], cw,
-            q_live[s:s + chunk])
+    for sl, (sel_ok, sel_pidx, sel_sh, sel_xyz) in candidate_pieces(
+            grid, cloud.xyz, kernel_size, C, q_coor, center_w, q_live, chunk):
+        cw = center_w[sl][:sel_ok.shape[0]]
         B = cw.shape[0]
         rel = (sel_xyz - cw[:, None, :]).to(torch.bfloat16)     # [B, C, 3]
-        kmeta[s:s + B] = torch.where(sel_ok, sel_pidx * 4 + sel_sh,
-                                     -1).to(torch.int32)
+        kmeta[sl] = torch.where(sel_ok, sel_pidx * 4 + sel_sh,
+                                -1).to(torch.int32)
         sel_attr = attrs[torch.clamp(sel_pidx, 0, N - 1)]       # [B, C, 39]
-        kcand[s:s + B] = torch.cat(
-            [rel, sel_attr, rel.new_zeros((B, C, PK - 42))], -1)
-        kxyz[s:s + B] = rel.transpose(1, 2)
+        kcand[sl] = torch.cat([rel, sel_attr, rel.new_zeros((B, C, PK - 42))],
+                              -1)
+        kxyz[sl] = rel.transpose(1, 2)
     return FatCache(coor_2_qslot=coor_2_qslot, kmeta=kmeta, kcand=kcand,
                     kxyz=kxyz, n_q=n_q)
 
@@ -273,10 +318,11 @@ def make_fast_scene(cfg: PointNerfConfig, cloud: NeuralPointCloud,
     scaled_vsize). max_q defaults to the query-voxel count rounded up
     to a multiple of 32768."""
     q = cfg.query
-    if "fused" not in (q.knn_mode, q.chunk_mode):
+    if q.cand_prune and "fused" not in (q.knn_mode, q.chunk_mode):
+        # the reference prunes the candidates of its XLA route only
         raise NotImplementedError(
-            "only the kernel-facing cache layout is ported: set "
-            "QueryConfig.chunk_mode='fused'")
+            "cand_prune on the XLA route is not ported (ROADMAP queue 1 "
+            "item 5)")
     if max_q is None:
         nq = int(grid.coor_occ.sum())
         max_q = (nq + 32767) // 32768 * 32768
@@ -310,6 +356,20 @@ class FastRenderOutput:
     # render_frame only: the front-end that produced the frame's samples,
     # "raster", "march" or "depth_window"
     front_end: Optional[str] = None
+    # prob=True only (point growing): per ray, the shading slot of largest
+    # opacity (the first among equals), its location and the weight * conf
+    # neighbour averages there. None unless prob=True.
+    ray_max_shading_opacity: Optional[torch.Tensor] = None   # [R]
+    ray_max_sample_loc_w: Optional[torch.Tensor] = None      # [R, 3]
+    shading_avg_color: Optional[torch.Tensor] = None         # [R, 3]
+    shading_avg_dir: Optional[torch.Tensor] = None           # [R, 3]
+    shading_avg_conf: Optional[torch.Tensor] = None          # [R, 1]
+    shading_avg_embedding: Optional[torch.Tensor] = None     # [R, F]
+
+
+PROB_FIELDS = ("ray_max_shading_opacity", "ray_max_sample_loc_w",
+               "shading_avg_color", "shading_avg_dir", "shading_avg_conf",
+               "shading_avg_embedding")
 
 
 def march_active(q) -> bool:
@@ -346,17 +406,20 @@ def _use_fused2(cfg: PointNerfConfig) -> bool:
 
 
 def _check_served(cfg: PointNerfConfig, Rw2c: torch.Tensor) -> str:
-    """"chunk" (the fused chunk kernel) or "staged" (select kernel +
-    decode tail) for a config the port serves; raises otherwise."""
+    """"chunk" (the fused chunk kernel), "staged" (select kernel + decode
+    tail) or "xla" (the XLA candidate stages + decode tail) for a config
+    the port serves; raises otherwise."""
     q = cfg.query
     whole = (q.chunk_mode == "fused" and not _use_fused2(cfg)
              and fused_chunk_eligible(cfg.agg, Rw2c.ndim == 4, q.K))
     staged = q.chunk_mode == "xla" and q.knn_mode == "fused"
+    xla = (q.chunk_mode == "xla" and q.knn_mode == "xla"
+           and q.extract_mode in ("onehot", "gather"))
     unported = {
         "span_tiers": bool(q.span_tiers), "coarse_step": q.coarse_step > 1,
         "compact_mode": q.compact_mode != "topk",
         "composite_mode": q.composite_mode != "packed",
-        "chunk_mode/knn_mode/agg": not (whole or staged),
+        "chunk_mode/knn_mode/extract_mode/agg": not (whole or staged or xla),
         "decode_mode": q.decode_mode != "lanes",
         "base_cache": q.base_cache,
         "per-point Rw2c": Rw2c.ndim != 2,
@@ -366,18 +429,23 @@ def _check_served(cfg: PointNerfConfig, Rw2c: torch.Tensor) -> str:
         raise NotImplementedError(
             f"fast_render_rays: not ported for this config ({bad}); the "
             f"port serves depth_window/ray_budget or march_steps + topk "
-            f"compaction + packed composite with chunk_mode='fused' (an "
-            f"eligible "
-            f"aggregator, fused_decode2 off) or with knn_mode='fused', "
-            f"chunk_mode='xla'")
-    return "chunk" if whole else "staged"
+            f"compaction + packed composite + decode_mode='lanes' with "
+            f"knn_mode='xla', chunk_mode='xla' and extract_mode 'onehot' "
+            f"or 'gather', with chunk_mode='fused' (an "
+            f"eligible aggregator, fused_decode2 off) or with "
+            f"knn_mode='fused', chunk_mode='xla'")
+    return "chunk" if whole else "staged" if staged else "xla"
 
 
 def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
-                 campos, nsel, pnt_mask, locs, center, rd_sel):
+                 campos, nsel, pnt_mask, locs, center, rd_sel,
+                 want_attrs: bool = False):
     """(sigma [M], rgb [M, 3], found [M]) from the selected payloads
     nsel [M, K, >= 42] bf16: neighbour geometry, aggregation weights,
-    then the tower (the reference's `_decode_tail`)."""
+    then the tower (the reference's `_decode_tail`). `want_attrs` adds
+    the [M, 39] weight * conf neighbour averages of the prob outputs
+    (colour 3, dir 3, conf 1, embedding 32), with the wc = weight * conf
+    * pnt_mask of the legacy prob path."""
     f32 = torch.float32
     nxyz = nsel[..., :3].to(f32) + center[:, None, :]           # [M, K, 3]
     # attribute slices stay bf16 end to end, as in the reference
@@ -386,8 +454,8 @@ def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
     ndir = nsel[..., 36:39]
     ncol = nsel[..., 39:42]
     dists = neighbor_dists(nxyz, locs, camrotc2w, campos)
-    weight, emb = aggregation_weight(cfg.agg, emb, dists, pnt_mask,
-                                     max(cfg.query.scaled_vsize), params)
+    weight, emb2 = aggregation_weight(cfg.agg, emb, dists, pnt_mask,
+                                      max(cfg.query.scaled_vsize), params)
     if cfg.agg.conf_in_weight:
         weight = weight * conf
     vd = rotate(rd_sel, Rw2c)
@@ -395,14 +463,64 @@ def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
         dists_rot, dirdot, wk, dir_pe = tower_inputs(
             cfg.agg, dists, ndir, vd, weight, pnt_mask, Rw2c)
         sig, rgb = fused_decode2(
-            params, emb, dists_rot, ncol, dirdot, wk, dir_pe,
+            params, emb2, dists_rot, ncol, dirdot, wk, dir_pe,
             cfg.agg.num_feat_freqs, cfg.agg.num_dist_freqs)
     else:
         sig, rgb = decode_radiance(
-            params, cfg.agg, neigh_emb=emb, neigh_color=ncol,
+            params, cfg.agg, neigh_emb=emb2, neigh_color=ncol,
             neigh_dir=ndir, dists=dists, weight=weight, pnt_mask=pnt_mask,
             viewdirs=vd, Rw2c=Rw2c)
-    return sig, rgb, pnt_mask.any(-1)
+    if not want_attrs:
+        return sig, rgb, pnt_mask.any(-1)
+    wc = (weight * conf * pnt_mask.to(weight.dtype))[..., None].to(f32)
+    attrs = torch.cat([(ncol.to(f32) * wc).sum(-2),
+                       (ndir.to(f32) * wc).sum(-2),
+                       (conf[..., None] * wc).sum(-2),
+                       (emb.to(f32) * wc).sum(-2)], -1)
+    return sig, rgb, pnt_mask.any(-1), attrs
+
+
+def _xla_chunk(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
+               campos, kmeta, kcand, qslot, locs, center, rd_sel, mask,
+               num_shells: int, want_attrs: bool):
+    """The reference's XLA chunk body (`chunk_pipeline`, knn_mode and
+    chunk_mode "xla") on Mc slots, as torch ops: the fat-row gather by
+    qslot [Mc] (kmeta and kcand's first PAYW channels, the words of the
+    reference's rows), candidate d2 from the bf16 relative xyz plus
+    `center - locs`, the valid / radius masks, the layered K smallest d2
+    (`layered_k_nearest`: valid first, smallest column on ties), the
+    payload extract (a gather under pnt_mask, which equals the reference's
+    one-hot einsum: one bf16 value passes its f32 accumulator unchanged),
+    then `_decode_tail`."""
+    q = cfg.query
+    K = q.K
+    Mc = qslot.shape[0]
+    meta = kmeta[qslot]                                         # [Mc, C]
+    # the candidate rows move as 8-byte words (a bf16 index copy moves
+    # two bytes an element)
+    payload = kcand.view(torch.int64).index_select(0, qslot).view(
+        torch.bfloat16)                                         # [Mc, C, PK]
+    cd = center - locs
+    dx = payload[..., 0].float() + cd[:, 0:1]
+    dy = payload[..., 1].float() + cd[:, 1:2]
+    dz = payload[..., 2].float() + cd[:, 2:3]
+    d2 = dx * dx + dy * dy + dz * dz
+    ok = (meta >= 0) & mask[:, None]
+    radius2 = q.radius_limit ** 2
+    if radius2 > 0:
+        ok = ok & (d2 <= radius2)
+    top, pnt_mask = layered_k_nearest(d2, ok, meta & 3, K, num_shells)
+    nsel = torch.gather(payload, 1, top[..., None].expand(Mc, K, PAYW))
+    nsel = torch.where(pnt_mask[..., None], nsel, torch.zeros_like(nsel))
+    return _decode_tail(params, cfg, Rw2c, camrotc2w, campos, nsel,
+                        pnt_mask, locs, center, rd_sel, want_attrs)
+
+
+def xla_chunk_slots(q, M: int) -> int:
+    """CH, the slots of one chunk of the XLA route: the reference's
+    max(min(fast_chunk or 8192, decode_chunk or M, M), min(2048, M))."""
+    return max(min(q.fast_chunk or 8192, q.decode_chunk or M, M),
+               min(2048, M))
 
 
 def pack_hit_rays(cache, campos, raydirs, near, far, q, ranges_min,
@@ -462,7 +580,7 @@ def march_args(cache: FatCache, campos, raydirs, near, far, q, ranges_min,
             "march_steps needs a cache with march_table "
             "(make_fast_scene builds it when march_steps is set)")
     D = q.z_depth_dim
-    if cache.kmeta.shape[0] > (1 << 22) - 2 or D > 512:
+    if cache.max_q > (1 << 22) - 2 or D > 512:
         raise ValueError("march packing needs max_q < 2^22 - 1 and "
                          "z_depth_dim <= 512")
     dev = raydirs.device
@@ -502,10 +620,17 @@ def fast_render_rays(
                                     # emit table [HW, cap], this chunk's
                                     # frame ray ids [R]); takes the walk's
                                     # place when march_active(q)
+    prob: bool = False,             # the prob outputs for point growing
+                                    # (XLA route only; slot-grid composite)
 ) -> FastRenderOutput:
     """Render R rays through the fast path (see the module docstring)."""
     route = _check_served(cfg, Rw2c)
     q = cfg.query
+    if prob and route != "xla":
+        raise ValueError(
+            "prob-mode neighbour averages need the XLA route (knn_mode and "
+            "chunk_mode 'xla', decode_mode 'lanes', extract_mode 'onehot' "
+            "or 'gather')")
     if isinstance(premarch, tuple):
         table, ids = premarch
         premarch = table[ids.long()]
@@ -538,7 +663,7 @@ def fast_render_rays(
                                raydirs[ray_ids], near, far, cfg0,
                                ranges_min, scaled_vsize, ray_live=valid,
                                premarch=(None if premarch is None
-                                         else premarch[ray_ids]))
+                                         else premarch[ray_ids]), prob=prob)
         ids = torch.where(valid, ray_ids, R)       # padding rows drop
 
         def scatter(base, x):
@@ -546,6 +671,11 @@ def fast_render_rays(
             out[ids] = x.to(base.dtype)
             return out[:R]
 
+        # miss rays keep zeros (opacity 0) in the prob outputs
+        prob_kw = {f: scatter(torch.zeros((R,) + getattr(sub, f).shape[1:],
+                                          dtype=getattr(sub, f).dtype,
+                                          device=dev), getattr(sub, f))
+                   for f in PROB_FIELDS} if prob else {}
         return FastRenderOutput(
             coarse_raycolor=scatter(bg.expand(R, 3).contiguous(),
                                     sub.coarse_raycolor),
@@ -555,7 +685,7 @@ def fast_render_rays(
             depth=scatter(torch.zeros(R, dtype=f32, device=dev), sub.depth),
             dw_overflow=sub.dw_overflow, rb_overflow=rb_overflow,
             cb_overflow=sub.cb_overflow, mc_overflow=sub.mc_overflow,
-            n_valid_slots=sub.n_valid_slots)
+            n_valid_slots=sub.n_valid_slots, **prob_kw)
 
     def qs_lookup(pos):
         return qslot_lookup(cache.coor_2_qslot, pos, ranges_min,
@@ -576,7 +706,7 @@ def fast_render_rays(
             if tuple(premarch.shape) != (R, cap):
                 raise ValueError(
                     f"premarch shape {tuple(premarch.shape)} != {(R, cap)}")
-            if cache.kmeta.shape[0] > (1 << 22) - 2:
+            if cache.max_q > (1 << 22) - 2:
                 raise ValueError("premarch packing needs max_q < 2^22 - 1")
             emit = premarch
             cnt = (premarch != 0).sum(-1).to(torch.int32)
@@ -588,7 +718,7 @@ def fast_render_rays(
                 scaled_vsize, ray_live=ray_live))
         ray_hit = cnt > 0
         iota = torch.arange(cap, dtype=torch.int32, device=dev).expand(R, cap)
-        sel_ray, _, _, _, packed_m, mask_c = rank_gather_pack(
+        sel_ray, sel_slot, _, _, packed_m, mask_c = rank_gather_pack(
             emit, iota, cnt, M)
         qslot_c = torch.clamp((packed_m >> 9) - 1, min=0)
         sel_d = packed_m & 511
@@ -623,7 +753,7 @@ def fast_render_rays(
         qs = qs.to(torch.int32).contiguous()
         col_sel, cnt, ray_hit = select_first_cols(qs, BP, min(SR, BP, Dax),
                                                   q.select_mode)
-        sel_ray, _, colm, _, qslot_c, mask_c = rank_gather_pack(
+        sel_ray, sel_slot, colm, _, qslot_c, mask_c = rank_gather_pack(
             qs, col_sel, cnt, M)
         sel_d = d0.long()[sel_ray] + colm
     pack_end = torch.cumsum(cnt.long(), 0)
@@ -646,7 +776,7 @@ def fast_render_rays(
             num_shells=num_shells,
             nff=cfg.agg.num_feat_freqs, ndf=cfg.agg.num_dist_freqs,
             nvf=cfg.agg.num_viewdir_freqs, act_super=cfg.agg.act_super)
-    else:
+    elif route == "staged":
         # ---- staged: the select kernel, then the decode tail. Under
         # decode_radiance the tail runs in pieces of TAIL_CHUNK slots:
         # every stage is per slot, so the pieces change no result; they
@@ -662,10 +792,38 @@ def fast_render_rays(
                               rd_sel[s:s + piece])
                  for s in range(0, M, piece)]
         sig, rgb, found = (torch.cat(x) for x in zip(*tails))
+    else:
+        # ---- XLA candidate stages, CH slots a chunk.
+        # The valid slots are a prefix of the M axis; chunks past it are
+        # all padding and are skipped (one read-back of the count).
+        CH = xla_chunk_slots(q, M)
+        n_valid = int(mask_c.sum())
+        sig = torch.zeros(M, dtype=f32, device=dev)
+        rgb = torch.zeros((M, 3), dtype=f32, device=dev)
+        found = torch.zeros(M, dtype=torch.bool, device=dev)
+        attrs_m = (torch.zeros((M, PAYW - 5), dtype=f32, device=dev)
+                   if prob else None)
+        for s in range(0, n_valid, CH):
+            c = slice(s, s + CH)
+            res = _xla_chunk(params, cfg, Rw2c, camrotc2w, campos,
+                             cache.kmeta, cache.kcand, qslot_c[c], locs[c],
+                             center[c], rd_sel[c], mask_c[c], num_shells,
+                             prob)
+            sig[c], rgb[c], found[c] = res[0], res[1], res[2]
+            if prob:
+                attrs_m[c] = res[3]
 
-    # ---- packed composite
     slot_ok = mask_c & found
     sig = sig * slot_ok.to(sig.dtype)
+    if prob:
+        return _grid_composite_prob(
+            cfg, sig, rgb, slot_ok, attrs_m, sel_ray, sel_slot, sel_d,
+            ray_hit, raydirs, campos, camrotc2w, near, step_t, BP, bg,
+            dict(dw_overflow=dw_overflow, cb_overflow=cb_overflow,
+                 mc_overflow=mc_overflow,
+                 n_valid_slots=mask_c.sum().to(torch.int32)))
+
+    # ---- packed composite
     z_m = w2pers(locs, camrotc2w, campos)[..., 2]
     rgb_sum, acc, depth, ray_found = packed_alpha_composite(
         sig, rgb, z_m, slot_ok, sel_ray, pack_end, cnt, q.vsize[2],
@@ -678,6 +836,54 @@ def fast_render_rays(
         coarse_raycolor=color, ray_mask=ray_mask, acc=acc, depth=depth,
         dw_overflow=dw_overflow, cb_overflow=cb_overflow,
         mc_overflow=mc_overflow, n_valid_slots=mask_c.sum().to(torch.int32))
+
+
+def _grid_composite_prob(cfg, sig, rgb, slot_ok, attrs_m, sel_ray, sel_slot,
+                         sel_d, ray_hit, raydirs, campos, camrotc2w, near,
+                         step_t, BP, bg, counters) -> FastRenderOutput:
+    """The reference's slot-grid composite with the prob outputs: the [M]
+    slots scatter to [R, BP] (the per-ray opacity argmax needs the grid),
+    alpha compositing per row, then each ray's slot of largest opacity
+    (torch.argmax takes the first among equals, as jnp.argmax does), its
+    location and the neighbour averages of that slot."""
+    R = raydirs.shape[0]
+    dev = raydirs.device
+    dest = torch.where(slot_ok, sel_ray * BP + sel_slot, R * BP)
+
+    def grid(x):
+        g = torch.zeros((R * BP + 1,) + x.shape[1:], dtype=x.dtype,
+                        device=dev)
+        g[dest] = x
+        return g[:R * BP].reshape((R, BP) + x.shape[1:])
+
+    sig_rb, rgb_rb, valid_rb = grid(sig), grid(rgb), grid(slot_ok)
+    d_rb = grid(sel_d.to(torch.int32))
+    attrs_rb = grid(attrs_m)
+    t_rb = near + (d_rb.to(torch.float32) + 0.5) * step_t
+    pos_rb = campos + raydirs[:, None, :] * t_rb[..., None]
+    z_rb = w2pers(pos_rb, camrotc2w, campos)[..., 2]
+    z_masked = torch.where(valid_rb, z_rb, torch.full_like(z_rb, -1e9))
+    dist = ray_dist_from_sample_z(z_masked, valid_rb, cfg.query.vsize[2])
+    opacity = 1.0 - torch.exp(-sig_rb * dist)
+    trans = torch.cumprod(1.0 - opacity + 1e-10, -1)
+    trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], -1)
+    blend = BLEND_FUNCTIONS[cfg.blend_func](opacity, trans)
+    acc = blend.sum(-1)
+    color = (blend[..., None] * rgb_rb).sum(-2) + (1 - acc)[..., None] * bg
+    color = TONE_MAPS[cfg.tonemap_func](color)
+    depth = (blend * z_rb).sum(-1)
+    ray_mask = ray_hit & valid_rb.any(-1)
+    color = torch.where(ray_mask[:, None], color, bg)
+    s_star = torch.argmax(opacity, -1)                           # [R]
+    ar = torch.arange(R, device=dev)
+    a_star = attrs_rb[ar, s_star]                                # [R, 39]
+    return FastRenderOutput(
+        coarse_raycolor=color, ray_mask=ray_mask, acc=acc, depth=depth,
+        ray_max_shading_opacity=opacity[ar, s_star],
+        ray_max_sample_loc_w=pos_rb[ar, s_star],
+        shading_avg_color=a_star[:, 0:3], shading_avg_dir=a_star[:, 3:6],
+        shading_avg_conf=a_star[:, 6:7], shading_avg_embedding=a_star[:, 7:],
+        **counters)
 
 
 def _np(x, dtype):
@@ -788,7 +994,7 @@ def frame_raster_emit(cache: FatCache, campos, camrotc2w, raydirs, near, far,
         raise RasterUnserved(f"raster frame {Hr}x{Wr} != {Rtot}")
     qv = pcache.get(("raster_qvox", id(cache)))
     if qv is None:
-        qv = build_qvox(cache.coor_2_qslot, cache.kmeta.shape[0])
+        qv = build_qvox(cache.coor_2_qslot, cache.max_q)
         pcache[("raster_qvox", id(cache))] = qv
     dev = raydirs.device
     near_t = torch.tensor(float(near), dtype=torch.float32, device=dev)

@@ -46,7 +46,7 @@ from pointnerf2studio_torch.config import PointNerfConfig
 from pointnerf2studio_torch.models.aggregator import (
     Aggregator, aggregation_weight, conf_gradient_clamp, decode_radiance)
 from pointnerf2studio_torch.models.fast_render import (
-    cand_width, fit_cand_cap, march_active, ordered_candidates,
+    cand_width, candidate_pieces, fit_cand_cap, march_active,
     pack_hit_rays, qslot_lookup, query_voxels)
 from pointnerf2studio_torch.models.neural_points import (
     NeuralPointCloud, gather_rows)
@@ -55,7 +55,8 @@ from pointnerf2studio_torch.ops.compositing import (
     TONE_MAPS, packed_alpha_composite)
 from pointnerf2studio_torch.ops.grid import PointGrid
 from pointnerf2studio_torch.ops.march import build_march_table, march_rays
-from pointnerf2studio_torch.ops.query import candidate_keep_mask
+from pointnerf2studio_torch.ops.query import (
+    candidate_keep_mask, layered_k_nearest)
 from pointnerf2studio_torch.ops.raygen import (
     jitter_uniform, near_far_disparity_linear_ray_generation,
     near_far_linear_ray_generation)
@@ -104,12 +105,10 @@ def build_geo_cache(grid: PointGrid, xyz: torch.Tensor,
     half = grid.scaled_vsize * 0.5
     max_shell = (kernel_size[0] + 1) // 2 - 1
     iota = torch.arange(C, device=dev)
-    for s in range(0, max_q, chunk):
-        cw = center_w[s:s + chunk]
-        sel_ok, sel_pidx, sel_sh, sel_xyz = ordered_candidates(
-            grid, xyz, kernel_size, C, q_coor[s:s + chunk], cw,
-            q_live[s:s + chunk])
-        B = cw.shape[0]
+    for sl, (sel_ok, sel_pidx, sel_sh, sel_xyz) in candidate_pieces(
+            grid, xyz, kernel_size, C, q_coor, center_w, q_live, chunk):
+        B = sel_ok.shape[0]
+        cw = center_w[sl][:B]
         r = sel_xyz - cw[:, None, :]
         if cand_prune:
             keep = candidate_keep_mask(r, sel_sh, sel_ok, half, radius2,
@@ -120,9 +119,9 @@ def build_geo_cache(grid: PointGrid, xyz: torch.Tensor,
             sel_pidx = torch.gather(sel_pidx, 1, pos)
             sel_sh = torch.gather(sel_sh, 1, pos)
             r = torch.gather(r, 1, pos[..., None].expand(B, C, 3))
-        meta[s:s + B] = torch.where(sel_ok, sel_pidx * 4 + sel_sh,
-                                    -1).to(torch.int32)
-        rel[s:s + B] = r
+        meta[sl] = torch.where(sel_ok, sel_pidx * 4 + sel_sh,
+                               -1).to(torch.int32)
+        rel[sl] = r
     return GeoCache(coor_2_qslot=coor_2_qslot, meta=meta, rel=rel, n_q=n_q)
 
 
@@ -224,17 +223,9 @@ def _chunk_body(params: Aggregator, cfg: PointNerfConfig,
     ok = (meta >= 0) & mask_c[:, None]
     if radius2 > 0:
         ok = ok & (d2 <= radius2)
-    if q.layered_search and num_shells > 1:
-        eligible = shell == 0
-        before = torch.zeros_like(shell[:, :1])
-        for s in range(1, num_shells):
-            before = before + (ok & (shell == s - 1)).sum(-1, keepdim=True)
-            eligible = eligible | ((shell == s) & (before < K))
-        ok = ok & eligible
     # the K smallest d2, ties to the smallest column (lax.top_k's order)
-    kkey = torch.where(ok, d2, float("inf"))
-    top_idx = torch.sort(kkey, dim=-1, stable=True).indices[:, :K]
-    pnt_mask = torch.gather(kkey, 1, top_idx) < float("inf")
+    top_idx, pnt_mask = layered_k_nearest(d2, ok, shell, K, num_shells,
+                                          q.layered_search)
     pidx = torch.gather(meta >> 2, 1, top_idx)                  # [Mc, K]
     nxyz = (torch.gather(rel, 1, top_idx[..., None].expand(-1, -1, 3))
             + center[:, None, :])                               # [Mc, K, 3]

@@ -1,11 +1,13 @@
 """Neural point cloud: the point store.
 
 Port of `pointnerf2studio_tpu/models/neural_points.py` (NeuralPointCloud
-with its trainable set, from_arrays and the single-device
-gather_neighbors). Static-capacity layout: arrays are allocated at
-`capacity` rows with an `alive` mask; names match the reference
-checkpoint keys (xyz, points_embeding, points_conf, points_dir,
-points_color, Rw2c: [3, 3] global or [N, 3, 3] per point).
+with its trainable set, from_arrays, the single-device gather_neighbors,
+and the structure changes prune, grow and expand_capacity, each of which
+returns a new cloud and leaves its argument as it is). Static-capacity
+layout: arrays are allocated at `capacity` rows with an `alive` mask;
+names match the reference checkpoint keys (xyz, points_embeding,
+points_conf, points_dir, points_color, Rw2c: [3, 3] global or [N, 3, 3]
+per point).
 
 The attributes are gathered by `gather_rows`, whose backward does not
 depend on launch order: it sorts the row ids stably and sums each row's
@@ -157,3 +159,72 @@ def gather_neighbors(points: NeuralPointCloud, sample_pidx: torch.Tensor
     if points.Rw2c.ndim == 3:
         out["Rw2c"] = points.Rw2c[idx]
     return out
+
+
+@torch.no_grad()
+def prune(points: NeuralPointCloud, conf_thresh: float) -> NeuralPointCloud:
+    """Kill the live points whose confidence is below `conf_thresh`: only
+    the mask changes (reference `NeuralPoints.prune`,
+    models/neural_points/neural_points.py:341-364)."""
+    keep = points.alive & (points.points_conf[:, 0] >= conf_thresh)
+    return dataclasses.replace(points, alive=keep)
+
+
+@torch.no_grad()
+def grow(points: NeuralPointCloud, new_xyz: torch.Tensor,
+         new_embeding: torch.Tensor, new_conf: torch.Tensor,
+         new_dir: torch.Tensor, new_color: torch.Tensor,
+         new_valid: torch.Tensor) -> NeuralPointCloud:
+    """Write up to M candidates into the dead slots: candidate i goes to
+    the i-th dead slot in ascending order; candidates past the free count,
+    and those whose `new_valid` is False, are dropped (the capacity is
+    fixed; `expand_capacity` makes room). New tensors, no atomics: the
+    targets are distinct, the dropped ones write to a sentinel row."""
+    cap = points.capacity
+    dead = ~points.alive
+    order = torch.argsort((~dead).to(torch.int8), stable=True)  # dead first
+    target = order[:min(new_xyz.shape[0], cap)]
+    T = target.shape[0]
+    n_free = dead.sum()
+    can_place = new_valid[:T] & (torch.arange(T, device=target.device)
+                                 < n_free)
+    dest = torch.where(can_place, target, cap)
+
+    def put(dst, src):
+        out = torch.cat([dst.detach(), dst[:1].detach()])
+        out[dest] = src[:T].to(dst.dtype)
+        return out[:cap]
+
+    return dataclasses.replace(
+        points, xyz=put(points.xyz, new_xyz),
+        points_embeding=put(points.points_embeding, new_embeding),
+        points_conf=put(points.points_conf, new_conf),
+        points_dir=put(points.points_dir, new_dir),
+        points_color=put(points.points_color, new_color),
+        alive=put(points.alive, torch.ones_like(new_valid)))
+
+
+@torch.no_grad()
+def expand_capacity(points: NeuralPointCloud, new_capacity: int
+                    ) -> NeuralPointCloud:
+    """Every per-point tensor padded to `new_capacity` rows of dead,
+    zero slots (a per-point Rw2c too); raises on a shrink."""
+    cap = points.capacity
+    if new_capacity < cap:
+        raise ValueError(f"cannot shrink capacity {cap} -> {new_capacity}")
+    if new_capacity == cap:
+        return points
+
+    def padrow(a):
+        a = a.detach()
+        return torch.cat([a, a.new_zeros((new_capacity - cap,)
+                                         + a.shape[1:])])
+
+    return dataclasses.replace(
+        points, xyz=padrow(points.xyz),
+        points_embeding=padrow(points.points_embeding),
+        points_conf=padrow(points.points_conf),
+        points_dir=padrow(points.points_dir),
+        points_color=padrow(points.points_color),
+        Rw2c=padrow(points.Rw2c) if points.Rw2c.ndim == 3 else points.Rw2c,
+        alive=padrow(points.alive))

@@ -160,20 +160,17 @@ def build_candidate_cache(grid: PointGrid, xyz: torch.Tensor,
     C = min(cand_cap, V * P) candidates a query voxel, built once per grid
     in pieces of `chunk` query voxels."""
     from pointnerf2studio_torch.models.fast_render import (
-        cand_width, ordered_candidates, query_voxels)
+        cand_width, candidate_pieces, query_voxels)
     C = cand_width(grid, kernel_size, cand_cap)
     coor_2_qslot, n_q, q_coor, q_live, center_w = query_voxels(grid, max_q)
     pack = torch.empty((max_q, C, 5), dtype=torch.float32,
                        device=xyz.device)
-    for s in range(0, max_q, chunk):
-        sel_ok, sel_pidx, sel_sh, sel_xyz = ordered_candidates(
-            grid, xyz, kernel_size, C, q_coor[s:s + chunk],
-            center_w[s:s + chunk], q_live[s:s + chunk])
-        B = sel_ok.shape[0]
-        pack[s:s + B, :, :3] = sel_xyz
-        pack[s:s + B, :, 3] = torch.where(sel_ok, sel_pidx, -1).to(
+    for sl, (sel_ok, sel_pidx, sel_sh, sel_xyz) in candidate_pieces(
+            grid, xyz, kernel_size, C, q_coor, center_w, q_live, chunk):
+        pack[sl, :, :3] = sel_xyz
+        pack[sl, :, 3] = torch.where(sel_ok, sel_pidx, -1).to(
             torch.int32).view(torch.float32)
-        pack[s:s + B, :, 4] = torch.where(sel_ok, sel_sh, 127).float()
+        pack[sl, :, 4] = torch.where(sel_ok, sel_sh, 127).float()
     return CandidateCache(coor_2_qslot=coor_2_qslot,
                           cand_pack=pack.reshape(max_q, C * 5), n_q=n_q)
 

@@ -203,6 +203,27 @@ def knn_for_locs(grid: PointGrid, xyz: torch.Tensor, locs: torch.Tensor,
         for s in range(0, total, chunk)])
 
 
+def layered_k_nearest(d2: torch.Tensor, ok: torch.Tensor,
+                      shell: torch.Tensor, K: int, num_shells: int,
+                      layered: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K smallest d2 [M, C] among the candidates `ok` [M, C] of a
+    cache row, with their Chebyshev `shell` [M, C]: (top [M, K] column
+    ids, found [M, K] bool). With `layered` a shell is searched only while
+    the shells inside it kept fewer than K. Ties go to the smaller column
+    (a stable sort; `torch.topk` promises no order)."""
+    if layered and num_shells > 1:
+        eligible = shell == 0
+        before = torch.zeros_like(shell[:, :1])
+        for s in range(1, num_shells):
+            before = before + (ok & (shell == s - 1)).sum(-1, keepdim=True)
+            eligible = eligible | ((shell == s) & (before < K))
+        ok = ok & eligible
+    key = torch.where(ok, d2, float("inf"))
+    top_key, top = torch.sort(key, dim=-1, stable=True)
+    return top[:, :K], top_key[:, :K] < float("inf")
+
+
 @torch.no_grad()
 def knn_from_cache(grid: PointGrid, qslot: torch.Tensor, locs: torch.Tensor,
                    loc_mask: torch.Tensor, K: int, radius2: float,
@@ -222,18 +243,8 @@ def knn_from_cache(grid: PointGrid, qslot: torch.Tensor, locs: torch.Tensor,
           + delta[..., 2] * delta[..., 2])
     if radius2 > 0.0:
         ok = ok & (d2 <= radius2)
-    if layered:
-        eligible = shell == 0
-        before = torch.zeros_like(shell[:, :1])
-        for s in range(1, num_shells):
-            before = before + (ok & (shell == s - 1)).sum(-1, keepdim=True)
-            eligible = eligible | ((shell == s) & (before < K))
-        ok = ok & eligible
-    key = torch.where(ok, d2, float("inf"))
-    top_key, top = torch.sort(key, dim=-1, stable=True)
-    top_key, top = top_key[:, :K], top[:, :K]
-    return torch.where(top_key < float("inf"), torch.gather(pidx, 1, top),
-                       -1).to(torch.int32)
+    top, found = layered_k_nearest(d2, ok, shell, K, num_shells, layered)
+    return torch.where(found, torch.gather(pidx, 1, top), -1).to(torch.int32)
 
 
 @torch.no_grad()

@@ -18,6 +18,12 @@ sits a phase out keeps its parameters and its Adam moments: its `step()`
 is not called, and its gradients are cleared before the next backward.
 `make_train_step` is the legacy step, through `models/render.render_rays`
 (the fast step is `models/fast_train.make_fast_train_step`).
+
+Structure changes act on the state in place: `set_points` writes a new
+cloud's values into the state's trainable tensors (the ones the points
+group owns), `reset_point_opt_slots` zeroes the Adam moments of grown
+slots, and `expand_state_capacity` re-pads the cloud and its moments,
+moving each tensor's Adam state to its padded successor.
 """
 
 from __future__ import annotations
@@ -130,3 +136,55 @@ def make_train_step(cfg: PointNerfConfig):
         return state, {k: v.detach() for k, v in aux.items()}
 
     return train_step
+
+
+@torch.no_grad()
+def set_points(state: TrainState, points: NeuralPointCloud) -> None:
+    """Make `points` (same capacity) the state's cloud: its trainable
+    values are copied into the tensors the points group optimises, its
+    frozen fields (xyz, Rw2c, alive) replace the state's."""
+    for name, t in state.points.trainable().items():
+        t.copy_(getattr(points, name))
+    state.points = points.with_trainable(state.points.trainable())
+
+
+@torch.no_grad()
+def reset_point_opt_slots(opt_points: torch.optim.Adam,
+                          slots: torch.Tensor) -> None:
+    """Zero the first and second Adam moments at the rows `slots` of every
+    tensor of the points group (a grown slot's history belonged to a
+    pruned point). The step counts stay, as optax's count does."""
+    for group in opt_points.param_groups:
+        for p in group["params"]:
+            st = opt_points.state.get(p)
+            if not st:
+                continue
+            for k in ("exp_avg", "exp_avg_sq"):
+                st[k][slots.to(st[k].device)] = 0.0
+
+
+@torch.no_grad()
+def expand_state_capacity(state: TrainState, new_capacity: int) -> None:
+    """Re-pad the cloud to `new_capacity` rows (`expand_capacity`) and its
+    Adam moments with zero rows: each trainable tensor is replaced by its
+    padded successor in the points group, which takes over its state with
+    the step count kept; the scheduler's position is untouched."""
+    from pointnerf2studio_torch.models.neural_points import expand_capacity
+    old = state.points.trainable()
+    grown = expand_capacity(state.points, new_capacity)
+    new = {k: v.clone().requires_grad_(True)
+           for k, v in grown.trainable().items()}
+    swap = {id(old[k]): new[k] for k in old}
+    opt = state.opt_points
+    for group in opt.param_groups:
+        for i, p in enumerate(group["params"]):
+            q = swap[id(p)]
+            st = opt.state.pop(p, None)
+            if st:
+                pad = q.shape[0] - p.shape[0]
+                opt.state[q] = {
+                    k: (torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+                        if k in ("exp_avg", "exp_avg_sq") else v)
+                    for k, v in st.items()}
+            group["params"][i] = q
+    state.points = grown.with_trainable(new)

@@ -16,6 +16,7 @@ from pointnerf2studio_torch.config import AggregatorConfig
 from pointnerf2studio_torch.data import synthetic
 from pointnerf2studio_torch.models import aggregator, neural_points
 from pointnerf2studio_torch.train import loop
+from pointnerf2studio_torch.utils import checkpoint_io
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted(
@@ -40,7 +41,9 @@ def test_sources_found():
                 "models/render.py", "ops/raygen.py", "ops/march.py",
                 "ops/raster.py", "models/fast_render.py",
                 "models/fast_train.py", "train/loop.py", "train/loss.py",
-                "train/trainer.py", "data/blender.py", "utils/logger.py"):
+                "train/trainer.py", "data/blender.py", "utils/logger.py",
+                "train/grow.py", "train/evaluator.py",
+                "utils/checkpoint_io.py", "utils/metrics.py"):
         assert f"pointnerf2studio_torch/{mod}" in SOURCES
 
 
@@ -69,6 +72,10 @@ DEFAULT_DEVICE_CALLS = {
     "geo_cache_from_jax": lambda **kw: convert.geo_cache_from_jax(
         _Fields(), **kw),
     "fit": lambda **kw: loop.fit(None, None, None, None, "unused", **kw),
+    "train_state_from_jax": lambda **kw: convert.train_state_from_jax(
+        None, None, **kw),
+    "import_aggregator_params": lambda **kw: (
+        checkpoint_io.import_aggregator_params({}, AggregatorConfig(), **kw)),
     "from_arrays": lambda **kw: neural_points.from_arrays(
         *(np.zeros((2, c), np.float32) for c in (3, 32, 1, 3, 3)), **kw),
     "Aggregator": lambda **kw: aggregator.Aggregator(AggregatorConfig(), **kw),

@@ -11,12 +11,17 @@ against the JAX reference, on the CPU.
     reference's fit() does on that route, train/loop.py:392-412), within
     rtol 5e-2 / atol 1e-3, the bound tests/test_fast_train.py:118 holds
     the reference's own two train paths to;
+  * the reference's fit() recipes of tests/test_train_loop.py in the
+    port: pruning, the save cadence hitting the final step, resume (a
+    finished run restores bit for bit), evaluation with a checkpoint that
+    both packages read, and a growth run that fills grow_history;
   * every part of fit() and fast_train_render that is not ported raises
     NotImplementedError naming its ROADMAP item, and fit() with no device
     raises without a card. (The legacy step behind fit(fast_path=False)
     is held to the reference in tests/test_torch_legacy_train.py.)"""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +36,7 @@ from pointnerf2studio_torch.data import blender as tblender
 from pointnerf2studio_torch.models import fast_train as tft
 from pointnerf2studio_torch.train import loop as tloop
 from pointnerf2studio_torch.train import trainer as ttrainer
+from pointnerf2studio_torch.utils import checkpoint_io as tcio
 from pointnerf2studio_tpu.data import blender as jblender
 from pointnerf2studio_tpu.data.synthetic import make_sphere_scene, sphere_config
 from pointnerf2studio_tpu.models import fast_train as jft
@@ -216,10 +222,6 @@ def test_fit_march_auto_equals_dense(s, tmp_path):
 UNPORTED_FIT = {
     "mesh": (dict(mesh=object()), {}, "item 12"),
     "hash grid": ({}, dict(query=dict(grid_mode="hash")), "item 9"),
-    "prune_iter": ({}, dict(train=dict(prune_iter=10)), "item 8"),
-    "prob_freq": ({}, dict(train=dict(prob_freq=10)), "item 8"),
-    "eval_freq": (dict(eval_freq=5), {}, "item 8"),
-    "save_freq": (dict(save_freq=5), {}, "item 8"),
     "plane background": ({}, dict(bgmodel="plane"), "item 9"),
     "tensorboard": (dict(tensorboard=True), {}, "item 10"),
 }
@@ -238,11 +240,153 @@ def test_fit_unported_raises(s, name, tmp_path):
                   max_steps=1, device="cpu", **kw)
 
 
-def test_fit_resume_from_checkpoint_raises(s, tmp_path):
-    (tmp_path / "ckpt" / "10").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        tloop.fit(s["pc"], s["tds"], s["params"], s["cloud"], str(tmp_path),
-                  max_steps=1, device="cpu")
+def test_fit_with_pruning(s, tmp_path):
+    """tests/test_train_loop.py::test_fit_with_pruning in the port: a third
+    of the points planted at conf 0.01 die at the first prune (step 5),
+    exactly those, and training goes on with the geo cache rebuilt."""
+    conf = s["cloud"].points_conf.clone()
+    conf[::3] = 0.01
+    cloud = dataclasses.replace(s["cloud"], points_conf=conf)
+    cfg = with_train(s["pc"], prune_iter=5, prune_thresh=0.1,
+                     prune_max_iter=100)
+    res = tloop.fit(cfg, s["tds"], s["params"], cloud, str(tmp_path),
+                    max_steps=7, print_freq=5, save_freq=0, device="cpu")
+    alive = res.state.points.alive
+    assert torch.equal(alive, s["cloud"].alive & (conf[:, 0] >= 0.1))
+    assert 0 < int(alive.sum()) < s["cloud"].capacity
+    assert res.state.step == 7 and np.isfinite(res.log[-1]["total"])
+
+
+def test_fit_save_cadence_hits_final_step(s, tmp_path):
+    """tests/test_train_loop.py:129: max_steps on the save cadence saves
+    once there, and the .pth and states files of that step exist."""
+    out = str(tmp_path / "run")
+    tloop.fit(s["pc"], s["tds"], s["params"], s["cloud"], out, max_steps=4,
+              print_freq=4, save_freq=2, device="cpu")
+    assert tcio.latest_step(os.path.join(out, "ckpt")) == 4
+    assert sorted(os.listdir(os.path.join(out, "ckpt"))) == [
+        "step_2", "step_4"]
+    for name in ("4_net_ray_marching.pth", "4_states.pth"):
+        assert os.path.exists(os.path.join(out, name))
+    assert tcio.load_states_file(os.path.join(out, "4_states.pth"))[
+        "total_steps"] == 4
+
+
+def _state_equal(a, b):
+    assert a.step == b.step
+    for x, y in zip(list(a.params.parameters())
+                    + list(a.points.trainable().values()),
+                    list(b.params.parameters())
+                    + list(b.points.trainable().values())):
+        assert torch.equal(x, y)
+    for oa, ob in ((a.opt_fields, b.opt_fields), (a.opt_points, b.opt_points)):
+        for pa, pb in zip(oa.param_groups[0]["params"],
+                          ob.param_groups[0]["params"]):
+            for k in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(oa.state[pa][k], ob.state[pb][k]), k
+
+
+def test_fit_resumes_from_checkpoint(s, tmp_path):
+    """tests/test_train_loop.py:238 in the port: the second call resumes
+    from step 2 and ends at 4; a third with max_steps 4 restores the
+    finished run bit for bit and takes no step; a re-save of step 4 is
+    idempotent."""
+    out = str(tmp_path / "run")
+    a = (s["pc"], s["tds"], s["params"], s["cloud"], out)
+    r1 = tloop.fit(*a, max_steps=2, save_freq=0, print_freq=1, device="cpu")
+    assert r1.state.step == 2
+    r2 = tloop.fit(*a, max_steps=4, save_freq=0, print_freq=1, device="cpu")
+    assert r2.state.step == 4
+    assert [rec["step"] for rec in r2.log] == [3, 4]
+    r3 = tloop.fit(*a, max_steps=4, save_freq=0, print_freq=1, device="cpu")
+    assert r3.log == [] and r3.state.step == 4
+    _state_equal(r3.state, r2.state)
+    tcio.save_train_state(os.path.join(out, "ckpt"), r3.state, 4)
+    assert tcio.latest_step(os.path.join(out, "ckpt")) == 4
+
+
+def test_fit_without_resume_trains_again(s, tmp_path):
+    """With resume off, a second run on the same out_dir ignores the
+    first run's final checkpoint: it takes every step again, lands on the
+    same state, and replaces the save."""
+    out = str(tmp_path / "run")
+    a = (s["pc"], s["tds"], s["params"], s["cloud"], out)
+    r1 = tloop.fit(*a, max_steps=2, print_freq=1, resume=False,
+                   device="cpu")
+    assert tcio.latest_step(os.path.join(out, "ckpt")) == 2
+    r2 = tloop.fit(*a, max_steps=2, print_freq=1, resume=False,
+                   device="cpu")
+    assert [rec["step"] for rec in r2.log] == [1, 2] and r2.state.step == 2
+    _state_equal(r2.state, r1.state)
+    assert tcio.latest_step(os.path.join(out, "ckpt")) == 2
+
+
+def test_fit_evaluates_and_checkpoints(s, tmp_path):
+    """tests/test_train_loop.py:99 in the port (legacy step): the eval
+    cadence fills eval_history (steps 3 and 6, then the final evaluation),
+    the metrics are finite, and the final .pth reads back in the port and
+    in the reference."""
+    from pointnerf2studio_tpu.utils import checkpoint_io as jcio
+    cfg = with_train(s["pc"], fast_path=False)
+    out = str(tmp_path / "run")
+    res = tloop.fit(cfg, s["tds"], s["params"], s["cloud"], out, max_steps=6,
+                    print_freq=3, save_freq=0, eval_freq=3,
+                    eval_dataset=s["tds"], eval_views=[0], eval_chunk=128,
+                    device="cpu")
+    assert [r["step"] for r in res.eval_history] == [3, 6, 6]
+    assert np.isfinite(res.metrics["psnr"]) and res.metrics == {
+        k: v for k, v in res.eval_history[-1].items()
+        if k not in ("step", "wall_s")}
+    step, _ = res.time_to_psnr(-1.0)
+    assert step == 3 and res.time_to_psnr(1e9) is None
+    path = os.path.join(out, "6_net_ray_marching.pth")
+    params, cloud = tcio.load_reference_checkpoint(path, cfg.agg,
+                                                   device="cpu")
+    assert torch.equal(params.mlp_base[0].weight,
+                       res.state.params.mlp_base[0].weight)
+    assert torch.equal(cloud.points_embeding,
+                       res.state.points.points_embeding.detach())
+    jp, jc = jcio.load_reference_checkpoint(path)
+    np.testing.assert_array_equal(
+        np.asarray(jc.points_conf),
+        res.state.points.points_conf.detach().numpy())
+
+
+def test_fit_grows_points(s, tmp_path):
+    """A hole cut through the sphere in the student's cloud against views
+    of the whole sphere: the growth events at steps 2 and 4 fill
+    grow_history, the first grows points, and n_alive rises by the grown
+    count."""
+    xyz = s["cloud"].xyz
+    hole = torch.linalg.norm(xyz[:, :2], dim=-1) < 0.2
+    cloud = dataclasses.replace(s["cloud"], alive=s["cloud"].alive & ~hole)
+    cfg = with_train(
+        s["pc"], prob_freq=2, prob_thresh=0.05, prob_mul=0.4, prob_num_step=2,
+        color_loss_items=("ray_masked_coarse_raycolor",
+                          "ray_miss_coarse_raycolor"),
+        color_loss_weights=(1.0, 1.0))
+    res = tloop.fit(cfg, s["tds"], s["params"], cloud, str(tmp_path),
+                    max_steps=4, print_freq=2, save_freq=0, device="cpu",
+                    eval_chunk=128)
+    h = res.grow_history
+    assert [r["step"] for r in h] == [2, 4]
+    assert h[0]["grown_points"] > 0
+    assert h[0]["n_alive"] == int(cloud.alive.sum()) + h[0]["grown_points"]
+    assert int(res.state.points.num_alive) == h[-1]["n_alive"]
+    assert any("grown_points" in rec for rec in res.log)
+
+
+def test_probe_views_by_miss():
+    pairs = [(torch.tensor(0), torch.tensor(0.5)),
+             (torch.tensor(2), torch.tensor(0.9)),
+             (1, torch.tensor(0.2)), (torch.tensor(0), torch.tensor(0.1))]
+    # the last loss of a view counts: view 0 now 0.1
+    assert tloop.probe_views_by_miss(pairs, 2, 5, 7) == [2, 1]
+    rest = [int(v) for v in np.random.default_rng(7).permutation(5)
+            if v != 2][:2]
+    assert tloop.probe_views_by_miss(pairs[1:2], 3, 5, 7) == [2] + rest
+    assert tloop.probe_views_by_miss([], 2, 5, 7) == [
+        int(v) for v in np.random.default_rng(7).permutation(5)][:2]
 
 
 UNPORTED_RENDER = {
