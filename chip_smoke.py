@@ -108,6 +108,45 @@ ray budget measured on the frame as the JAX bench sizes them:
      without a step, and with max_steps 110 resumes at 101; the `.pth`
      export read back bit for bit; view 0 evaluated through the legacy
      renderer and through `render_frame` within 0.5 dB of PSNR.
+ 12. plane: the plane background (`models/bg_plane.py`) on the chair: 4
+     views of 400x400 on the chair's ring rendered by `render_frame` through
+     the fused chunk (#5) and composited over a ground plane of colour
+     (0.5, 0.5, 0.5) at z = -1 (normal (0, 0, -1), which every ray of these
+     views meets with dot >= 1e-3); `create_all_bg` on the card against
+     the same call on the host (pixels apart by more than 1e-5, ceil flips,
+     at most 0.1%; at least half the plane's pixels valid); 50 steps of
+     `fit(bgmodel="plane")` on the fast step and on the legacy step from
+     the scene's weights with 10% noise, each loss falling, the legacy
+     run's evaluation through #3 and, after the fast run, view 0 through
+     `render_frame` and #5 with the plane's background.
+ 13. large scene: the reference's ScanNet stress room
+     (`tools/stress_scannet_scale.py`: 2,000,000 points, vsize 0.008 x
+     vscale 2, D 288, SR 24, K 8, max_o 4M, cand_cap 32, compact budget 8,
+     24 slots a ray, fast_chunk 4096, a bf16 aggregator at full width,
+     density bias +5, near 0.2, far 9.0) on the hash grid: its build
+     (dims, n_occ, n_q, buckets, table bytes, seconds) against the dense
+     grid of the same cloud (n_occ and n_q equal, `table_qslot` equal to
+     the dense qslot table on every voxel of the box); the hash fat cache
+     against the dense one, bit for bit on the first n_q rows; the 640x480
+     frame from (0, -2.4, 1.4) at focal 580 through the XLA route in
+     65,536-ray chunks at SR slots a ray (M cannot cut a sample) on both
+     caches, bit-equal, counters zero, #1 once a chunk, timed in turns;
+     the qslot lookup of chunk 0's samples through each table (device ms,
+     and the hash walk's peak memory); the
+     same frame with `fused_decode2` (#4) within ATOL / MEAN_TOL of it, #4
+     against its plain version; 10 views inside the room (8 of 640x480
+     to train, 2 of 320x240 held out) rendered by `render_frame` through
+     the dense twin's fused chunk (#5); a far cluster (the first 50,000
+     points + 41 m on each axis): the dense build refuses it,
+     `grid_mode="auto"` gives the hash grid with the room's ranges_min,
+     the room's cache rows unchanged, the frame equal to the room frame
+     bit for bit; `fit()` on the hash grid
+     100 steps of 4,096 rays (masked colour loss down at least 2x, #1 once
+     a step, evaluations at 50 and 100 through `render_frame` on the hash
+     cache) from the teacher's weights with the colour head's bias lowered
+     by 0.5, and `fit(grid_mode="dense")` twice from the same start: the
+     first step bit-equal, the loss gaps after 100 steps printed; it/s,
+     peak device memory, PSNR.
 
 The launch counts are set to 0 just before each path and read just
 after it. It fails (non-zero exit, no result line) when there is no
@@ -125,8 +164,8 @@ frame it is held to, when first_valid_cols is launched behind the march
 or the raster, or when a path's first chunk rendered through the kernels
 differs from the same chunk rendered through the plain versions
 (ray_mask exactly, colour within the same bound), when a check of the
-payload phase, of the train phase, of the legacy phase or of the structure
-phase fails. Printed
+payload phase, of the train phase, of the legacy phase, of the structure
+phase, of the plane phase or of the large-scene phase fails. Printed
 before the last line: the card's name and power limit, build and phase times, each
 kernel's and its plain version's time at its path's shapes beside the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -162,7 +201,9 @@ paths' inputs: what each part costs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import pathlib
@@ -199,6 +240,23 @@ STRUCT_WEDGE_DEG, STRUCT_STEPS, STRUCT_MAXQ_MARGIN = 40.0, 100, 65_536
 # the structure phase's scales of the scene's random weights (see
 # structure_phase): mlp_base's first layer, the density head
 STRUCT_BASE_SCALE, STRUCT_DENSITY_SCALE, STRUCT_LR_SCALE = 4.0, 30.0, 0.1
+# the large-scene phase: the reference's ScanNet stress room
+# (tools/stress_scannet_scale.py), its voxel and depth, its frame, the train
+# views, fit()'s steps, the far cluster (points, metres on each axis) and
+# the student's start: the teacher's weights with the colour head's output
+# bias lowered by ROOM_COLOUR_SHIFT (at random weights the colour of every
+# ray is close to the same grey, so noise on the weights barely moves the
+# loss, and steps from there only add noise)
+ROOM_POINTS, ROOM_VSIZE, ROOM_D = 2_000_000, 0.008, 288
+ROOM_H, ROOM_W, ROOM_FOCAL = 480, 640, 580.0
+ROOM_VIEWS, ROOM_STEPS, ROOM_COLOUR_SHIFT = 8, 100, 0.5
+ROOM_FAR_POINTS, ROOM_FAR_SHIFT = 50_000, 41.0
+# the plane phase: its views (pixels a side, focal), fit()'s steps, the
+# relative noise on the student's weights and the ground plane under the
+# chair
+PLANE_HW, PLANE_FOCAL, PLANE_STEPS, PLANE_PERTURB = 400, FOCAL / 2, 50, 0.1
+PLANE_PNT, PLANE_NORMAL = (0.0, 0.0, -1.0), (0.0, 0.0, -1.0)
+PLANE_COLOUR = (0.5, 0.5, 0.5)
 # the card's published peaks (H100 SXM): device memory bytes/s and dense
 # bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
@@ -2224,6 +2282,725 @@ def structure_phase(c) -> dict:
         eval_launches=ev_l)
 
 
+def make_room_cloud(n_points: int, seed: int = 0):
+    """The reference's ScanNet-scale room (tools/stress_scannet_scale.py:
+    50-100, numpy): points on the walls, floor and ceiling of a 6 x 6 x 3 m
+    room and on 24 furniture boxes, with 2 mm noise. Returns the arrays of
+    `neural_points.from_arrays` (xyz, embedding, conf, dir, colour)."""
+    rng = np.random.default_rng(seed)
+    hx = hy = hz = 3.0
+    n_wall = int(n_points * 0.75)
+    n_blob = n_points - n_wall
+    faces, areas = [], []
+    for z in (0.0, hz):
+        faces.append(("z", z))
+        areas.append(4 * hx * hy)
+    for x in (-hx, hx):
+        faces.append(("x", x))
+        areas.append(2 * hy * hz)
+    for y in (-hy, hy):
+        faces.append(("y", y))
+        areas.append(2 * hx * hz)
+    areas = np.asarray(areas) / np.sum(areas)
+    counts = rng.multinomial(n_wall, areas)
+    pts = []
+    for (axis, v), c in zip(faces, counts):
+        u = rng.uniform(-1, 1, (c, 2))
+        if axis == "z":
+            p = np.stack([u[:, 0] * hx, u[:, 1] * hy, np.full(c, v)], -1)
+        elif axis == "x":
+            p = np.stack([np.full(c, v), u[:, 0] * hy,
+                          (u[:, 1] * 0.5 + 0.5) * hz], -1)
+        else:
+            p = np.stack([u[:, 0] * hx, np.full(c, v),
+                          (u[:, 1] * 0.5 + 0.5) * hz], -1)
+        pts.append(p)
+    per = n_blob // 24
+    for _ in range(24):
+        c = rng.uniform([-2.5, -2.5, 0.1], [2.5, 2.5, 1.2])
+        half = rng.uniform(0.15, 0.6, 3)
+        face = rng.integers(0, 3, per)
+        sgn = rng.choice([-1.0, 1.0], per)
+        u = rng.uniform(-1, 1, (per, 3)) * half
+        p = c + u
+        p[np.arange(per), face] = c[face] + sgn * half[face]
+        pts.append(p)
+    xyz = np.concatenate(pts, 0)[:n_points].astype(np.float32)
+    n = xyz.shape[0]
+    xyz += rng.normal(0, 0.002, xyz.shape).astype(np.float32)
+    colors = (np.abs(np.sin(xyz * 3.0)) * 0.8 + 0.1).astype(np.float32)
+    dirs = rng.standard_normal((n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    emb = (rng.standard_normal((n, 32)) * 0.1).astype(np.float32)
+    conf = np.full((n, 1), 0.8, np.float32)
+    return xyz, emb, conf, dirs, colors
+
+
+def room_config():
+    """The stress tool's configuration (tools/stress_scannet_scale.py:
+    140-153): the ScanNet preset's voxel (0.008, vscale 2), SR 24, K 8,
+    P 12, max_o 4M, D 288 over the room's ranges, cand_cap 32, compact
+    budget 8, 24 slots a ray, fast_chunk 4096, the hash grid and a bf16
+    aggregator at full width; near 0.2, far 9.0. The column selection
+    runs through the kernel (select_mode "pallas")."""
+    from pointnerf2studio_torch.config import (
+        AggregatorConfig, PointNerfConfig, QueryConfig)
+    return PointNerfConfig(
+        query=QueryConfig(
+            vsize=(ROOM_VSIZE,) * 3, vscale=(2, 2, 2), SR=24, K=8, P=12,
+            max_o=4_000_000, z_depth_dim=ROOM_D,
+            ranges=(-3.2, -3.2, -0.2, 3.2, 3.2, 3.2), cand_cap=32,
+            use_cache=False, compact_budget=8, ray_slot_budget=24,
+            fast_chunk=4096, grid_mode="hash", select_mode="pallas"),
+        agg=AggregatorConfig(compute_dtype="bfloat16"),
+        near_plane=0.2, far_plane=9.0)
+
+
+def room_pose(az_deg: float, pos=None):
+    """c2w [4, 4] of a level camera in the room looking at azimuth
+    `az_deg` (0: along +y; rotation [[1, 0, 0], [0, 0, 1], [0, -1, 0]]),
+    at `pos`, by default 1.2 m behind the room's centre at height 1.4."""
+    az = np.deg2rad(az_deg)
+    fwd = np.array([np.sin(az), np.cos(az), 0.0])
+    right = np.array([np.cos(az), -np.sin(az), 0.0])
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = np.stack([right, [0.0, 0.0, -1.0], fwd], -1)
+    pose[:3, 3] = (pos if pos is not None
+                   else np.array([0.0, 0.0, 1.4]) - 1.2 * fwd)
+    return pose
+
+
+def large_scene_phase(c) -> dict:
+    """The large-scene route on the 2M-point room at the ScanNet preset's
+    voxel (section "large scene" of the module docstring). Returns the
+    phase's numbers and the launches of first_valid_cols and
+    fused_decode2 on it."""
+    import torch
+    from pointnerf2studio_torch.config import TrainConfig
+    from pointnerf2studio_torch.data.blender import BlenderDataset
+    from pointnerf2studio_torch.data.synthetic import camera_rays
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.models import neural_points as npts
+    from pointnerf2studio_torch.models.aggregator import Aggregator
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.ops import fused_decode as fd
+    from pointnerf2studio_torch.ops import grid as gr
+    from pointnerf2studio_torch.ops import hash_grid as hgm
+    from pointnerf2studio_torch.ops.select import (
+        first_valid_cols, first_valid_cols_reference)
+    from pointnerf2studio_torch.train import loop
+
+    dev, smi = c.dev, c.smi
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = room_config()
+    q = cfg.query
+    arrays = make_room_cloud(ROOM_POINTS, seed=0)
+    n_pts = arrays[0].shape[0]
+    cloud = npts.from_arrays(*arrays, device=dev)
+    teacher = Aggregator(cfg.agg, seed=0, device=dev)
+    with torch.no_grad():
+        teacher.density_head[0].bias += 5.0
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ---- the grids: the hash grid and the dense grid of the same cloud
+    hg, t_hash = timed(lambda: hgm.build_hash_grid_from_points(
+        cloud.xyz, cloud.alive, q))
+    _, t_hash2 = timed(lambda: hgm.build_hash_grid_from_points(
+        cloud.xyz, cloud.alive, q))
+    n_occ, n_q = int(hg.n_occ), int(hg.n_q)
+    log(f"large scene: {n_pts} points of the room, vsize {q.vsize[0]} x "
+        f"vscale 2; hash grid logical dims {hg.dims}, n_occ {n_occ}, n_q "
+        f"{n_q}, B {hg.n_buckets} x S {hg.bucket_slots}, overflow "
+        f"{int(hg.overflow)}, table {nbytes(hg.table)} B; built in "
+        f"{t_hash:.3f} s (again {t_hash2:.3f} s)")
+    if int(hg.overflow):
+        fail("large scene: the hash grid overflowed")
+    cfg_d = dataclasses.replace(cfg, query=dataclasses.replace(
+        q, grid_mode="dense"))
+    grid, t_dense = timed(lambda: gr.build_grid_from_points(
+        cloud.xyz, cloud.alive, cfg_d.query))
+    n_q_dense = int(grid.coor_occ.sum())
+    log(f"large scene: dense grid {grid.dims} ({grid.coor_occ.numel()} "
+        f"voxels), n_occ {int(grid.n_occ)}, n_q {n_q_dense}, built in "
+        f"{t_dense:.3f} s")
+    if (grid.dims != hg.dims or int(grid.n_occ) != n_occ
+            or n_q_dense != n_q):
+        fail("large scene: the hash and dense grids differ in dims, n_occ "
+             "or n_q")
+
+    # ---- the caches: the hash fat cache and the dense one
+    (hcache, rmin, svs), t_hc = timed(
+        lambda: fr.make_hash_fast_scene(cfg, cloud, hg))
+    (dcache, drmin, dsvs), t_dc = timed(
+        lambda: fr.make_fast_scene(cfg_d, cloud, grid,
+                                   max_q=hcache.max_q))
+    cache_bytes = nbytes(hcache.kmeta, hcache.kcand, hcache.kxyz)
+    log(f"large scene: hash fat cache max_q {hcache.max_q}, C "
+        f"{hcache.cand}: kmeta + kcand + kxyz {cache_bytes} B "
+        f"({cache_bytes / hcache.max_q / hcache.cand:.1f} B a candidate), "
+        f"built in {t_hc:.2f} s; the dense build {t_dc:.2f} s")
+    if not torch.equal(rmin, drmin):
+        fail("large scene: the two grids' ranges_min differ")
+    for f in ("kmeta", "kcand", "kxyz"):
+        a, b = getattr(hcache, f)[:n_q], getattr(dcache, f)[:n_q]
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        if not torch.equal(a, b):
+            fail(f"large scene: the hash cache's {f} differs from the "
+                 f"dense cache's on the first n_q rows")
+    # table_qslot on every voxel of the dense box against the qslot table
+    gx, gy, gz = grid.dims
+    yz = torch.stack(torch.meshgrid(
+        torch.arange(gy, device=dev), torch.arange(gz, device=dev),
+        indexing="ij"), -1)
+    n_diff = 0
+    t0 = time.perf_counter()
+    for x0 in range(0, gx, 32):
+        xs = torch.arange(x0, min(x0 + 32, gx), device=dev)
+        co = torch.cat([xs[:, None, None, None].expand(-1, gy, gz, 1),
+                        yz.expand(xs.shape[0], gy, gz, 2)], -1)
+        qv = hgm.table_qslot(hg.table, co,
+                             torch.ones(co.shape[:-1], dtype=torch.bool,
+                                        device=dev))
+        n_diff += int((qv != dcache.coor_2_qslot[x0:x0 + 32]).sum())
+    torch.cuda.synchronize()
+    log(f"large scene: table_qslot on all {gx * gy * gz} voxels of the "
+        f"dense box against coor_2_qslot: {n_diff} differ "
+        f"({time.perf_counter() - t0:.2f} s); caches bit-equal on the "
+        f"first {n_q} rows")
+    if n_diff:
+        fail("large scene: table_qslot differs from the dense qslot table")
+
+    # ---- the frame: 640x480 through the XLA route on both caches
+    campos = torch.tensor([0.0, -2.4, 1.4], device=dev)
+    camrot = torch.as_tensor(room_pose(0.0)[:3, :3], device=dev)
+    rays = camera_rays(camrot, ROOM_H, ROOM_W, ROOM_FOCAL)
+    near, far = cfg.near_plane, cfg.far_plane
+    R = rays.shape[0]
+    n_ch = -(-R // CHUNK)
+    dw = fr.measured_depth_window(campos, rays, near, far, q.z_depth_dim,
+                                  rmin, hg.dims, svs)
+    # the frame's chunks take SR slots a ray (compact budget 24 = BP), so
+    # that M cannot cut a sample: each ray's output is then its exact
+    # render, and the frames of two caches compare bit for bit
+    cfg_f = dataclasses.replace(cfg, query=dataclasses.replace(
+        q, depth_window=dw, compact_budget=q.ray_slot_budget))
+
+    def frame(cache, cf, rm=rmin, sv=svs, params=teacher):
+        return [fr.fast_render_rays(
+            params, cloud.Rw2c, cache, campos, camrot,
+            rays[i * CHUNK:(i + 1) * CHUNK], near, far, cf, rm, sv)
+            for i in range(n_ch)]
+
+    def gather(outs):
+        cat = {f: torch.cat([getattr(o, f) for o in outs])
+               for f in ("coarse_raycolor", "ray_mask", "acc", "depth")}
+        ctr = {f: sum(int(getattr(o, f)) for o in outs
+                      if getattr(o, f) is not None)
+               for f in ("dw_overflow", "rb_overflow", "cb_overflow")}
+        return cat, ctr
+
+    captured = {}
+    orig_sel = fr.select_first_cols
+
+    def capture_sel(qs_, BP_, cap_, mode_):
+        captured.setdefault("qs", (qs_, BP_))
+        return orig_sel(qs_, BP_, cap_, mode_)
+
+    fr.select_first_cols = capture_sel
+    _cuda.LAUNCHES.clear()
+    try:
+        outs_h, t_first = timed(lambda: frame(hcache, cfg_f))
+    finally:
+        fr.select_first_cols = orig_sel
+    launch_h = dict(_cuda.LAUNCHES)
+    fh, ctr_h = gather(outs_h)
+    outs_d, t_first_d = timed(lambda: frame(dcache, cfg_f))
+    fd_, ctr_d = gather(outs_d)
+    hit = float(fh["ray_mask"].float().mean())
+    # the samples the tool's compact budget (8 slots a ray on average)
+    # would cut from this frame's chunks: its train batches run at it
+    n_valid = [int(o.n_valid_slots) for o in outs_h]
+    n_cut = sum(max(0, n - CHUNK * q.compact_budget) for n in n_valid)
+    log(f"large scene frame {ROOM_W}x{ROOM_H} (focal {ROOM_FOCAL}, depth "
+        f"window {dw} of D {q.z_depth_dim}) on the hash cache: first pass "
+        f"{t_first:.2f} s, launches {launch_h}, counters {ctr_h}, ray_mask "
+        f"share {hit:.4f}, mean acc {float(fh['acc'].mean()):.4f}; dense "
+        f"counters {ctr_d}")
+    check_launches("large scene hash frame", launch_h,
+                   {"first_valid_cols": n_ch})
+    if any(ctr_h.values()) or any(ctr_d.values()):
+        fail(f"large scene: non-zero counters {ctr_h} / {ctr_d}")
+    if not all(torch.equal(fh[k], fd_[k]) for k in fh):
+        fail("large scene: the hash frame differs from the dense frame")
+    if not (torch.isfinite(fh["coarse_raycolor"]).all() and hit > 0.5):
+        fail(f"large scene: implausible frame (ray_mask share {hit:.4f})")
+    qs, BP = captured["qs"]
+    sel_k, sel_p = first_valid_cols(qs, BP), first_valid_cols_reference(qs,
+                                                                        BP)
+    if not all(torch.equal(a, b) for a, b in zip(sel_k, sel_p)):
+        fail("large scene: first_valid_cols differs from its plain version")
+    t_sel = rotating_ms(lambda x: first_valid_cols(x, BP), qs)
+    t_sel_p = cuda_ms(lambda: first_valid_cols_reference(qs, BP), 5, 1)
+    b_sel = bound(nbytes(qs) + qs.shape[0] * (BP + 1) * 4, 0)
+    # the frames' times: the first passes above, in turns
+    frame_ms = {"hash": t_first * 1e3, "dense": t_first_d * 1e3}
+    # the lookup alone on chunk 0's window of samples: the hash table's
+    # walk against the dense table's gather, device time and the walk's
+    # memory beyond its input
+    t_w = near + (torch.arange(dw, device=dev, dtype=torch.float32)
+                  + 0.5) * ((far - near) / q.z_depth_dim)
+    pos0 = campos + rays[:CHUNK, None, :] * t_w[None, :, None]
+    qs_h = fr.qslot_lookup(hcache, pos0, rmin, svs)
+    if not torch.equal(qs_h, fr.qslot_lookup(dcache, pos0, rmin, svs)):
+        fail("large scene: the hash lookup differs from the dense lookup")
+    del qs_h
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fr.qslot_lookup(hcache, pos0, rmin, svs)
+    torch.cuda.synchronize()
+    lookup_bytes = torch.cuda.max_memory_allocated() - base
+    lookup_ms = {"hash": cuda_ms(lambda: fr.qslot_lookup(
+        hcache, pos0, rmin, svs), 5, 1, queued=True),
+                 "dense": cuda_ms(lambda: fr.qslot_lookup(
+        dcache, pos0, rmin, svs), 5, 1, queued=True)}
+    n_smp = pos0.shape[0] * pos0.shape[1]
+    log(f"large scene: the lookup of chunk 0's {n_smp} samples: hash "
+        f"{lookup_ms['hash']:.2f} ms, dense {lookup_ms['dense']:.2f} ms "
+        f"(queued); the hash walk allocates {lookup_bytes} B at its peak "
+        f"({lookup_bytes / n_smp:.1f} B a sample; its output "
+        f"{4 * n_smp} B)")
+    del pos0
+    log(f"large scene: {sum(n_valid)} valid samples ({sum(n_valid) / R:.2f} "
+        f"a ray); at the tool's compact budget {q.compact_budget} M would "
+        f"cut {n_cut} of them")
+    log(f"large scene: hash frame == dense frame bit for bit; frame ms in "
+        f"turns: hash {frame_ms['hash']:.1f}, dense {frame_ms['dense']:.1f}, "
+        f"hash / dense {frame_ms['hash'] / frame_ms['dense']:.3f} ({smi}); "
+        f"first_valid_cols == plain on qs {tuple(qs.shape)}: "
+        f"{t_sel:.4f} ms, plain {t_sel_p:.4f} ms, bound {b_sel[0]:.4f} ms")
+    if c.prof_dir:
+        profile_pass("room_hash_frame", lambda: frame(hcache, cfg_f),
+                     frame_ms["hash"], c.prof_dir)
+
+    # ---- fused_decode2 on the hash route, held to the plain decode
+    cfg_k = dataclasses.replace(cfg_f, agg=dataclasses.replace(
+        cfg.agg, fused_decode2=True))
+    orig_kacc = fd.kacc_tower
+
+    def capture_kacc(*a, **k):
+        captured.setdefault("kacc", (a, k))
+        return orig_kacc(*a, **k)
+
+    fd.kacc_tower = capture_kacc
+    _cuda.LAUNCHES.clear()
+    try:
+        outs_k, t_fk = timed(lambda: frame(hcache, cfg_k))
+    finally:
+        fd.kacc_tower = orig_kacc
+    t_fk *= 1e3
+    fk, ctr_k = gather(outs_k)
+    launch_k = dict(_cuda.LAUNCHES)
+    d_k = (fk["coarse_raycolor"] - fh["coarse_raycolor"]).abs()
+    log(f"large scene: hash frame with fused_decode2: launches {launch_k}, "
+        f"counters {ctr_k}; against the decode_radiance frame: ray_mask "
+        f"equal {bool(torch.equal(fk['ray_mask'], fh['ray_mask']))}, colour "
+        f"max |diff| {float(d_k.max()):.3e}, mean {float(d_k.mean()):.3e}")
+    if (launch_k.get("fused_decode2", 0) < n_ch
+            or launch_k.get("first_valid_cols", 0) != n_ch):
+        fail(f"large scene: fused_decode2 / first_valid_cols launches "
+             f"{launch_k}")
+    if (any(ctr_k.values()) or not torch.equal(fk["ray_mask"], fh["ray_mask"])
+            or float(d_k.max()) > ATOL or float(d_k.mean()) >= MEAN_TOL):
+        fail("large scene: the fused_decode2 frame disagrees with the plain "
+             "decode frame")
+    kacc_a, kacc_k = captured["kacc"]
+    kacc_err = tower_check("fused_decode2 (room)", fd.kacc_tower,
+                           fd.kacc_tower_reference, kacc_a, kacc_k)
+    t_ka = cuda_ms(lambda: fd.kacc_tower(*kacc_a, **kacc_k), 10, 2)
+    t_ka_p = cuda_ms(lambda: fd.kacc_tower_reference(*kacc_a, **kacc_k), 2, 1)
+    b_ka = tower_bound(kacc_a, fd.kacc_tower(*kacc_a, **kacc_k))
+    log(f"large scene: fused_decode2 on M={kacc_a[1].shape[0]}: "
+        f"{t_ka:.3f} ms, plain {t_ka_p:.3f} ms, bound {b_ka[0]:.4f} ms; "
+        f"frame with it {t_fk:.1f} ms")
+
+    # ---- ground truth: 8 train views and 2 held-out views (at half the
+    # size, the same field of view) through the dense fused chunk (the
+    # teacher's weights)
+    def views(poses_, h, w, focal, split):
+        intr = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]],
+                        np.float32)
+        return BlenderDataset(
+            images=np.zeros((len(poses_), h, w, 3), np.float32),
+            poses=np.stack(poses_), intrinsics=intr, near=near, far=far,
+            split=split)
+
+    ds = views([room_pose(45.0 * v) for v in range(ROOM_VIEWS)], ROOM_H,
+               ROOM_W, ROOM_FOCAL, "train")
+    ds_eval = views([room_pose(22.5), room_pose(202.5)], ROOM_H // 2,
+                    ROOM_W // 2, ROOM_FOCAL / 2, "test")
+    cfg_gt = dataclasses.replace(cfg, query=dataclasses.replace(
+        q, chunk_mode="fused"))
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for d in (ds, ds_eval):
+        for v in range(d.num_views):
+            rv = d.full_image_rays(v)
+            o = fr.render_frame(
+                teacher, cloud.Rw2c, dcache,
+                torch.as_tensor(d.campos(v), device=dev),
+                torch.as_tensor(d.camrotc2w(v), device=dev),
+                torch.as_tensor(rv, device=dev), near, far, cfg_gt, drmin,
+                dsvs, host_rays=rv)
+            if any(int(getattr(o, f) or 0) for f in ("dw_overflow",
+                                                     "cb_overflow")):
+                fail(f"large scene: ground-truth view {v} counters non-zero")
+            d.images[v] = o.coarse_raycolor.cpu().numpy().reshape(
+                d.images.shape[1:])
+    torch.cuda.synchronize()
+    launch_gt = dict(_cuda.LAUNCHES)
+    n_gt = ds.num_views + ds_eval.num_views
+    log(f"large scene: {n_gt} ground-truth views ({ds.num_views} of "
+        f"{ROOM_W}x{ROOM_H}, {ds_eval.num_views} held out of "
+        f"{ROOM_W // 2}x{ROOM_H // 2}) through the dense fused chunk in "
+        f"{time.perf_counter() - t0:.2f} s; launches {launch_gt}")
+    if launch_gt.get("fused_chunk_decode", 0) < n_gt:
+        fail("large scene: the ground truth did not run the fused chunk")
+    del dcache, grid
+    torch.cuda.empty_cache()
+
+    # ---- the huge extent: a far cluster 41 m off on every axis
+    big = tuple(np.concatenate([a, a[:ROOM_FAR_POINTS]]) for a in arrays)
+    big[0][n_pts:] += np.float32(ROOM_FAR_SHIFT)
+    far_max = ROOM_FAR_SHIFT + 9.0
+    q_big = dataclasses.replace(q, grid_mode="auto", ranges=(
+        -3.2, -3.2, -0.2, far_max, far_max, far_max))
+    cloud_big = npts.from_arrays(*big, device=dev)
+    try:
+        gr.build_grid_from_points(cloud_big.xyz, cloud_big.alive, q_big)
+        fail("large scene: the dense build took the huge extent")
+    except ValueError as e:
+        log(f"large scene: the dense build refuses the huge extent ({e})")
+    hg_big, t_big = timed(lambda: hgm.build_query_grid(
+        cloud_big.xyz, cloud_big.alive, q_big))
+    if not isinstance(hg_big, hgm.HashGrid) or not torch.equal(
+            hg_big.ranges_min, hg.ranges_min):
+        fail("large scene: grid_mode auto did not give the hash grid with "
+             "the room's ranges_min")
+    cfg_big = dataclasses.replace(cfg, query=q_big)
+    hcache_big, big_rmin, big_svs = fr.make_hash_fast_scene(
+        cfg_big, cloud_big, hg_big)
+    for f in ("kmeta", "kcand", "kxyz"):
+        a, b = getattr(hcache_big, f)[:n_q], getattr(hcache, f)[:n_q]
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        if not torch.equal(a, b):
+            fail(f"large scene: the huge extent's {f} differs from the "
+                 f"room's on the room's qslots")
+    dw_big = fr.measured_depth_window(campos, rays, near, far,
+                                      q.z_depth_dim, big_rmin, hg_big.dims,
+                                      big_svs)
+    cfg_fb = dataclasses.replace(cfg_big, query=dataclasses.replace(
+        q_big, depth_window=dw_big, compact_budget=q.ray_slot_budget))
+    fb, ctr_b = gather(frame(hcache_big, cfg_fb, big_rmin, big_svs))
+    log(f"large scene: huge extent, dims {hg_big.dims} "
+        f"({float(np.prod(hg_big.dims)):.3e} voxels), n_occ "
+        f"{int(hg_big.n_occ)}, n_q {int(hg_big.n_q)}, table "
+        f"{nbytes(hg_big.table)} B, built in {t_big:.3f} s; its frame at "
+        f"depth window {dw_big}: counters {ctr_b}")
+    if any(ctr_b.values()) or not all(torch.equal(fb[k], fh[k]) for k in fh):
+        fail("large scene: the huge-extent frame differs from the room "
+             "frame")
+    log("large scene: huge-extent frame == room frame bit for bit; the "
+        "room's rows of both caches bit-equal")
+    huge = {"dims": list(hg_big.dims), "n_q": int(hg_big.n_q),
+            "build_s": t_big, "depth_window": dw_big}
+    del hcache_big, hg_big, cloud_big
+    torch.cuda.empty_cache()
+
+    # ---- fit() on the hash grid from perturbed weights, and the dense
+    # grid from the same start
+    student = Aggregator(cfg.agg, seed=0, device=dev)
+    with torch.no_grad():
+        student.density_head[0].bias += 5.0
+        student.color_head[0].bias -= ROOM_COLOUR_SHIFT
+    cfg_t = dataclasses.replace(cfg, train=TrainConfig(
+        rays_per_batch=TRAIN_RAYS, jitter=0.0, lr_fields=5e-4,
+        lr_points=2e-3, fast_path=True, device_sampling=True, prune_iter=0,
+        prob_freq=0, march_auto=False))
+    runs = {}
+    for name, mode, ev in (("hash", "hash", True), ("dense", "dense", False),
+                           ("dense_again", "dense", False)):
+        out_dir = f"build/room_{name}"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        cf = dataclasses.replace(cfg_t, query=dataclasses.replace(
+            cfg_t.query, grid_mode=mode))
+        _cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        # a log record every step (the first step is compared); the
+        # logger's own line for each goes to a buffer
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = loop.fit(cf, ds, student, cloud, out_dir,
+                           max_steps=ROOM_STEPS, print_freq=1, save_freq=0,
+                           seed=3, device=dev,
+                           eval_freq=ROOM_STEPS // 2 if ev else 0,
+                           eval_dataset=ds_eval if ev else None,
+                           eval_chunk=CHUNK)
+        torch.cuda.synchronize()
+        shutil.rmtree(out_dir, ignore_errors=True)
+        steps_log = [r for r in res.log if "total" in r]
+        mloss = [r["ray_masked_coarse_raycolor_loss"] for r in steps_log]
+        first = {k: v for k, v in steps_log[0].items() if k != "it_per_sec"}
+        runs[name] = dict(
+            s=time.perf_counter() - t0, launches=dict(_cuda.LAUNCHES),
+            first=first, last_total=steps_log[-1]["total"],
+            fall=float(np.mean(mloss[:10]) / np.mean(mloss[-10:])),
+            ips=float(np.median([r["it_per_sec"] for r in steps_log[1:]])),
+            evals=[(e["step"], e["psnr"], e["wall_s"])
+                   for e in res.eval_history])
+        r = runs[name]
+        log(f"large scene fit {name}: {ROOM_STEPS} steps of {TRAIN_RAYS} rays "
+            f"in {r['s']:.1f} s (grid, caches and evaluations included), "
+            f"{r['ips']:.2f} it/s (median of the steps' windows); masked "
+            f"colour loss steps 1-10 {np.mean(mloss[:10]):.6f} -> steps "
+            f"{ROOM_STEPS - 9}-{ROOM_STEPS} {np.mean(mloss[-10:]):.6f} "
+            f"({r['fall']:.2f}x); evaluations (step, PSNR, s into the run) "
+            f"{r['evals']}; "
+            f"launches {r['launches']}")
+    h, d1, d2 = runs["hash"], runs["dense"], runs["dense_again"]
+    if h["first"] != d1["first"]:
+        fail(f"large scene: the first hash step {h['first']} differs from "
+             f"the first dense step {d1['first']}")
+    gap = abs(h["last_total"] - d1["last_total"])
+    gap_dd = abs(d1["last_total"] - d2["last_total"])
+    log(f"large scene: first step bit-equal on hash and dense; loss gap "
+        f"after {ROOM_STEPS} steps hash - dense {gap:.3e}, dense - dense "
+        f"{gap_dd:.3e}")
+    if h["fall"] < 2.0 or len(h["evals"]) != 3 or not all(
+            np.isfinite(e[1]) for e in h["evals"]):
+        fail(f"large scene: fit on the hash grid: the loss fell "
+             f"{h['fall']:.2f}x (at least 2x asked), evaluations "
+             f"{h['evals']}")
+    if h["launches"].get("first_valid_cols", 0) < ROOM_STEPS:
+        fail("large scene: first_valid_cols did not run every hash step")
+    prof = {}
+    if c.prof_dir:
+        # one hash train step split into forward, backward and update
+        from pointnerf2studio_torch.models import fast_train as ft
+        from pointnerf2studio_torch.train.loss import compute_losses
+        from pointnerf2studio_torch.train.trainer import (
+            apply_updates, create_train_state)
+        geo, grmin, gsvs = ft.make_hash_geo_scene(cfg_t, cloud, hg)
+        st = create_train_state(student, cloud, cfg_t)
+        g = torch.Generator(device=dev).manual_seed(5)
+        cp, cr, rd, gt, _ = loop.DeviceSampler(ds, TRAIN_RAYS, g).next_batch()
+        near_t = torch.tensor(near, device=dev)
+        far_t = torch.tensor(far, device=dev)
+
+        def fwd():
+            st.zero_grad()
+            return compute_losses(ft.fast_train_render(
+                st.params, st.points, geo, cp, cr, rd, near_t, far_t, cfg_t,
+                grmin, gsvs, generator=g), gt, cfg_t.train)[0]
+
+        prof = step_profile("room hash train step", fwd,
+                            lambda: apply_updates(st, cfg_t), c.prof_dir)
+        prof.pop("names", None)
+        del geo, st
+    peak = max(peak_before, torch.cuda.max_memory_allocated())
+    t_total = time.perf_counter() - t_phase
+    log(f"large scene phase: {t_total:.1f} s, peak device memory "
+        f"{peak} B ({smi})")
+    out = {
+        "points": n_pts, "dims": list(hg.dims), "n_occ": n_occ, "n_q": n_q,
+        "buckets": hg.n_buckets, "table_bytes": nbytes(hg.table),
+        "hash_build_s": [t_hash, t_hash2], "dense_build_s": t_dense,
+        "cache_bytes": cache_bytes, "cache_s": {"hash": t_hc, "dense": t_dc},
+        "depth_window": dw, "valid_samples": sum(n_valid),
+        "cut_at_tool_budget": n_cut, "frame_ms": frame_ms,
+        "lookup_ms": lookup_ms, "lookup_bytes": lookup_bytes,
+        "fused_decode2_frame_ms":
+        t_fk, "huge": huge, "peak_bytes": peak, "s": t_total,
+        "fit": {k: {x: v[x] for x in ("s", "ips", "fall", "evals",
+                                      "last_total")}
+                for k, v in runs.items()},
+        "loss_gap": {"hash_dense": gap, "dense_dense": gap_dd},
+        "select": dict(launches=launch_h["first_valid_cols"]
+                       + h["launches"].get("first_valid_cols", 0),
+                       frame=launch_h["first_valid_cols"],
+                       fit=h["launches"].get("first_valid_cols", 0),
+                       ms=t_sel, plain_ms=t_sel_p, bound_ms=b_sel[0],
+                       qs=list(qs.shape)),
+        "kacc": dict(launches=launch_k["fused_decode2"], ms=t_ka,
+                     plain_ms=t_ka_p, bound_ms=b_ka[0], max_abs_err=kacc_err,
+                     M=kacc_a[1].shape[0]),
+        "chunk_gt": launch_gt.get("fused_chunk_decode", 0),
+        "profile_train_step": prof,
+    }
+    del hcache, hg, cloud
+    torch.cuda.empty_cache()
+    return out
+
+
+def plane_phase(c) -> dict:
+    """The plane background on the chair (section "plane" of the module
+    docstring). Returns the phase's numbers and its launches."""
+    import torch
+    from pointnerf2studio_torch.config import TrainConfig
+    from pointnerf2studio_torch.data.blender import BlenderDataset
+    from pointnerf2studio_torch.models import bg_plane as bp
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.models.aggregator import Aggregator
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.train import loop
+    from pointnerf2studio_torch.train.evaluator import evaluate_dataset
+
+    scene, dev, smi = c.scene, c.dev, c.smi
+    t_phase = time.perf_counter()
+    near, far = scene.near, scene.far
+    hw, foc = PLANE_HW, PLANE_FOCAL
+    pnt = torch.tensor(PLANE_PNT, device=dev)
+    normal = torch.tensor(PLANE_NORMAL, device=dev)
+    colour = torch.tensor(PLANE_COLOUR, device=dev)
+    bg0 = torch.tensor(c.cfg.bg_color, device=dev)
+    poses = np.stack([orbit_pose(30.0 + 90.0 * v) for v in range(4)])
+    intr = np.array([[foc, 0, hw / 2], [0, foc, hw / 2], [0, 0, 1]],
+                    np.float32)
+    ds = BlenderDataset(images=np.zeros((4, hw, hw, 3), np.float32),
+                        poses=poses, intrinsics=intr, near=near, far=far,
+                        split="train")
+    # ---- the dataset: teacher renders through the fused chunk, composited
+    # over the plane wherever a ray meets it
+    cfg_f = dataclasses.replace(c.cfg, query=dataclasses.replace(
+        c.cfg.query, depth_window=0, ray_budget=0))
+    plane_px = []
+    _cuda.LAUNCHES.clear()
+    for v in range(4):
+        rv = ds.full_image_rays(v)
+        rays = torch.as_tensor(rv, device=dev)
+        campos = torch.as_tensor(ds.campos(v), device=dev)
+        o = fr.render_frame(
+            scene.params, scene.cloud.Rw2c, c.cache, campos,
+            torch.as_tensor(ds.camrotc2w(v), device=dev), rays, near, far,
+            cfg_f, c.rmin, c.svs, host_rays=rv)
+        meets = bp.ray_plane_intersection(campos, rays, pnt, normal)[1]
+        gt = o.coarse_raycolor + torch.where(
+            meets[:, None], (1 - o.acc)[:, None] * (colour - bg0), 0.0)
+        ds.images[v] = gt.cpu().numpy().reshape(hw, hw, 3)
+        plane_px.append(meets.cpu().numpy().reshape(hw, hw))
+    launch_gt = dict(_cuda.LAUNCHES)
+    plane_px = np.stack(plane_px)
+    if launch_gt.get("fused_chunk_decode", 0) < 4:
+        fail(f"plane: the teacher views did not run the fused chunk "
+             f"({launch_gt})")
+
+    # ---- the maps on the card and on the host
+    cfg_p = dataclasses.replace(
+        c.train_setup["cfg"], bgmodel="plane", bg_plane_pnt=PLANE_PNT,
+        bg_plane_normal=PLANE_NORMAL, bg_plane_color=PLANE_COLOUR)
+    fg = scene.cloud.xyz[scene.cloud.alive]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = bp.create_all_bg(cfg_p, ds, points_xyz=fg, device=dev)
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    maps_cpu = bp.create_all_bg(cfg_p, ds, points_xyz=fg.cpu(),
+                                device="cpu")
+    t_cpu = time.perf_counter() - t0
+    diff = np.abs(maps - maps_cpu).max(-1)
+    flips = int((diff > 1e-5).sum())
+    valid = (maps != np.asarray(c.cfg.bg_color, np.float32)).any(-1)
+    share = float(valid[plane_px].mean())
+    log(f"plane: maps of 4 views {hw}x{hw} in {t_gpu:.2f} s on the card, "
+        f"{t_cpu:.2f} s on the host; {flips} of {diff.size} pixels differ "
+        f"by more than 1e-5 (ceil flips; "
+        f"{flips / diff.size:.2e}), the others within "
+        f"{float(np.where(diff > 1e-5, 0, diff).max()):.2e}; "
+        f"{int(plane_px.sum())} pixels meet the plane, {share:.3f} of them "
+        f"valid; teacher launches {launch_gt}")
+    if flips > 1e-3 * diff.size or share < 0.5:
+        fail("plane: the maps disagree with the host's or cover too little "
+             "of the plane")
+
+    # ---- fit() on the fast and the legacy step with the plane
+    student = Aggregator(c.cfg.agg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    with torch.no_grad():
+        student.density_head[0].bias += 5.0
+        for p in student.parameters():
+            p += PLANE_PERTURB * p.std(correction=0) * torch.randn(
+                p.shape, generator=gen, device=dev)
+    base_t = dataclasses.replace(cfg_p.train, jitter=0.0, march_auto=False)
+    cfg_fast = dataclasses.replace(cfg_p, train=base_t)
+    cfg_leg = dataclasses.replace(
+        cfg_p, query=dataclasses.replace(
+            cfg_p.query, use_cache=True, compact_budget=0,
+            max_q=c.cache.max_q),
+        agg=dataclasses.replace(cfg_p.agg, fused_decode=True),
+        train=dataclasses.replace(base_t, fast_path=False))
+    fits = {}
+    for name, cf in (("fast", cfg_fast), ("legacy", cfg_leg)):
+        out_dir = f"build/plane_{name}"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        _cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = loop.fit(cf, ds, student, scene.cloud, out_dir,
+                       max_steps=PLANE_STEPS, print_freq=10, save_freq=0,
+                       seed=3, device=dev,
+                       eval_dataset=ds if name == "legacy" else None,
+                       eval_views=[0], eval_chunk=4096)
+        torch.cuda.synchronize()
+        shutil.rmtree(out_dir, ignore_errors=True)
+        steps_log = [r for r in res.log if "total" in r]
+        first, last = steps_log[0]["total"], steps_log[-1]["total"]
+        fits[name] = dict(first=first, last=last,
+                          s=time.perf_counter() - t0,
+                          launches=dict(_cuda.LAUNCHES),
+                          evals=[(e["step"], e["psnr"])
+                                 for e in res.eval_history], state=res.state)
+        log(f"plane fit {name}: {PLANE_STEPS} steps in "
+            f"{fits[name]['s']:.1f} s; loss steps 1-10 {first:.6f} -> "
+            f"steps {PLANE_STEPS - 9}-{PLANE_STEPS} {last:.6f} "
+            f"({first / last:.2f}x); evaluations {fits[name]['evals']}; "
+            f"launches {fits[name]['launches']}")
+        if not last < first:
+            fail(f"plane fit {name}: the loss did not fall")
+    if fits["legacy"]["launches"].get("fused_decode", 0) < 1:
+        fail("plane: the legacy evaluation did not run fused_decode")
+    st = fits["fast"].pop("state")
+    fits["legacy"].pop("state")
+    cfg_e = dataclasses.replace(c.cfg, bgmodel="plane",
+                                bg_plane_pnt=PLANE_PNT,
+                                bg_plane_normal=PLANE_NORMAL,
+                                bg_plane_color=PLANE_COLOUR)
+    _cuda.LAUNCHES.clear()
+    m = evaluate_dataset(cfg_e, st.params, st.points, scene.grid, ds,
+                         views=[0], chunk=CHUNK, fast=True,
+                         bg_src_dataset=ds)
+    launch_e = dict(_cuda.LAUNCHES)
+    log(f"plane: view 0 after the fast fit through render_frame and the "
+        f"fused chunk: PSNR {m['psnr']:.2f} dB; launches {launch_e}")
+    if launch_e.get("fused_chunk_decode", 0) < 1 or not np.isfinite(
+            m["psnr"]):
+        fail("plane: the fast evaluation did not run the fused chunk")
+    t_total = time.perf_counter() - t_phase
+    log(f"plane phase: {t_total:.1f} s ({smi})")
+    return {"maps_s": {"card": t_gpu, "host": t_cpu}, "ceil_flips": flips,
+            "pixels": int(diff.size), "plane_valid_share": share,
+            "fit": fits, "fast_eval_psnr": m["psnr"],
+            "launches": {"teacher": launch_gt, "fast_eval": launch_e},
+            "s": t_total}
+
+
 def steps_in_turns(runs: dict, go, smi: str) -> dict:
     """Train it/s of each run (`go(run, n)` takes n steps): 10 warm-up
     steps each, then 3 windows of 20 steps, the runs in turns; the median
@@ -2760,6 +3537,13 @@ def main() -> int:
     # =================================================================
     structure = structure_phase(ns)
 
+    # =================================================================
+    # The plane background on the chair, and the large-scene route on the
+    # ScanNet-scale room
+    # =================================================================
+    plane = plane_phase(ns)
+    room = large_scene_phase(ns)
+
     # ---- the least time the card could take for each kernel's work at
     # these inputs: every input read once, every output written once,
     # over the memory rate; the tower's operations on the rows and slots
@@ -2867,7 +3651,8 @@ def main() -> int:
                                      p.get("first_valid_cols", 0) for p in
                                      structure["fit_probe_launches"]],
                                  "per_eval_view": structure["eval_launches"][
-                                     "legacy"].get("first_valid_cols", 0)}}),
+                                     "legacy"].get("first_valid_cols", 0)},
+                             "large_scene": room["select"]}),
         record("fused_candidate_select", "fused_select.cu",
                "fused_select.py:60", launches_a["fused_candidate_select"],
                fsel_err, t_fs_k, t_fs_p, b_fs),
@@ -2878,15 +3663,20 @@ def main() -> int:
                                 "per_eval_view": structure["eval_launches"][
                                     "legacy"].get("fused_decode", 0),
                                 "fit": structure["fit_launches"].get(
-                                    "fused_decode", 0)}}),
+                                    "fused_decode", 0)},
+                            "plane_legacy_fit": plane["fit"]["legacy"][
+                                "launches"].get("fused_decode", 0)}),
         record("fused_decode2", "fused_decode.cu", "fused_decode.py:235",
                launches_a["fused_decode2"], kacc_err, t_ka_k, t_ka_p, b_ka,
-               f_ka),
+               f_ka, extra={"large_scene": room["kacc"]}),
         record("fused_chunk_decode", "fused_chunk.cu", "fused_chunk.py:86",
                launches["fused_chunk_decode"], fused_err, t_fc_k, t_fc_p,
                b_fc, f_fc, t_fc_parts, extra={"structure": {
                    "per_eval_view": structure["eval_launches"]["fast"].get(
-                       "fused_chunk_decode", 0)}}),
+                       "fused_chunk_decode", 0)},
+                   "large_scene_ground_truth": room["chunk_gt"],
+                   "plane": {k: v.get("fused_chunk_decode", 0)
+                             for k, v in plane["launches"].items()}}),
         record("march_rays", "march.cu", "march.py:70", **{
             **fe["record"], "extra": {**fe["record"]["extra"],
                                       "train": train["march"]}}),
@@ -2901,7 +3691,10 @@ def main() -> int:
                   if k not in ("select", "march")},
         "legacy": {k: v for k, v in legacy.items()
                    if k not in ("select", "decode", "launches")},
-        "structure": structure}),
+        "structure": structure,
+        "plane": {k: v for k, v in plane.items() if k != "launches"},
+        "large_scene": {k: v for k, v in room.items()
+                        if k not in ("select", "kacc", "chunk_gt")}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

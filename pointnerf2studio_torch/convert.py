@@ -28,9 +28,12 @@ from pointnerf2studio_torch.models.fast_train import GEOW, GeoCache
 from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
 from pointnerf2studio_torch.ops._cuda import resolve_device
 from pointnerf2studio_torch.ops.grid import CandidateCache, PointGrid
+from pointnerf2studio_torch.ops.hash_grid import HashGrid
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
+    if a is None:
+        return None
     a = np.asarray(a)
     if dtype is torch.bfloat16:
         # numpy has no bfloat16: carry the raw 16-bit patterns
@@ -101,10 +104,32 @@ def grid_from_jax(grid, device: torch.device | str | None = None
         occ_2_coor=_t(grid.occ_2_coor, device, i32), cache=cache)
 
 
+def hash_grid_from_jax(hg, device: torch.device | str | None = None
+                       ) -> HashGrid:
+    """A JAX HashGrid -> port HashGrid: the same table and lists, its
+    logical dims as host ints."""
+    device = resolve_device(device)
+    i32 = torch.int32
+    return HashGrid(
+        ranges_min=_t(hg.ranges_min, device, torch.float32),
+        scaled_vsize=_t(hg.scaled_vsize, device, torch.float32),
+        dims=_host_dims(hg.dims), table=_t(hg.table, device, i32),
+        occ_2_pnts=_t(hg.occ_2_pnts, device, i32),
+        occ_numpnts=_t(hg.occ_numpnts, device, i32),
+        occ_2_coor=_t(hg.occ_2_coor, device, i32),
+        n_occ=_t(hg.n_occ, device, i32), n_q=_t(hg.n_q, device, i32),
+        overflow=_t(hg.overflow, device, i32))
+
+
+def _host_dims(dims):
+    return None if dims is None else tuple(int(x) for x in np.asarray(dims))
+
+
 def fat_cache_from_jax(cache, device: torch.device | str | None = None
                        ) -> FatCache:
     """A JAX FatCache in either layout -> port FatCache (one layout for
-    every route). The kernel-facing layout (kmeta/kpay set): the
+    every route), a dense grid's or a hash grid's (its bucket table and
+    logical dims come along). The kernel-facing layout (kmeta/kpay set): the
     channel-major kpay [max_q, PK, C] is transposed once into the
     candidate-major kcand, and its xyz planes are copied into kxyz. The
     rows layout (`rows` [max_q, C * ROWW] f32): each candidate's meta word
@@ -130,18 +155,20 @@ def fat_cache_from_jax(cache, device: torch.device | str | None = None
         kxyz=kcand[..., :3].transpose(1, 2).contiguous(),
         n_q=_t(cache.n_q, device, torch.int32),
         march_table=(None if march_table is None
-                     else _t(march_table, device, torch.int32)))
+                     else _t(march_table, device, torch.int32)),
+        hash_table=_t(getattr(cache, "hash_table", None), device,
+                      torch.int32),
+        logical_dims=_host_dims(getattr(cache, "logical_dims", None)))
 
 
 def geo_cache_from_jax(geo, device: torch.device | str | None = None
                        ) -> GeoCache:
-    """A JAX train GeoCache (dense grid) -> port GeoCache: its rows
+    """A JAX train GeoCache (dense or hash grid) -> port GeoCache: its rows
     [max_q, C * 4] f32 split into meta (the first word of each candidate,
-    an int32 bit pattern) and rel (the other three); the march table, where
-    the cache has one, comes along."""
+    an int32 bit pattern) and rel (the other three); the march table, or
+    the bucket table and logical dims, where the cache has them, come
+    along."""
     device = resolve_device(device)
-    if getattr(geo, "coor_2_qslot", None) is None:
-        raise ValueError("a hash-grid geo cache has no port counterpart")
     rows = np.asarray(geo.rows, np.float32)
     rows = rows.reshape(rows.shape[0], -1, GEOW)
     march_table = getattr(geo, "march_table", None)
@@ -152,7 +179,9 @@ def geo_cache_from_jax(geo, device: torch.device | str | None = None
         rel=_t(np.ascontiguousarray(rows[..., 1:]), device, torch.float32),
         n_q=_t(geo.n_q, device, torch.int32),
         march_table=(None if march_table is None
-                     else _t(march_table, device, torch.int32)))
+                     else _t(march_table, device, torch.int32)),
+        hash_table=_t(getattr(geo, "hash_table", None), device, torch.int32),
+        logical_dims=_host_dims(getattr(geo, "logical_dims", None)))
 
 
 def aggregator_to_jax(agg: Aggregator, grad: bool = False) -> dict:

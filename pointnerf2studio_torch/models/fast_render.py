@@ -44,9 +44,18 @@ depth-window tier, the compaction budget escalated where it overflowed,
 and, for a pinhole pixel grid (`raster=`), one raster program per frame
 in place of the per-chunk march.
 
+On a sparse grid (ops/hash_grid.py; `make_hash_fast_scene`) the cache
+carries the bucket table in place of the dense qslot table: the
+front-end looks each sample's voxel up there, the box is the grid's
+logical dims, and, as in the reference, only the XLA route serves it
+(the fused chunk and the selection kernel read no hash cache there
+either; the march and the raster need dense tables). `bg_ray_colors`
+(the plane model's per-ray background, models/bg_plane.py) replaces
+cfg.bg_color where given.
+
 Not ported yet: `cand_prune` on the XLA route, the "krows" extract,
-span tiers, coarse windows, pair decode, the plane background, hash
-grids and sharding; a config that asks for them raises.
+span tiers, coarse windows, pair decode and sharding; a config that asks
+for them raises.
 
 Host synchronisation: none per chunk on the kernel routes (ray packing
 and slot packing are cumsum/scatter compactions on the device, and the
@@ -78,6 +87,9 @@ from pointnerf2studio_torch.ops.fused_decode import (
     fused_decode2, fused_decode_served, tower_inputs)
 from pointnerf2studio_torch.ops.fused_select import fused_candidate_select
 from pointnerf2studio_torch.ops.grid import PointGrid
+from pointnerf2studio_torch.ops.hash_grid import W as HASH_W
+from pointnerf2studio_torch.ops.hash_grid import (
+    HashGrid, hash_lookup, table_qslot)
 from pointnerf2studio_torch.ops.march import (
     build_march_table, march_rays, slab, to_i32)
 from pointnerf2studio_torch.ops.query import (
@@ -124,13 +136,19 @@ class FatCache:
     march_table [gx, gy, gz] int32 (ops/march.build_march_table): the
     qslot table packed with a Chebyshev distance field, present when the
     config routes the front-end through the march.
+    On a sparse grid (ops/hash_grid.py; `build_fat_cache_hash`) the bucket
+    table `hash_table` takes the place of coor_2_qslot (None), and
+    `logical_dims` (host ints) bounds the voxel coordinates.
     """
-    coor_2_qslot: torch.Tensor     # [gx, gy, gz] int32, -1 = not query
+    coor_2_qslot: Optional[torch.Tensor]   # [gx, gy, gz] int32, -1 = not
+                                           # query; None on a hash grid
     kmeta: torch.Tensor            # [max_q, C] int32
     kcand: torch.Tensor            # [max_q, C, PK] bf16
     kxyz: torch.Tensor             # [max_q, 3, C] bf16
     n_q: torch.Tensor              # [] int32
     march_table: Optional[torch.Tensor] = None
+    hash_table: Optional[torch.Tensor] = None      # [B, S * 5] int32
+    logical_dims: Optional[Tuple[int, int, int]] = None
 
     @property
     def cand(self) -> int:
@@ -145,34 +163,70 @@ class FatCache:
         return self.kcand.transpose(1, 2)
 
 
-def query_voxels(grid: PointGrid, max_q: int):
-    """The query voxels of a grid as the caches number them: (coor_2_qslot
-    [gx, gy, gz] int32, -1 = not a query voxel; n_q [] int32; q_coor
+def cache_dims(cache) -> Tuple[int, int, int]:
+    """The voxel bounds of a FatCache or a GeoCache: its qslot table's
+    shape, or the logical dims of a hash grid's cache."""
+    if cache.hash_table is not None:
+        return tuple(cache.logical_dims)
+    return tuple(cache.coor_2_qslot.shape)
+
+
+def query_voxels(grid, max_q: int):
+    """The query voxels of a grid (a PointGrid or an ops/hash_grid
+    HashGrid) as the caches number them: (coor_2_qslot [gx, gy, gz] int32,
+    -1 = not a query voxel, None on a hash grid; n_q [] int32; q_coor
     [max_q, 3] int64; q_live [max_q] bool; center_w [max_q, 3] f32, each
-    voxel's centre)."""
-    dev = grid.coor_occ.device
-    gx, gy, gz = grid.dims
-    nvox = gx * gy * gz
-    occ_flat = grid.coor_occ.reshape(-1)
-    qslot = torch.cumsum(occ_flat.long(), 0) - 1
-    n_q = occ_flat.sum().to(torch.int32)
-    valid_q = occ_flat & (qslot < max_q)
-    coor_2_qslot = torch.where(valid_q, qslot, -1).to(torch.int32).reshape(
-        grid.dims)
-    q_flat = torch.full((max_q,), nvox, dtype=torch.long, device=dev)
-    live_ids = torch.nonzero(valid_q).squeeze(1)
-    q_flat[:live_ids.shape[0]] = live_ids
-    q_coor = torch.stack([q_flat // (gy * gz), (q_flat // gz) % gy,
-                          q_flat % gz], -1)
+    voxel's centre). Both grids number query voxels in (x, y, z) order; a
+    hash grid's come out of its bucket table (rows past n_q: coords -1)."""
+    if isinstance(grid, HashGrid):
+        dev = grid.table.device
+        tbl = grid.table.reshape(-1, HASH_W)
+        qv = tbl[:, 4].long()
+        live = (tbl[:, 0] >= 0) & (qv >= 0) & (qv < max_q)
+        q_coor = torch.full((max_q, 3), -1, dtype=torch.long, device=dev)
+        q_coor[qv[live]] = tbl[live, :3].long()
+        q_live = torch.zeros(max_q, dtype=torch.bool, device=dev)
+        q_live[qv[live]] = True
+        coor_2_qslot, n_q = None, grid.n_q
+    else:
+        dev = grid.coor_occ.device
+        gx, gy, gz = grid.dims
+        nvox = gx * gy * gz
+        occ_flat = grid.coor_occ.reshape(-1)
+        qslot = torch.cumsum(occ_flat.long(), 0) - 1
+        n_q = occ_flat.sum().to(torch.int32)
+        valid_q = occ_flat & (qslot < max_q)
+        coor_2_qslot = torch.where(valid_q, qslot, -1).to(
+            torch.int32).reshape(grid.dims)
+        q_flat = torch.full((max_q,), nvox, dtype=torch.long, device=dev)
+        live_ids = torch.nonzero(valid_q).squeeze(1)
+        q_flat[:live_ids.shape[0]] = live_ids
+        q_coor = torch.stack([q_flat // (gy * gz), (q_flat // gz) % gy,
+                              q_flat % gz], -1)
+        q_live = q_flat < nvox
     # one rounding of rmin + (q + 0.5) * svs, as the reference's compiled
     # build gets from a fused multiply-add; the relative xyz of both caches
     # inherit this value bit for bit
     center_w = (grid.ranges_min.double() + (q_coor.double() + 0.5)
                 * grid.scaled_vsize.double()).float()
-    return coor_2_qslot, n_q, q_coor, q_flat < nvox, center_w
+    return coor_2_qslot, n_q, q_coor, q_live, center_w
 
 
-def ordered_candidates(grid: PointGrid, xyz: torch.Tensor,
+def _neighbour_slots(grid, nb: torch.Tensor) -> torch.Tensor:
+    """The occupied slot of each neighbour voxel nb [..., 3] (-1: out of
+    the grid or unoccupied): the dense coor_2_occ, or the hash table."""
+    if isinstance(grid, HashGrid):
+        return hash_lookup(grid, nb)[1]
+    _, gy, gz = grid.dims
+    dims_t = torch.tensor(grid.dims, device=nb.device)
+    inb = ((nb >= 0) & (nb < dims_t)).all(-1)
+    nbc = torch.minimum(torch.clamp(nb, min=0), dims_t - 1)
+    slot = grid.coor_2_occ.reshape(-1)[
+        (nbc[..., 0] * gy + nbc[..., 1]) * gz + nbc[..., 2]]
+    return torch.where(inb, slot, -1)
+
+
+def ordered_candidates(grid, xyz: torch.Tensor,
                        kernel_size: Tuple[int, int, int], C: int,
                        qc: torch.Tensor, cw: torch.Tensor,
                        live: torch.Tensor):
@@ -183,23 +237,19 @@ def ordered_candidates(grid: PointGrid, xyz: torch.Tensor,
     Candidate order is the reference's f32 key shell * 1e12 + min(d2,
     1e9), sorted stably: beyond shell 0 the d2 term is below one ulp of
     the shell term, so outer-shell candidates keep their scan order. Both
-    caches (this module's and models/fast_train.py's) take it from here."""
+    caches (this module's and models/fast_train.py's) take it from here,
+    on a dense grid or a hash grid alike."""
     dev = xyz.device
     offs_np, shells_np = neighbor_offsets(kernel_size)
     offsets = torch.as_tensor(offs_np, dtype=torch.long, device=dev)
     shells = torch.as_tensor(shells_np, dtype=torch.long, device=dev)
     V = offsets.shape[0]
     P = grid.occ_2_pnts.shape[1]
-    _, gy, gz = grid.dims
-    dims_t = torch.tensor(grid.dims, device=dev)
     N = xyz.shape[0]
     B = qc.shape[0]
     nb = qc[:, None, :] + offsets[None]                         # [B, V, 3]
-    inb = ((nb >= 0) & (nb < dims_t)).all(-1) & live[:, None]
-    nbc = torch.minimum(torch.clamp(nb, min=0), dims_t - 1)
-    slot = grid.coor_2_occ.reshape(-1)[
-        (nbc[..., 0] * gy + nbc[..., 1]) * gz + nbc[..., 2]]
-    slot_ok = inb & (slot >= 0)
+    slot = _neighbour_slots(grid, nb)
+    slot_ok = live[:, None] & (slot >= 0)
     cand = grid.occ_2_pnts[torch.where(slot_ok, slot, 0).long()]
     ok = slot_ok[..., None] & (cand >= 0)                       # [B, V, P]
     cxyz = xyz[torch.clamp(cand, 0, N - 1).long()]              # [B,V,P,3]
@@ -218,7 +268,7 @@ def ordered_candidates(grid: PointGrid, xyz: torch.Tensor,
                          top[..., None].expand(B, C, 3)))
 
 
-def candidate_pieces(grid: PointGrid, xyz: torch.Tensor,
+def candidate_pieces(grid, xyz: torch.Tensor,
                      kernel_size: Tuple[int, int, int], C: int,
                      q_coor: torch.Tensor, center_w: torch.Tensor,
                      q_live: torch.Tensor, chunk: int):
@@ -241,7 +291,7 @@ def candidate_pieces(grid: PointGrid, xyz: torch.Tensor,
             center_w[n_live:e], q_live[n_live:e])
 
 
-def cand_width(grid: PointGrid, kernel_size: Tuple[int, int, int],
+def cand_width(grid, kernel_size: Tuple[int, int, int],
                cand_cap: int) -> int:
     """C = min(cand_cap, candidates a voxel's neighbourhood can hold)."""
     V = neighbor_offsets(kernel_size)[0].shape[0]
@@ -249,11 +299,11 @@ def cand_width(grid: PointGrid, kernel_size: Tuple[int, int, int],
 
 
 @torch.no_grad()
-def build_fat_cache(grid: PointGrid, cloud: NeuralPointCloud,
+def build_fat_cache(grid, cloud: NeuralPointCloud,
                     kernel_size: Tuple[int, int, int], max_q: int,
                     cand_cap: int = 64, chunk: int = 32768) -> FatCache:
-    """Build the candidate cache (see `FatCache`), once per
-    point/attribute change. Candidates in the order of
+    """Build the candidate cache (see `FatCache`) of a PointGrid or a
+    HashGrid, once per point/attribute change. Candidates in the order of
     `ordered_candidates`."""
     dev = cloud.xyz.device
     C = cand_width(grid, kernel_size, cand_cap)
@@ -276,8 +326,24 @@ def build_fat_cache(grid: PointGrid, cloud: NeuralPointCloud,
         kcand[sl] = torch.cat([rel, sel_attr, rel.new_zeros((B, C, PK - 42))],
                               -1)
         kxyz[sl] = rel.transpose(1, 2)
+    hashed = isinstance(grid, HashGrid)
     return FatCache(coor_2_qslot=coor_2_qslot, kmeta=kmeta, kcand=kcand,
-                    kxyz=kxyz, n_q=n_q)
+                    kxyz=kxyz, n_q=n_q,
+                    hash_table=grid.table if hashed else None,
+                    logical_dims=grid.dims if hashed else None)
+
+
+def build_fat_cache_hash(hg: HashGrid, cloud: NeuralPointCloud,
+                         kernel_size: Tuple[int, int, int], max_q: int,
+                         cand_cap: int = 64, chunk: int = 32768) -> FatCache:
+    """The fat cache over a sparse HashGrid (large-extent scenes): the
+    rows of `build_fat_cache` (the hash grid's qslots are the dense
+    grid's (x, y, z) ranks, and the candidates come in the same order
+    with the same packing), so on a scene where both grids fit the two
+    caches' first n_q rows are equal bit for bit; only the front-end's
+    voxel -> qslot lookup differs (the bucket table for the dense
+    table)."""
+    return build_fat_cache(hg, cloud, kernel_size, max_q, cand_cap, chunk)
 
 
 def fit_cand_cap(max_q: int, cand_cap: int,
@@ -331,6 +397,32 @@ def make_fast_scene(cfg: PointNerfConfig, cloud: NeuralPointCloud,
     if march_active(q):
         cache.march_table = build_march_table(cache.coor_2_qslot)
     return cache, grid.ranges_min, grid.scaled_vsize
+
+
+def make_hash_fast_scene(cfg: PointNerfConfig, cloud: NeuralPointCloud,
+                         hg: HashGrid, max_q: Optional[int] = None):
+    """Build the fat cache over a sparse HashGrid; returns (cache,
+    ranges_min, scaled_vsize), as make_fast_scene does for a dense grid.
+    max_q defaults to n_q rounded up to a multiple of 32768. As in the
+    reference, `coarse_step` and knn_mode="fused" are dense-only (the
+    fused chunk, which reads no hash cache in the reference either, is
+    refused by fast_render_rays), there is no march table, and
+    `cand_prune` does not apply (the reference's hash cache keeps every
+    candidate)."""
+    q = cfg.query
+    if q.coarse_step > 1:
+        raise NotImplementedError(
+            "coarse_step needs a dense coarse-occupancy grid; off in hash "
+            "mode")
+    if q.knn_mode == "fused":
+        raise NotImplementedError("knn_mode='fused' is dense-only")
+    if max_q is None:
+        nq = int(hg.n_q)
+        max_q = (nq + 32767) // 32768 * 32768
+    cc = fit_cand_cap(max_q, q.cand_cap, device=cloud.xyz.device,
+                      what="hash fat cache")
+    cache = build_fat_cache_hash(hg, cloud, q.kernel_size, max_q, cc)
+    return cache, hg.ranges_min, hg.scaled_vsize
 
 
 @dataclasses.dataclass
@@ -531,7 +623,8 @@ def pack_hit_rays(cache, campos, raydirs, near, far, q, ranges_min,
     sync); the padding rows repeat ray 0, as in the reference, and are
     False in `valid`. `jitter` (the train path's) widens the far margin
     by jitter/2 * (far - near): jittered segment lengths sum past far.
-    `cache` is a FatCache or a GeoCache (its qslot table sizes the box)."""
+    `cache` is a FatCache or a GeoCache (its voxel bounds, `cache_dims`,
+    size the box)."""
     dev = raydirs.device
     f32 = torch.float32
     R = raydirs.shape[0]
@@ -539,7 +632,7 @@ def pack_hit_rays(cache, campos, raydirs, near, far, q, ranges_min,
     near = torch.as_tensor(near, dtype=f32, device=dev)
     far = torch.as_tensor(far, dtype=f32, device=dev)
     step_t = (far - near) / q.z_depth_dim
-    dims_f = torch.tensor(cache.coor_2_qslot.shape, device=dev).to(f32)
+    dims_f = torch.tensor(cache_dims(cache), device=dev).to(f32)
     rmax = ranges_min + dims_f * scaled_vsize
     t_enter, t_exit = slab(raydirs, campos, ranges_min, rmax)
     far_slack = jitter * 0.5 * (far - near) + step_t if jitter else step_t
@@ -555,18 +648,21 @@ def pack_hit_rays(cache, campos, raydirs, near, far, q, ranges_min,
     return ray_ids, valid, rb_overflow
 
 
-def qslot_lookup(coor_2_qslot: torch.Tensor, pos: torch.Tensor,
-                 ranges_min: torch.Tensor, scaled_vsize: torch.Tensor
-                 ) -> torch.Tensor:
+def qslot_lookup(cache, pos: torch.Tensor, ranges_min: torch.Tensor,
+                 scaled_vsize: torch.Tensor) -> torch.Tensor:
     """The qslot of the voxel each position [..., 3] lies in, -1 outside
-    the grid or outside every query voxel."""
-    dims = coor_2_qslot.shape
+    the grid or outside every query voxel: a gather from the dense qslot
+    table of `cache` (a FatCache or a GeoCache), or its hash table's
+    lookup (the reference's `_qs_lookup`)."""
+    dims = cache_dims(cache)
     dims_t = torch.tensor(dims, device=pos.device)
     gc = torch.floor((pos - ranges_min) / scaled_vsize).to(torch.int32)
     inb = ((gc >= 0) & (gc < dims_t)).all(-1)
+    if cache.hash_table is not None:
+        return table_qslot(cache.hash_table, gc, inb)
     gcc = torch.minimum(torch.clamp(gc, min=0), dims_t - 1).long()
     fi = (gcc[..., 0] * dims[1] + gcc[..., 1]) * dims[2] + gcc[..., 2]
-    qslot_flat = coor_2_qslot.reshape(-1)
+    qslot_flat = cache.coor_2_qslot.reshape(-1)
     return torch.where(inb, qslot_flat[torch.where(inb, fi, 0)], -1)
 
 
@@ -575,6 +671,10 @@ def march_args(cache: FatCache, campos, raydirs, near, far, q, ranges_min,
     """The keyword arguments `fast_render_rays` gives `march_rays` for
     these rays under query config `q`; raises where the cache or the
     packing cannot serve the walk."""
+    if cache.hash_table is not None:
+        raise ValueError(
+            "march_steps needs a dense grid: a hash grid's cache has no "
+            "march table (make_hash_fast_scene builds none)")
     if cache.march_table is None:
         raise ValueError(
             "march_steps needs a cache with march_table "
@@ -622,6 +722,9 @@ def fast_render_rays(
                                     # place when march_active(q)
     prob: bool = False,             # the prob outputs for point growing
                                     # (XLA route only; slot-grid composite)
+    bg_ray_colors: Optional[torch.Tensor] = None,   # [R, 3] per-ray
+                                    # background (the plane model's) in
+                                    # place of cfg.bg_color
 ) -> FastRenderOutput:
     """Render R rays through the fast path (see the module docstring)."""
     route = _check_served(cfg, Rw2c)
@@ -631,6 +734,15 @@ def fast_render_rays(
             "prob-mode neighbour averages need the XLA route (knn_mode and "
             "chunk_mode 'xla', decode_mode 'lanes', extract_mode 'onehot' "
             "or 'gather')")
+    if cache.hash_table is not None:
+        # the reference's hash cache has no kernel-facing layout, and its
+        # knn_mode="fused" is dense-only
+        if route == "chunk":
+            raise ValueError(
+                "chunk_mode='fused' needs the kernel-facing cache layout, "
+                "which a hash grid's cache does not serve")
+        if route == "staged":
+            raise NotImplementedError("knn_mode='fused' is dense-only")
     if isinstance(premarch, tuple):
         table, ids = premarch
         premarch = table[ids.long()]
@@ -642,12 +754,14 @@ def fast_render_rays(
     BP = q.ray_slot_budget or min(SR, 32)
     budget = q.compact_budget if q.compact_budget > 0 else SR
     M = min(R * budget, R * D)
-    dims_f = torch.tensor(cache.coor_2_qslot.shape, device=dev).to(f32)
+    dims_f = torch.tensor(cache_dims(cache), device=dev).to(f32)
     near = torch.as_tensor(near, dtype=f32, device=dev)
     far = torch.as_tensor(far, dtype=f32, device=dev)
     step_t = (far - near) / D
     rmax = ranges_min + dims_f * scaled_vsize
-    bg = torch.as_tensor(cfg.bg_color, dtype=f32, device=dev)
+    bg = (bg_ray_colors.to(f32) if bg_ray_colors is not None
+          else torch.as_tensor(cfg.bg_color, dtype=f32,
+                               device=dev).expand(R, 3))
 
     if q.ray_budget > 0:
         # ---- ray packing: only box-hitting rays enter the front-end.
@@ -663,7 +777,9 @@ def fast_render_rays(
                                raydirs[ray_ids], near, far, cfg0,
                                ranges_min, scaled_vsize, ray_live=valid,
                                premarch=(None if premarch is None
-                                         else premarch[ray_ids]), prob=prob)
+                                         else premarch[ray_ids]), prob=prob,
+                               bg_ray_colors=(None if bg_ray_colors is None
+                                              else bg_ray_colors[ray_ids]))
         ids = torch.where(valid, ray_ids, R)       # padding rows drop
 
         def scatter(base, x):
@@ -677,8 +793,7 @@ def fast_render_rays(
                                           device=dev), getattr(sub, f))
                    for f in PROB_FIELDS} if prob else {}
         return FastRenderOutput(
-            coarse_raycolor=scatter(bg.expand(R, 3).contiguous(),
-                                    sub.coarse_raycolor),
+            coarse_raycolor=scatter(bg.contiguous(), sub.coarse_raycolor),
             ray_mask=scatter(torch.zeros(R, dtype=torch.bool, device=dev),
                              sub.ray_mask),
             acc=scatter(torch.zeros(R, dtype=f32, device=dev), sub.acc),
@@ -688,8 +803,7 @@ def fast_render_rays(
             n_valid_slots=sub.n_valid_slots, **prob_kw)
 
     def qs_lookup(pos):
-        return qslot_lookup(cache.coor_2_qslot, pos, ranges_min,
-                            scaled_vsize)
+        return qslot_lookup(cache, pos, ranges_min, scaled_vsize)
 
     mc_overflow = dw_overflow = None
     if march_active(q):
@@ -1048,6 +1162,7 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
                  program_cache: Optional[dict] = None,
                  host_rays: Optional[np.ndarray] = None,
                  raster: Optional[tuple] = None,
+                 bg_ray_colors: Optional[torch.Tensor] = None,
                  verbose: bool = False) -> FastRenderOutput:
     """Full-frame render with frame-level ray packing and per-chunk
     depth-window tiers. Exact (the outputs of rendering the raw ray order
@@ -1083,16 +1198,19 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
     chunk at that lower compaction budget first. `program_cache` (a dict
     kept across frames) holds the scene's qvox table and the raster
     programs by ladder. `host_rays`: a host copy of `raydirs`, which
-    saves the device pull. dw_overflow, cb_overflow and mc_overflow are
-    summed over chunks; rb_overflow is None (the packing happens here, by
-    a conservative slab test that cannot drop a hitting ray). Unlike the
-    reference there is no `render_maker` or `bg_ray_colors`: the port has
-    no sharded renderer and no plane background."""
+    saves the device pull. `bg_ray_colors` [Rtot, 3] (the plane model's
+    per-ray background) replaces cfg.bg_color ray by ray. dw_overflow,
+    cb_overflow and mc_overflow are summed over chunks; rb_overflow is None
+    (the packing happens here, by a conservative slab test that cannot drop
+    a hitting ray). On a hash grid's cache the bounds are its logical dims
+    and the raster is not used (it bins against the dense qslot table), as
+    in the reference. Unlike the reference there is no `render_maker`:
+    the port has no sharded renderer."""
     q = cfg.query
     D = q.z_depth_dim
     dev = raydirs.device
     Rtot = raydirs.shape[0]
-    dims = tuple(cache.coor_2_qslot.shape)
+    dims = cache_dims(cache)
     rd_np = _np(host_rays if host_rays is not None else raydirs, np.float32)
     order, n_hit, span = frame_ray_order(
         _np(campos, np.float32), rd_np, near, far, D, ranges_min, dims,
@@ -1101,7 +1219,7 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
     pcache = program_cache if program_cache is not None else {}
     emit_tbl = None
     front_end = "march" if march_active(q) else "depth_window"
-    if raster is not None and march_active(q):
+    if raster is not None and march_active(q) and cache.hash_table is None:
         try:
             emit_tbl, _ = frame_raster_emit(
                 cache, campos, camrotc2w, raydirs, near, far, q, ranges_min,
@@ -1113,8 +1231,11 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
                       f"frame", file=sys.stderr)
 
     f32 = torch.float32
-    bg = torch.as_tensor(cfg.bg_color, dtype=f32, device=dev)
-    color = bg.expand(Rtot, 3).contiguous()
+    if bg_ray_colors is not None:
+        color = bg_ray_colors.to(device=dev, dtype=f32).clone()
+    else:
+        color = torch.as_tensor(cfg.bg_color, dtype=f32,
+                                device=dev).expand(Rtot, 3).contiguous()
     ray_mask = torch.zeros(Rtot, dtype=torch.bool, device=dev)
     acc = torch.zeros(Rtot, dtype=f32, device=dev)
     depth = torch.zeros(Rtot, dtype=f32, device=dev)
@@ -1127,6 +1248,7 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
             order = np.concatenate([order, order[Rtot - (n_used - Rtot):]])
         perm = torch.as_tensor(order[:n_used], device=dev)
         rays_p = raydirs[perm]
+        bg_p = None if bg_ray_colors is None else color[perm]
         span_sorted = span[order[:n_used]]
 
         def render(i, dw, b):
@@ -1136,7 +1258,8 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
             return fast_render_rays(
                 params, Rw2c, cache, campos, camrotc2w, rays_p[sl], near,
                 far, cfg_t, ranges_min, scaled_vsize,
-                premarch=None if emit_tbl is None else (emit_tbl, perm[sl]))
+                premarch=None if emit_tbl is None else (emit_tbl, perm[sl]),
+                bg_ray_colors=None if bg_p is None else bg_p[sl])
 
         b_full = q.compact_budget if q.compact_budget > 0 else q.SR
         b_cap = min(q.SR, q.ray_slot_budget or min(q.SR, 32))

@@ -1,7 +1,8 @@
 """Differentiable fast train path: the fast render path's structure with
 gradients flowing into the point attributes and the MLP tower.
 
-Port of `pointnerf2studio_tpu/models/fast_train.py` for a dense grid. The
+Port of `pointnerf2studio_tpu/models/fast_train.py`, on a dense grid or
+a sparse hash grid (ops/hash_grid.py; `make_hash_geo_scene`). The
 render path's fat cache bakes bf16 point attributes into its candidate
 rows, which cuts the gradients; here the cache carries geometry only
 (`GeoCache`: candidate ids and float32 offsets), and the attributes are
@@ -12,9 +13,11 @@ gradient by construction.
 
   jittered raygen -> front-end: the dense [R, D] qslot lookup with the
   first-BP valid columns per ray (ops/select.py; the CUDA kernel
-  first_valid_cols under select_mode="pallas"), or the jitter-aware
-  distance-field walk (ops/march.py; the CUDA kernel march_rays) under
-  QueryConfig.march_steps -> rank-gather pack to M = R * compact_budget
+  first_valid_cols under select_mode="pallas"; on a hash grid each
+  sample's qslot comes from the bucket table), or, on a dense grid, the
+  jitter-aware distance-field walk (ops/march.py; the CUDA kernel
+  march_rays) under QueryConfig.march_steps -> rank-gather pack to
+  M = R * compact_budget
   slots -> chunks of `fast_chunk` slots: geometry gather, layered
   K-nearest, differentiable attribute gather, weights, the tower
   (models/aggregator.decode_radiance) -> packed composite.
@@ -27,7 +30,10 @@ Gradients do not depend on launch order: the attribute gather is
 flat float64 prefix scan and one write a row; no atomic accumulation
 sits on the gradient's path.
 
-Not ported (each raises): the hash grid, the one-hot compaction
+`bg_ray_colors` (the plane model's per-ray background) replaces
+cfg.bg_color where given.
+
+Not ported (each raises): the one-hot compaction
 (compact_mode != "topk"), the grid composite (composite_mode !=
 "packed"), `remat` other than "none" and the perf probes
 (`debug_prefix`). A per-point Rw2c raises, as in the reference: edited
@@ -48,6 +54,7 @@ from pointnerf2studio_torch.models.aggregator import (
 from pointnerf2studio_torch.models.fast_render import (
     cand_width, candidate_pieces, fit_cand_cap, march_active,
     pack_hit_rays, qslot_lookup, query_voxels)
+from pointnerf2studio_torch.ops.hash_grid import HashGrid
 from pointnerf2studio_torch.models.neural_points import (
     NeuralPointCloud, gather_rows)
 from pointnerf2studio_torch.ops.camera import neighbor_dists, rotate, w2pers
@@ -76,12 +83,16 @@ class GeoCache:
     query voxel's centre. Candidates in the order of
     `fast_render.ordered_candidates`, the fat cache's order. march_table
     (ops/march.build_march_table) is set when the config routes the
-    front-end through the march."""
-    coor_2_qslot: torch.Tensor       # [gx, gy, gz] int32, -1 = not query
+    front-end through the march. On a hash grid `hash_table` and
+    `logical_dims` take coor_2_qslot's place (None), as in FatCache."""
+    coor_2_qslot: Optional[torch.Tensor]   # [gx, gy, gz] int32, -1 = not
+                                           # query; None on a hash grid
     meta: torch.Tensor               # [max_q, C] int32
     rel: torch.Tensor                # [max_q, C, 3] float32
     n_q: torch.Tensor                # [] int32
     march_table: Optional[torch.Tensor] = None
+    hash_table: Optional[torch.Tensor] = None      # [B, S * 5] int32
+    logical_dims: Optional[Tuple[int, int, int]] = None
 
     @property
     def cand(self) -> int:
@@ -89,14 +100,15 @@ class GeoCache:
 
 
 @torch.no_grad()
-def build_geo_cache(grid: PointGrid, xyz: torch.Tensor,
+def build_geo_cache(grid, xyz: torch.Tensor,
                     kernel_size: Tuple[int, int, int], max_q: int,
                     cand_cap: int = 64, chunk: int = 32768,
                     cand_prune: bool = False, radius2: float = 0.0,
                     knn_k: int = 8) -> GeoCache:
-    """Per-query-voxel candidate geometry (rebuild when points move).
-    `cand_prune` moves the candidates that `candidate_keep_mask` keeps to
-    the front, in their order, and marks the rest empty."""
+    """Per-query-voxel candidate geometry of a PointGrid or a HashGrid
+    (rebuild when points move). `cand_prune` moves the candidates that
+    `candidate_keep_mask` keeps to the front, in their order, and marks
+    the rest empty."""
     dev = xyz.device
     C = cand_width(grid, kernel_size, cand_cap)
     coor_2_qslot, n_q, q_coor, q_live, center_w = query_voxels(grid, max_q)
@@ -122,7 +134,33 @@ def build_geo_cache(grid: PointGrid, xyz: torch.Tensor,
         meta[sl] = torch.where(sel_ok, sel_pidx * 4 + sel_sh,
                                -1).to(torch.int32)
         rel[sl] = r
-    return GeoCache(coor_2_qslot=coor_2_qslot, meta=meta, rel=rel, n_q=n_q)
+    hashed = isinstance(grid, HashGrid)
+    return GeoCache(coor_2_qslot=coor_2_qslot, meta=meta, rel=rel, n_q=n_q,
+                    hash_table=grid.table if hashed else None,
+                    logical_dims=grid.dims if hashed else None)
+
+
+def build_geo_cache_hash(hg: HashGrid, xyz: torch.Tensor,
+                         kernel_size: Tuple[int, int, int], max_q: int,
+                         cand_cap: int = 64, chunk: int = 32768) -> GeoCache:
+    """The geometry cache over a sparse HashGrid: the rows of
+    `build_geo_cache` (same qslot numbering and candidate order; see
+    models/fast_render.build_fat_cache_hash), with no candidate pruning,
+    as in the reference."""
+    return build_geo_cache(hg, xyz, kernel_size, max_q, cand_cap, chunk)
+
+
+def make_hash_geo_scene(cfg: PointNerfConfig, cloud: NeuralPointCloud,
+                        hg: HashGrid, max_q: Optional[int] = None):
+    """The geometry cache of a scene on a hash grid; returns (geo,
+    ranges_min, scaled_vsize), as make_geo_scene does on a dense grid.
+    max_q defaults to n_q rounded up to a multiple of 32768."""
+    if max_q is None:
+        nq = int(hg.n_q)
+        max_q = (nq + 32767) // 32768 * 32768
+    geo = build_geo_cache_hash(hg, cloud.xyz, cfg.query.kernel_size, max_q,
+                               cfg.query.cand_cap)
+    return geo, hg.ranges_min, hg.scaled_vsize
 
 
 def make_geo_scene(cfg: PointNerfConfig, cloud: NeuralPointCloud,
@@ -192,7 +230,7 @@ def _check_served(cfg: PointNerfConfig, points: NeuralPointCloud,
             raise NotImplementedError(
                 f"fast_train_render: {what} is not ported (ROADMAP queue 1 "
                 f"item {item}); the port trains through topk compaction and "
-                f"the packed composite on a dense grid with a global Rw2c "
+                f"the packed composite with a global Rw2c "
                 f"and remat='none'")
 
 
@@ -269,6 +307,7 @@ def fast_train_render(
     jitter_u: Optional[torch.Tensor] = None,    # [R, D] jitter draws
     ray_live: Optional[torch.Tensor] = None,    # [R] bool real-ray rows
     debug_prefix: Optional[str] = None,
+    bg_ray_colors: Optional[torch.Tensor] = None,   # [R, 3] per-ray bg
 ) -> TrainRenderOutput:
     """Render R rays through the differentiable fast path (see the module
     docstring). Jitter (cfg.train.jitter, training only) takes its draws
@@ -288,7 +327,9 @@ def fast_train_render(
     near = torch.as_tensor(near, dtype=f32, device=dev)
     far = torch.as_tensor(far, dtype=f32, device=dev)
     jit_amount = cfg.train.jitter if training else 0.0
-    bg = torch.as_tensor(cfg.bg_color, dtype=f32, device=dev)
+    bg = (bg_ray_colors.to(f32) if bg_ray_colors is not None
+          else torch.as_tensor(cfg.bg_color, dtype=f32,
+                               device=dev).expand(R, 3))
 
     u_full = jitter_u
     if u_full is None and jit_amount > 0.0 and generator is not None:
@@ -310,7 +351,9 @@ def fast_train_render(
             params, points, geo, campos, camrotc2w, raydirs[ray_ids], near,
             far, cfg0, ranges_min, scaled_vsize, training=training,
             jitter_u=None if u_full is None else u_full[ray_ids],
-            ray_live=valid)
+            ray_live=valid,
+            bg_ray_colors=(None if bg_ray_colors is None
+                           else bg_ray_colors[ray_ids]))
         ids = torch.where(valid, ray_ids, R)       # padding rows drop
 
         def scatter(base, x):
@@ -319,7 +362,7 @@ def fast_train_render(
             return out[:R]
 
         return TrainRenderOutput(
-            coarse_raycolor=scatter(bg.expand(R, 3), sub.coarse_raycolor),
+            coarse_raycolor=scatter(bg, sub.coarse_raycolor),
             ray_mask=scatter(torch.zeros(R, dtype=torch.bool, device=dev),
                              sub.ray_mask),
             acc=scatter(torch.zeros(R, dtype=f32, device=dev), sub.acc),
@@ -335,11 +378,13 @@ def fast_train_render(
     mid_ts = mid_ts.contiguous()
 
     mc_overflow = None
-    if march_active(q) and not cfg.inverse:
+    if march_active(q) and not cfg.inverse and geo.hash_table is None:
         # ---- the jitter-aware distance-field march (ops/march.py): it
         # tests each sample's true jittered position through the mid_ts
         # table, so it emits the dense path's first-cap valid samples
-        # without the [R, D] lookup. Exact while mc_overflow == 0.
+        # without the [R, D] lookup. Exact while mc_overflow == 0. A hash
+        # grid has no march table: its samples take the lookup below, as
+        # in the reference.
         if geo.march_table is None:
             raise ValueError("march_steps needs a geo cache with "
                              "march_table (make_geo_scene builds it)")
@@ -361,9 +406,10 @@ def fast_train_render(
         qslot_c = torch.clamp((packed_m >> 9) - 1, min=0)
         sel_d = packed_m & 511
     else:
-        # ---- the dense front-end: every sample's qslot, then the first
-        # min(SR, BP) valid columns per ray packed to M slots
-        qs = qslot_lookup(geo.coor_2_qslot, raypos, ranges_min,
+        # ---- the dense front-end: every sample's qslot (the dense table
+        # or the hash table), then the first min(SR, BP) valid columns per
+        # ray packed to M slots
+        qs = qslot_lookup(geo, raypos, ranges_min,
                           scaled_vsize).to(torch.int32)
         if ray_live is not None:
             # the packing's padding rows repeat ray 0: they take no slots,
@@ -422,7 +468,7 @@ def make_fast_train_step(cfg: PointNerfConfig):
 
         step(state, geo, ranges_min, scaled_vsize, campos, camrotc2w,
              raydirs, gt_rgb, near, far, generator=None, jitter_u=None,
-             gt_mask=None) -> (state, aux)
+             gt_mask=None, bg_rgb=None) -> (state, aux)
 
     `state` (train/trainer.TrainState) is updated in place and returned;
     `aux` holds the loss parts, `rb_overflow` and `mc_overflow` (where the
@@ -436,13 +482,14 @@ def make_fast_train_step(cfg: PointNerfConfig):
                    raydirs, gt_rgb, near, far,
                    generator: Optional[torch.Generator] = None,
                    jitter_u: Optional[torch.Tensor] = None,
-                   gt_mask: Optional[torch.Tensor] = None
+                   gt_mask: Optional[torch.Tensor] = None,
+                   bg_rgb: Optional[torch.Tensor] = None
                    ) -> Tuple[object, Dict[str, torch.Tensor]]:
         state.zero_grad()
         out = fast_train_render(
             state.params, state.points, geo, campos, camrotc2w, raydirs,
             near, far, cfg, ranges_min, scaled_vsize, generator=generator,
-            training=True, jitter_u=jitter_u)
+            training=True, jitter_u=jitter_u, bg_ray_colors=bg_rgb)
         total, aux = compute_losses(out, gt_rgb, cfg.train, gt_mask=gt_mask)
         total.backward()
         aux = {k: v.detach() for k, v in aux.items()}

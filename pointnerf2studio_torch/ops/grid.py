@@ -175,19 +175,36 @@ def build_candidate_cache(grid: PointGrid, xyz: torch.Tensor,
                           cand_pack=pack.reshape(max_q, C * 5), n_q=n_q)
 
 
+def dense_dims_feasible(dims) -> bool:
+    """Whether [gx, gy, gz] dense int32 tables are representable and
+    affordable: flat voxel ids fit int32 and one table stays within 4 GiB
+    (a grid holds two, and the caches a qslot table). Past this, the
+    sparse grid of ops/hash_grid.py serves the extent."""
+    nvox = int(dims[0]) * int(dims[1]) * int(dims[2])
+    return nvox <= 2 ** 31 - 1 and nvox * 4 <= 4 * 2 ** 30
+
+
+def live_bbox(xyz: torch.Tensor, alive: torch.Tensor):
+    """(min [3], max [3]) numpy of the live points' coordinates."""
+    big = torch.tensor(1e30, device=xyz.device)
+    a3 = alive[:, None]
+    return (torch.where(a3, xyz, big).min(0).values.cpu().numpy(),
+            torch.where(a3, xyz, -big).max(0).values.cpu().numpy())
+
+
 def build_grid_from_points(xyz: torch.Tensor, alive: torch.Tensor,
                            cfg: QueryConfig) -> PointGrid:
     """Host-side geometry from the live-point bbox, then the build; with
     `cfg.use_cache` the grid carries its candidate cache (max_q defaults
-    to 4 * max_o, as in the reference)."""
-    big = torch.tensor(1e30, device=xyz.device)
-    a3 = alive[:, None]
-    xyz_min = torch.where(a3, xyz, big).min(0).values.cpu().numpy()
-    xyz_max = torch.where(a3, xyz, -big).max(0).values.cpu().numpy()
-    ranges_min, dims = compute_grid_geometry(xyz_min, xyz_max, cfg)
-    if dims[0] * dims[1] * dims[2] > 2 ** 30:
-        raise ValueError(f"dense grid dims {dims} exceed the dense table "
-                         f"budget (the sparse grid is not ported)")
+    to 4 * max_o, as in the reference). Raises ValueError where the dense
+    tables are not feasible (`dense_dims_feasible`)."""
+    ranges_min, dims = compute_grid_geometry(*live_bbox(xyz, alive), cfg)
+    if not dense_dims_feasible(dims):
+        raise ValueError(
+            f"dense grid dims {dims} exceed the dense table budget; use the "
+            f"sparse grid for this extent (grid_mode='hash' / 'auto', or "
+            f"ops/hash_grid.build_hash_grid_from_points + "
+            f"make_hash_fast_scene / make_hash_geo_scene)")
     grid = build_grid(
         xyz, alive, torch.as_tensor(ranges_min, device=xyz.device),
         torch.tensor(cfg.scaled_vsize, dtype=torch.float32,

@@ -14,9 +14,13 @@ the device:
     takes the raster only where it serves the frame and reports the
     front-end it used; it catches nothing else.
 
+On a hash grid (ops/hash_grid.py) the fat cache is the hash one
+(`make_hash_fast_scene`), `fast` is forced on (the legacy renderer reads
+dense tables) and the raster is never chosen, as in the reference. With
+`bgmodel="plane"` each view's plane background (models/bg_plane.py),
+sampled from `bg_src_dataset`'s images, replaces the constant one.
 `render_video` imports imageio and `save_images` PIL where they are
-used. The hash grid and the plane background are not ported (ROADMAP
-queue 1 item 9); asking for them raises.
+used.
 """
 
 from __future__ import annotations
@@ -30,29 +34,31 @@ import torch
 
 from pointnerf2studio_torch.config import PointNerfConfig
 from pointnerf2studio_torch.data.blender import BlenderDataset, pixel_raydirs
+from pointnerf2studio_torch.models.bg_plane import create_all_bg
 from pointnerf2studio_torch.models.fast_render import (
-    make_fast_scene, render_frame, suggest_depth_window, fast_render_rays)
+    make_fast_scene, make_hash_fast_scene, render_frame,
+    suggest_depth_window, fast_render_rays)
 from pointnerf2studio_torch.models.render import render_rays
+from pointnerf2studio_torch.ops.hash_grid import HashGrid
 from pointnerf2studio_torch.utils import metrics as M
 
 
-def _unported(cfg: PointNerfConfig) -> None:
-    if cfg.query.grid_mode == "hash" or cfg.bgmodel.endswith("plane"):
-        raise NotImplementedError(
-            "evaluation with the hash grid or the plane background is not "
-            "ported (ROADMAP queue 1 item 9)")
+def _make_scene(cfg: PointNerfConfig, points, grid):
+    if isinstance(grid, HashGrid):
+        return make_hash_fast_scene(cfg, points, grid)
+    return make_fast_scene(cfg, points, grid)
 
 
 def make_render_chunk_fn(cfg: PointNerfConfig):
     """A chunk renderer through the legacy `render_rays`:
-    fn(params, points, grid, campos, camrotc2w, raydirs, near, far)
-    -> (colour, ray_mask, depth, acc)."""
-    _unported(cfg)
+    fn(params, points, grid, campos, camrotc2w, raydirs, near, far,
+    bg_rgb=None) -> (colour, ray_mask, depth, acc)."""
 
     @torch.no_grad()
-    def fn(params, points, grid, campos, camrotc2w, raydirs, near, far):
+    def fn(params, points, grid, campos, camrotc2w, raydirs, near, far,
+           bg_rgb=None):
         out = render_rays(params, points, grid, campos, camrotc2w, raydirs,
-                          near, far, cfg)
+                          near, far, cfg, bg_ray_colors=bg_rgb)
         return out.coarse_raycolor, out.ray_mask, out.depth, out.acc
 
     return fn
@@ -61,23 +67,24 @@ def make_render_chunk_fn(cfg: PointNerfConfig):
 def make_fast_chunk_fn(cfg: PointNerfConfig, points, grid, near: float,
                        far: float):
     """A chunk renderer through `fast_render_rays` on a fat cache built
-    here once (the points and grid arguments of each call are ignored).
-    A negative depth_window becomes the grid box's chord bound. The first
-    chunk's dw / rb overflow counters are read and a non-zero one is
-    reported."""
-    _unported(cfg)
+    here once, dense or hash by the grid (the points and grid arguments of
+    each call are ignored). A negative depth_window becomes the grid box's
+    chord bound. The first chunk's dw / rb overflow counters are read and
+    a non-zero one is reported."""
     if cfg.query.depth_window < 0:
         dw = suggest_depth_window(grid.dims, cfg.query.scaled_vsize, near,
                                   far, cfg.query.z_depth_dim)
         cfg = dataclasses.replace(cfg, query=dataclasses.replace(
             cfg.query, depth_window=dw))
-    cache, rmin, svs = make_fast_scene(cfg, points, grid)
+    cache, rmin, svs = _make_scene(cfg, points, grid)
     Rw2c = points.Rw2c
     checked: List[int] = []
 
-    def fn(params, _points, _grid, campos, camrotc2w, raydirs, near, far):
+    def fn(params, _points, _grid, campos, camrotc2w, raydirs, near, far,
+           bg_rgb=None):
         out = fast_render_rays(params, Rw2c, cache, campos, camrotc2w,
-                               raydirs, near, far, cfg, rmin, svs)
+                               raydirs, near, far, cfg, rmin, svs,
+                               bg_ray_colors=bg_rgb)
         if not checked:
             checked.append(1)
             for name, knob in (("dw_overflow", "depth_window"),
@@ -96,19 +103,19 @@ def make_fast_frame_renderer(cfg: PointNerfConfig, points, grid, near: float,
                              far: float, chunk: int = 65536,
                              tier_quant: int = 32, raster=None):
     """A full-frame renderer through `render_frame` on a fat cache built
-    here once: render(params, campos, camrotc2w, raydirs) ->
-    FastRenderOutput. depth_window and ray_budget are render_frame's to
-    set per chunk; the raster programs are kept across frames. The first
+    here once, dense or hash by the grid: render(params, campos, camrotc2w,
+    raydirs, bg=None) -> FastRenderOutput (`bg` [H*W, 3]: per-ray
+    background). depth_window and ray_budget are render_frame's to set
+    per chunk; the raster programs are kept across frames. The first
     frame's dw_overflow is read and a non-zero one reported."""
-    _unported(cfg)
     cfg = dataclasses.replace(cfg, query=dataclasses.replace(
         cfg.query, depth_window=0, ray_budget=0))
-    cache, rmin, svs = make_fast_scene(cfg, points, grid)
+    cache, rmin, svs = _make_scene(cfg, points, grid)
     Rw2c = points.Rw2c
     programs: Dict = {}
     warned: List[int] = []
 
-    def render(params, campos, camrotc2w, raydirs):
+    def render(params, campos, camrotc2w, raydirs, bg=None):
         dev = points.xyz.device
         out = render_frame(
             params, Rw2c, cache,
@@ -117,7 +124,9 @@ def make_fast_frame_renderer(cfg: PointNerfConfig, points, grid, near: float,
             torch.as_tensor(raydirs, dtype=torch.float32, device=dev),
             near, far, cfg, rmin, svs, chunk=chunk, tier_quant=tier_quant,
             program_cache=programs, raster=raster,
-            host_rays=raydirs if isinstance(raydirs, np.ndarray) else None)
+            host_rays=raydirs if isinstance(raydirs, np.ndarray) else None,
+            bg_ray_colors=(None if bg is None else torch.as_tensor(
+                bg, dtype=torch.float32, device=dev)))
         if out.dw_overflow is not None and not warned:
             warned.append(1)
             if int(out.dw_overflow) > 0:
@@ -131,16 +140,21 @@ def make_fast_frame_renderer(cfg: PointNerfConfig, points, grid, near: float,
 
 def render_image(render_chunk, params, points, grid, campos, camrotc2w,
                  raydirs: np.ndarray, hw, near: float, far: float,
-                 chunk: int) -> Dict[str, np.ndarray]:
-    """Chunked full-frame render -> stitched H x W canvases (numpy)."""
+                 chunk: int, bg_colors: Optional[np.ndarray] = None
+                 ) -> Dict[str, np.ndarray]:
+    """Chunked full-frame render -> stitched H x W canvases (numpy);
+    `bg_colors` [H*W, 3] is each ray's background (the plane model's)."""
     dev = points.xyz.device
     h, w = hw
     total = h * w
     rays = torch.as_tensor(np.asarray(raydirs, np.float32), device=dev)
     campos = torch.as_tensor(np.asarray(campos, np.float32), device=dev)
     camrot = torch.as_tensor(np.asarray(camrotc2w, np.float32), device=dev)
+    bg = (None if bg_colors is None else torch.as_tensor(
+        np.asarray(bg_colors, np.float32).reshape(total, 3), device=dev))
     outs = [render_chunk(params, points, grid, campos, camrot,
-                         rays[i:i + chunk], near, far)
+                         rays[i:i + chunk], near, far,
+                         *(() if bg is None else (bg[i:i + chunk],)))
             for i in range(0, total, chunk)]
     c, m, d, a = (torch.cat(x).cpu().numpy() for x in zip(*outs))
     return {"coarse_raycolor": c.reshape(h, w, 3), "ray_mask": m.reshape(h, w),
@@ -152,17 +166,23 @@ def evaluate_dataset(cfg: PointNerfConfig, params, points, grid,
                      views: Optional[List[int]] = None, chunk: int = 4096,
                      out_dir: Optional[str] = None,
                      save_images: bool = False, fast: bool = False,
-                     frame: bool = True) -> Dict[str, float]:
+                     frame: bool = True,
+                     bg_src_dataset: Optional[BlenderDataset] = None
+                     ) -> Dict[str, float]:
     """Mean PSNR / SSIM / RMSE over `views` (default all) of `dataset`
     (the reference's report_metrics). `fast` renders through the fat-cache
     path: with `frame` through `render_frame` (the raster front-end for a
-    march config), else chunk by chunk; otherwise through the legacy
-    `render_rays`. `save_images` writes eval_<view>.png into `out_dir`."""
-    _unported(cfg)
+    march config on a dense grid), else chunk by chunk; otherwise through
+    the legacy `render_rays`. A hash grid forces `fast`. With
+    `cfg.bgmodel` "plane" each view's plane background is made from
+    `bg_src_dataset` (the train split; default `dataset`).
+    `save_images` writes eval_<view>.png into `out_dir`."""
+    is_hash = isinstance(grid, HashGrid)
+    fast = fast or is_hash
     frame_render = render_chunk = None
     if fast and frame:
         raster = None
-        if cfg.query.march_steps:
+        if cfg.query.march_steps and not is_hash:
             k = np.asarray(dataset.intrinsics)
             h, w = dataset.hw
             raster = (h, w, (float(k[0, 0]), float(k[1, 1]),
@@ -176,19 +196,26 @@ def evaluate_dataset(cfg: PointNerfConfig, params, points, grid,
     else:
         render_chunk = make_render_chunk_fn(cfg)
     views = views if views is not None else list(range(dataset.num_views))
+    bg_maps = None
+    if cfg.bgmodel.endswith("plane"):
+        bg_maps = create_all_bg(cfg, dataset, views=views,
+                                points_xyz=points.xyz[points.alive],
+                                src_dataset=bg_src_dataset,
+                                device=points.xyz.device)
     per: Dict[str, List[float]] = {}
     h, w = dataset.hw
     for v in views:
         rays = dataset.full_image_rays(v)
+        bg_v = None if bg_maps is None else bg_maps[v].reshape(-1, 3)
         if frame_render is not None:
             o = frame_render(params, dataset.campos(v), dataset.camrotc2w(v),
-                             rays)
+                             rays, bg=bg_v)
             img = o.coarse_raycolor.cpu().numpy().reshape(h, w, 3)
         else:
             img = render_image(render_chunk, params, points, grid,
                                dataset.campos(v), dataset.camrotc2w(v), rays,
                                dataset.hw, dataset.near, dataset.far,
-                               chunk)["coarse_raycolor"]
+                               chunk, bg_colors=bg_v)["coarse_raycolor"]
         for k, val in M.compute_all(img, dataset.images[v]).items():
             per.setdefault(k, []).append(val)
         if save_images and out_dir:
@@ -267,12 +294,14 @@ def render_video(cfg: PointNerfConfig, params, points, grid,
     """Render a camera path (`poses` [F, 4, 4] c2w, default a spherical
     ring of `n_frames`) and write it with imageio (imported here): a GIF
     when `out_path` ends in .gif, else through imageio's video writer,
-    which raises where no video backend is installed. Returns the path."""
-    _unported(cfg)
+    which raises where no video backend is installed. A hash grid forces
+    `fast`. Returns the path."""
+    is_hash = isinstance(grid, HashGrid)
+    fast = fast or is_hash
     frame_render = render_chunk = None
     if fast and frame:
         raster = None
-        if cfg.query.march_steps:
+        if cfg.query.march_steps and not is_hash:
             k = np.asarray(intrinsics)
             raster = (hw[0], hw[1], (float(k[0, 0]), float(k[1, 1]),
                                      float(k[0, 2]), float(k[1, 2])))

@@ -1,11 +1,18 @@
 """The per-scene fine-tuning loop.
 
-Port of `pointnerf2studio_tpu/train/loop.py` on a dense grid: build the
-grid, then either (TrainConfig.fast_path) the geometry cache and the
+Port of `pointnerf2studio_tpu/train/loop.py`: build the grid of
+QueryConfig.grid_mode (ops/hash_grid.build_query_grid: the dense grid,
+or the sparse hash grid of large-extent scenes), then either
+(TrainConfig.fast_path) the geometry cache and, on a dense grid, the
 jitter-aware march plan (TrainConfig.march_auto) for steps of
 `models/fast_train.make_fast_train_step`, or (the reference's default)
 the grid's candidate cache (QueryConfig.use_cache) for steps of the
-legacy `train/trainer.make_train_step`; the steps take ray batches
+legacy `train/trainer.make_train_step`. The hash grid serves the fast
+step only: as in the reference, it refuses the legacy step and point
+growing (both read dense tables) and evaluates through the fast
+renderer. With `bgmodel="plane"` the plane model's background maps
+(models/bg_plane.create_all_bg) are made once, and each batch takes its
+pixels' background colours from them. The steps take ray batches
 sampled on the device (TrainConfig.device_sampling, from a
 `torch.Generator` on the device) or on the host
 (`data/blender.PixelSampler`), with the loss log of
@@ -20,15 +27,15 @@ cache freed first), point growing (`prob_freq`: the views that the
 `ray_miss_*` loss ranks worst are probed, `train/grow.probe_and_grow`,
 and the caches rebuilt), the native checkpoint (`save_freq`, and once
 at the end; `utils/checkpoint_io.py`) and evaluation (`eval_freq` on
-`eval_dataset`, through the legacy renderer). `resume` restores the
+`eval_dataset`, through the legacy renderer, or on a hash grid the fast
+one). `resume` restores the
 latest native checkpoint and goes on from the step after it; a finished
 run returns without a step. The sampling generator restarts at `seed`
 on resume, as the reference's PRNG key does. A device out-of-memory
 error raises (the reference's sleep-and-retry is not ported).
 
 Not ported, each raising NotImplementedError that names its ROADMAP
-item: sharding (`mesh`), the hash grid, the plane background and
-tensorboard.
+item: sharding (`mesh`) and tensorboard.
 """
 
 from __future__ import annotations
@@ -45,11 +52,12 @@ from pointnerf2studio_torch.config import PointNerfConfig
 from pointnerf2studio_torch.data.blender import BlenderDataset, PixelSampler
 from pointnerf2studio_torch.models import neural_points as npts
 from pointnerf2studio_torch.models.aggregator import Aggregator
+from pointnerf2studio_torch.models.bg_plane import create_all_bg
 from pointnerf2studio_torch.models.fast_train import (
-    make_fast_train_step, make_geo_scene)
+    make_fast_train_step, make_geo_scene, make_hash_geo_scene)
 from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
 from pointnerf2studio_torch.ops._cuda import resolve_device
-from pointnerf2studio_torch.ops.grid import build_grid_from_points
+from pointnerf2studio_torch.ops.hash_grid import HashGrid, build_query_grid
 from pointnerf2studio_torch.ops.march import build_march_table, plan_march
 from pointnerf2studio_torch.train.evaluator import evaluate_dataset
 from pointnerf2studio_torch.train.grow import probe_and_grow
@@ -86,8 +94,6 @@ class FitResult:
 def _unported(cfg: PointNerfConfig, mesh, tensorboard: bool) -> None:
     checks = [
         (mesh is not None, "sharded training (mesh)", 12),
-        (cfg.query.grid_mode == "hash", "the hash grid", 9),
-        (cfg.bgmodel.endswith("plane"), "the plane background", 9),
         (tensorboard, "tensorboard", 10),
     ]
     for bad, what, item in checks:
@@ -171,7 +177,8 @@ class DeviceSampler:
     def next_batch(self):
         """(campos [3], camrotc2w [3, 3], raydirs [B, 3], gt_rgb [B, 3],
         gt_mask [B] bool or None), all on the device, with no read back to
-        the host; `self.view` holds the view drawn (a device scalar)."""
+        the host; `self.view` holds the view drawn (a device scalar),
+        `self.xs` and `self.ys` its pixels."""
         dev = self.g.device
         view = torch.randint(self.V, (), generator=self.g, device=dev)
         xs = torch.randint(self.W, (self.B,), generator=self.g, device=dev)
@@ -184,7 +191,7 @@ class DeviceSampler:
         dirs = (v[:, None, :] * camrot[None]).sum(-1)          # v @ camrot.T
         dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-5)
         gtm = None if self.alphas is None else self.alphas[view, ys, xs] > 0
-        self.view = view
+        self.view, self.xs, self.ys = view, xs, ys
         return self.campos[view], camrot, dirs, gt, gtm
 
 
@@ -261,16 +268,42 @@ def fit(
     # the grid, the candidate cache for the legacy step only
     cfg_g = dataclasses.replace(cfg, query=dataclasses.replace(
         q, use_cache=q.use_cache and not t.fast_path))
-    grid = build_grid_from_points(state.points.xyz, state.points.alive,
-                                  cfg_g.query)
+    grid = build_query_grid(state.points.xyz, state.points.alive,
+                            cfg_g.query)
+    is_hash = isinstance(grid, HashGrid)
+    if is_hash and not t.fast_path:
+        raise ValueError(
+            "grid_mode resolved to the sparse hash grid, which requires "
+            "TrainConfig.fast_path=True (the legacy train step needs dense "
+            "tables)")
+    if is_hash and t.prob_freq > 0:
+        raise ValueError(
+            "point growing (prob_freq > 0) renders probes through the legacy "
+            "path, which is dense-only; set prob_freq=0 for hash-grid scenes "
+            "or use grid_mode='dense'")
+    # the plane background: per-view maps made once, indexed per batch by
+    # pixel (reference train_ft.py:604-612 and :208-211)
+    bg_maps = None
+    if cfg.bgmodel.endswith("plane"):
+        alive = state.points.alive
+        bg_maps = torch.as_tensor(create_all_bg(
+            cfg, dataset, points_xyz=state.points.xyz[alive],
+            device=device), device=device)
+
+    def make_geo():
+        if isinstance(grid, HashGrid):
+            return make_hash_geo_scene(cfg, state.points, grid)
+        return make_geo_scene(cfg, state.points, grid)
+
     geo = {}
     if t.fast_path:
         if (t.march_auto and not q.march_steps and not cfg.inverse
-                and q.compact_mode == "topk" and q.z_depth_dim <= 512):
+                and not is_hash and q.compact_mode == "topk"
+                and q.z_depth_dim <= 512):
             cfg = plan_train_march(cfg, dataset, grid)
             print(f"train march auto-plan: steps {cfg.query.march_steps} "
                   f"buckets {cfg.query.march_buckets}")
-        geo["scene"] = make_geo_scene(cfg, state.points, grid)
+        geo["scene"] = make_geo()
         fast_step = make_fast_train_step(cfg)
 
         def step_fn(st, campos, camrot, rays, gt, near, far, **kw):
@@ -287,7 +320,7 @@ def fit(
     def rebuild_geo():
         if t.fast_path:
             geo.clear()         # the stale cache goes before the build
-            geo["scene"] = make_geo_scene(cfg, state.points, grid)
+            geo["scene"] = make_geo()
 
     gen = torch.Generator(device=device).manual_seed(seed)
     need_mask = (dataset.alphas is not None
@@ -308,7 +341,9 @@ def fit(
     def evaluate(step, **kw):
         m = evaluate_dataset(cfg, state.params, state.points, grid,
                              eval_dataset, views=eval_views,
-                             chunk=eval_chunk, **kw)
+                             chunk=eval_chunk, fast=is_hash,
+                             bg_src_dataset=(dataset if bg_maps is not None
+                                             else None), **kw)
         eval_history.append({"step": step,
                              "wall_s": round(time.time() - t_fit0, 1), **m})
         return m
@@ -324,6 +359,8 @@ def fit(
             if use_dev:
                 campos, camrot, rays, gt, gtm = sampler.next_batch()
                 view = sampler.view
+                bg = (None if bg_maps is None
+                      else bg_maps[view, sampler.ys, sampler.xs])
             else:
                 b = sampler.next_batch()
                 campos, camrot, rays, gt = (
@@ -333,8 +370,12 @@ def fit(
                 gtm = (torch.as_tensor(b["gt_mask"], device=device)
                        if need_mask and "gt_mask" in b else None)
                 view = b["view"]
+                bg = None
+                if bg_maps is not None:
+                    xy = torch.as_tensor(b["pixel_xy"], device=device)
+                    bg = bg_maps[view, xy[:, 1], xy[:, 0]]
             state, aux = step_fn(state, campos, camrot, rays, gt, near, far,
-                                 generator=gen, gt_mask=gtm)
+                                 generator=gen, gt_mask=gtm, bg_rgb=bg)
             logger.accumulate(aux)
             if t.prob_freq > 0 and MISS_LOSS in aux:
                 miss_pairs.append((view, aux[MISS_LOSS]))
@@ -354,8 +395,8 @@ def fit(
                 and s0 <= t.prune_max_iter):
             state.points = npts.prune(state.points, t.prune_thresh)
             grid = None         # the stale grid goes before the build
-            grid = build_grid_from_points(state.points.xyz,
-                                          state.points.alive, cfg_g.query)
+            grid = build_query_grid(state.points.xyz, state.points.alive,
+                                    cfg_g.query)
             rebuild_geo()
 
         # probe holes and grow points (reference train_ft.py:844-923)

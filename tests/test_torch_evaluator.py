@@ -168,9 +168,29 @@ def test_fast_eval_matches_legacy(setup):
 
 
 def test_unported_eval_raises(setup):
-    cfg = dataclasses.replace(setup["pc"], bgmodel="plane")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tev.evaluate_dataset(cfg, None, None, None, setup["tds"])
+    """What evaluation still refuses: on a hash grid, the fused K-NN
+    (dense-only in the reference too)."""
+    from pointnerf2studio_torch.ops import hash_grid as thg
+    cfg = dataclasses.replace(setup["pc"], query=dataclasses.replace(
+        setup["pc"].query, knn_mode="fused"))
+    cloud = setup["cloud"]
+    hg = thg.build_hash_grid_from_points(cloud.xyz, cloud.alive, cfg.query)
+    with pytest.raises(NotImplementedError, match="dense-only"):
+        tev.evaluate_dataset(cfg, setup["params"], cloud, hg, setup["tds"])
+
+
+def test_hash_eval_equals_dense_fast_eval(setup):
+    """On a hash grid evaluation runs the fast renderer whatever `fast`
+    says, and its metrics equal the dense grid's fast evaluation's."""
+    from pointnerf2studio_torch.ops import hash_grid as thg
+    a = (setup["pc"], setup["params"], setup["cloud"])
+    cloud = setup["cloud"]
+    hg = thg.build_hash_grid_from_points(cloud.xyz, cloud.alive,
+                                         setup["pc"].query)
+    dense = tev.evaluate_dataset(*a, setup["grid"], setup["tds"], chunk=192,
+                                 fast=True)
+    hashed = tev.evaluate_dataset(*a, hg, setup["tds"], chunk=192)
+    assert hashed == dense
 
 
 @pytest.mark.parametrize("n,radius,phi", [(8, 4.0, -30.0), (5, 2.5, 10.0)])

@@ -15,6 +15,12 @@ against the JAX reference, on the CPU.
     port: pruning, the save cadence hitting the final step, resume (a
     finished run restores bit for bit), evaluation with a checkpoint that
     both packages read, and a growth run that fills grow_history;
+  * fit() on the hash grid takes the dense grid's steps bit for bit
+    (tests/test_train_loop.py:50-78), and refuses the legacy step and
+    growth there with the reference's ValueErrors (:80-98);
+  * fit(bgmodel="plane") against the reference's fit() on the same
+    host-sampled batches: the per-step losses within the trajectory bound
+    above (rtol 5e-2 / atol 1e-3), and the plane maps change the loss;
   * every part of fit() and fast_train_render that is not ported raises
     NotImplementedError naming its ROADMAP item, and fit() with no device
     raises without a card. (The legacy step behind fit(fast_path=False)
@@ -221,8 +227,6 @@ def test_fit_march_auto_equals_dense(s, tmp_path):
 
 UNPORTED_FIT = {
     "mesh": (dict(mesh=object()), {}, "item 12"),
-    "hash grid": ({}, dict(query=dict(grid_mode="hash")), "item 9"),
-    "plane background": ({}, dict(bgmodel="plane"), "item 9"),
     "tensorboard": (dict(tensorboard=True), {}, "item 10"),
 }
 
@@ -238,6 +242,72 @@ def test_fit_unported_raises(s, name, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         tloop.fit(cfg, s["tds"], s["params"], s["cloud"], str(tmp_path),
                   max_steps=1, device="cpu", **kw)
+
+
+def with_query(cfg, **kw):
+    return dataclasses.replace(cfg, query=dataclasses.replace(cfg.query,
+                                                              **kw))
+
+
+def test_fit_hash_grid_matches_dense(s, tmp_path):
+    """fit() on the sparse hash grid takes the dense grid's steps bit for
+    bit (the hash geometry cache's rows and qslots are the dense ones),
+    sampling on the device with jitter on."""
+    pc = with_train(s["pc"], jitter=0.3, device_sampling=True)
+    res = {}
+    for mode in ("dense", "hash"):
+        res[mode] = tloop.fit(with_query(pc, grid_mode=mode), s["tds"],
+                              s["params"], s["cloud"], str(tmp_path / mode),
+                              max_steps=6, print_freq=1, save_freq=0, seed=3,
+                              device="cpu")
+    assert [r["total"] for r in res["hash"].log] == [
+        r["total"] for r in res["dense"].log]
+    _state_equal(res["hash"].state, res["dense"].state)
+
+
+@pytest.mark.parametrize("what", ["legacy step", "growth"])
+def test_fit_hash_grid_refuses_legacy_and_growth(s, what, tmp_path):
+    cfg = with_query(s["pc"], grid_mode="hash")
+    if what == "legacy step":
+        cfg, match = with_train(cfg, fast_path=False), "fast_path"
+    else:
+        cfg, match = with_train(cfg, prob_freq=5), "prob_freq"
+    with pytest.raises(ValueError, match=match):
+        tloop.fit(cfg, s["tds"], s["params"], s["cloud"], str(tmp_path),
+                  max_steps=1, save_freq=0, device="cpu")
+
+
+PLANE = dict(bgmodel="plane", bg_plane_pnt=(0.0, 0.0, -1.0),
+             bg_plane_normal=(0.0, 0.0, -1.0), bg_plane_color=COLOUR)
+
+
+def test_fit_plane_matches_reference(s, tmp_path):
+    """fit(bgmodel="plane") and the reference's fit() on the same host
+    batches (PixelSampler of one seed, jitter 0): the plane maps of the
+    camera looking down at the plane z = -1 are valid off the sphere, the
+    per-step losses agree within rtol 5e-2 / atol 1e-3 and differ from a
+    run with the constant background."""
+    import json
+
+    from pointnerf2studio_tpu.train import loop as jloop
+    steps = 4
+    jcfg = dataclasses.replace(s["cfg"], **PLANE)
+    with jax.default_matmul_precision("highest"):
+        jloop.fit(jcfg, s["jds"], s["scene"].params, s["scene"].cloud,
+                  str(tmp_path / "jax"), max_steps=steps, print_freq=1,
+                  save_freq=0, seed=4, resume=False)
+    with open(tmp_path / "jax" / "train_metrics.jsonl") as f:
+        want = [json.loads(line)["total"] for line in f]
+    got = {}
+    for name, cfg in (("plane", dataclasses.replace(s["pc"], **PLANE)),
+                      ("const", s["pc"])):
+        res = tloop.fit(cfg, s["tds"], s["params"], s["cloud"],
+                        str(tmp_path / name), max_steps=steps, print_freq=1,
+                        save_freq=0, seed=4, device="cpu")
+        got[name] = [r["total"] for r in res.log]
+    assert len(want) == steps
+    np.testing.assert_allclose(got["plane"], want, rtol=5e-2, atol=1e-3)
+    assert got["plane"] != got["const"]
 
 
 def test_fit_with_pruning(s, tmp_path):
