@@ -147,6 +147,32 @@ ray budget measured on the frame as the JAX bench sizes them:
      by 0.5, and `fit(grid_mode="dense")` twice from the same start: the
      first step bit-equal, the loss gaps after 100 steps printed; it/s,
      peak device memory, PSNR.
+ 14. data: the user's data path and entry point on the procedural chair.
+     `generate_chair_dataset` (style v2, ss 2, 400x400, 64 train and 8
+     test views, seed 0, depth maps) traced on the card and read back by
+     `load_blender` (PIL is required: the run fails without it); test
+     view 0 traced on the card and on the host
+     (the rays whose hit mask differs at most 0.5%, and at least 99.5% of
+     the rays both hit within 2e-4 in colour); the point cloud from the
+     depth maps (stride 2, max depth 6, vox_res 320, "rand" features, conf
+     0.3: tools/validate_chair.py's --init depth); `fit()` on the chair
+     preset at full width (bf16, D 400, SR 80, K 8, 4096-ray legacy steps
+     with select_mode="pallas", fused_decode on) for DATA_STEPS steps, a
+     depth cut of the preset's 200,000, evaluating test views 0-1 every
+     DATA_EVAL_FREQ steps: first_valid_cols once a step and once an
+     evaluation chunk, fused_decode in every evaluation, the held-out PSNR
+     rising; its curve beside the JAX package's record and the time to
+     DATA_TARGET_DB; test view 0 of the trained chair through the fused
+     chunk (`render_frame`, chunk_mode="fused") and through the legacy
+     route with fused_decode, each against its plain route (ray_mask
+     exactly, colour within 2e-2, mean < 2e-3); then the command line in
+     this process (`cli.main`, the card by default) on fit()'s exported
+     `<step>_net_ray_marching.pth`: eval and eval --fast (their PSNR beside
+     fit()'s last), render-video --fast to an 8-frame GIF (where imageio
+     is present), evaluate-images, visualize, edit (the chair and a copy
+     shifted 2 m: twice the alive points), gen-points --from-ply on a PLY
+     of the depth cloud and train --max-steps 20 from it; each command
+     must return normally.
 
 The launch counts are set to 0 just before each path and read just
 after it. It fails (non-zero exit, no result line) when there is no
@@ -165,7 +191,8 @@ or the raster, or when a path's first chunk rendered through the kernels
 differs from the same chunk rendered through the plain versions
 (ray_mask exactly, colour within the same bound), when a check of the
 payload phase, of the train phase, of the legacy phase, of the structure
-phase, of the plane phase or of the large-scene phase fails. Printed
+phase, of the plane phase, of the large-scene phase or of the data phase
+fails. Printed
 before the last line: the card's name and power limit, build and phase times, each
 kernel's and its plain version's time at its path's shapes beside the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -257,6 +284,14 @@ ROOM_FAR_POINTS, ROOM_FAR_SHIFT = 50_000, 41.0
 PLANE_HW, PLANE_FOCAL, PLANE_STEPS, PLANE_PERTURB = 400, FOCAL / 2, 50, 0.1
 PLANE_PNT, PLANE_NORMAL = (0.0, 0.0, -1.0), (0.0, 0.0, -1.0)
 PLANE_COLOUR = (0.5, 0.5, 0.5)
+# the data phase: the procedural chair's views (pixels a side, train and
+# test views), fit()'s steps and evaluation cadence, the PSNR the run's
+# time is read at, and the JAX package's record on the same scene
+# (VALIDATION_RESULTS.json: the point count from depth, and the first
+# evaluation of its curve, step and dB)
+DATA_HW, DATA_TRAIN, DATA_TEST = 400, 64, 8
+DATA_STEPS, DATA_EVAL_FREQ, DATA_TARGET_DB = 2000, 500, 20.0
+DATA_JAX_POINTS, DATA_JAX_RECORD = 136_192, (2504, 22.18)
 # the card's published peaks (H100 SXM): device memory bytes/s and dense
 # bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
@@ -3001,6 +3036,368 @@ def plane_phase(c) -> dict:
             "s": t_total}
 
 
+def write_ply(path, xyz, rgb) -> None:
+    """A binary PLY of float xyz and 8-bit colour (what `load_ply` reads)."""
+    rec = np.zeros(xyz.shape[0],
+                   dtype=[("xyz", "<f4", 3), ("rgb", np.uint8, 3)])
+    rec["xyz"] = xyz
+    rec["rgb"] = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write((f"ply\nformat binary_little_endian 1.0\nelement vertex "
+                 f"{xyz.shape[0]}\nproperty float x\nproperty float y\n"
+                 "property float z\nproperty uchar red\nproperty uchar "
+                 "green\nproperty uchar blue\nend_header\n").encode())
+        rec.tofile(f)
+
+
+def run_cli(argv) -> str:
+    """`cli.main(argv)` in this process, its standard output captured and
+    logged; a failure of the command fails the run."""
+    from pointnerf2studio_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    text = buf.getvalue()
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    log(f"data: cli {argv[0]} in {time.perf_counter() - t0:.1f} s: "
+        + (" | ".join(lines[-3:]) if lines else "(no output)"))
+    return text
+
+
+def data_phase(c) -> dict:
+    """The user's data path and entry point on the procedural chair
+    (section "data" of the module docstring). Returns the phase's numbers
+    and its launches."""
+    import ast
+    import importlib.util
+
+    import torch
+    from pointnerf2studio_torch.data import procedural as proc
+    from pointnerf2studio_torch.data.blender import load_blender
+    from pointnerf2studio_torch.data.pointcloud_init import (
+        init_cloud_from_points, init_points_from_depth)
+    from pointnerf2studio_torch.data.presets import nerf_synth_config
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.models import render as lr
+    from pointnerf2studio_torch.models.aggregator import Aggregator
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.ops import fused_decode as fd
+    from pointnerf2studio_torch.ops import select as sl
+    from pointnerf2studio_torch.ops.fused_chunk import (
+        fused_chunk_decode_plain)
+    from pointnerf2studio_torch.ops.hash_grid import build_query_grid
+    from pointnerf2studio_torch.train import loop
+    from pointnerf2studio_torch.train.evaluator import (
+        make_fast_frame_renderer, make_render_chunk_fn, render_image)
+
+    dev, smi = c.dev, c.smi
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = pathlib.Path("build/data")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = root / "chair"
+    has_pil = importlib.util.find_spec("PIL") is not None
+    has_imageio = importlib.util.find_spec("imageio") is not None
+    log(f"data: PIL {'present' if has_pil else 'missing'}, imageio "
+        f"{'present' if has_imageio else 'missing'} on this machine")
+    if not has_pil:
+        fail("data: PIL is missing: generate_chair_dataset and load_blender "
+             "need it")
+    hw = (DATA_HW, DATA_HW)
+    focal = proc.chair_focal(DATA_HW)
+
+    # ---- 1. the dataset, traced on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proc.generate_chair_dataset(
+        str(data_dir), n_train=DATA_TRAIN, n_test=DATA_TEST, hw=hw, seed=0,
+        save_depth=True, style="v2", ss=2, device=dev)
+    t_gen = time.perf_counter() - t0
+    train_ds = load_blender(str(data_dir), "train")
+    test_ds = load_blender(str(data_dir), "test")
+    depths = np.stack([np.load(data_dir / "train" / f"depth_{k}.npy")
+                       for k in range(DATA_TRAIN)])
+    log(f"data: chair v2, ss 2, {DATA_HW}x{DATA_HW}, {DATA_TRAIN} train / "
+        f"{DATA_TEST} test views with depth, seed 0, traced on the card in "
+        f"{t_gen:.2f} s; generate_chair_dataset wrote it, load_blender read "
+        f"it")
+    if not (np.isfinite(train_ds.images).all() and depths.shape
+            == (DATA_TRAIN, DATA_HW, DATA_HW) and (depths > 0).any()):
+        fail("data: the dataset is not finite or has no depth")
+    # one view on the card and on the host, at the traced (supersampled)
+    # resolution: the hit masks and the colour of the rays both hit
+    cam0 = proc.chair_cameras(DATA_TRAIN, DATA_TEST, seed=0)["test"][0]
+    dirs0 = proc._camera_dirs(cam0, 2 * DATA_HW, 2 * DATA_HW, 2 * focal)
+    org0 = cam0[:3, 3].astype(np.float32)
+    t0 = time.perf_counter()
+    rgba_d = proc._march_rays(torch.as_tensor(org0, device=dev),
+                              torch.as_tensor(dirs0, device=dev), 128,
+                              "v2").cpu().numpy()
+    t_dev_view = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rgba_h = proc._march_rays(torch.as_tensor(org0), torch.as_tensor(dirs0),
+                              128, "v2").numpy()
+    t_host_view = time.perf_counter() - t0
+    hit_d, hit_h = rgba_d[:, 3] > 0, rgba_h[:, 3] > 0
+    n_mask_diff = int((hit_d != hit_h).sum())
+    both = hit_d & hit_h
+    col_diff = float(np.abs(rgba_d - rgba_h)[both].max())
+    log(f"data: test view 0 traced at {2 * DATA_HW}x{2 * DATA_HW} rays on "
+        f"the card ({t_dev_view:.2f} s) and on the host ({t_host_view:.2f} "
+        f"s): {n_mask_diff} of {hit_d.size} rays differ in their hit mask, "
+        f"largest colour difference on the {int(both.sum())} rays both hit "
+        f"{col_diff:.3e}")
+    close = float((np.abs(rgba_d - rgba_h)[both].max(-1) <= 2e-4).mean())
+    log(f"data: {close:.6f} of the rays both hit agree within 2e-4")
+    if n_mask_diff > 5e-3 * hit_d.size or close < 0.995:
+        fail("data: the card's trace of a view disagrees with the host's")
+
+    # ---- 2. the point cloud from the depth maps (validate_chair --init
+    # depth)
+    cfg = nerf_synth_config("chair")
+    cfg = dataclasses.replace(
+        cfg,
+        query=dataclasses.replace(cfg.query, z_depth_dim=400,
+                                  ray_slot_budget=32, fast_chunk=4096,
+                                  select_mode="pallas"),
+        agg=dataclasses.replace(cfg.agg, compute_dtype="bfloat16",
+                                fused_decode=True),
+        train=dataclasses.replace(cfg.train, prob_freq=0, prune_iter=0,
+                                  rays_per_batch=TRAIN_RAYS))
+    t0 = time.perf_counter()
+    xyz, colour = init_points_from_depth(
+        depths, train_ds.poses, train_ds.intrinsics, images=train_ds.images,
+        stride=2, max_depth=6.0)
+    cloud = init_cloud_from_points(
+        xyz, colour, feat_dim=cfg.agg.point_features_dim,
+        feature_init_method="rand", default_conf=0.3, vox_res=320,
+        ranges=cfg.query.ranges, device=dev)
+    n_pts = int(cloud.num_alive)
+    t_init = time.perf_counter() - t0
+    log(f"data: {xyz.shape[0]} depth points, {n_pts} after the vox_res 320 "
+        f"downsample in {t_init:.2f} s (the JAX record: {DATA_JAX_POINTS})")
+
+    # ---- 3. fit(): the legacy step through first_valid_cols, evaluation
+    # through fused_decode
+    params = Aggregator(cfg.agg, seed=0, device=dev)
+    run_dir = root / "run"
+    _cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = loop.fit(cfg, train_ds, params, cloud, str(run_dir),
+                   max_steps=DATA_STEPS, print_freq=100, save_freq=0,
+                   eval_dataset=test_ds, eval_views=[0, 1],
+                   eval_freq=DATA_EVAL_FREQ, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    fit_launches = dict(_cuda.LAUNCHES)
+    ips = sorted(r["it_per_sec"] for r in res.log[1:]
+                 if "total" in r and r["it_per_sec"] > 0)
+    curve = [(e["step"], round(e["psnr"], 4)) for e in res.eval_history]
+    ttp = res.time_to_psnr(DATA_TARGET_DB)
+    n_evals = len(res.eval_history)
+    chunks = -(-DATA_HW * DATA_HW // 4096)
+    want_sel = DATA_STEPS + n_evals * 2 * chunks
+    log(f"data: fit {DATA_STEPS} legacy steps of {TRAIN_RAYS} rays in "
+        f"{t_fit:.1f} s, {ips[len(ips) // 2]:.2f} it/s (median of "
+        f"{len(ips)} windows of 100 steps after the first; spread "
+        f"{ips[0]:.2f}-{ips[-1]:.2f}; {smi})")
+    log(f"data: held-out PSNR of test views 0-1 by step {curve} (the JAX "
+        f"record on this scene: {DATA_JAX_RECORD[1]} dB at step "
+        f"{DATA_JAX_RECORD[0]}, 25.03 at 10,000); time to "
+        f"{DATA_TARGET_DB:g} dB: "
+        + ("not reached" if ttp is None else
+           f"step {ttp[0]}, {ttp[1]:.1f} s of fit()'s wall time"))
+    log(f"data: fit launches {fit_launches}: first_valid_cols "
+        f"{DATA_STEPS} steps + {n_evals} evaluations x 2 views x {chunks} "
+        f"chunks = {want_sel} expected")
+    check_launches("data fit", fit_launches,
+                   {"first_valid_cols": want_sel, "fused_chunk_decode": 0})
+    if fit_launches.get("fused_decode", 0) < n_evals * 2:
+        fail("data: the legacy evaluations did not run fused_decode")
+    psnrs = [p for _, p in curve]
+    if not (all(np.isfinite(psnrs)) and psnrs[-1] > psnrs[0]):
+        fail(f"data: the held-out PSNR did not rise ({curve})")
+    state = res.state
+
+    # ---- 4. #5 and #3 against their plain routes on the trained chair
+    v = 0
+    rays_v = test_ds.full_image_rays(v)
+    cp, cr = test_ds.campos(v), test_ds.camrotc2w(v)
+    cfg_f = dataclasses.replace(cfg, query=dataclasses.replace(
+        cfg.query, chunk_mode="fused"))
+    grid = build_query_grid(state.points.xyz, state.points.alive, cfg.query)
+    frame = make_fast_frame_renderer(cfg_f, state.points, grid,
+                                     test_ds.near, test_ds.far)
+
+    def fused_route(plain):
+        orig = fr.fused_chunk_decode
+        if plain:
+            fr.fused_chunk_decode = fused_chunk_decode_plain
+        try:
+            with torch.no_grad():
+                o = frame(state.params, cp, cr, rays_v)
+        finally:
+            fr.fused_chunk_decode = orig
+        return o.coarse_raycolor, o.ray_mask
+
+    legacy_chunk = make_render_chunk_fn(cfg)
+
+    def legacy_route(plain):
+        orig = lr.first_valid_cols, lr.fused_decode
+        if plain:
+            lr.first_valid_cols = sl.first_valid_cols_reference
+            lr.fused_decode = fd.fused_decode_reference
+        try:
+            o = render_image(legacy_chunk, state.params, state.points, grid,
+                             cp, cr, rays_v, test_ds.hw, test_ds.near,
+                             test_ds.far, 4096)
+        finally:
+            lr.first_valid_cols, lr.fused_decode = orig
+        return (torch.as_tensor(o["coarse_raycolor"]).reshape(-1, 3),
+                torch.as_tensor(o["ray_mask"]).reshape(-1))
+
+    checks = {}
+    for name, route, kernel in (("fused chunk", fused_route,
+                                 "fused_chunk_decode"),
+                                ("legacy", legacy_route, "fused_decode")):
+        _cuda.LAUNCHES.clear()
+        col_k, m_k = route(False)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        col_p, m_p = route(True)
+        d = (col_k.float() - col_p.float()).abs()
+        checks[name] = {"launches": launches, "max_abs_err": float(d.max()),
+                        "mean_abs_err": float(d.mean()),
+                        "hit_rays": int(m_k.sum())}
+        log(f"data: test view 0 on the trained chair through {name} "
+            f"({kernel}) against its plain route: ray_mask "
+            f"{'equal' if torch.equal(m_k, m_p) else 'DIFFERS'} "
+            f"({int(m_k.sum())} hit rays), colour max |diff| "
+            f"{float(d.max()):.3e}, mean {float(d.mean()):.3e}; launches "
+            f"{launches}")
+        if launches.get(kernel, 0) < 1:
+            fail(f"data: the {name} route did not launch {kernel}")
+        if not torch.equal(m_k, m_p):
+            fail(f"data: {name}: ray_mask differs between kernel and plain")
+        if not (float(d.max()) <= ATOL and float(d.mean()) < MEAN_TOL):
+            fail(f"data: {name}: colour outside {ATOL} / mean {MEAN_TOL}")
+    del frame, grid
+
+    # ---- 5. the command line on the trained state, on the card
+    ckpt = run_dir / f"{DATA_STEPS}_net_ray_marching.pth"
+    if not ckpt.is_file():
+        fail(f"data: fit() did not export {ckpt}")
+    common = ["--scene", "chair", "--data", str(data_dir)]
+    cli_out = {}
+    _cuda.LAUNCHES.clear()
+    t_cli = time.perf_counter()
+    for key, extra in (("eval", ["--out", str(root / "eval")]),
+                       ("eval_fast", ["--fast"])):
+        text = run_cli(["eval", *common, "--checkpoint", str(run_dir),
+                        "--eval-views", "2", *extra])
+        cli_out[key] = ast.literal_eval(text.strip().splitlines()[-1])
+    log(f"data: cli eval PSNR {cli_out['eval']['psnr']:.4f} dB (the "
+        f"preset's legacy route, float32), eval --fast "
+        f"{cli_out['eval_fast']['psnr']:.4f} dB (the preset's XLA "
+        f"route); fit()'s last evaluation {psnrs[-1]:.4f} dB (bf16, "
+        f"the kernel routes)")
+    if has_imageio:
+        gif = root / "orbit.gif"
+        run_cli(["render-video", *common, "--checkpoint", str(run_dir),
+                 "--fast", "--frames", "8", "--out", str(gif)])
+        if not gif.is_file():
+            fail("data: render-video wrote no GIF")
+    else:
+        log("data: imageio is missing: render-video not run")
+    # the ground truth as the evaluation saw it: the test views
+    # composited onto white, as 8-bit PNGs. Not the dataset's own test
+    # PNGs: they are RGBA, and evaluate-images reads their RGB alone, on
+    # a black background (the reference's utils/metrics.py:148-149 does
+    # the same), which reads near 1 dB on this chair (ROADMAP section 3)
+    from pointnerf2studio_torch.train.evaluator import save_image
+    gt_dir = root / "gt"
+    for k in range(2):
+        save_image(test_ds.images[k], str(gt_dir / f"gt_{k:03d}.png"))
+    text = run_cli(["evaluate-images", "--pred", str(root / "eval"),
+                    "--gt", str(gt_dir)])
+    cli_out["evaluate_images"] = json.loads(text.strip().splitlines()[-1])
+    log(f"data: evaluate-images PSNR "
+        f"{cli_out['evaluate_images']['psnr']:.4f} dB over the 8-bit "
+        f"eval output beside eval's {cli_out['eval']['psnr']:.4f} dB")
+    if abs(cli_out["evaluate_images"]["psnr"]
+           - cli_out["eval"]["psnr"]) > 0.5:
+        fail("data: evaluate-images disagrees with eval")
+    # the recorded fault: the same command over the dataset's own test
+    # PNGs of the two views, read as RGB on black
+    rgba_dir = root / "gt_rgba"
+    rgba_dir.mkdir()
+    for k in range(2):
+        shutil.copy(data_dir / "test" / f"r_{k}.png", rgba_dir)
+    text = run_cli(["evaluate-images", "--pred", str(root / "eval"),
+                    "--gt", str(rgba_dir)])
+    cli_out["evaluate_images_rgba_gt"] = json.loads(
+        text.strip().splitlines()[-1])
+    log(f"data: evaluate-images over the dataset's own RGBA test PNGs: "
+        f"{cli_out['evaluate_images_rgba_gt']['psnr']:.4f} dB (a fault of "
+        f"both packages' metrics_over_dirs, recorded, not checked)")
+    run_cli(["visualize", "--checkpoint", str(run_dir), "--out",
+             str(root / "viz")])
+    if not (root / "viz" / "points.ply").is_file():
+        fail("data: visualize wrote no PLY")
+    shift = np.eye(4, dtype=np.float32)
+    shift[:3, 3] = (2.0, 0.0, 0.0)
+    np.save(root / "identity.npy", np.eye(4, dtype=np.float32))
+    np.save(root / "shift.npy", shift)
+    merged_path = root / "edit" / "merged.pth"
+    run_cli(["edit", "--parts", str(ckpt), str(ckpt), "--transforms",
+             str(root / "identity.npy"), str(root / "shift.npy"), "--out",
+             str(merged_path)])
+    merged = torch.load(merged_path, map_location="cpu", weights_only=True)
+    n_alive = int(state.points.num_alive)
+    n_merged = merged["neural_points.xyz"].shape[0]
+    log(f"data: edit merged {n_merged} points from 2 x {n_alive} alive")
+    if n_merged != 2 * n_alive:
+        fail("data: the edited scene does not hold both parts")
+    ply = root / "depth_cloud.ply"
+    write_ply(ply, xyz, colour)
+    gp_dir = root / "gen_points"
+    run_cli(["gen-points", *common, "--from-ply", str(ply), "--out",
+             str(gp_dir)])
+    run_cli(["train", *common, "--point-cloud", str(gp_dir), "--out",
+             str(root / "cli_train"), "--max-steps", "20"])
+    if not (root / "cli_train" / "20_net_ray_marching.pth").is_file():
+        fail("data: cli train wrote no checkpoint at step 20")
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t_cli
+    cli_launches = dict(_cuda.LAUNCHES)
+    log(f"data: the commands took {t_cli:.1f} s; launches {cli_launches} "
+        f"(the preset's routes run first_valid_cols in the legacy "
+        f"compaction and no other kernel)")
+    t_total = time.perf_counter() - t_phase
+    log(f"data phase: {t_total:.1f} s ({smi})")
+    return {"imageio": has_imageio, "dataset_s": t_gen,
+            "view_trace": {"card_s": t_dev_view, "host_s": t_host_view,
+                           "mask_differs": n_mask_diff,
+                           "rays": int(hit_d.size),
+                           "max_colour_diff": col_diff,
+                           "share_within_2e-4": close},
+            "points": n_pts, "depth_points": int(xyz.shape[0]),
+            "fit": {"s": t_fit, "it_per_sec": ips[len(ips) // 2],
+                    "it_per_sec_spread": [ips[0], ips[-1]],
+                    "psnr_curve": curve,
+                    "time_to_psnr": (None if ttp is None else
+                                     {"db": DATA_TARGET_DB, "step": ttp[0],
+                                      "wall_s": ttp[1]}),
+                    "final_psnr": psnrs[-1]},
+            "checks": checks,
+            "cli": {k: v for k, v in cli_out.items()}, "cli_s": t_cli,
+            "launches": {"fit": fit_launches, "cli": cli_launches,
+                         **{k: v["launches"] for k, v in checks.items()}},
+            "s": t_total}
+
+
 def steps_in_turns(runs: dict, go, smi: str) -> dict:
     """Train it/s of each run (`go(run, n)` takes n steps): 10 warm-up
     steps each, then 3 windows of 20 steps, the runs in turns; the median
@@ -3544,6 +3941,12 @@ def main() -> int:
     plane = plane_phase(ns)
     room = large_scene_phase(ns)
 
+    # =================================================================
+    # The user's data path and entry point: the procedural chair on disk,
+    # the depth initialisation, fit() to a held-out PSNR, the command line
+    # =================================================================
+    data = data_phase(ns)
+
     # ---- the least time the card could take for each kernel's work at
     # these inputs: every input read once, every output written once,
     # over the memory rate; the tower's operations on the rows and slots
@@ -3652,7 +4055,10 @@ def main() -> int:
                                      structure["fit_probe_launches"]],
                                  "per_eval_view": structure["eval_launches"][
                                      "legacy"].get("first_valid_cols", 0)},
-                             "large_scene": room["select"]}),
+                             "large_scene": room["select"],
+                             "data": {
+                                 k: v.get("first_valid_cols", 0)
+                                 for k, v in data["launches"].items()}}),
         record("fused_candidate_select", "fused_select.cu",
                "fused_select.py:60", launches_a["fused_candidate_select"],
                fsel_err, t_fs_k, t_fs_p, b_fs),
@@ -3665,7 +4071,10 @@ def main() -> int:
                                 "fit": structure["fit_launches"].get(
                                     "fused_decode", 0)},
                             "plane_legacy_fit": plane["fit"]["legacy"][
-                                "launches"].get("fused_decode", 0)}),
+                                "launches"].get("fused_decode", 0),
+                            "data": {
+                                k: v.get("fused_decode", 0)
+                                for k, v in data["launches"].items()}}),
         record("fused_decode2", "fused_decode.cu", "fused_decode.py:235",
                launches_a["fused_decode2"], kacc_err, t_ka_k, t_ka_p, b_ka,
                f_ka, extra={"large_scene": room["kacc"]}),
@@ -3676,7 +4085,9 @@ def main() -> int:
                        "fused_chunk_decode", 0)},
                    "large_scene_ground_truth": room["chunk_gt"],
                    "plane": {k: v.get("fused_chunk_decode", 0)
-                             for k, v in plane["launches"].items()}}),
+                             for k, v in plane["launches"].items()},
+                   "data": {k: v.get("fused_chunk_decode", 0)
+                            for k, v in data["launches"].items()}}),
         record("march_rays", "march.cu", "march.py:70", **{
             **fe["record"], "extra": {**fe["record"]["extra"],
                                       "train": train["march"]}}),
@@ -3694,7 +4105,8 @@ def main() -> int:
         "structure": structure,
         "plane": {k: v for k, v in plane.items() if k != "launches"},
         "large_scene": {k: v for k, v in room.items()
-                        if k not in ("select", "kacc", "chunk_gt")}}),
+                        if k not in ("select", "kacc", "chunk_gt")},
+        "data": {k: v for k, v in data.items() if k != "launches"}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

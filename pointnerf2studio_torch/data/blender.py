@@ -1,21 +1,32 @@
-"""Blender (NeRF-Synthetic) dataset and the host pixel sampler.
+"""Blender (NeRF-Synthetic) dataset: transforms_*.json + PNG frames,
+and the host pixel sampler.
 
 A copy of the jax-free `pointnerf2studio_tpu/data/blender.py`
 (reference: pointnerf/data/nerf_synth360_ft_dataset.py:379-452 and
-pointnerf/data/data_utils.py:55-69): c2w in the OpenCV convention
-(+z forward), focal = 0.5 * W / tan(0.5 * camera_angle_x), near/far
-(2, 6), ray directions (x + 0.5 - cx) / fx, (y + 0.5 - cy) / fy, 1,
-rotated by the c2w rotation and normalised. Plain numpy on the host.
-
-`load_blender` (PNG frames through PIL) is not ported yet.
+pointnerf/data/data_utils.py:55-69):
+  * c2w = transform_matrix @ BLENDER2OPENCV (the y/z axis flip to the
+    OpenCV camera, +z forward),
+  * focal = 0.5 * W / tan(0.5 * camera_angle_x),
+  * RGBA composited onto a white background,
+  * near/far = (2.0, 6.0),
+  * ray directions (x + 0.5 - cx) / fx, (y + 0.5 - cy) / fy, 1, rotated
+    by the c2w rotation and normalised.
+Plain numpy on the host; `load_blender` reads the frames through PIL,
+imported where it is used.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional, Tuple
 
 import numpy as np
+
+BLENDER2OPENCV = np.array(
+    [[1, 0, 0, 0], [0, -1, 0, 0], [0, 0, -1, 0], [0, 0, 0, 1]],
+    dtype=np.float32)
 
 NEAR_FAR = (2.0, 6.0)
 
@@ -71,14 +82,53 @@ def pixel_raydirs(pixel_xy: np.ndarray, intrinsic: np.ndarray,
     return dirs.astype(np.float32)
 
 
-def load_blender(root: str, split: str = "train", factor: int = 1,
-                 bg_color: Tuple[float, float, float] = (1.0, 1.0, 1.0),
-                 max_views: Optional[int] = None) -> BlenderDataset:
-    """Reading a scene directory is not ported."""
-    raise NotImplementedError(
-        "load_blender (transforms_<split>.json + PNG frames through PIL) "
-        "waits for ROADMAP queue 1 item 10; build a BlenderDataset from "
-        "arrays")
+def load_blender(
+    root: str,
+    split: str = "train",
+    factor: int = 1,
+    bg_color: Tuple[float, float, float] = (1.0, 1.0, 1.0),
+    max_views: Optional[int] = None,
+) -> BlenderDataset:
+    """Load a NeRF-Synthetic scene directory (transforms_<split>.json):
+    the first `max_views` frames, each downscaled by `factor` (LANCZOS),
+    RGBA composited onto `bg_color` with its alpha kept, RGB as it is, a
+    grey frame repeated to RGB; `file_path` with or without ".png"."""
+    from PIL import Image
+
+    with open(os.path.join(root, f"transforms_{split}.json")) as f:
+        meta = json.load(f)
+
+    frames = meta["frames"][:max_views] if max_views else meta["frames"]
+    images, poses, alphas = [], [], []
+    for frame in frames:
+        path = os.path.join(root, frame["file_path"] + ".png")
+        if not os.path.exists(path):
+            path = os.path.join(root, frame["file_path"])
+        img = Image.open(path)
+        if factor > 1:
+            img = img.resize((img.width // factor, img.height // factor),
+                             Image.LANCZOS)
+        arr = np.asarray(img, np.float32) / 255.0
+        if arr.ndim == 2:
+            arr = np.repeat(arr[..., None], 3, -1)
+        if arr.shape[-1] == 4:
+            rgb, a = arr[..., :3], arr[..., 3:]
+            arr = rgb * a + np.asarray(bg_color, np.float32) * (1.0 - a)
+            alphas.append(a[..., 0])
+        images.append(arr[..., :3])
+        c2w = np.asarray(frame["transform_matrix"], np.float32) @ BLENDER2OPENCV
+        poses.append(c2w)
+
+    images = np.stack(images)
+    poses = np.stack(poses)
+    h, w = images.shape[1:3]
+    focal = 0.5 * w / np.tan(0.5 * float(meta["camera_angle_x"]))
+    intrinsics = np.array(
+        [[focal, 0, w / 2.0], [0, focal, h / 2.0], [0, 0, 1]], np.float32)
+    return BlenderDataset(
+        images=images, poses=poses, intrinsics=intrinsics,
+        near=NEAR_FAR[0], far=NEAR_FAR[1], split=split,
+        alphas=np.stack(alphas) if len(alphas) == len(frames) else None)
 
 
 class PixelSampler:

@@ -2,8 +2,7 @@
 
 A copy of the jax-free `pointnerf2studio_tpu/data/scenes.py` on the
 port's BlenderDataset (plain numpy on the host; PIL imported where an
-image is read). The "blender" kind goes to the port's `load_blender`,
-which is not ported yet and raises.
+image is read). The "blender" kind goes to the port's `load_blender`.
 
 The reference's dev_scripts configure ScanNet, Tanks&Temples and DTU
 runs (reference: pointnerf/dev_scripts/w_scannet_etf/*.sh,

@@ -16,7 +16,8 @@ pixels' background colours from them. The steps take ray batches
 sampled on the device (TrainConfig.device_sampling, from a
 `torch.Generator` on the device) or on the host
 (`data/blender.PixelSampler`), with the loss log of
-`utils/logger.Logger`. A step reads nothing back to the host; the log
+`utils/logger.Logger` (with `tensorboard`, also as tensorboard
+scalars). A step reads nothing back to the host; the log
 reads each window back once. The candidate cache is built for the
 legacy step only: the fast step never reads it.
 
@@ -34,8 +35,8 @@ run returns without a step. The sampling generator restarts at `seed`
 on resume, as the reference's PRNG key does. A device out-of-memory
 error raises (the reference's sleep-and-retry is not ported).
 
-Not ported, each raising NotImplementedError that names its ROADMAP
-item: sharding (`mesh`) and tensorboard.
+Not ported, raising NotImplementedError that names its ROADMAP item:
+sharding (`mesh`).
 """
 
 from __future__ import annotations
@@ -91,15 +92,11 @@ class FitResult:
         return None
 
 
-def _unported(cfg: PointNerfConfig, mesh, tensorboard: bool) -> None:
-    checks = [
-        (mesh is not None, "sharded training (mesh)", 12),
-        (tensorboard, "tensorboard", 10),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(
-                f"fit: {what} is not ported (ROADMAP queue 1 item {item})")
+def _unported(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "fit: sharded training (mesh) is not ported (ROADMAP queue 1 "
+            "item 12)")
 
 
 def save_checkpoint(out_dir: str, state: TrainState, step: int,
@@ -246,11 +243,11 @@ def fit(
     log record per `print_freq` window and per growth event, the
     evaluation history and the growth history."""
     device = resolve_device(device)
-    _unported(cfg, mesh, tensorboard)
+    _unported(mesh)
     if points.xyz.device.type != device.type:
         raise ValueError(f"points are on {points.xyz.device}, fit runs on "
                          f"{device}")
-    logger = Logger(out_dir)
+    logger = Logger(out_dir, tensorboard=tensorboard)
     max_steps = max_steps or cfg.train.max_iterations
     t = cfg.train
     state = create_train_state(params, points, cfg)
@@ -434,5 +431,6 @@ def fit(
         metrics = evaluate(max_steps)
         log.append(logger.flush(
             max_steps, extra={f"final_{k}": v for k, v in metrics.items()}))
+    logger.close()
     return FitResult(state=state, out_dir=out_dir, metrics=metrics, log=log,
                      eval_history=eval_history, grow_history=grow_history)

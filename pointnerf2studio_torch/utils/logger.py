@@ -4,8 +4,11 @@ A copy of `pointnerf2studio_tpu/utils/logger.py` (reference
 `Visualizer`, pointnerf/utils/visualizer.py:38-182: append-only log.txt,
 windowed loss averages with a PSNR for each `*raycolor` loss) with torch
 tensors in place of JAX arrays. Values stay on their device until
-`flush`, which reads the whole window back in one transfer. Tensorboard
-export and the image and point dumps are not ported.
+`flush`, which reads the whole window back in one transfer; with
+`tensorboard=True` the window's averages also go to a SummaryWriter
+under `<out_dir>/tensorboard` (JSONL alone, with a message, where
+tensorboard is missing). The reference's image and point dumps are not
+ported: nothing in the port calls them.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ def mse2psnr(mse: float) -> float:
 
 
 class Logger:
-    def __init__(self, out_dir: str):
+    def __init__(self, out_dir: str, tensorboard: bool = False):
         self.out_dir = out_dir
         os.makedirs(out_dir, exist_ok=True)
         self.log_path = os.path.join(out_dir, "log.txt")
@@ -33,6 +36,16 @@ class Logger:
         self._acc: Dict[str, list] = defaultdict(list)
         self._t0 = time.time()
         self._last_step = 0
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                print(f"logger: tensorboard unavailable ({e}); scalars go "
+                      "to the JSONL only")
+            else:
+                self._tb = SummaryWriter(
+                    log_dir=os.path.join(out_dir, "tensorboard"))
 
     def accumulate(self, losses: Dict[str, torch.Tensor]) -> None:
         """Keep the values as they are (device scalars stay on the device:
@@ -65,7 +78,18 @@ class Logger:
             f.write(line + "\n")
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            for k, v in avg.items():
+                self._tb.add_scalar(k, v, step)
+            self._tb.add_scalar("it_per_sec", ips, step)
+            self._tb.flush()
         self._acc.clear()
         self._t0 = time.time()
         self._last_step = step
         return rec
+
+    def close(self) -> None:
+        """Close the tensorboard writer, if there is one."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from pointnerf2studio_torch import convert
+from pointnerf2studio_torch import convert, edit
 from pointnerf2studio_torch.config import AggregatorConfig
-from pointnerf2studio_torch.data import synthetic
+from pointnerf2studio_torch.data import procedural, synthetic
 from pointnerf2studio_torch.models import aggregator, neural_points
 from pointnerf2studio_torch.train import loop
 from pointnerf2studio_torch.utils import checkpoint_io
@@ -43,7 +43,9 @@ def test_sources_found():
                 "models/fast_train.py", "train/loop.py", "train/loss.py",
                 "train/trainer.py", "data/blender.py", "utils/logger.py",
                 "train/grow.py", "train/evaluator.py",
-                "utils/checkpoint_io.py", "utils/metrics.py"):
+                "utils/checkpoint_io.py", "utils/metrics.py",
+                "data/procedural.py", "utils/pfm.py", "utils/profiling.py",
+                "utils/flops.py", "edit.py", "cli.py", "nerfstudio_shim.py"):
         assert f"pointnerf2studio_torch/{mod}" in SOURCES
 
 
@@ -79,6 +81,11 @@ DEFAULT_DEVICE_CALLS = {
     "from_arrays": lambda **kw: neural_points.from_arrays(
         *(np.zeros((2, c), np.float32) for c in (3, 32, 1, 3, 3)), **kw),
     "Aggregator": lambda **kw: aggregator.Aggregator(AggregatorConfig(), **kw),
+    "render_view": lambda **kw: procedural.render_view(
+        np.eye(4, dtype=np.float32), (2, 2), 1.0, **kw),
+    "render_depth": lambda **kw: procedural.render_depth(
+        np.eye(4, dtype=np.float32), (2, 2), 1.0, **kw),
+    "load_and_merge_parts": lambda **kw: edit.load_and_merge_parts([], **kw),
 }
 
 

@@ -227,7 +227,6 @@ def test_fit_march_auto_equals_dense(s, tmp_path):
 
 UNPORTED_FIT = {
     "mesh": (dict(mesh=object()), {}, "item 12"),
-    "tensorboard": (dict(tensorboard=True), {}, "item 10"),
 }
 
 
@@ -488,9 +487,12 @@ def test_fast_train_render_unported_raises(s, name):
             torch.ones(3), training=True, **kw)
 
 
-def test_legacy_step_and_loader_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        tblender.load_blender("scene")
+def test_legacy_step_and_loader_raise(tmp_path):
+    """The loader, ported, raises where the scene directory has no
+    transforms file, as the reference's does."""
+    for load in (tblender.load_blender, jblender.load_blender):
+        with pytest.raises(FileNotFoundError):
+            load(str(tmp_path / "scene"))
 
 
 def test_fit_without_a_device_raises(s, tmp_path):
