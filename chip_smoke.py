@@ -173,6 +173,41 @@ ray budget measured on the frame as the JAX bench sizes them:
      shifted 2 m: twice the alive points), gen-points --from-ply on a PLY
      of the depth cloud and train --max-steps 20 from it; each command
      must return normally.
+  15. mvs: MVSNet point generation and joint MVS training on the data
+     phase's dataset, with random weights written from seeds in the
+     reference's checkpoint layouts (model_000014.ckpt, best_net_mvs.pth)
+     and read by the port's loaders. `mvsnet_depth` at full width on view
+     batch 0 (three 400x400 views, 100x100 features, 192 planes) on the
+     card and on the host: depth within 1e-4 of the far plane, the
+     probability within 1e-4, the truncated expectation index apart on at
+     most 1% of the pixels and the confidence within 1e-4 where it agrees;
+     its device ms (the median of 5 warm calls; the cost-volume build and
+     the 3-D U-Net by the profiler) and peak memory. `generate_point_cloud`
+     over all 64 view batches (num_src 2, vox_res 320, the chair's ranges,
+     the alpha hull) in "mvsnet" mode (the share of pixels each filter
+     keeps; random weights leave no point, and the port raises there) and
+     in "gt" mode (the dataset's depth maps: a real cloud, its count beside
+     the data phase's); both modes on the first 8 batches on the card and
+     on the host: the stage counts and the point count within max(8, 1%)
+     points, the positions matched within 1e-5, the attributes of the
+     matched points within MVS_ATTR_TOL (2e-3: they are bilinear samples of
+     the views at the positions).
+     `fit()` on the gt-mode cloud as the data phase trains, 1,000 steps,
+     evaluating test views 0-1 every 500 (#1 once a step and once an
+     evaluation chunk; the PSNR rising). The joint step at full width:
+     the chair preset, 4,096 rays a step, 128 planes, a 100x100 cloud a
+     step, the gate open (dprob_thresh 0.0), 100 steps: it/s (the median
+     of windows of 20 after 10 warm-up steps), peak memory, the valid
+     points by step (at least 90% at the first), the loss of steps 91-100
+     below that of steps 1-10, every group moved, #1 launched once a step; one step's device ms by part (MVS forward, render,
+     backward, optimizer); one step through #1 and through its plain
+     version from copies of the state: the same selection, the loss within
+     1e-6 relative and each group's gradient within 1e-4 of its norm. The
+     command line: gen-points with the two checkpoints (--max-batches 4)
+     and train-joint --steps 5 at the reference's gate (0.8), each allowed
+     to end in the port's ValueError for an empty cloud. LPIPS (alex,
+     random weights) of the trained chair's test view 0 on the card and on
+     the host within 1e-4 relative.
 
 The launch counts are set to 0 just before each path and read just
 after it. It fails (non-zero exit, no result line) when there is no
@@ -191,8 +226,8 @@ or the raster, or when a path's first chunk rendered through the kernels
 differs from the same chunk rendered through the plain versions
 (ray_mask exactly, colour within the same bound), when a check of the
 payload phase, of the train phase, of the legacy phase, of the structure
-phase, of the plane phase, of the large-scene phase or of the data phase
-fails. Printed
+phase, of the plane phase, of the large-scene phase, of the data phase or
+of the mvs phase fails. Printed
 before the last line: the card's name and power limit, build and phase times, each
 kernel's and its plain version's time at its path's shapes beside the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -292,6 +327,16 @@ PLANE_COLOUR = (0.5, 0.5, 0.5)
 DATA_HW, DATA_TRAIN, DATA_TEST = 400, 64, 8
 DATA_STEPS, DATA_EVAL_FREQ, DATA_TARGET_DB = 2000, 500, 20.0
 DATA_JAX_POINTS, DATA_JAX_RECORD = 136_192, (2504, 22.18)
+# the mvs phase: MVSNet's depth planes, the batches held card against host,
+# fit() on the generated cloud, the joint steps and their depth planes
+MVS_BINS, MVS_CPU_BATCHES = 192, 8
+# card against host, the attributes of matched generated points: colour and
+# features are bilinear samples of the views, so a position apart by the
+# match tolerance (1e-5) moves a sample by 1.4e-3 px at focal 555 and depth
+# 4, and an 8-bit edge moves its value by up to that much
+MVS_ATTR_TOL = 2e-3
+MVS_FIT_STEPS, MVS_EVAL_FREQ = 1000, 500
+JOINT_STEPS, JOINT_DEPTH = 100, 128
 # the card's published peaks (H100 SXM): device memory bytes/s and dense
 # bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
@@ -3050,19 +3095,45 @@ def write_ply(path, xyz, rgb) -> None:
         rec.tofile(f)
 
 
-def run_cli(argv) -> str:
+def run_cli(argv, phase: str = "data", expect: str = "") -> str:
     """`cli.main(argv)` in this process, its standard output captured and
-    logged; a failure of the command fails the run."""
+    logged; a failure of the command fails the run, except a ValueError
+    whose message holds `expect` (where given), which is logged (the
+    command may also succeed)."""
     from pointnerf2studio_torch import cli
     buf = io.StringIO()
     t0 = time.perf_counter()
+    raised = None
     with contextlib.redirect_stdout(buf):
-        cli.main(argv)
+        try:
+            cli.main(argv)
+        except ValueError as e:
+            if not expect or expect not in str(e):
+                raise
+            raised = e
     text = buf.getvalue()
     lines = [ln for ln in text.splitlines() if ln.strip()]
-    log(f"data: cli {argv[0]} in {time.perf_counter() - t0:.1f} s: "
-        + (" | ".join(lines[-3:]) if lines else "(no output)"))
+    log(f"{phase}: cli {argv[0]} in {time.perf_counter() - t0:.1f} s: "
+        + (" | ".join(lines[-3:]) if lines else "(no output)")
+        + (f" | raised as expected: {raised}" if raised else ""))
     return text
+
+
+def data_config():
+    """The chair preset at full width as the data phase trains it: bf16
+    aggregator, D 400, the kernel routes, no pruning or growth, 4,096-ray
+    legacy steps."""
+    from pointnerf2studio_torch.data.presets import nerf_synth_config
+    cfg = nerf_synth_config("chair")
+    return dataclasses.replace(
+        cfg,
+        query=dataclasses.replace(cfg.query, z_depth_dim=400,
+                                  ray_slot_budget=32, fast_chunk=4096,
+                                  select_mode="pallas"),
+        agg=dataclasses.replace(cfg.agg, compute_dtype="bfloat16",
+                                fused_decode=True),
+        train=dataclasses.replace(cfg.train, prob_freq=0, prune_iter=0,
+                                  rays_per_batch=TRAIN_RAYS))
 
 
 def data_phase(c) -> dict:
@@ -3077,7 +3148,6 @@ def data_phase(c) -> dict:
     from pointnerf2studio_torch.data.blender import load_blender
     from pointnerf2studio_torch.data.pointcloud_init import (
         init_cloud_from_points, init_points_from_depth)
-    from pointnerf2studio_torch.data.presets import nerf_synth_config
     from pointnerf2studio_torch.models import fast_render as fr
     from pointnerf2studio_torch.models import render as lr
     from pointnerf2studio_torch.models.aggregator import Aggregator
@@ -3155,16 +3225,7 @@ def data_phase(c) -> dict:
 
     # ---- 2. the point cloud from the depth maps (validate_chair --init
     # depth)
-    cfg = nerf_synth_config("chair")
-    cfg = dataclasses.replace(
-        cfg,
-        query=dataclasses.replace(cfg.query, z_depth_dim=400,
-                                  ray_slot_budget=32, fast_chunk=4096,
-                                  select_mode="pallas"),
-        agg=dataclasses.replace(cfg.agg, compute_dtype="bfloat16",
-                                fused_decode=True),
-        train=dataclasses.replace(cfg.train, prob_freq=0, prune_iter=0,
-                                  rays_per_batch=TRAIN_RAYS))
+    cfg = data_config()
     t0 = time.perf_counter()
     xyz, colour = init_points_from_depth(
         depths, train_ds.poses, train_ds.intrinsics, images=train_ds.images,
@@ -3395,6 +3456,470 @@ def data_phase(c) -> dict:
             "cli": {k: v for k, v in cli_out.items()}, "cli_s": t_cli,
             "launches": {"fit": fit_launches, "cli": cli_launches,
                          **{k: v["launches"] for k, v in checks.items()}},
+            "s": t_total}
+
+
+def cloud_match(got, want):
+    """Points of cloud `got` without a point of `want` within 1e-5 of the
+    scale, and the other way round; the largest difference of each
+    attribute over the matched points, relative to its scale."""
+    from scipy.spatial import cKDTree
+    tol = 1e-5 * max(1.0, float(np.abs(want["xyz"]).max()))
+    d, j = cKDTree(want["xyz"]).query(got["xyz"])
+    ok = d <= tol
+    d2, _ = cKDTree(got["xyz"]).query(want["xyz"])
+    errs = {}
+    for k in ("embedding", "color", "dir", "conf"):
+        a, b = got[k][ok], want[k][j[ok]]
+        errs[k] = (float(np.abs(a - b).max())
+                   / max(1.0, float(np.abs(b).max()))) if b.size else 0.0
+    return int((~ok).sum()), int((d2 > tol).sum()), errs
+
+
+def mvs_phase(c, data) -> dict:
+    """MVSNet point generation and joint MVS training on the chair-data
+    dataset (section "mvs" of the module docstring). Returns the phase's
+    numbers and its launches."""
+    import copy
+
+    import torch
+    from pointnerf2studio_torch.data.blender import load_blender
+    from pointnerf2studio_torch.data.mvs_batches import build_view_batches
+    from pointnerf2studio_torch.data.presets import get_preset
+    from pointnerf2studio_torch.models import neural_points as npts
+    from pointnerf2studio_torch.models import render as lr
+    from pointnerf2studio_torch.models.aggregator import Aggregator
+    from pointnerf2studio_torch.models.mvsnet import featurenet as mf
+    from pointnerf2studio_torch.models.mvsnet import mvsnet as mm
+    from pointnerf2studio_torch.models.mvsnet import pointgen as mp
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.ops import select as sl
+    from pointnerf2studio_torch.ops.grid import compute_grid_geometry
+    from pointnerf2studio_torch.ops.hash_grid import build_query_grid
+    from pointnerf2studio_torch.train import joint as tj
+    from pointnerf2studio_torch.train import loop
+    from pointnerf2studio_torch.train.evaluator import (
+        make_render_chunk_fn, render_image)
+    from pointnerf2studio_torch.utils import lpips as lp
+
+    dev, smi = c.dev, c.smi
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = pathlib.Path("build/mvs")
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    data_dir = pathlib.Path("build/data/chair")
+    train_ds = load_blender(str(data_dir), "train")
+    test_ds = load_blender(str(data_dir), "test")
+    depths = np.stack([np.load(data_dir / "train" / f"depth_{k}.npy")
+                       for k in range(DATA_TRAIN)])
+    mvs_ckpt = mm.random_mvsnet_checkpoint(
+        str(root / "model_000014.ckpt"), 0)
+    fpn_ckpt = mf.random_fpn_checkpoint(str(root / "best_net_mvs.pth"), 1)
+    nets = {d: (mm.load_mvsnet_params(mvs_ckpt, device=d),
+                mf.load_fpn_params(fpn_ckpt, device=d))
+            for d in (dev, torch.device("cpu"))}
+    host = torch.device("cpu")
+    batches, alphas, aK, aE = build_view_batches(train_ds, num_src=2)
+    for i, vb in enumerate(batches):
+        vb.gt_depth = depths[i]      # "nearest": batch i's ref is view i
+    cfg = data_config()
+    log(f"mvs: random reference-layout weights (model_000014.ckpt and "
+        f"best_net_mvs.pth layouts, seeds 0 and 1) loaded by the port's "
+        f"loaders; {len(batches)} view batches of 3 views of "
+        f"{DATA_HW}x{DATA_HW} (num_src 2, nearest pairing)")
+
+    # ---- 1. mvsnet_depth at full width on view batch 0: 400x400 views,
+    # 100x100 features, MVS_BINS planes
+    vb = batches[0]
+    proj = mp.rel_proj_mats(mp.quarter_intrinsics(vb.intrinsics), vb.w2cs)
+    dmin, dmax = vb.near_far_depth
+    dvals = dmin + np.arange(MVS_BINS, dtype=np.float32) * (
+        (dmax - dmin) / MVS_BINS)
+
+    def inputs(d):
+        return [torch.as_tensor(np.asarray(a, np.float32), device=d)
+                for a in (vb.images, proj, dvals)]
+
+    a_d, a_h = inputs(dev), inputs(host)
+    net_d = nets[dev][0]
+    with torch.no_grad():
+        mm.mvsnet_depth(net_d, *a_d)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out_d = mm.mvsnet_depth(net_d, *a_d)
+        torch.cuda.synchronize()
+        peak_depth = torch.cuda.max_memory_allocated() - base
+        t_depth = sorted(cuda_ms(lambda: mm.mvsnet_depth(net_d, *a_d), 1, 0)
+                         for _ in range(5))[2]
+        var = mm.variance_volume(net_d, *a_d)
+        t_cv = sum(r[0] for r in device_rows(
+            lambda: mm.variance_volume(net_d, *a_d)))
+        t_unet = sum(r[0] for r in device_rows(
+            lambda: mm.cost_reg_net(net_d.cost_regularization, var)))
+        del var
+        t0 = time.perf_counter()
+        out_h = mm.mvsnet_depth(nets[host][0], *a_h)
+        t_depth_cpu = time.perf_counter() - t0
+
+    def didx(prob):
+        ar = torch.arange(MVS_BINS, dtype=torch.float32, device=prob.device)
+        return (prob * ar[:, None, None]).sum(0).to(torch.int64).cpu()
+
+    di_d, di_h = didx(out_d[2]), didx(out_h[2])
+    same = di_d == di_h
+    d_d, c_d, p_d = (x.cpu() for x in out_d)
+    d_h, c_h, p_h = out_h
+    e_depth = float((d_d - d_h).abs().max())
+    e_prob = float((p_d - p_h).abs().max())
+    e_conf = float((c_d - c_h).abs()[same].max())
+    n_didx = int((~same).sum())
+    depth_rec = {"hw": list(d_d.shape), "bins": MVS_BINS, "ms": t_depth,
+                 "cost_volume_ms": t_cv, "unet_ms": t_unet,
+                 "peak_bytes": int(peak_depth), "cpu_s": t_depth_cpu,
+                 "max_depth_err": e_depth, "max_prob_err": e_prob,
+                 "didx_differ": n_didx, "max_conf_err_where_same": e_conf}
+    log(f"mvs: mvsnet_depth on view batch 0 at full width ({DATA_HW}x"
+        f"{DATA_HW} views, {tuple(d_d.shape)} features, {MVS_BINS} planes): "
+        f"{t_depth:.2f} ms on the card (median of 5 warm calls; by the "
+        f"profiler the cost-volume build {t_cv:.2f} ms, the 3-D U-Net "
+        f"{t_unet:.2f} ms), peak {peak_depth} B above the inputs; the host "
+        f"{t_depth_cpu:.2f} s; card vs host: depth max |diff| "
+        f"{e_depth:.3e}, prob {e_prob:.3e}, expectation index apart on "
+        f"{n_didx} of {same.numel()} pixels, confidence where it agrees "
+        f"{e_conf:.3e} ({smi})")
+    if not (e_depth <= 1e-4 * float(dmax) and e_prob <= 1e-4
+            and n_didx <= 0.01 * same.numel() and e_conf <= 1e-4):
+        fail("mvs: mvsnet_depth on the card disagrees with the host")
+    del out_d, out_h, a_d, a_h
+
+    # ---- 2. generate_point_cloud over every view batch, in both modes;
+    # the card against the host on the first MVS_CPU_BATCHES
+    def generate(d, bs, mode):
+        st = {}
+        pg = mp.PointGenConfig(vox_res=320, ranges=cfg.query.ranges,
+                               depth_mode=mode)
+        try:
+            pc = mp.generate_point_cloud(*nets[d], bs, alphas=alphas,
+                                         alpha_intrinsics=aK,
+                                         alpha_w2cs=aE, cfg=pg, stats=st)
+        except ValueError as e:
+            if "no point survived" not in str(e):
+                raise
+            pc = None
+        return pc, st
+
+    gen_rec = {}
+    for mode in ("mvsnet", "gt"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pc, st = generate(dev, batches, mode)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        shares = {k: st[k] / st["pixels"] for k in
+                  ("depth_in_range", "conf_above", "filtered",
+                   "alpha_kept") if k in st}
+        n = 0 if pc is None else int(pc["xyz"].shape[0])
+        gen_rec[mode] = {"s": t_gen, "points": n, "stats": st,
+                         "shares": shares}
+        log(f"mvs: generate_point_cloud, {mode} mode, {len(batches)} "
+            f"batches in {t_gen:.2f} s: shares of the {st['pixels']} "
+            f"pixels kept by the depth range, the confidence gate, the "
+            f"fused filter (gate, >= 2 consistent views, ranges) and the "
+            f"alpha hull: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+            + f"; {n} points after vox_res 320"
+            + (" (none survived: the port raises there)" if pc is None
+               else ""))
+        if mode == "gt":
+            pc_gt = pc
+    if pc_gt is None:
+        fail("mvs: the gt-mode cloud is empty")
+    log(f"mvs: the gt-mode cloud has {pc_gt['xyz'].shape[0]} points beside "
+        f"the data phase's depth initialisation of {data['points']} "
+        f"(PERF.md: 136,187)")
+    flips = {}
+    for mode in ("mvsnet", "gt"):
+        (pc_d, st_d), (pc_h, st_h) = (generate(d, batches[:MVS_CPU_BATCHES],
+                                               mode) for d in (dev, host))
+        n_d = 0 if pc_d is None else pc_d["xyz"].shape[0]
+        n_h = 0 if pc_h is None else pc_h["xyz"].shape[0]
+        bound_ = max(8, int(np.ceil(1e-2 * max(n_d, n_h))))
+        st_diff = {k: st_d.get(k, 0) - st_h.get(k, 0) for k in st_h}
+        rec = {"points": [n_d, n_h], "stage_diff": st_diff,
+               "flip_bound": bound_}
+        if pc_d is not None and pc_h is not None:
+            u_d, u_h, errs = cloud_match(pc_d, pc_h)
+            rec.update(unmatched=[u_d, u_h], errs=errs)
+            ok = (u_d <= bound_ and u_h <= bound_
+                  and max(errs.values()) <= MVS_ATTR_TOL)
+        else:
+            ok = pc_d is None and pc_h is None
+        ok = ok and abs(n_d - n_h) <= bound_ and all(
+            abs(v) <= bound_ for v in st_diff.values())
+        flips[mode] = rec
+        log(f"mvs: {mode} mode on {MVS_CPU_BATCHES} batches, card vs host: "
+            f"{n_d} / {n_h} points, stage counts apart by {st_diff}"
+            + (f", unmatched {rec['unmatched']}, attributes within "
+               + ", ".join(f"{k} {v:.2e}" for k, v in rec["errs"].items())
+               if "errs" in rec else "")
+            + f" (bounds {bound_} points, attributes {MVS_ATTR_TOL})")
+        if not ok:
+            fail(f"mvs: generate_point_cloud ({mode}) on the card "
+                 f"disagrees with the host")
+
+    # ---- 3. fit() on the gt-mode cloud
+    cloud = npts.from_arrays(pc_gt["xyz"], pc_gt["embedding"],
+                             pc_gt["conf"], pc_gt["dir"], pc_gt["color"],
+                             device=dev)
+    params = Aggregator(cfg.agg, seed=0, device=dev)
+    _cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = loop.fit(cfg, train_ds, params, cloud, str(root / "run"),
+                   max_steps=MVS_FIT_STEPS, print_freq=100, save_freq=0,
+                   eval_dataset=test_ds, eval_views=[0, 1],
+                   eval_freq=MVS_EVAL_FREQ, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    fit_launches = dict(_cuda.LAUNCHES)
+    curve = [(e["step"], round(e["psnr"], 4)) for e in res.eval_history]
+    ips = sorted(r["it_per_sec"] for r in res.log[1:]
+                 if "total" in r and r["it_per_sec"] > 0)
+    chunks = -(-DATA_HW * DATA_HW // 4096)
+    want_sel = MVS_FIT_STEPS + len(curve) * 2 * chunks
+    log(f"mvs: fit {MVS_FIT_STEPS} legacy steps on the gt-mode cloud in "
+        f"{t_fit:.1f} s, {ips[len(ips) // 2]:.2f} it/s; held-out PSNR by "
+        f"step {curve} beside the data phase's depth cloud "
+        f"{data['fit']['psnr_curve'][:2]}; launches {fit_launches} "
+        f"({want_sel} first_valid_cols expected; {smi})")
+    check_launches("mvs fit", fit_launches, {"first_valid_cols": want_sel})
+    psnrs = [p for _, p in curve]
+    if not (all(np.isfinite(psnrs)) and psnrs[-1] > psnrs[0]):
+        fail(f"mvs: the held-out PSNR did not rise ({curve})")
+
+    # ---- 4. the joint step at full width: the chair preset, its 4,096
+    # rays a step, JOINT_DEPTH planes, a 100x100 cloud a step, the gate
+    # open (dprob_thresh 0.0)
+    cfg_j = get_preset("chair")
+    R = cfg_j.train.rays_per_batch
+    state = tj.create_joint_state(Aggregator(cfg_j.agg, seed=0, device=dev),
+                                  cfg_j, num_views=3, seed=0, device=dev)
+    r = cfg_j.query.ranges
+    rmin, dims = compute_grid_geometry(np.asarray(r[:3]), np.asarray(r[3:]),
+                                       cfg_j.query)
+    step = tj.make_joint_train_step(cfg_j, rmin, dims,
+                                    num_depth=JOINT_DEPTH, dprob_thresh=0.0)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hw = train_ds.hw
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def make_batch():
+        vi = int(rng.integers(len(batches)))
+        b = batches[vi]
+        xs, ys = rng.integers(0, hw[1], R), rng.integers(0, hw[0], R)
+        return tj.MVSTrainBatch(
+            images=t(b.images), intrinsics=t(b.intrinsics), w2cs=t(b.w2cs),
+            c2ws=t(b.c2ws), near_far=t(b.near_far),
+            campos=t(train_ds.campos(vi)),
+            camrotc2w=t(train_ds.camrotc2w(vi)),
+            raydirs=t(train_ds.raydirs(vi, np.stack([xs, ys], -1))),
+            gt_rgb=t(train_ds.images[vi, ys, xs]))
+
+    # on the fresh state, with the gate open: one step's loss and gradients
+    # through #1 and through first_valid_cols_reference, from copies of the
+    # state and one draw
+    b = make_batch()
+    noise = torch.randn((hw[0] // 4, hw[1] // 4), generator=gen, device=dev)
+    ju = torch.rand((R, cfg_j.query.z_depth_dim), generator=gen, device=dev)
+    loss_fn = tj.make_joint_loss_fn(cfg_j, rmin, dims, num_depth=JOINT_DEPTH,
+                                    dprob_thresh=0.0)
+
+    def one(plain):
+        mvs, fields = copy.deepcopy(state.mvs), copy.deepcopy(state.fields)
+        seen = []
+        orig = lr.first_valid_cols
+
+        def spy(qs, bp):
+            out = orig(qs, bp)
+            seen.append((qs.clone(), bp, [o.clone() for o in out]))
+            return out
+
+        lr.first_valid_cols = sl.first_valid_cols_reference if plain else spy
+        try:
+            loss, _ = loss_fn(mvs, fields, b, noise, ju)
+            loss.backward()
+        finally:
+            lr.first_valid_cols = orig
+        grads = {n: p.grad for n, p in list(mvs.named_parameters())
+                 + [("fields." + n, p) for n, p in fields.named_parameters()]
+                 if p.grad is not None}
+        return float(loss), grads, seen
+
+    loss_k, g_k, seen = one(False)
+    loss_p, g_p, _ = one(True)
+    qs, bp, outs = seen[0]
+    ref = sl.first_valid_cols_reference(qs, bp)
+    same_sel = all(torch.equal(x, y) for x, y in zip(outs, ref))
+    g_err = {}
+    for grp in ("FeatureNet", "premlp", "costvol.costreg", "costvol.probnet",
+                "fields"):
+        ks = [n for n in g_k if n.startswith(grp)]
+        num = sum(float((g_k[n] - g_p[n]).double().pow(2).sum()) for n in ks)
+        den = sum(float(g_p[n].double().pow(2).sum()) for n in ks)
+        g_err[grp] = (num ** 0.5) / max(den ** 0.5, 1e-30)
+    log(f"mvs: joint step through first_valid_cols against "
+        f"first_valid_cols_reference on qs {tuple(qs.shape)}: selection "
+        f"{'equal' if same_sel else 'DIFFERS'}, loss {loss_k!r} / "
+        f"{loss_p!r}, gradient |diff| / |grad| by group "
+        + ", ".join(f"{k} {v:.2e}" for k, v in g_err.items())
+        + " (the backward's gathers accumulate with atomics)")
+    if not (same_sel and abs(loss_k - loss_p) <= 1e-6 * abs(loss_p)
+            and max(g_err.values()) <= 1e-4):
+        fail("mvs: the joint step through the kernel disagrees with the "
+             "plain route")
+
+    # then one step of the run's state split into its parts under the
+    # profiler, on the same batch and draws
+    held = {}
+    state.opt_mvs.zero_grad(set_to_none=True)
+    state.opt_fields.zero_grad(set_to_none=True)
+    parts = {
+        "mvs_forward": lambda: held.update(gen=tj.generate_points_diff(
+            state.mvs, b.images, b.intrinsics, b.w2cs, b.c2ws, b.near_far,
+            noise=noise, num_depth=JOINT_DEPTH, dprob_thresh=0.0)),
+        "render": lambda: held.update(loss=tj.render_generated(
+            cfg_j, held["gen"], state.fields, b, rmin, dims, ju)[0]),
+        "backward": lambda: held["loss"].backward(),
+        "optimizer": lambda: (state.opt_mvs.step(), state.opt_fields.step())}
+    split, top = {}, {}
+    for name, fn in parts.items():
+        rows = sorted(device_rows_once(fn), reverse=True)
+        split[name] = sum(x[0] for x in rows)
+        top[name] = [(round(ms, 3), n, key[:60]) for ms, n, key in rows[:3]]
+    log("mvs: one joint step's device ms by the profiler: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + "; the largest kernels of each part (ms, launches, name): "
+        + "; ".join(f"{k}: {v}" for k, v in top.items()))
+
+    before = {n: p.detach().clone() for n, p in state.mvs.named_parameters()}
+    f_before = [p.detach().clone() for p in state.fields.parameters()]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.LAUNCHES.clear()
+    losses, valid, windows = [], [], []
+    t_joint = time.perf_counter()
+    for i in range(JOINT_STEPS):
+        if i >= 10 and (i - 10) % 20 == 0 and i + 20 <= JOINT_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        aux = step(state, make_batch(), generator=gen)
+        losses.append(aux["total"])
+        valid.append(aux["n_valid"])
+        if i >= 29 and (i - 29) % 20 == 0:
+            torch.cuda.synchronize()
+            windows.append(20 / (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    t_joint = time.perf_counter() - t_joint
+    joint_launches = dict(_cuda.LAUNCHES)
+    peak_joint = torch.cuda.max_memory_allocated() - base
+    losses = [float(x) for x in losses]
+    valid = [int(x) for x in valid]
+    moved = {g: max(float((p.detach() - before[n]).abs().max())
+                    for n, p in state.mvs.named_parameters()
+                    if n.startswith(g))
+             for g in ("FeatureNet", "premlp", "costvol.costreg",
+                       "costvol.probnet")}
+    moved["fields"] = max(float((p.detach() - q).abs().max())
+                          for p, q in zip(state.fields.parameters(),
+                                          f_before))
+    w = sorted(windows)
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    n_gen = hw[0] // 4 * (hw[1] // 4)
+    # the gate reads prob[bin 2] (ROADMAP section 3): as the ProbNet
+    # sharpens, that bin underflows and the gate closes even at 0.0
+    log(f"mvs: joint valid points by step (of {n_gen}): "
+        + ", ".join(f"{i + 1}: {valid[i]}" for i in
+                    [0] + list(range(9, JOINT_STEPS, 10))))
+    log(f"mvs: joint {JOINT_STEPS} steps of {R} rays, {JOINT_DEPTH} planes, "
+        f"{n_gen} generated points a step ("
+        f"{np.mean(valid):.0f} valid on average) in {t_joint:.1f} s: "
+        f"{w[len(w) // 2]:.2f} it/s (median of {len(w)} windows of 20 after "
+        f"10 warm-up steps; spread {w[0]:.2f}-{w[-1]:.2f}); peak "
+        f"{peak_joint} B; loss {first:.5f} (steps 1-10) -> {last:.5f} "
+        f"(steps {JOINT_STEPS - 9}-{JOINT_STEPS}); largest change per "
+        f"group {moved}; launches {joint_launches} ({smi})")
+    check_launches("mvs joint", joint_launches,
+                   {"first_valid_cols": JOINT_STEPS})
+    if not (np.isfinite(losses).all() and last < first
+            and valid[0] >= 0.9 * n_gen):
+        fail("mvs: the joint loss did not fall, or the gate was not open "
+             "at the first step")
+    if min(moved.values()) <= 0:
+        fail(f"mvs: a group did not move in the joint steps ({moved})")
+
+    # ---- 5. the command line: MVSNet's gen-points and train-joint
+    common = ["--scene", "chair", "--data", str(data_dir)]
+    _cuda.LAUNCHES.clear()
+    t_cli = time.perf_counter()
+    run_cli(["gen-points", *common, "--mvsnet-ckpt", mvs_ckpt, "--fpn-ckpt",
+             fpn_ckpt, "--max-batches", "4", "--out", str(root / "gen")],
+            "mvs", expect="no point survived")
+    text = run_cli(["train-joint", *common, "--steps", "5", "--print-freq",
+                    "5", "--out", str(root / "joint_cli")], "mvs",
+                   expect="no generated point passes")
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t_cli
+    cli_launches = dict(_cuda.LAUNCHES)
+    n_gate = int(text.split("step 1: ")[1].split()[0])
+    log(f"mvs: the commands took {t_cli:.1f} s; train-joint's gate (0.8) "
+        f"passed {n_gate} points at step 1; launches {cli_launches}")
+    check_launches("mvs cli", cli_launches, {"first_valid_cols": 5})
+
+    # ---- 6. LPIPS (alex, random weights) of the trained chair's test
+    # view 0, the card against the host
+    st = res.state
+    grid = build_query_grid(st.points.xyz, st.points.alive, cfg.query)
+    o = render_image(make_render_chunk_fn(cfg), st.params, st.points, grid,
+                     test_ds.campos(0), test_ds.camrotc2w(0),
+                     test_ds.full_image_rays(0), test_ds.hw, test_ds.near,
+                     test_ds.far, 4096)
+    img = np.asarray(o["coarse_raycolor"], np.float32).reshape(
+        test_ds.hw + (3,))
+    gt = test_ds.images[0]
+    v_d = float(lp.lpips_distance(lp.init_random_params("alex", 0, dev),
+                                  img, gt))
+    v_h = float(lp.lpips_distance(lp.init_random_params("alex", 0, host),
+                                  img, gt))
+    log(f"mvs: LPIPS (alex, random weights from seed 0: a structure check, "
+        f"not a perceptual metric) of test view 0: card {v_d:.6f}, host "
+        f"{v_h:.6f}")
+    if not (np.isfinite(v_d) and abs(v_d - v_h) <= 1e-4 * abs(v_h)):
+        fail("mvs: LPIPS on the card disagrees with the host")
+    del grid, st, res, state
+    t_total = time.perf_counter() - t_phase
+    log(f"mvs phase: {t_total:.1f} s ({smi})")
+    return {"depth": depth_rec, "generate": gen_rec, "card_vs_host": flips,
+            "fit": {"s": t_fit, "it_per_sec": ips[len(ips) // 2],
+                    "psnr_curve": curve},
+            "joint": {"it_per_sec": w[len(w) // 2],
+                      "it_per_sec_spread": [w[0], w[-1]], "s": t_joint,
+                      "peak_bytes": int(peak_joint),
+                      "loss_first_last": [first, last],
+                      "valid_by_step": valid,
+                      "split_ms": split, "split_top": top,
+                      "kernel_vs_plain": {
+                          "same_selection": same_sel,
+                          "loss": [loss_k, loss_p], "grad_rel": g_err}},
+            "cli": {"s": t_cli, "train_joint_valid_step1": n_gate},
+            "lpips": {"card": v_d, "host": v_h},
+            "launches": {"fit": fit_launches, "joint": joint_launches,
+                         "cli": cli_launches},
             "s": t_total}
 
 
@@ -3947,6 +4472,12 @@ def main() -> int:
     # =================================================================
     data = data_phase(ns)
 
+    # =================================================================
+    # MVSNet point generation and joint MVS training on the chair-data
+    # dataset
+    # =================================================================
+    mvs = mvs_phase(ns, data)
+
     # ---- the least time the card could take for each kernel's work at
     # these inputs: every input read once, every output written once,
     # over the memory rate; the tower's operations on the rows and slots
@@ -4058,7 +4589,10 @@ def main() -> int:
                              "large_scene": room["select"],
                              "data": {
                                  k: v.get("first_valid_cols", 0)
-                                 for k, v in data["launches"].items()}}),
+                                 for k, v in data["launches"].items()},
+                             "mvs": {
+                                 k: v.get("first_valid_cols", 0)
+                                 for k, v in mvs["launches"].items()}}),
         record("fused_candidate_select", "fused_select.cu",
                "fused_select.py:60", launches_a["fused_candidate_select"],
                fsel_err, t_fs_k, t_fs_p, b_fs),
@@ -4074,7 +4608,10 @@ def main() -> int:
                                 "launches"].get("fused_decode", 0),
                             "data": {
                                 k: v.get("fused_decode", 0)
-                                for k, v in data["launches"].items()}}),
+                                for k, v in data["launches"].items()},
+                            "mvs": {
+                                k: v.get("fused_decode", 0)
+                                for k, v in mvs["launches"].items()}}),
         record("fused_decode2", "fused_decode.cu", "fused_decode.py:235",
                launches_a["fused_decode2"], kacc_err, t_ka_k, t_ka_p, b_ka,
                f_ka, extra={"large_scene": room["kacc"]}),
@@ -4106,7 +4643,8 @@ def main() -> int:
         "plane": {k: v for k, v in plane.items() if k != "launches"},
         "large_scene": {k: v for k, v in room.items()
                         if k not in ("select", "kacc", "chunk_gt")},
-        "data": {k: v for k, v in data.items() if k != "launches"}}),
+        "data": {k: v for k, v in data.items() if k != "launches"},
+        "mvs": {k: v for k, v in mvs.items() if k != "launches"}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

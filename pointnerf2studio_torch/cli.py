@@ -7,7 +7,11 @@ commands that compute, the card by default (`cuda`), `cpu` to run on the
 host:
 
   python -m pointnerf2studio_torch.cli gen-points --scene chair \
+      --data <dir> --mvsnet-ckpt <ckpt> --fpn-ckpt <pth> --out <dir>
+  python -m pointnerf2studio_torch.cli gen-points --scene chair \
       --data <dir> --from-ply <ply> --out <dir>
+  python -m pointnerf2studio_torch.cli train-joint --scene chair \
+      --data <dir> --out <dir>
   python -m pointnerf2studio_torch.cli train --scene chair --data <dir> \
       --point-cloud <ckpt dir> --out <dir>
   python -m pointnerf2studio_torch.cli eval --scene chair --data <dir> \
@@ -19,10 +23,12 @@ Checkpoints are the reference's `<iter>_net_ray_marching.pth`
 (`utils/checkpoint_io.py`); a checkpoint's aggregator is read with the
 scene preset's AggregatorConfig (`edit`: the default one, which every
 preset uses). `visualize` and `edit` read and write files on the host
-alone. Not ported, each raising NotImplementedError that names its
-ROADMAP item: MVSNet point generation (`gen-points` without
-`--from-ply`) and `train-joint` (queue 1 item 11), and `train
---num-devices` above 1 (item 12).
+alone. `gen-points` without `--from-ply` runs MVSNet point generation
+(`models/mvsnet/pointgen.py`) and raises ValueError where its filters
+leave no point; `train-joint` trains the MVS stack and the fields
+together (`train/joint.py`) and prints the points its gate let through at
+the first step. Not ported: `train --num-devices` above 1, which raises
+NotImplementedError naming ROADMAP queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -138,54 +144,172 @@ def cmd_render_video(args):
     print("wrote", path)
 
 
-def cmd_gen_points(args):
-    """The COLMAP / PLY initialisation (reference w_colmap_n360 family:
-    load_init_points, nerf_synth360_ft_dataset.py:358-375). MVSNet point
-    generation is not ported."""
-    import numpy as np
-
-    from pointnerf2studio_torch.data.pointcloud_init import (
-        init_cloud_from_points, load_ply)
-    from pointnerf2studio_torch.data.presets import get_preset
+def _init_params(args, cfg, dev):
     from pointnerf2studio_torch.models.aggregator import Aggregator
     from pointnerf2studio_torch.utils import checkpoint_io as cio
+    if args.init_mlp:
+        return cio.import_aggregator_params(
+            cio.load_torch_state_dict(args.init_mlp), cfg.agg, device=dev)
+    return Aggregator(cfg.agg, seed=0, device=dev)
 
-    if not args.from_ply:
-        raise NotImplementedError(
-            "gen-points without --from-ply (MVSNet point generation) is "
-            "not ported (ROADMAP queue 1 item 11)")
+
+def cmd_gen_points(args):
+    """MVSNet point generation from the train views (reference
+    run/gen_pnts.py; `--mvsnet-ckpt` in model_000014.ckpt's layout,
+    `--fpn-ckpt` in best_net_mvs.pth's), or the COLMAP / PLY
+    initialisation with `--from-ply` (reference w_colmap_n360 family:
+    load_init_points, nerf_synth360_ft_dataset.py:358-375)."""
+    import numpy as np
+
+    from pointnerf2studio_torch.data.presets import get_preset
+    from pointnerf2studio_torch.utils import checkpoint_io as cio
+
     cfg = get_preset(args.scene)
     dev = _device(args)
-    d = load_ply(args.from_ply)
-    if args.comb_file:
-        # reference --comb_file: extra xyz rows from a ';'-delimited txt
-        # are concatenated onto the PLY cloud
-        # (nerf_synth360_ft_dataset.py:369-374)
-        extra = np.loadtxt(args.comb_file, delimiter=";", ndmin=2)
-        d["xyz"] = np.concatenate(
-            [d["xyz"], extra[:, :3].astype(np.float32)], 0)
-        if d["color"] is not None:
-            pad = np.full((extra.shape[0], 3), 0.5, np.float32)
-            d["color"] = np.concatenate([d["color"], pad], 0)
-    cloud = init_cloud_from_points(
-        d["xyz"], d["color"], feat_dim=cfg.agg.point_features_dim,
-        vox_res=args.vox_res, ranges=cfg.query.ranges,
-        capacity=args.capacity, point_noise=args.point_noise, device=dev)
-    if args.init_mlp:
-        params = cio.import_aggregator_params(
-            cio.load_torch_state_dict(args.init_mlp), cfg.agg, device=dev)
-    else:
-        params = Aggregator(cfg.agg, seed=0, device=dev)
-    os.makedirs(args.out, exist_ok=True)
     out_path = os.path.join(args.out, "0_net_ray_marching.pth")
-    cio.export_torch_checkpoint(params, cloud, out_path)
+
+    if args.from_ply:
+        from pointnerf2studio_torch.data.pointcloud_init import (
+            init_cloud_from_points, load_ply)
+        d = load_ply(args.from_ply)
+        if args.comb_file:
+            # reference --comb_file: extra xyz rows from a ';'-delimited
+            # txt are concatenated onto the PLY cloud
+            # (nerf_synth360_ft_dataset.py:369-374)
+            extra = np.loadtxt(args.comb_file, delimiter=";", ndmin=2)
+            d["xyz"] = np.concatenate(
+                [d["xyz"], extra[:, :3].astype(np.float32)], 0)
+            if d["color"] is not None:
+                pad = np.full((extra.shape[0], 3), 0.5, np.float32)
+                d["color"] = np.concatenate([d["color"], pad], 0)
+        cloud = init_cloud_from_points(
+            d["xyz"], d["color"], feat_dim=cfg.agg.point_features_dim,
+            vox_res=args.vox_res, ranges=cfg.query.ranges,
+            capacity=args.capacity, point_noise=args.point_noise,
+            device=dev)
+    else:
+        from pointnerf2studio_torch.data.blender import load_blender
+        from pointnerf2studio_torch.data.mvs_batches import (
+            build_view_batches)
+        from pointnerf2studio_torch.models import neural_points as npts
+        from pointnerf2studio_torch.models.mvsnet import (
+            load_fpn_params, load_mvsnet_params)
+        from pointnerf2studio_torch.models.mvsnet.pointgen import (
+            PointGenConfig, generate_point_cloud)
+
+        ds = load_blender(args.data, "train", factor=args.factor)
+        mvs_params = load_mvsnet_params(args.mvsnet_ckpt, device=dev)
+        fpn_params = load_fpn_params(args.fpn_ckpt, device=dev)
+        batches, alphas, aK, aE = build_view_batches(
+            ds, num_src=args.num_src, max_batches=args.max_batches,
+            pairing=args.pairing)
+        pg = PointGenConfig(vox_res=args.vox_res, ranges=cfg.query.ranges)
+        pc = generate_point_cloud(mvs_params, fpn_params, batches,
+                                  alphas=alphas, alpha_intrinsics=aK,
+                                  alpha_w2cs=aE, cfg=pg)
+        print("generated", pc["xyz"].shape[0], "points")
+        cloud = npts.from_arrays(pc["xyz"], pc["embedding"], pc["conf"],
+                                 pc["dir"], pc["color"],
+                                 capacity=args.capacity, device=dev)
+    os.makedirs(args.out, exist_ok=True)
+    cio.export_torch_checkpoint(_init_params(args, cfg, dev), cloud,
+                                out_path)
     print("wrote", out_path)
 
 
 def cmd_train_joint(args):
-    raise NotImplementedError(
-        "train-joint (joint MVS + render training) is not ported (ROADMAP "
-        "queue 1 item 11)")
+    """Joint MVS + render training (reference mode 0, learned depth):
+    the point cloud regenerated from the MVS nets every step and both
+    stacks trained end to end (reference:
+    mvs_points_volumetric_model.py:38-45 + train_ft.py with --mode 0), at
+    the reference's prob_filter gate of 0.8. FeatureNet / premlp come
+    from --net-mvs where given (mvs_points_model.py:79). The batches are
+    drawn as the reference draws them (numpy, seed 0); the depth and
+    jitter noise from a torch.Generator seeded 0 on the device. Writes
+    the last step's generated cloud, valid points only, with the fields
+    as `<steps>_net_ray_marching.pth`, and raises ValueError where no
+    point is valid."""
+    import numpy as np
+    import torch
+
+    from pointnerf2studio_torch.data.blender import load_blender
+    from pointnerf2studio_torch.data.mvs_batches import build_view_batches
+    from pointnerf2studio_torch.data.presets import get_preset
+    from pointnerf2studio_torch.models import neural_points as npts
+    from pointnerf2studio_torch.ops.grid import compute_grid_geometry
+    from pointnerf2studio_torch.train.joint import (
+        MVSTrainBatch, create_joint_state, generate_points_diff,
+        load_pretrained_joint_params, make_joint_train_step)
+    from pointnerf2studio_torch.utils import checkpoint_io as cio
+    from pointnerf2studio_torch.utils.logger import Logger
+
+    cfg = get_preset(args.scene)
+    dev = _device(args)
+    ds = load_blender(args.data, "train", factor=args.factor)
+    batches, _, _, _ = build_view_batches(ds, num_src=args.num_src)
+    fields = _init_params(args, cfg, dev)
+    nv = args.num_src + 1
+    mvs = (load_pretrained_joint_params(0, args.net_mvs, num_views=nv,
+                                        device=dev)
+           if args.net_mvs else None)
+    state = create_joint_state(fields, cfg, num_views=nv, mvs_lr=args.mvs_lr,
+                               mvs=mvs, seed=0, device=dev)
+    r = cfg.query.ranges
+    rmin, dims = compute_grid_geometry(
+        np.asarray(r[:3]), np.asarray(r[3:]), cfg.query)
+    step_fn = make_joint_train_step(cfg, rmin, dims, mvs_lr=args.mvs_lr,
+                                    num_depth=args.num_depth)
+    os.makedirs(args.out, exist_ok=True)
+    logger = Logger(args.out)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    R = cfg.train.rays_per_batch
+    h, w = ds.hw
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    for step in range(1, args.steps + 1):
+        vi = int(rng.integers(len(batches)))
+        vb = batches[vi]
+        xs = rng.integers(0, w, R)
+        ys = rng.integers(0, h, R)
+        raydirs = ds.raydirs(vi, np.stack([xs, ys], -1))
+        batch = MVSTrainBatch(
+            images=t(vb.images), intrinsics=t(vb.intrinsics),
+            w2cs=t(vb.w2cs), c2ws=t(vb.c2ws), near_far=t(vb.near_far),
+            campos=t(ds.campos(vi)), camrotc2w=t(ds.camrotc2w(vi)),
+            raydirs=t(raydirs), gt_rgb=t(ds.images[vi, ys, xs]))
+        aux = step_fn(state, batch, generator=gen)
+        if step == 1:
+            print(f"step 1: {int(aux['n_valid'])} of "
+                  f"{(h // 4) * (w // 4)} generated points valid at the "
+                  f"prob_filter gate")
+        logger.accumulate({k: v for k, v in aux.items() if k != "n_valid"})
+        if step % args.print_freq == 0:
+            logger.flush(step)
+    # export the final generated cloud in the reference checkpoint format
+    # (the mode-0 handoff artifact, gen_pnts.py:36-160)
+    vb = batches[0]
+    with torch.no_grad():
+        g = generate_points_diff(
+            state.mvs, t(vb.images), t(vb.intrinsics), t(vb.w2cs),
+            t(vb.c2ws), t(vb.near_far), num_depth=args.num_depth)
+    valid = g["valid"].cpu().numpy()
+    if not valid.any():
+        # the reference's from_arrays fails here on the empty cloud
+        raise ValueError(
+            f"train-joint: no generated point passes the prob_filter gate "
+            f"after {args.steps} steps, so there is no cloud to write (a "
+            f"fresh ProbNet's depth probability sits near 1/"
+            f"{args.num_depth} a bin, under the gate's 0.8)")
+    arrays = [g[k].cpu().numpy()[valid] for k in
+              ("xyz", "embedding", "conf", "dir", "color")]
+    cloud = npts.from_arrays(*arrays, device=dev)
+    out_path = os.path.join(args.out, f"{args.steps}_net_ray_marching.pth")
+    cio.export_torch_checkpoint(state.fields.requires_grad_(False), cloud,
+                                out_path)
+    print("wrote", out_path)
 
 
 def cmd_evaluate_images(args):

@@ -242,3 +242,178 @@ def train_state_from_jax(state, cfg, device: torch.device | str | None = None):
           for k, t in port.points.trainable().items()])
     port.step = int(np.asarray(state.step))
     return port
+
+
+# ---- the MVS networks: JAX trees of the reference's layout -> modules
+# (regular conv [*S, I, O] -> [O, I, *S]; the transposed convs, stored by
+# the reference torch-imported as [*S, O, I], -> [I, O, *S]; Linear
+# [in, out] -> [out, in])
+
+def _conv_w(w):
+    nd = w.ndim - 2
+    return np.transpose(w, (nd + 1, nd) + tuple(range(nd)))
+
+
+def _convt_w(w):
+    return np.transpose(w, (4, 3, 0, 1, 2))
+
+
+def _bn_pairs(bn, p):
+    for a, b in (("weight", "scale"), ("bias", "bias"),
+                 ("running_mean", "mean"), ("running_var", "var")):
+        yield getattr(bn, a), p[b], None
+
+
+def _convbn_pairs(m, p):
+    yield m.conv.weight, p["w"], _conv_w
+    yield from _bn_pairs(m.bn, p["bn"])
+
+
+def _fpn_pairs(net, p):
+    for name in ("conv0", "conv1", "conv2"):
+        for m, lp in zip(getattr(net, name), p[name]):
+            yield from _convbn_pairs(m, lp)
+    yield net.toplayer.weight, p["toplayer"]["w"], _conv_w
+    yield net.toplayer.bias, p["toplayer"]["b"], None
+
+
+def _premlp_pairs(seq, layers):
+    import torch.nn as nn
+    lins = [m for m in seq if isinstance(m, nn.Linear)]
+    if len(lins) != len(layers):
+        raise ValueError(f"premlp: {len(layers)} layers in the tree, "
+                         f"{len(lins)} in the module")
+    for m, lyr in zip(lins, layers):
+        yield m.weight, lyr["kernel"], np.transpose
+        yield m.bias, lyr["bias"], None
+
+
+def _costreg_pairs(net, p):
+    for i in range(7):
+        yield from _convbn_pairs(getattr(net, f"conv{i}"), p[f"conv{i}"])
+    for name in ("conv7", "conv9", "conv11"):
+        seq = getattr(net, name)
+        yield seq[0].weight, p[name]["w"], _convt_w
+        yield from _bn_pairs(seq[1], p[name]["bn"])
+    if "prob" in p:
+        yield net.prob.weight, p["prob"]["w"], _conv_w
+        yield net.prob.bias, p["prob"]["b"], None
+
+
+def _mvs_pairs(m, tree):
+    yield from _fpn_pairs(m.FeatureNet, tree.fpn)
+    yield from _premlp_pairs(m.premlp, tree.premlp)
+    yield from _costreg_pairs(m.costvol.costreg, tree.costvol["costreg"])
+    yield from _convbn_pairs(m.costvol.probnet, tree.costvol["probnet"])
+
+
+@torch.no_grad()
+def _fill(pairs, device) -> None:
+    for p, leaf, fn in pairs:
+        a = np.asarray(leaf, np.float32)
+        a = fn(a) if fn is not None else a
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"a leaf of shape {a.shape} does not fit a "
+                             f"parameter of shape {tuple(p.shape)}")
+        p.copy_(_t(a, device, torch.float32))
+
+
+def fpn_from_jax(tree, device: torch.device | str | None = None):
+    """A JAX FPN tree (`init_fpn_params`: conv0-2, toplayer) ->
+    FeatureNet."""
+    from pointnerf2studio_torch.models.mvsnet.featurenet import FeatureNet
+    device = resolve_device(device)
+    m = FeatureNet().to(device)
+    _fill(_fpn_pairs(m, tree), device)
+    return m
+
+
+def mvsnet_params_from_jax(tree, device: torch.device | str | None = None):
+    """The JAX depth net's tree (`load_mvsnet_params`) -> MVSNet."""
+    from pointnerf2studio_torch.models.mvsnet.mvsnet import MVSNet
+    device = resolve_device(device)
+    m = MVSNet().to(device)
+    f = tree["feature"]
+    pairs = [x for i in range(7) for x in _convbn_pairs(
+        getattr(m.feature, f"conv{i}"), f[f"conv{i}"])]
+    pairs += [(m.feature.feature.weight, f["out"]["w"], _conv_w),
+              (m.feature.feature.bias, f["out"]["b"], None)]
+    pairs += list(_costreg_pairs(m.cost_regularization, tree["costreg"]))
+    _fill(pairs, device)
+    return m
+
+
+def costvol_from_jax(tree, device: torch.device | str | None = None):
+    """A JAX cost-volume tree (`init_costvol_params`: costreg, probnet)
+    -> CostVolParams."""
+    from pointnerf2studio_torch.models.mvsnet.costvol import CostVolParams
+    device = resolve_device(device)
+    m = CostVolParams(
+        num_views=(tree["costreg"]["conv0"]["w"].shape[-2] - 32) // 3
+    ).to(device)
+    _fill(_costreg_pairs(m.costreg, tree["costreg"]), device)
+    _fill(_convbn_pairs(m.probnet, tree["probnet"]), device)
+    return m
+
+
+def mvs_params_from_jax(mvs, device: torch.device | str | None = None):
+    """A JAX `train/joint.MvsParams` (fpn, premlp, costvol) -> the port's
+    MvsParams."""
+    from pointnerf2studio_torch.train.joint import MvsParams
+    device = resolve_device(device)
+    m = MvsParams(num_views=(mvs.costvol["costreg"]["conv0"]["w"].shape[-2]
+                             - 32) // 3,
+                  premlp_layers=len(mvs.premlp)).to(device)
+    _fill(_mvs_pairs(m, mvs), device)
+    return m
+
+
+@torch.no_grad()
+def joint_state_from_jax(state, cfg, mvs_lr: float = 5e-4,
+                         device: torch.device | str | None = None):
+    """A JAX JointState -> the port's JointState of PointNerfConfig `cfg`:
+    the same MVS stack and fields, each tensor's Adam moments from the
+    optax states' mu and nu, the counts, the fields' schedule at its count
+    and `step`."""
+    from pointnerf2studio_torch.train.joint import create_joint_state
+    device = resolve_device(device)
+    port = create_joint_state(
+        aggregator_from_jax(state.fields, cfg.agg, device=device), cfg,
+        mvs_lr=mvs_lr, mvs=mvs_params_from_jax(state.mvs, device=device))
+
+    def fill(opt, adam, pairs_mu, pairs_nu):
+        n = int(np.asarray(adam.count))
+        if not n:
+            return
+        for (p, mu, fn), (_, nu, _) in zip(pairs_mu, pairs_nu):
+            conv = (lambda a: fn(np.asarray(a, np.float32))) if fn else (
+                lambda a: np.asarray(a, np.float32))
+            opt.state[p] = {"step": torch.tensor(float(n)),
+                            "exp_avg": _t(conv(mu), device, torch.float32),
+                            "exp_avg_sq": _t(conv(nu), device,
+                                             torch.float32)}
+
+    adam_m = state.opt_state_mvs[0]
+    fill(port.opt_mvs, adam_m, _mvs_pairs(port.mvs, adam_m.mu),
+         _mvs_pairs(port.mvs, adam_m.nu))
+
+    adam_f = state.opt_state_fields[0]
+
+    def field_pairs(tree):
+        for name in port.fields.towers:
+            for lin, lyr in zip(getattr(port.fields, name), tree[name]):
+                yield lin.weight, lyr["kernel"], np.transpose
+                yield lin.bias, lyr["bias"], None
+
+    fill(port.opt_fields, adam_f, field_pairs(adam_f.mu),
+         field_pairs(adam_f.nu))
+    n = int(np.asarray(adam_f.count))
+    port.sched_fields.last_epoch = n
+    for g, base, fn in zip(port.opt_fields.param_groups,
+                           port.sched_fields.base_lrs,
+                           port.sched_fields.lr_lambdas):
+        g["lr"] = base * fn(n)
+    port.sched_fields._last_lr = [g["lr"] for g in
+                                  port.opt_fields.param_groups]
+    port.step = int(np.asarray(state.step))
+    return port

@@ -15,9 +15,9 @@ Kept as the reference has them: the one-sided parallel test
 `dot >= epsilon` and the `ceil` pixel indexing of the foreground mask
 and of its lookup. The foreground mask's `.at[].max` is a
 `scatter_reduce(..., "amax")`, whose result does not depend on order.
-`bilinear_grid_sample` is the port's own copy of the reference's
-(models/mvsnet/layers.py), written tap by tap as there and not with
-F.grid_sample, whose edge handling and rounding differ.
+The views are sampled with the MVS stack's `bilinear_grid_sample`
+(models/mvsnet/layers.py), written tap by tap as the reference's and not
+with F.grid_sample, whose edge handling and rounding differ.
 """
 
 from __future__ import annotations
@@ -27,39 +27,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pointnerf2studio_torch.models.mvsnet.layers import (
+    bilinear_grid_sample)
 from pointnerf2studio_torch.ops._cuda import resolve_device
-
-
-def bilinear_grid_sample(img: torch.Tensor, grid: torch.Tensor,
-                         align_corners: bool = False) -> torch.Tensor:
-    """Bilinear sampling with zero padding for an [H, W, C] image at
-    normalised coordinates grid [..., 2] in [-1, 1] (x, the width axis,
-    first) -> [..., C]: four taps, each outside the image contributing
-    zero."""
-    H, W, _ = img.shape
-    gx, gy = grid[..., 0], grid[..., 1]
-    if align_corners:
-        fx = (gx + 1.0) * 0.5 * (W - 1)
-        fy = (gy + 1.0) * 0.5 * (H - 1)
-    else:
-        fx = ((gx + 1.0) * W - 1.0) * 0.5
-        fy = ((gy + 1.0) * H - 1.0) * 0.5
-    x0 = torch.floor(fx)
-    y0 = torch.floor(fy)
-    wx = fx - x0
-    wy = fy - y0
-    x0i = x0.long()
-    y0i = y0.long()
-
-    def tap(xi, yi):
-        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-        v = img[torch.clamp(yi, 0, H - 1), torch.clamp(xi, 0, W - 1)]
-        return v * inb[..., None].to(img.dtype)
-
-    return (tap(x0i, y0i) * ((1 - wx) * (1 - wy))[..., None]
-            + tap(x0i + 1, y0i) * (wx * (1 - wy))[..., None]
-            + tap(x0i, y0i + 1) * ((1 - wx) * wy)[..., None]
-            + tap(x0i + 1, y0i + 1) * (wx * wy)[..., None])
 
 
 def ray_plane_intersection(campos: torch.Tensor, raydirs: torch.Tensor,

@@ -4,10 +4,12 @@ The port's own copy of `pointnerf2studio_tpu/utils/metrics.py`, which is
 plain numpy (the reference's metric stack: torchmetrics PSNR, skimage
 SSIM with an 11-wide uniform window, skimage RMSE; reference
 pointnerf/nerfstudio/studio_model.py:40-53,433-464 and
-pointnerf/run/evaluate.py:34-97). LPIPS needs pretrained feature nets
-whose weights are not in the repo, and the port has no LPIPS network
-yet (ROADMAP queue 1 item 11): `lpips()` raises RuntimeError, and
-`compute_all` leaves it out, as the reference does without weights.
+pointnerf/run/evaluate.py:34-97), and LPIPS through `utils/lpips.py`
+with a combined weight file (`weights_path`, or one that
+`lpips.find_weights` finds). The repo holds no LPIPS weights: without a
+file `lpips()` raises RuntimeError, where the reference would try the
+torch `lpips` package (installed on neither of the machines the port
+runs on), and `compute_all` and `metrics_over_dirs` leave it out.
 """
 
 from __future__ import annotations
@@ -63,14 +65,29 @@ def ssim(img: np.ndarray, ref: np.ndarray, data_range: float = 1.0,
     return float(s.mean())
 
 
-def lpips(img: np.ndarray, ref: np.ndarray, net: str = "alex") -> float:
-    """LPIPS v0.1 (reference: run/evaluate.py:62-75). Not available in
-    the port: raises RuntimeError, as the reference does without
-    weights."""
-    raise RuntimeError(
-        f"LPIPS ({net}) needs pretrained weights, which the repo does not "
-        f"hold, and the port has no LPIPS network yet (ROADMAP queue 1 "
-        f"item 11)")
+_LPIPS_CACHE: dict = {}
+
+
+def lpips(img: np.ndarray, ref: np.ndarray, net: str = "alex",
+          weights_path: str | None = None, device=None) -> float:
+    """LPIPS v0.1 of two [H, W, 3] images in [0, 1] (reference:
+    run/evaluate.py:62-75, lpips-alex and lpips-vgg on [-1, 1] inputs) on
+    `device` (None: the card), with the weights of `weights_path` or of
+    `lpips.find_weights(net)`; RuntimeError without a weight file."""
+    from pointnerf2studio_torch.ops._cuda import resolve_device
+    from pointnerf2studio_torch.utils import lpips as lp
+
+    path = weights_path or lp.find_weights(net)
+    if path is None:
+        raise RuntimeError(
+            f"LPIPS ({net}) needs a combined weight file (the JAX "
+            f"package's utils/lpips.py EXPORT_SNIPPET writes one); none "
+            f"was given or found in $LPIPS_WEIGHTS_DIR")
+    dev = resolve_device(device)
+    key = (net, path, str(dev))
+    if key not in _LPIPS_CACHE:
+        _LPIPS_CACHE[key] = lp.load_torch_lpips_weights(path, device=dev)
+    return float(lp.lpips_distance(_LPIPS_CACHE[key], img, ref))
 
 
 def compute_all(img: np.ndarray, ref: np.ndarray) -> dict:
@@ -87,9 +104,9 @@ def compute_all(img: np.ndarray, ref: np.ndarray) -> dict:
 def metrics_over_dirs(pred_dir: str, gt_dir: str,
                       pattern: str = "*.png") -> dict:
     """PSNR / SSIM / RMSE over two directories of rendered and ground-truth
-    PNG pairs, matched by sorted file name (reference
-    pointnerf/run/evaluate.py:34-110). PIL is imported here, not at
-    module import."""
+    PNG pairs, matched by sorted file name, and LPIPS where `lpips` finds
+    a weight file (reference pointnerf/run/evaluate.py:34-110). PIL is
+    imported here, not at module import."""
     import glob
     import os
 
@@ -111,5 +128,10 @@ def metrics_over_dirs(pred_dir: str, gt_dir: str,
         acc["ssim"].append(ssim(a, b))
         acc["rmse"].append(rmse(a, b))
     out = {k: float(np.mean(v)) for k, v in acc.items()}
+    try:
+        out["lpips"] = float(np.mean([lpips(load(p), load(g))
+                                      for p, g in zip(preds, gts)]))
+    except RuntimeError:
+        pass
     out["n_images"] = len(preds)
     return out

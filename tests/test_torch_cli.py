@@ -14,8 +14,9 @@ a ground truth composited onto white gives the JAX CLI's metrics within
 rtol 1e-9 and eval's PSNR within what 8-bit rounding can move it;
 render-video's frames (both routes of the port against the JAX CLI's
 legacy route), visualize's PLY and train's files and checkpoint layout
-are the JAX CLI's. The commands the port does not serve refuse
-with their ROADMAP item."""
+are the JAX CLI's. `train --num-devices` above 1, which the port does not
+serve, refuses with its ROADMAP item; MVSNet's `gen-points` and
+`train-joint` are held in tests/test_torch_cli_mvs.py."""
 
 import ast
 import contextlib
@@ -378,10 +379,6 @@ def test_train_matches_jax_cli(run):
 
 
 REFUSED = {
-    "gen-points without --from-ply": (
-        ["gen-points", "--data", "d", "--out", "o", *DEV], "item 11"),
-    "train-joint": (["train-joint", "--data", "d", "--out", "o", *DEV],
-                    "item 11"),
     "num-devices": (["train", "--data", "d", "--point-cloud", "p", "--out",
                      "o", "--num-devices", "2", *DEV], "item 12"),
 }

@@ -15,8 +15,10 @@ from pointnerf2studio_torch import convert, edit
 from pointnerf2studio_torch.config import AggregatorConfig
 from pointnerf2studio_torch.data import procedural, synthetic
 from pointnerf2studio_torch.models import aggregator, neural_points
-from pointnerf2studio_torch.train import loop
-from pointnerf2studio_torch.utils import checkpoint_io
+from pointnerf2studio_torch.models.mvsnet import (
+    costvol, featurenet, mvsnet)
+from pointnerf2studio_torch.train import joint, loop
+from pointnerf2studio_torch.utils import checkpoint_io, lpips, metrics
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted(
@@ -45,7 +47,11 @@ def test_sources_found():
                 "train/grow.py", "train/evaluator.py",
                 "utils/checkpoint_io.py", "utils/metrics.py",
                 "data/procedural.py", "utils/pfm.py", "utils/profiling.py",
-                "utils/flops.py", "edit.py", "cli.py", "nerfstudio_shim.py"):
+                "utils/flops.py", "edit.py", "cli.py", "nerfstudio_shim.py",
+                "models/mvsnet/layers.py", "models/mvsnet/featurenet.py",
+                "models/mvsnet/mvsnet.py", "models/mvsnet/costvol.py",
+                "models/mvsnet/pointgen.py", "models/mvsnet/__init__.py",
+                "data/mvs_batches.py", "train/joint.py", "utils/lpips.py"):
         assert f"pointnerf2studio_torch/{mod}" in SOURCES
 
 
@@ -86,6 +92,26 @@ DEFAULT_DEVICE_CALLS = {
     "render_depth": lambda **kw: procedural.render_depth(
         np.eye(4, dtype=np.float32), (2, 2), 1.0, **kw),
     "load_and_merge_parts": lambda **kw: edit.load_and_merge_parts([], **kw),
+    "load_mvsnet_params": lambda **kw: mvsnet.load_mvsnet_params(
+        "unused", **kw),
+    "load_fpn_params": lambda **kw: featurenet.load_fpn_params("unused",
+                                                               **kw),
+    "init_joint_params": lambda **kw: joint.init_joint_params(0, **kw),
+    "create_joint_state": lambda **kw: joint.create_joint_state(
+        None, None, **kw),
+    "init_costvol_params": lambda **kw: costvol.init_costvol_params(
+        None, **kw),
+    "lpips.init_random_params": lambda **kw: lpips.init_random_params(**kw),
+    "lpips.load_torch_lpips_weights": lambda **kw: (
+        lpips.load_torch_lpips_weights("unused", **kw)),
+    "metrics.lpips": lambda **kw: metrics.lpips(
+        None, None, weights_path="unused", **kw),
+    "mvs_params_from_jax": lambda **kw: convert.mvs_params_from_jax(
+        None, **kw),
+    "mvsnet_params_from_jax": lambda **kw: convert.mvsnet_params_from_jax(
+        None, **kw),
+    "joint_state_from_jax": lambda **kw: convert.joint_state_from_jax(
+        None, None, **kw),
 }
 
 
