@@ -56,7 +56,34 @@ ray budget measured on the frame as the JAX bench sizes them:
      march step; the loss of steps 91-100 must be at most a quarter of
      steps 1-10's, and both runs end bit-equal. Train it/s per front-end:
      10 warm-up steps, then the median of 3 windows of 20, in turns.
- 10. the reference's default route (`QueryConfig.use_cache`, `fit` with
+ 10. routes: the reference's opt-in routes on chair-800p's scene, cache
+     and weights at full width, each over the whole frame (10 chunks of
+     65,536 rays) and held to its counterpart: the XLA route (chunks of
+     ROUTE_XLA_CHUNK slots) and its two-phase pipeline (decode_chunk2)
+     under tests/test_raster.py's contract (ray_mask equal, colour within
+     1e-3, under 0.1% of the components apart); chunk_mode="fused" with
+     fused_decode2 (#1, #2 and #4 once a chunk) bit-equal to path 2's
+     staged frame, and with agg_intrp_order 1 (#1, #2, the torch decode
+     tail) within ATOL / MEAN_TOL of the order-1 XLA frame; the pair
+     decode within 2e-2 / mean 1e-3 of the lanes, no pb_overflow at a
+     budget of K and some when starved (chunk 0, budget 1, compact budget
+     4); krows on the slim view and cand_prune on a cache of its own (its
+     width printed) bit-equal to the XLA frame; base_cache within ATOL /
+     MEAN_TOL of it; span tiers from `measured_span_tiers` bit-equal to
+     the flat window (both at compact budget 0); coarse_step 2 and 4
+     (the window budget doubled from 12 until chunk 0 drops none) and the
+     one-hot compaction bit-equal to the frames without them; the grid
+     composite within 1e-5 of the packed; `render_frame` through a
+     `render_maker` bit-equal to the default. Every counter zero (but the
+     starved pair budget's), launches counted per route, each route's
+     frame ms beside the XLA frame's (one warm frame each, in turns). On
+     chair-train's fixed batch and jitter draw: the one-hot / grid step
+     against the topk / packed step (loss within 1e-5 relative, colour
+     within 1e-5, gradients within rtol 1e-3 / atol 1e-5, the reference's
+     bound for that pair), remat "selection" and "full" against "none"
+     (loss and gradients bit for bit), and each remat mode's it/s and a
+     step's peak bytes, in turns.
+ 11. the reference's default route (`QueryConfig.use_cache`, `fit` with
      `fast_path=False`): the grid's candidate cache (max_q of the fat
      cache, cand_cap 64) built on the card; chunk 0 through the legacy
      `render_rays` on it with fused_decode on (first_valid_cols once on
@@ -76,7 +103,7 @@ ray budget measured on the frame as the JAX bench sizes them:
      at least 4x; its it/s beside the fast dense step's, in turns; one step
      under the profiler split into forward, backward and optimizer, where
      torch's `indexing_backward_kernel` must not appear.
- 11. structure: growth, pruning, evaluation and checkpoints on the
+ 12. structure: growth, pruning, evaluation and checkpoints on the
      chair-train scene, with the scene's weights rescaled for the phase
      (mlp_base's first layer x4, the density head x30: at the scene's own
      every hit ray's max opacity is the same to four digits) and a tenth
@@ -108,7 +135,7 @@ ray budget measured on the frame as the JAX bench sizes them:
      without a step, and with max_steps 110 resumes at 101; the `.pth`
      export read back bit for bit; view 0 evaluated through the legacy
      renderer and through `render_frame` within 0.5 dB of PSNR.
- 12. plane: the plane background (`models/bg_plane.py`) on the chair: 4
+ 13. plane: the plane background (`models/bg_plane.py`) on the chair: 4
      views of 400x400 on the chair's ring rendered by `render_frame` through
      the fused chunk (#5) and composited over a ground plane of colour
      (0.5, 0.5, 0.5) at z = -1 (normal (0, 0, -1), which every ray of these
@@ -119,7 +146,7 @@ ray budget measured on the frame as the JAX bench sizes them:
      the scene's weights with 10% noise, each loss falling, the legacy
      run's evaluation through #3 and, after the fast run, view 0 through
      `render_frame` and #5 with the plane's background.
- 13. large scene: the reference's ScanNet stress room
+ 14. large scene: the reference's ScanNet stress room
      (`tools/stress_scannet_scale.py`: 2,000,000 points, vsize 0.008 x
      vscale 2, D 288, SR 24, K 8, max_o 4M, cand_cap 32, compact budget 8,
      24 slots a ray, fast_chunk 4096, a bf16 aggregator at full width,
@@ -147,7 +174,7 @@ ray budget measured on the frame as the JAX bench sizes them:
      by 0.5, and `fit(grid_mode="dense")` twice from the same start: the
      first step bit-equal, the loss gaps after 100 steps printed; it/s,
      peak device memory, PSNR.
- 14. data: the user's data path and entry point on the procedural chair.
+ 15. data: the user's data path and entry point on the procedural chair.
      `generate_chair_dataset` (style v2, ss 2, 400x400, 64 train and 8
      test views, seed 0, depth maps) traced on the card and read back by
      `load_blender` (PIL is required: the run fails without it); test
@@ -173,7 +200,7 @@ ray budget measured on the frame as the JAX bench sizes them:
      shifted 2 m: twice the alive points), gen-points --from-ply on a PLY
      of the depth cloud and train --max-steps 20 from it; each command
      must return normally.
-  15. mvs: MVSNet point generation and joint MVS training on the data
+  16. mvs: MVSNet point generation and joint MVS training on the data
      phase's dataset, with random weights written from seeds in the
      reference's checkpoint layouts (model_000014.ckpt, best_net_mvs.pth)
      and read by the port's loaders. `mvsnet_depth` at full width on view
@@ -225,9 +252,9 @@ frame it is held to, when first_valid_cols is launched behind the march
 or the raster, or when a path's first chunk rendered through the kernels
 differs from the same chunk rendered through the plain versions
 (ray_mask exactly, colour within the same bound), when a check of the
-payload phase, of the train phase, of the legacy phase, of the structure
-phase, of the plane phase, of the large-scene phase, of the data phase or
-of the mvs phase fails. Printed
+payload phase, of the train phase, of the routes phase, of the legacy
+phase, of the structure phase, of the plane phase, of the large-scene
+phase, of the data phase or of the mvs phase fails. Printed
 before the last line: the card's name and power limit, build and phase times, each
 kernel's and its plain version's time at its path's shapes beside the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -432,22 +459,34 @@ def rotating_ms(fn, tensor, iters: int = 48, shift: int = 0) -> float:
     return cuda_ms(lambda: fn(copies[next(turn) % n]), iters, n, queued=True)
 
 
-def device_rows(fn, iters: int = 1):
+def device_rows(fn, iters: int = 1, need=(), passes: int = 5):
     """[(device ms, launches, kernel name)], largest first, of `iters`
-    warm calls of `fn` under torch.profiler."""
+    warm calls of `fn` under torch.profiler. A pass that sees no device
+    time, or no kernel whose name holds each of `need`, is made again, up
+    to `passes` passes: now and then a pass of the profiler reports no
+    device activity at all (seen once on an H100 in the march phase), and
+    the next pass does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  reverse=True)
+    for k in range(passes):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      reverse=True)
+        missing = [n for n in need
+                   if not any(n in key and ms > 0 for ms, _, key in rows)]
+        if sum(r[0] for r in rows) > 0 and not missing:
+            return rows
+        log(f"profiler pass {k + 1} of {passes} saw no device time for "
+            f"{missing or 'any kernel'}")
+    return rows
 
 
 def profile_pass(name: str, fn, pass_ms: float, out: pathlib.Path) -> None:
@@ -469,14 +508,19 @@ def profile_pass(name: str, fn, pass_ms: float, out: pathlib.Path) -> None:
 
 def device_kernel_ms(fn, names, iters: int = 3) -> dict:
     """Device ms a launch of the kernel whose name holds each of `names`,
-    over `iters` calls of `fn` under torch.profiler."""
-    rows = device_rows(fn, iters)
+    over `iters` calls of `fn` under torch.profiler; None for a name the
+    profiler saw in none of its passes (`device_rows`), which the callers
+    print as not measured. These readings split a wrapper's time by kernel
+    and are no check: the wrapper's own time is taken with CUDA events."""
+    rows = device_rows(fn, iters, need=names)
     out = {n: ms / count for ms, count, key in rows for n in names
-           if n in key and count}
-    missing = [n for n in names if out.get(n, 0) <= 0]
-    if missing:
-        fail(f"the profiler saw no device time for {missing}")
-    return out
+           if n in key and count and ms > 0}
+    return {n: out.get(n) for n in names}
+
+
+def ms_text(ms, digits: int = 3) -> str:
+    """A device time that may not have been measured (None)."""
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
 
 
 PROBES = {0: "whole kernel", 1: "no feature rows", 2: "no wgmma",
@@ -749,8 +793,9 @@ def front_end_phases(c) -> dict:
                     queued=True)
         stage_ms.append(t - prev)
         prev = t
-    t_m_kernel = device_kernel_ms(call, ["march_stage_kernel"])[
-        "march_stage_kernel"] * len(steps)
+    t_m_launch = device_kernel_ms(call, ["march_stage_kernel"])[
+        "march_stage_kernel"]
+    t_m_kernel = None if t_m_launch is None else t_m_launch * len(steps)
     t_m_plain = cuda_ms(lambda: mr.march_rays_reference(**m_kw), 1, 1)
     # the least the card could take, by the bytes the function needs: 4 B
     # of the table for each step taken (no more than the whole table: what
@@ -766,7 +811,7 @@ def front_end_phases(c) -> dict:
     log(f"march_rays {R0} rays, {len(steps)} stages a chunk: "
         f"{t_m:.4f} ms a chunk queued behind a busy device (stages "
         f"{[round(t, 4) for t in stage_ms]}; its {len(steps)} kernels alone "
-        f"by the profiler {t_m_kernel:.4f}), {t_m_host:.4f} ms at the "
+        f"by the profiler {ms_text(t_m_kernel, 4)}), {t_m_host:.4f} ms at the "
         f"host's pace; plain {t_m_plain:.2f} ms; bound {b_m[0]:.4f} ms by "
         f"{b_m[1]} ({m_table} B of the table at 4 B a step + {R0 * 13} B "
         f"of rays and live + {R0 * (cap + 1) * 4} B of emit and cnt = "
@@ -1323,6 +1368,361 @@ def train_phases(c) -> dict:
         "profile": prof, "ray_budget": rb, "march_steps": steps,
         "geo_s": t_geo, "geo_bytes": geo_bytes, "plan_s": t_plan,
     }
+
+
+# the routes phase: the XLA route's chunk of slots (the bench's 4,096
+# would take four times the launches for the same work), the two-phase
+# pipeline's decode piece, the coarse test's steps, the starting coarse
+# window budget (doubled until no window is dropped) and the train
+# route's steps for it/s
+ROUTE_XLA_CHUNK, ROUTE_DECODE2 = 16_384, 131_072
+ROUTE_COARSE_STEPS, ROUTE_WIN_BUDGET = (2, 4), 12
+ROUTE_TRAIN_STEPS = 20
+
+
+def routes_phase(c) -> dict:
+    """The reference's opt-in render and train routes on the chair-800p
+    scene, its cache and weights at full width (section "routes" of the
+    module docstring). Returns the checks' numbers, each route's launches
+    and frame ms, and the train routes' it/s and peak bytes."""
+    import torch
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.models import fast_train as ft
+    from pointnerf2studio_torch.models.aggregator import precompute_base_h
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.train.loss import compute_losses
+    from pointnerf2studio_torch.train.trainer import create_train_state
+
+    t_phase = time.perf_counter()
+    scene, cache, cfg, n_chunks = c.scene, c.cache, c.cfg, c.n_chunks
+    q = cfg.query
+    near, far = float(scene.near), float(scene.far)
+    rep = lambda cf, **kw: dataclasses.replace(  # noqa: E731
+        cf, query=dataclasses.replace(cf.query, **kw))
+
+    def frame(cf, cache_=cache):
+        return [fr.fast_render_rays(
+            scene.params, scene.cloud.Rw2c, cache_, scene.campos,
+            scene.camrotc2w, c.raydirs[i * CHUNK:(i + 1) * CHUNK],
+            scene.near, scene.far, cf, c.rmin, c.svs)
+            for i in range(n_chunks)]
+
+    def cat(outs, f):
+        return torch.cat([getattr(o, f) for o in outs])
+
+    def ctrs(outs):
+        return {f: sum(int(getattr(o, f)) for o in outs)
+                for f in ("win_overflow", "dw_overflow", "rb_overflow",
+                          "cb_overflow", "pb_overflow")
+                if getattr(outs[0], f) is not None}
+
+    bg = torch.tensor(cfg.bg_color, device=c.dev)
+    routes, launches, stats = {}, {}, {}
+
+    def run(name, cf, cache_=cache, zero=True):
+        """The route's frame once with the launches counted, checked for
+        shape, finiteness, background and (zero) its counters."""
+        _cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        outs = frame(cf, cache_)
+        torch.cuda.synchronize()
+        launches[name] = dict(_cuda.LAUNCHES)
+        col, msk = cat(outs, "coarse_raycolor"), cat(outs, "ray_mask")
+        if col.shape != (c.total, 3) or not torch.isfinite(col).all():
+            fail(f"routes {name}: frame colour not finite or misshapen")
+        if not torch.equal(col[~msk], bg.expand(int((~msk).sum()), 3)):
+            fail(f"routes {name}: miss rays are not exactly background")
+        ct = ctrs(outs)
+        if zero and any(ct.values()):
+            fail(f"routes {name}: non-zero counter {ct}")
+        routes[name] = (cf, cache_)
+        stats[name] = dict(counters=ct, first_pass_s=time.perf_counter() - t0,
+                           launches=launches[name])
+        log(f"routes {name}: first pass {stats[name]['first_pass_s']:.2f} s, "
+            f"counters {ct}, launches {launches[name]}")
+        return outs
+
+    def bit_equal(name, a, b, what):
+        for f in ("coarse_raycolor", "ray_mask", "acc", "depth"):
+            if not torch.equal(cat(a, f), cat(b, f)):
+                d = (cat(a, f).float() - cat(b, f).float()).abs().max()
+                fail(f"routes {name}: {f} differs from {what} (max |diff| "
+                     f"{float(d):.3e})")
+        stats[name]["held"] = f"bit-equal to {what}"
+        log(f"routes {name}: colour, ray_mask, acc and depth bit-equal to "
+            f"{what}")
+
+    def near_to(name, a, b, what, atol, mean_tol, max_share=None):
+        if not torch.equal(cat(a, "ray_mask"), cat(b, "ray_mask")):
+            fail(f"routes {name}: ray_mask differs from {what}")
+        ca, cb = cat(a, "coarse_raycolor"), cat(b, "coarse_raycolor")
+        d = (ca - cb).abs()
+        share = float((ca != cb).float().mean())
+        stats[name].update(max_abs=float(d.max()), mean_abs=float(d.mean()),
+                           share_apart=share, held=f"{what}, atol {atol}, "
+                           f"mean < {mean_tol}" + (
+                               f", share < {max_share}" if max_share
+                               else ""))
+        log(f"routes {name} vs {what}: ray_mask equal, colour max |diff| "
+            f"{float(d.max()):.3e}, mean {float(d.mean()):.3e}, "
+            f"{share:.2e} of the components apart")
+        if not (float(d.max()) <= atol and float(d.mean()) < mean_tol
+                and (max_share is None or share < max_share)):
+            fail(f"routes {name}: colour outside the bound against {what}")
+
+    # ---- the XLA route (the reference's default chunk body) and route 0
+    cfg_x = rep(cfg, chunk_mode="xla", knn_mode="xla",
+                fast_chunk=ROUTE_XLA_CHUNK)
+    xla = run("xla", cfg_x)
+    two = run("two_phase", rep(cfg_x, decode_chunk2=ROUTE_DECODE2))
+    near_to("two_phase", two, xla, "the one-phase XLA frame", 1e-3, 1e-3,
+            max_share=1e-3)
+
+    # ---- route 1: chunk_mode="fused" where the whole chunk does not apply
+    cfg_1a = dataclasses.replace(cfg, agg=dataclasses.replace(
+        cfg.agg, fused_decode2=True))
+    r1a = run("fused_mode_fused_decode2", cfg_1a)
+    check_launches("routes fused_mode_fused_decode2", launches[
+        "fused_mode_fused_decode2"], {
+            "first_valid_cols": n_chunks, "fused_candidate_select": n_chunks,
+            "fused_decode2": n_chunks, "fused_chunk_decode": 0})
+    bit_equal("fused_mode_fused_decode2", r1a, c.outs_a,
+              "the staged frame (knn_mode='fused', fused_decode2)")
+    cfg_o1 = dataclasses.replace(cfg, agg=dataclasses.replace(
+        cfg.agg, agg_intrp_order=1))
+    r1b = run("fused_mode_order1", cfg_o1)
+    check_launches("routes fused_mode_order1", launches["fused_mode_order1"],
+                   {"first_valid_cols": n_chunks,
+                    "fused_candidate_select": n_chunks, "fused_decode2": 0,
+                    "fused_chunk_decode": 0})
+    x1 = run("xla_order1", rep(cfg_o1, chunk_mode="xla", knn_mode="xla",
+                               fast_chunk=ROUTE_XLA_CHUNK))
+    near_to("fused_mode_order1", r1b, x1, "the order-1 XLA frame", ATOL,
+            MEAN_TOL)
+
+    # ---- route 2: the valid-pair decode
+    K = q.K
+    pair = run("pair", rep(cfg_x, decode_mode="pair", pair_budget=K))
+    if pair[0].pb_overflow is not None:
+        fail("routes pair: a budget of K must have no pb_overflow")
+    near_to("pair", pair, xla, "the lane frame", 2e-2, 1e-3)
+    _cuda.LAUNCHES.clear()
+    starved = fr.fast_render_rays(
+        scene.params, scene.cloud.Rw2c, cache, scene.campos, scene.camrotc2w,
+        c.raydirs[:CHUNK], scene.near, scene.far,
+        rep(cfg_x, decode_mode="pair", pair_budget=1, compact_budget=4),
+        c.rmin, c.svs)
+    pb_starved = int(starved.pb_overflow)
+    stats["pair"]["pb_overflow_starved_chunk0"] = pb_starved
+    log(f"routes pair: pb_overflow None at pair_budget {K} (= K), "
+        f"{pb_starved} pairs dropped on chunk 0 at pair_budget 1 and "
+        f"compact_budget 4")
+    if pb_starved <= 0:
+        fail("routes pair: a starved pair budget reported no overflow")
+
+    # ---- route 3: krows, on the slim view of the frame's cache
+    t0 = time.perf_counter()
+    cache_k = dataclasses.replace(cache, slim=fr.build_slim(cache))
+    torch.cuda.synchronize()
+    log(f"routes krows: slim view {nbytes(cache_k.slim)} B in "
+        f"{time.perf_counter() - t0:.2f} s")
+    krows = run("krows", rep(cfg_x, extract_mode="krows"), cache_k)
+    bit_equal("krows", krows, xla, "the onehot extract")
+
+    # ---- route 4: base_cache, the per-point layer-1 table
+    t0 = time.perf_counter()
+    cache_b = dataclasses.replace(cache, base_h=precompute_base_h(
+        scene.params, cfg.agg, scene.cloud.points_embeding))
+    torch.cuda.synchronize()
+    log(f"routes base_cache: table {tuple(cache_b.base_h.shape)} "
+        f"{nbytes(cache_b.base_h)} B in {time.perf_counter() - t0:.2f} s")
+    base = run("base_cache", rep(cfg_x, base_cache=True), cache_b)
+    near_to("base_cache", base, xla, "the XLA frame", ATOL, MEAN_TOL)
+
+    # ---- route 5: cand_prune, a cache of its own
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg_p = rep(cfg_x, cand_prune=True)
+    cache_p, _, _ = fr.make_fast_scene(cfg_p, scene.cloud, scene.grid,
+                                       max_q=cache.max_q)
+    torch.cuda.synchronize()
+    stats["prune_build_s"] = time.perf_counter() - t0
+    kept = [int((cc.kmeta >= 0).sum()) for cc in (cache, cache_p)]
+    log(f"routes cand_prune: width {cache.cand} -> {cache_p.cand}, "
+        f"{kept[1]} of {kept[0]} candidates kept, cache built in "
+        f"{stats['prune_build_s']:.2f} s")
+    prune = run("cand_prune", cfg_p, cache_p)
+    stats["cand_prune"].update(width=[cache.cand, cache_p.cand],
+                               candidates_kept=kept)
+    bit_equal("cand_prune", prune, xla, "the unpruned XLA frame")
+    del cache_p
+
+    # ---- route 6: span tiers measured on the frame, against the flat
+    # window, both through the fused chunk with no compaction budget (the
+    # flat frame pools M over a chunk, the tiers per tier: equal only
+    # while no slot is cut, so neither cuts one, as the reference's test)
+    widths, budgets = fr.measured_span_tiers(
+        scene.campos, c.raydirs, near, far, q.z_depth_dim,
+        scene.grid.ranges_min, scene.grid.dims, q.scaled_vsize, chunk=CHUNK)
+    log(f"routes span_tiers: widths {widths} budgets {budgets} (flat "
+        f"window {q.depth_window}, ray budget {q.ray_budget})")
+    flat = run("flat_window", rep(cfg, compact_budget=0))
+    tiers = run("span_tiers", rep(cfg, compact_budget=0, span_tiers=widths,
+                                  span_tier_budgets=budgets))
+    stats["span_tiers"].update(widths=list(widths), budgets=list(budgets))
+    bit_equal("span_tiers", tiers, flat, "the flat-window frame")
+    n_t = len(widths)
+    check_launches("routes span_tiers", launches["span_tiers"], {
+        "first_valid_cols": n_chunks * n_t,
+        "fused_chunk_decode": n_chunks * n_t})
+
+    # ---- route 7: the coarse test at coarse_step 2 and 4
+    for S in ROUTE_COARSE_STEPS:
+        name = f"coarse_step{S}"
+        cfg_c = rep(cfg, coarse_step=S, coarse_win_budget=ROUTE_WIN_BUDGET)
+        cache_c = dataclasses.replace(cache, coarse_occ=fr.coarse_occupancy(
+            scene.grid.coor_occ, fr.coarse_dilation(cfg_c.query, near, far)))
+        while True:
+            probe = fr.fast_render_rays(
+                scene.params, scene.cloud.Rw2c, cache_c, scene.campos,
+                scene.camrotc2w, c.raydirs[:CHUNK], scene.near, scene.far,
+                cfg_c, c.rmin, c.svs)
+            if int(probe.win_overflow) == 0:
+                break
+            log(f"routes {name}: coarse_win_budget "
+                f"{cfg_c.query.coarse_win_budget} dropped "
+                f"{int(probe.win_overflow)} windows on chunk 0; doubling")
+            cfg_c = rep(cfg_c, coarse_win_budget=2
+                        * cfg_c.query.coarse_win_budget)
+        co = run(name, cfg_c, cache_c)
+        stats[name]["coarse_win_budget"] = cfg_c.query.coarse_win_budget
+        bit_equal(name, co, c.outs, "the frame without the coarse test")
+
+    # ---- route 8: the one-hot compaction and the grid composite
+    onehot = run("onehot", rep(cfg, compact_mode="onehot"))
+    check_launches("routes onehot", launches["onehot"], {
+        "first_valid_cols": 0, "fused_chunk_decode": n_chunks})
+    grid_c = run("grid_composite", rep(cfg, composite_mode="grid"))
+    bit_equal("onehot", onehot, grid_c, "the topk compaction's frame (grid "
+              "composite)")
+    near_to("grid_composite", grid_c, c.outs, "the packed composite", 1e-5,
+            1e-6)
+
+    # ---- route 12: render_frame with a render_maker
+    def maker(cf):
+        def fn(rays, bg_c):
+            return fr.fast_render_rays(
+                scene.params, scene.cloud.Rw2c, cache, scene.campos,
+                scene.camrotc2w, rays, scene.near, scene.far, cf, c.rmin,
+                c.svs, bg_ray_colors=bg_c)
+        return fn
+
+    cfg_f = rep(cfg, depth_window=0, ray_budget=0)
+    rf_args = (scene.params, scene.cloud.Rw2c, cache, scene.campos,
+               scene.camrotc2w, c.raydirs_frame, scene.near, scene.far,
+               cfg_f, c.rmin, c.svs)
+    want_f = fr.render_frame(*rf_args)
+    got_f = fr.render_frame(*rf_args, render_maker=maker)
+    bit_equal_f = all(torch.equal(getattr(got_f, f), getattr(want_f, f))
+                      for f in ("coarse_raycolor", "ray_mask", "acc",
+                                "depth"))
+    log(f"routes render_maker: render_frame through a maker that wraps "
+        f"fast_render_rays {'equals' if bit_equal_f else 'differs from'} "
+        f"the default frame bit for bit")
+    if not bit_equal_f:
+        fail("routes render_maker: frame differs from the default")
+
+    # ---- each route's frame ms beside the XLA frame's: one warm frame
+    # each, in turns (host-paced; compare inside this call only)
+    frame_ms = {name: cuda_ms(lambda cf=cf, cc=cc: frame(cf, cc), 1, 0)
+                for name, (cf, cc) in routes.items()}
+    for name, ms in frame_ms.items():
+        stats[name]["frame_ms"] = ms
+        log(f"routes {name}: frame {ms:.1f} ms, {ms / frame_ms['xla']:.3f} "
+            f"of the XLA route's {frame_ms['xla']:.1f} ms ({c.smi})")
+
+    # ---- the train routes on chair-train's fixed batch
+    ts = c.train_setup
+    geo, grmin, gsvs = ts["geo"]
+    cfg_t = ts["cfg"]
+
+    def one_step(cf):
+        st = create_train_state(scene.params, scene.cloud, cf)
+        st.zero_grad()
+        out = ft.fast_train_render(st.params, st.points, geo, *ts["batch"][:3],
+                                   ts["near"], ts["far"], cf, grmin, gsvs,
+                                   jitter_u=ts["u"])
+        total, _ = compute_losses(out, ts["batch"][3], cf.train)
+        total.backward()
+        grads = [p.grad for p in st.params.parameters()]
+        grads += [p.grad for p in st.points.trainable().values()]
+        return total.item(), out, grads
+
+    l0, o0, g0 = one_step(cfg_t)
+    cfg_og = rep(cfg_t, compact_mode="onehot", composite_mode="grid")
+    l1, o1, g1 = one_step(cfg_og)
+    if not (torch.equal(o1.ray_mask, o0.ray_mask)
+            and torch.equal(o1.pnt_mask, o0.pnt_mask)):
+        fail("routes train onehot/grid: the selection differs from topk")
+    d_col = (o1.coarse_raycolor - o0.coarse_raycolor).abs().max().item()
+    g_rel = max(float((a - b).abs().max() / (b.abs().max() + 1e-30))
+                for a, b in zip(g1, g0))
+    g_ok = all(torch.allclose(a, b, rtol=1e-3, atol=1e-5)
+               for a, b in zip(g1, g0))
+    stats["train_onehot_grid"] = dict(loss=[l0, l1], colour_max_abs=d_col,
+                                      grad_max_rel=g_rel)
+    log(f"routes train onehot/grid vs topk/packed: selection equal, loss "
+        f"{l1!r} against {l0!r}, colour max |diff| {d_col:.3e}, largest "
+        f"gradient |diff| / its leaf's max {g_rel:.3e}")
+    if not (abs(l1 - l0) <= 1e-5 * abs(l0) and d_col <= 1e-5 and g_ok):
+        fail("routes train onehot/grid: outside the reference's bound "
+             "(loss 1e-5 relative, colour 1e-5, gradients rtol 1e-3 / "
+             "atol 1e-5)")
+    remat = {}
+    for mode in ("selection", "full"):
+        cf = dataclasses.replace(cfg_t, train=dataclasses.replace(
+            cfg_t.train, remat=mode))
+        lr_, _, gr_ = one_step(cf)
+        if lr_ != l0 or not all(torch.equal(a, b) for a, b in zip(gr_, g0)):
+            fail(f"routes train remat={mode}: loss or gradients differ "
+                 f"from remat='none'")
+        log(f"routes train remat={mode}: loss and all {len(g0)} gradients "
+            f"bit-equal to remat='none'")
+    # it/s and peak bytes of a step per remat mode, in turns
+    steps_fn = {}
+    for mode in ("none", "selection", "full"):
+        cf = dataclasses.replace(cfg_t, train=dataclasses.replace(
+            cfg_t.train, remat=mode))
+        st = create_train_state(scene.params, scene.cloud, cf)
+        steps_fn[mode] = (st, ft.make_fast_train_step(cf))
+    peak = {m: 0 for m in steps_fn}
+    secs = {m: [] for m in steps_fn}
+    for rnd in range(4):
+        for mode, (st, fn) in steps_fn.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_bytes = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            for _ in range(ROUTE_TRAIN_STEPS if rnd else 3):
+                fn(st, geo, grmin, gsvs, *ts["batch"][:4], ts["near"],
+                   ts["far"], jitter_u=ts["u"])
+            torch.cuda.synchronize()
+            if rnd:
+                secs[mode].append(time.perf_counter() - t0)
+                peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated()
+                                 - base_bytes)
+    for mode in steps_fn:
+        ips = ROUTE_TRAIN_STEPS / sorted(secs[mode])[1]
+        remat[mode] = dict(it_per_s=ips, peak_step_bytes=peak[mode])
+        log(f"routes train remat={mode}: {ips:.2f} it/s (median of 3 windows "
+            f"of {ROUTE_TRAIN_STEPS} steps, in turns), a step's peak "
+            f"{peak[mode]} B above what was allocated before it ({c.smi})")
+    del steps_fn
+    stats["train_remat"] = remat
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"routes phase: {stats['phase_s']:.1f} s")
+    return {"stats": stats, "launches": {f"route_{k}": v
+                                         for k, v in launches.items()}}
 
 
 LEGACY_KERNELS = ("linear", "quadric", "avg", "numlinear", "numquadric")
@@ -3555,9 +3955,9 @@ def mvs_phase(c, data) -> dict:
                          for _ in range(5))[2]
         var = mm.variance_volume(net_d, *a_d)
         t_cv = sum(r[0] for r in device_rows(
-            lambda: mm.variance_volume(net_d, *a_d)))
+            lambda: mm.variance_volume(net_d, *a_d))) or None
         t_unet = sum(r[0] for r in device_rows(
-            lambda: mm.cost_reg_net(net_d.cost_regularization, var)))
+            lambda: mm.cost_reg_net(net_d.cost_regularization, var))) or None
         del var
         t0 = time.perf_counter()
         out_h = mm.mvsnet_depth(nets[host][0], *a_h)
@@ -3583,8 +3983,8 @@ def mvs_phase(c, data) -> dict:
     log(f"mvs: mvsnet_depth on view batch 0 at full width ({DATA_HW}x"
         f"{DATA_HW} views, {tuple(d_d.shape)} features, {MVS_BINS} planes): "
         f"{t_depth:.2f} ms on the card (median of 5 warm calls; by the "
-        f"profiler the cost-volume build {t_cv:.2f} ms, the 3-D U-Net "
-        f"{t_unet:.2f} ms), peak {peak_depth} B above the inputs; the host "
+        f"profiler the cost-volume build {ms_text(t_cv, 2)} ms, the 3-D "
+        f"U-Net {ms_text(t_unet, 2)} ms), peak {peak_depth} B above the inputs; the host "
         f"{t_depth_cpu:.2f} s; card vs host: depth max |diff| "
         f"{e_depth:.3e}, prob {e_prob:.3e}, expectation index apart on "
         f"{n_didx} of {same.numel()} pixels, confidence where it agrees "
@@ -4206,7 +4606,7 @@ def main() -> int:
                                   fc_parts)
     log(f"fused_chunk_decode M={m_sl.shape[0]}: kernel {t_fc_k:.3f} ms "
         f"(its device kernels by the profiler: "
-        + ", ".join(f"{n} {t_fc_parts[n]:.3f}" for n in fc_parts)
+        + ", ".join(f"{n} {ms_text(t_fc_parts[n])}" for n in fc_parts)
         + f"), plain {t_fc_p:.3f} ms")
 
     frame_ms = [cuda_ms(render_frame, 1) for _ in range(3)]
@@ -4439,7 +4839,8 @@ def main() -> int:
     ns = types.SimpleNamespace(
         scene=scene, cache=cache, cfg=cfg, dev=dev, rmin=rmin, svs=svs,
         raydirs=raydirs, raydirs_frame=raydirs_frame, perm=perm, outs=outs,
-        n_chunks=n_chunks, total=total, smi=smi, prof_dir=prof_dir)
+        n_chunks=n_chunks, total=total, smi=smi, prof_dir=prof_dir,
+        outs_a=outs_a)
     fe = front_end_phases(ns)
 
     # =================================================================
@@ -4447,6 +4848,12 @@ def main() -> int:
     # =================================================================
     payload = payload_phase(ns)
     train = train_phases(ns)
+
+    # =================================================================
+    # The reference's opt-in render and train routes on chair-800p and
+    # chair-train
+    # =================================================================
+    routes = routes_phase(ns)
 
     # =================================================================
     # The reference's default route: the candidate cache, the legacy step
@@ -4534,7 +4941,7 @@ def main() -> int:
             f"slot: {sectors} sectors, {sectors * 32 / 1e6:.1f} MB read for "
             f"{n_v} valid slots and {n_pairs} neighbours, "
             f"{sectors * 32 / PEAK_BYTES * 1e3:.4f} ms at the memory rate; "
-            f"measured {t_sel:.3f} ms with its {out_b / 1e6:.1f} MB of "
+            f"measured {ms_text(t_sel)} ms with its {out_b / 1e6:.1f} MB of "
             f"output")
     for nm, tk, tp, bb, fl in (
             ("fused_chunk_decode", t_fc_k, t_fc_p, b_fc, f_fc),
@@ -4564,6 +4971,11 @@ def main() -> int:
         rec.update(extra or {})
         return rec
 
+    def by_route(kernel):
+        """The kernel's launches on each route of the routes phase."""
+        return {k: v[kernel] for k, v in routes["launches"].items()
+                if v.get(kernel, 0)}
+
     print(json.dumps({"kernels": [
         record("first_valid_cols", "first_valid_cols.cu", "select.py:41",
                launches["first_valid_cols"], sel_err, t_sel_k, t_sel_p,
@@ -4592,10 +5004,12 @@ def main() -> int:
                                  for k, v in data["launches"].items()},
                              "mvs": {
                                  k: v.get("first_valid_cols", 0)
-                                 for k, v in mvs["launches"].items()}}),
+                                 for k, v in mvs["launches"].items()},
+                             "routes": by_route("first_valid_cols")}),
         record("fused_candidate_select", "fused_select.cu",
                "fused_select.py:60", launches_a["fused_candidate_select"],
-               fsel_err, t_fs_k, t_fs_p, b_fs),
+               fsel_err, t_fs_k, t_fs_p, b_fs,
+               extra={"routes": by_route("fused_candidate_select")}),
         record("fused_decode", "fused_decode.cu", "fused_decode.py:91",
                launches_b["fused_decode"], pair_err, t_pt_k, t_pt_p, b_pt,
                f_pt, extra={"cache_route": legacy["decode"],
@@ -4614,7 +5028,8 @@ def main() -> int:
                                 for k, v in mvs["launches"].items()}}),
         record("fused_decode2", "fused_decode.cu", "fused_decode.py:235",
                launches_a["fused_decode2"], kacc_err, t_ka_k, t_ka_p, b_ka,
-               f_ka, extra={"large_scene": room["kacc"]}),
+               f_ka, extra={"large_scene": room["kacc"],
+                            "routes": by_route("fused_decode2")}),
         record("fused_chunk_decode", "fused_chunk.cu", "fused_chunk.py:86",
                launches["fused_chunk_decode"], fused_err, t_fc_k, t_fc_p,
                b_fc, f_fc, t_fc_parts, extra={"structure": {
@@ -4624,13 +5039,15 @@ def main() -> int:
                    "plane": {k: v.get("fused_chunk_decode", 0)
                              for k, v in plane["launches"].items()},
                    "data": {k: v.get("fused_chunk_decode", 0)
-                            for k, v in data["launches"].items()}}),
+                            for k, v in data["launches"].items()},
+                   "routes": by_route("fused_chunk_decode")}),
         record("march_rays", "march.cu", "march.py:70", **{
             **fe["record"], "extra": {**fe["record"]["extra"],
                                       "train": train["march"]}}),
     ], "launches_by_path": {"fused_chunk": launches, "staged": launches_a,
                             "legacy": launches_b, **fe["launches"],
-                            **legacy["launches"]},
+                            **legacy["launches"], **routes["launches"]},
+        "routes": routes["stats"],
         "front_end_frame_ms": fe["frame_ms"],
         "raster_emit_program_ms": fe["emit_program_ms"],
         "raster_emit_ms": fe["emit_ms"], "march_plan": fe["march_plan"],

@@ -25,7 +25,7 @@ render paths use it (they run under `torch.no_grad`); the train state
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -208,6 +208,21 @@ def raw_aggregation_weight(cfg: AggregatorConfig, neigh_emb: torch.Tensor,
     return w, emb, norm_kind
 
 
+def inverse_distance_weight(dists: torch.Tensor, pnt_mask: torch.Tensor,
+                            axis_weight=(1.0, 1.0, 1.0)) -> torch.Tensor:
+    """The `linear` kernel alone: masked 1 / ||world delta|| (dists
+    [..., K, >= 3]), normalised over K (reference studio_model.py:467-475
+    and the normalisation at :286)."""
+    if axis_weight[0] == 1.0 and axis_weight[2] == 1.0:
+        w = 1.0 / torch.clamp(_norm(dists[..., :3]), min=1e-6)
+    else:
+        w = 1.0 / torch.clamp(
+            torch.sqrt((dists[..., :2] ** 2).sum(-1)) * axis_weight[0]
+            + torch.abs(dists[..., 2]) * axis_weight[1], min=1e-6)
+    w = w * pnt_mask.to(w.dtype)
+    return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-8)
+
+
 def aggregation_weight(cfg: AggregatorConfig, neigh_emb: torch.Tensor,
                        dists: torch.Tensor, pnt_mask: torch.Tensor,
                        grid_vox_sz: float, params: "Aggregator" = None
@@ -235,6 +250,48 @@ def conf_gradient_clamp(conf: torch.Tensor, lo: float = 1e-4,
     return conf - (conf - torch.clamp(conf, lo, hi)).detach()
 
 
+def weight_emb_consumed(cfg: AggregatorConfig) -> int:
+    """Embedding channels the weight kernel takes as a prefix before the
+    tower (sh_intrp, gau_intrp and feat_intrp)."""
+    kind = cfg.agg_distance_kernel
+    if kind == "sh_intrp":
+        return cfg.sh_degree ** 2
+    if kind == "gau_intrp":
+        return 7
+    if kind == "feat_intrp":
+        return cfg.weight_feat_dim
+    return 0
+
+
+@torch.no_grad()
+def precompute_base_h(agg: Aggregator, cfg: AggregatorConfig,
+                      emb_table: torch.Tensor) -> torch.Tensor:
+    """The per-point half of mlp_base's first layer, [N, hidden] bf16:
+    [emb, PE(emb)] @ W1[:, :emb rows]^T without the bias, for the
+    render's `QueryConfig.base_cache`. Layer 1 is linear, so the tower
+    then adds PE(dists) @ W1[dist rows] and the bias per (slot, K) pair
+    (`decode_radiance(base_h=)`). The table rounds the partial sum to
+    bf16 once, as the reference's does; the embedding's consumed prefix
+    (weight_emb_consumed) is cut first, and the encoding uses the
+    default PE mode, as the reference's precompute does."""
+    dtype = _DTYPES[cfg.compute_dtype]
+    emb_c = emb_table[..., weight_emb_consumed(cfg):].to(dtype)
+    x = torch.cat([emb_c, positional_encoding(emb_c, cfg.num_feat_freqs)],
+                  -1)
+    w1 = agg.mlp_base[0].weight[:, :x.shape[-1]].to(dtype)
+    return (x @ w1.T).to(torch.bfloat16)
+
+
+def _base_layer(agg: Aggregator, base_h: torch.Tensor,
+                dists_pe: torch.Tensor, dtype) -> torch.Tensor:
+    """mlp_base from the cached per-point partial product: layer 1 as
+    leaky(base_h + PE(dists) @ W1[dist rows] + b1), then the rest."""
+    lyr0 = agg.mlp_base[0]
+    w1d = lyr0.weight[:, -dists_pe.shape[-1]:].to(dtype)
+    feat = _leaky(base_h.to(dtype) + dists_pe @ w1d.T + lyr0.bias.to(dtype))
+    return _mlp(agg.mlp_base[1:], feat, dtype)
+
+
 def decode_radiance(
     agg: Aggregator,
     cfg: AggregatorConfig,
@@ -246,6 +303,9 @@ def decode_radiance(
     pnt_mask: torch.Tensor,      # [M, K] bool
     viewdirs: torch.Tensor,      # [M, 3] Rw2c-rotated under a global Rw2c
     Rw2c: torch.Tensor,          # [3, 3] global, or [M, K, 3, 3] per point
+    base_h: Optional[torch.Tensor] = None,   # [M, K, hidden] per-point
+                                 # layer-1 partial products
+                                 # (precompute_base_h), orders 1 and 2
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode (sigma [M], rgb [M, 3]) for M shading points; builds an
     autograd graph where the weights or inputs ask for one.
@@ -255,7 +315,9 @@ def decode_radiance(
     must be off). Orders 1 and 2 run the per-neighbour tower; with a
     per-point Rw2c (edited scenes) the offsets, the point directions and
     the view direction of the direction features rotate per neighbour,
-    while the colour branch keeps the slot's own view encoding."""
+    while the colour branch keeps the slot's own view encoding. With
+    `base_h` the embedding's part of mlp_base's first layer comes from
+    the cached per-point table."""
     dtype = _DTYPES[cfg.compute_dtype]
     order = cfg.agg_intrp_order
     per_point = Rw2c.ndim == 4
@@ -280,10 +342,13 @@ def decode_radiance(
         dists_rot = torch.cat([dists_w, dists[..., 3:]], -1)
         dists_pe = positional_encoding(dists_rot.to(dtype),
                                        cfg.num_dist_freqs, mode=cfg.pe_mode)
-        emb_c = neigh_emb.to(dtype)
-        feat = torch.cat([emb_c, positional_encoding(
-            emb_c, cfg.num_feat_freqs, mode=cfg.pe_mode), dists_pe], -1)
-        feat = _mlp(agg.mlp_base, feat, dtype)
+        if base_h is not None:
+            feat = _base_layer(agg, base_h, dists_pe, dtype)
+        else:
+            emb_c = neigh_emb.to(dtype)
+            feat = torch.cat([emb_c, positional_encoding(
+                emb_c, cfg.num_feat_freqs, mode=cfg.pe_mode), dists_pe], -1)
+            feat = _mlp(agg.mlp_base, feat, dtype)
 
         extras = [feat]
         if cfg.point_color_mode:
@@ -306,6 +371,76 @@ def decode_radiance(
             sigma = (alpha * w).sum(-2)[..., 0]
             agg_feat = (feat * w).sum(-2)
     color_in = torch.cat([agg_feat, dir_pe.to(dtype)], -1)
+    cfeat = _mlp(agg.mlp_color, color_in, dtype)
+    rgb = torch.sigmoid(_linear_head(agg.color_head[0], cfeat, dtype))
+    rgb = rgb * (1 + 2e-3) - 1e-3
+    return sigma.float(), rgb.float()
+
+
+def pair_decode_eligible(cfg: AggregatorConfig, per_point_rw2c: bool) -> bool:
+    """Whether `decode_radiance_pairs` serves this aggregator: orders 1
+    and 2 with a global Rw2c and fused_decode2 off."""
+    return (cfg.agg_intrp_order >= 1 and not per_point_rw2c
+            and not cfg.fused_decode2)
+
+
+def decode_radiance_pairs(
+    agg: Aggregator,
+    cfg: AggregatorConfig,
+    pair_emb: torch.Tensor,      # [MP, C] the valid pairs' features
+    pair_color: torch.Tensor,    # [MP, 3]
+    pair_dir: torch.Tensor,      # [MP, 3]
+    pair_dists: torch.Tensor,    # [MP, 6]
+    weight: torch.Tensor,        # [MP] normalised aggregation weights
+    pair_valid: torch.Tensor,    # [MP] bool (a prefix of the pairs)
+    seg_sum,                     # x [MP, L] -> [n_slots, L] per-slot sums
+    seg: torch.Tensor,           # [MP] owning slot, ascending
+    viewdirs: torch.Tensor,      # [n_slots, 3]
+    Rw2c: torch.Tensor,          # [3, 3] global
+    base_h: Optional[torch.Tensor] = None,   # [MP, hidden]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`decode_radiance` (orders 1 and 2) on a packing of the valid
+    (slot, K) pairs only: the per-neighbour towers run on the MP pair
+    rows, and each slot's K-sums are `seg_sum`, sums over the slot's
+    contiguous run of pairs (ops/compositing.segment_sums_contiguous:
+    no atomics), in float32 as the reference's segment sums are."""
+    dtype = _DTYPES[cfg.compute_dtype]
+    if cfg.agg_intrp_order < 1:
+        raise ValueError("pair decode requires agg_intrp_order >= 1")
+    f32 = torch.float32
+    dir_enc = positional_encoding(viewdirs, cfg.num_viewdir_freqs, ori=True)
+    ov, dir_pe = dir_enc[..., :3], dir_enc[..., 3:]
+    w = (weight * pair_valid.to(weight.dtype))[..., None].to(dtype)
+    dists_w = (pair_dists[..., :3, None] * Rw2c).sum(-2)
+    dists_rot = torch.cat([dists_w, pair_dists[..., 3:]], -1)
+    dists_pe = positional_encoding(dists_rot.to(dtype), cfg.num_dist_freqs,
+                                   mode=cfg.pe_mode)
+    if base_h is not None:
+        feat = _base_layer(agg, base_h, dists_pe, dtype)
+    else:
+        emb_c = pair_emb.to(dtype)
+        feat = torch.cat([emb_c, positional_encoding(
+            emb_c, cfg.num_feat_freqs, mode=cfg.pe_mode), dists_pe], -1)
+        feat = _mlp(agg.mlp_base, feat, dtype)
+    extras = [feat]
+    if cfg.point_color_mode:
+        extras.append(pair_color.to(dtype))
+    if cfg.point_dir_mode:
+        ndir = (pair_dir[..., :, None] * Rw2c).sum(-2)
+        ovp = ov[seg]
+        extras.append((ndir - ovp).to(dtype))
+        extras.append((ndir * ovp).sum(-1, keepdim=True).to(dtype))
+    feat = _mlp(agg.mlp_head, torch.cat(extras, -1), dtype)
+    dens = agg.density_head[0]
+    if cfg.agg_intrp_order == 1:
+        agg_feat = seg_sum((feat * w).to(f32))
+        sigma = _density_act(_linear_head(dens, agg_feat.to(dtype), dtype),
+                             cfg.act_super)[..., 0]
+    else:
+        alpha = _density_act(_linear_head(dens, feat, dtype), cfg.act_super)
+        sigma = seg_sum((alpha * w).to(f32))[..., 0]
+        agg_feat = seg_sum((feat * w).to(f32))
+    color_in = torch.cat([agg_feat.to(dtype), dir_pe.to(dtype)], -1)
     cfeat = _mlp(agg.mlp_color, color_in, dtype)
     rgb = torch.sigmoid(_linear_head(agg.color_head[0], cfeat, dtype))
     rgb = rgb * (1 + 2e-3) - 1e-3

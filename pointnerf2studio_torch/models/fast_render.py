@@ -16,21 +16,23 @@ stored candidate-major, which every route reads: see `FatCache`),
   argmax),
 
 with every exactness counter the reference returns on that path
-(dw_overflow, rb_overflow, cb_overflow) and n_valid_slots. The chunk
-decode is one of
+(win_overflow, dw_overflow, rb_overflow, cb_overflow, pb_overflow) and
+n_valid_slots. The chunk decode is one of
 
   knn_mode="xla", chunk_mode="xla" (the reference's default): the XLA
   candidate stages of `chunk_pipeline` as torch ops, in chunks of CH
-  slots (`_xla_chunk`: the fat-row gather, candidate d2, the radius /
-  valid / layered-shell masks, the exact K smallest by a stable sort,
-  the payload extract), then `_decode_tail`; the only route that gives
+  slots (`_xla_route`; `_xla_front`: the fat-row gather, candidate d2,
+  the radius / valid / layered-shell masks, the exact K smallest by a
+  stable sort; `_xla_extract`: the payload extract), then `_decode_tail`
+  or, under decode_mode="pair", `_pair_tail`; the only route that gives
   the prob outputs;
-  chunk_mode="fused": the whole chunk in one kernel (ops/fused_chunk.py);
-  knn_mode="fused", chunk_mode="xla" (the staged path): the candidate
-  selection kernel (ops/fused_select.py), the decode tail in torch
-  (`_decode_tail`), and the tower either as the K-accumulating decode
-  kernel (ops/fused_decode.py, AggregatorConfig.fused_decode2 with an
-  eligible config) or as `decode_radiance`.
+  chunk_mode="fused" with an eligible aggregator and fused_decode2 off:
+  the whole chunk in one kernel (ops/fused_chunk.py);
+  knn_mode="fused", or chunk_mode="fused" otherwise (the staged path):
+  the candidate selection kernel (ops/fused_select.py), the decode tail
+  in torch (`_decode_tail`), and the tower either as the K-accumulating
+  decode kernel (ops/fused_decode.py, AggregatorConfig.fused_decode2
+  with an eligible config) or as `decode_radiance`.
 
 With `QueryConfig.march_steps` the front-end is the distance-field ray
 march instead (ops/march.py; the CUDA walk `csrc/march.cu`): it emits
@@ -53,9 +55,17 @@ either; the march and the raster need dense tables). `bg_ray_colors`
 (the plane model's per-ray background, models/bg_plane.py) replaces
 cfg.bg_color where given.
 
-Not ported yet: `cand_prune` on the XLA route, the "krows" extract,
-span tiers, coarse windows, pair decode and sharding; a config that asks
-for them raises.
+The reference's opt-in routes are here too: chunk_mode="fused" where
+the whole fused chunk does not apply (the selection kernel, then the
+decode tail, as the reference degrades), and on the XLA route the
+two-phase pipeline (`decode_chunk2`), the valid-pair decode
+(decode_mode="pair", `pb_overflow`), the slim selection view
+(extract_mode="krows"), the per-point layer-1 table (`base_cache`) and
+the pruned candidate width (`cand_prune`); in the front-end the span
+tiers (`span_tiers`), the two-level coarse test (`coarse_step`,
+`win_overflow`) and the one-hot compaction; the slot-grid composite
+(composite_mode="grid"); and `render_frame`'s `render_maker`. Sharding
+is not ported (ROADMAP queue 1 item 12).
 
 Host synchronisation: none per chunk on the kernel routes (ray packing
 and slot packing are cumsum/scatter compactions on the device, and the
@@ -73,14 +83,17 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pointnerf2studio_torch.config import PointNerfConfig
 from pointnerf2studio_torch.models.aggregator import (
-    Aggregator, aggregation_weight, decode_radiance)
+    Aggregator, aggregation_weight, decode_radiance, decode_radiance_pairs,
+    pair_decode_eligible, precompute_base_h, raw_aggregation_weight)
 from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
 from pointnerf2studio_torch.ops.camera import neighbor_dists, rotate, w2pers
 from pointnerf2studio_torch.ops.compositing import (
-    BLEND_FUNCTIONS, TONE_MAPS, packed_alpha_composite, ray_dist_from_sample_z)
+    TONE_MAPS, composite_rows, packed_alpha_composite,
+    segment_sums_contiguous)
 from pointnerf2studio_torch.ops.fused_chunk import (
     PK, fused_chunk_decode, fused_chunk_eligible)
 from pointnerf2studio_torch.ops.fused_decode import (
@@ -93,7 +106,7 @@ from pointnerf2studio_torch.ops.hash_grid import (
 from pointnerf2studio_torch.ops.march import (
     build_march_table, march_rays, slab, to_i32)
 from pointnerf2studio_torch.ops.query import (
-    layered_k_nearest, neighbor_offsets)
+    candidate_keep_mask, layered_k_nearest, neighbor_offsets)
 from pointnerf2studio_torch.ops.raster import (
     RasterUnserved, _voxel_footprint, build_qvox, make_raster_program)
 from pointnerf2studio_torch.ops.select import (
@@ -135,7 +148,10 @@ class FatCache:
     centre) as the reference's f32 key orders them.
     march_table [gx, gy, gz] int32 (ops/march.build_march_table): the
     qslot table packed with a Chebyshev distance field, present when the
-    config routes the front-end through the march.
+    config routes the front-end through the march. `make_fast_scene` adds
+    the config's other tables: `coarse_occ` (coarse_step), `base_h`
+    (base_cache) and `slim` (extract_mode="krows", words of kmeta and
+    kcand, no copy of the payload).
     On a sparse grid (ops/hash_grid.py; `build_fat_cache_hash`) the bucket
     table `hash_table` takes the place of coor_2_qslot (None), and
     `logical_dims` (host ints) bounds the voxel coordinates.
@@ -149,6 +165,13 @@ class FatCache:
     march_table: Optional[torch.Tensor] = None
     hash_table: Optional[torch.Tensor] = None      # [B, S * 5] int32
     logical_dims: Optional[Tuple[int, int, int]] = None
+    # occupancy dilated for the two-level sample test (coarse_step)
+    coarse_occ: Optional[torch.Tensor] = None      # [gx, gy, gz] bool
+    # per-point mlp_base layer-1 partial product (base_cache)
+    base_h: Optional[torch.Tensor] = None          # [N, hidden] bf16
+    # the selection words of extract_mode="krows": per candidate the
+    # meta word and bf16 (x, y), (z, emb0) pairs, as float32 words
+    slim: Optional[torch.Tensor] = None            # [max_q, C * 3] f32
 
     @property
     def cand(self) -> int:
@@ -301,10 +324,17 @@ def cand_width(grid, kernel_size: Tuple[int, int, int],
 @torch.no_grad()
 def build_fat_cache(grid, cloud: NeuralPointCloud,
                     kernel_size: Tuple[int, int, int], max_q: int,
-                    cand_cap: int = 64, chunk: int = 32768) -> FatCache:
+                    cand_cap: int = 64, chunk: int = 32768,
+                    coarse_dilate: int = 0, cand_prune: bool = False,
+                    radius2: float = 0.0, knn_k: int = 8) -> FatCache:
     """Build the candidate cache (see `FatCache`) of a PointGrid or a
     HashGrid, once per point/attribute change. Candidates in the order of
-    `ordered_candidates`."""
+    `ordered_candidates`. `cand_prune` keeps the candidates that
+    `ops/query.candidate_keep_mask` keeps, judged on the bf16 relative
+    xyz the render's d2 reads, at the front of each row in their order,
+    and marks the rest empty (make_fast_scene then cuts the width).
+    `coarse_dilate` L > 0 adds `coarse_occ`: the occupancy dilated by a
+    (2L + 1)^3 max (a dense grid only)."""
     dev = cloud.xyz.device
     C = cand_width(grid, kernel_size, cand_cap)
     N = cloud.xyz.shape[0]
@@ -315,11 +345,23 @@ def build_fat_cache(grid, cloud: NeuralPointCloud,
     kmeta = torch.empty((max_q, C), dtype=torch.int32, device=dev)
     kcand = torch.empty((max_q, C, PK), dtype=torch.bfloat16, device=dev)
     kxyz = torch.empty((max_q, 3, C), dtype=torch.bfloat16, device=dev)
+    half = grid.scaled_vsize * 0.5
+    max_shell = (kernel_size[0] + 1) // 2 - 1
+    iota = torch.arange(C, device=dev)
     for sl, (sel_ok, sel_pidx, sel_sh, sel_xyz) in candidate_pieces(
             grid, cloud.xyz, kernel_size, C, q_coor, center_w, q_live, chunk):
         cw = center_w[sl][:sel_ok.shape[0]]
         B = cw.shape[0]
         rel = (sel_xyz - cw[:, None, :]).to(torch.bfloat16)     # [B, C, 3]
+        if cand_prune:
+            keep = candidate_keep_mask(rel.float(), sel_sh, sel_ok, half,
+                                       radius2, knn_k, max_shell)
+            pos = torch.sort(torch.where(keep, iota, C + 1), dim=-1,
+                             stable=True).indices
+            sel_ok = torch.gather(keep, 1, pos)
+            sel_pidx = torch.gather(sel_pidx, 1, pos)
+            sel_sh = torch.gather(sel_sh, 1, pos)
+            rel = torch.gather(rel, 1, pos[..., None].expand(B, C, 3))
         kmeta[sl] = torch.where(sel_ok, sel_pidx * 4 + sel_sh,
                                 -1).to(torch.int32)
         sel_attr = attrs[torch.clamp(sel_pidx, 0, N - 1)]       # [B, C, 39]
@@ -327,10 +369,28 @@ def build_fat_cache(grid, cloud: NeuralPointCloud,
                               -1)
         kxyz[sl] = rel.transpose(1, 2)
     hashed = isinstance(grid, HashGrid)
+    coarse_occ = (coarse_occupancy(grid.coor_occ, coarse_dilate)
+                  if coarse_dilate > 0 else None)
     return FatCache(coor_2_qslot=coor_2_qslot, kmeta=kmeta, kcand=kcand,
                     kxyz=kxyz, n_q=n_q,
                     hash_table=grid.table if hashed else None,
-                    logical_dims=grid.dims if hashed else None)
+                    logical_dims=grid.dims if hashed else None,
+                    coarse_occ=coarse_occ)
+
+
+def coarse_dilation(q, near: float, far: float) -> int:
+    """L, the dilation of the coarse occupancy under q.coarse_step: a
+    window of coarse_step samples spaced (far - near) / z_depth_dim
+    reaches (coarse_step - 1) / 2 samples from its centre, in voxels."""
+    dt = (far - near) / q.z_depth_dim
+    return math.ceil((q.coarse_step - 1) / 2 * dt / min(q.scaled_vsize))
+
+
+def coarse_occupancy(coor_occ: torch.Tensor, L: int) -> torch.Tensor:
+    """The occupancy [gx, gy, gz] bool dilated by a (2L + 1)^3 max
+    (max_pool3d: deterministic), the coarse test's table."""
+    return F.max_pool3d(coor_occ.to(torch.float32)[None, None], 2 * L + 1,
+                        stride=1, padding=L)[0, 0] > 0
 
 
 def build_fat_cache_hash(hg: HashGrid, cloud: NeuralPointCloud,
@@ -379,28 +439,97 @@ def fit_cand_cap(max_q: int, cand_cap: int,
 
 
 def make_fast_scene(cfg: PointNerfConfig, cloud: NeuralPointCloud,
-                    grid: PointGrid, max_q: Optional[int] = None):
+                    grid: PointGrid, max_q: Optional[int] = None,
+                    near: Optional[float] = None, far: Optional[float] = None,
+                    params: Optional[Aggregator] = None):
     """Build the fat cache for a scene; returns (cache, ranges_min,
     scaled_vsize). max_q defaults to the query-voxel count rounded up
-    to a multiple of 32768."""
+    to a multiple of 32768.
+
+    The config adds to the cache what its routes read, as the reference's
+    make_fast_scene does: the march table (march_steps); under
+    `coarse_step` the coarse occupancy, dilated for any render whose
+    sample spacing is at most (far - near) / z_depth_dim (`near`/`far`
+    default to cfg.near_plane / far_plane); under `cand_prune` on the XLA
+    route the pruned candidates, the stored width cut to the largest kept
+    count rounded up to 8 (a line says so); under `base_cache` the
+    per-point layer-1 table, which needs the aggregator `params`; under
+    extract_mode="krows" the slim selection view."""
     q = cfg.query
-    if q.cand_prune and "fused" not in (q.knn_mode, q.chunk_mode):
-        # the reference prunes the candidates of its XLA route only
-        raise NotImplementedError(
-            "cand_prune on the XLA route is not ported (ROADMAP queue 1 "
-            "item 5)")
+    xla_layout = "fused" not in (q.knn_mode, q.chunk_mode)
+    if q.extract_mode == "krows" and not xla_layout:
+        raise ValueError("extract_mode='krows' needs the 'rows' cache "
+                         "layout (knn_mode/chunk_mode 'xla')")
+    if q.base_cache:
+        _check_base_cache(cfg, params)
     if max_q is None:
         nq = int(grid.coor_occ.sum())
         max_q = (nq + 32767) // 32768 * 32768
+    coarse_dilate = 0
+    if q.coarse_step > 1:
+        coarse_dilate = coarse_dilation(
+            q, near if near is not None else cfg.near_plane,
+            far if far is not None else cfg.far_plane)
+    prune = q.cand_prune and xla_layout
     cc = fit_cand_cap(max_q, q.cand_cap, device=cloud.xyz.device)
-    cache = build_fat_cache(grid, cloud, q.kernel_size, max_q, cc)
+    cache = build_fat_cache(grid, cloud, q.kernel_size, max_q, cc,
+                            coarse_dilate=coarse_dilate, cand_prune=prune,
+                            radius2=float(q.radius_limit) ** 2, knn_k=q.K)
+    if prune:
+        C = cache.cand
+        kept = int((cache.kmeta >= 0).sum(-1).max())
+        c2 = min(C, max(8, -(-kept // 8) * 8))
+        if c2 < C:
+            cache.kmeta = cache.kmeta[:, :c2].contiguous()
+            cache.kcand = cache.kcand[:, :c2].contiguous()
+            cache.kxyz = cache.kxyz[:, :, :c2].contiguous()
+        print(f"cand_prune: width {C} -> {c2} (max kept {kept})")
     if march_active(q):
         cache.march_table = build_march_table(cache.coor_2_qslot)
+    _add_route_tables(cache, cfg, cloud, params)
     return cache, grid.ranges_min, grid.scaled_vsize
 
 
+def _check_base_cache(cfg: PointNerfConfig, params) -> None:
+    """The reference's refusals of QueryConfig.base_cache."""
+    if params is None:
+        raise ValueError(
+            "QueryConfig.base_cache needs the aggregator params at scene "
+            "build: make_fast_scene(..., params=params)")
+    if cfg.agg.agg_intrp_order < 1:
+        raise ValueError("base_cache requires agg_intrp_order >= 1 (order 0 "
+                         "encodes the K-aggregated embedding)")
+    if cfg.agg.fused_decode2:
+        raise ValueError("base_cache is incompatible with fused_decode2")
+    if "fused" in (cfg.query.knn_mode, cfg.query.chunk_mode):
+        raise ValueError("base_cache requires knn_mode/chunk_mode 'xla'")
+
+
+def build_slim(cache: FatCache) -> torch.Tensor:
+    """The selection view of extract_mode="krows", [max_q, C * 3] float32
+    words: per candidate the meta word (kmeta's bits), then the bf16
+    pairs (x, y) and (z, emb0) of kcand, the reference's rows[..., :3]
+    word for word."""
+    words = torch.cat([cache.kmeta[..., None],
+                       cache.kcand[..., :4].contiguous().view(torch.int32)],
+                      -1)                                       # [max_q, C, 3]
+    return words.view(torch.float32).reshape(cache.max_q, -1)
+
+
+def _add_route_tables(cache: FatCache, cfg: PointNerfConfig,
+                      cloud: NeuralPointCloud, params) -> None:
+    q = cfg.query
+    if q.base_cache:
+        _check_base_cache(cfg, params)
+        cache.base_h = precompute_base_h(params, cfg.agg,
+                                         cloud.points_embeding)
+    if q.extract_mode == "krows":
+        cache.slim = build_slim(cache)
+
+
 def make_hash_fast_scene(cfg: PointNerfConfig, cloud: NeuralPointCloud,
-                         hg: HashGrid, max_q: Optional[int] = None):
+                         hg: HashGrid, max_q: Optional[int] = None,
+                         params: Optional[Aggregator] = None):
     """Build the fat cache over a sparse HashGrid; returns (cache,
     ranges_min, scaled_vsize), as make_fast_scene does for a dense grid.
     max_q defaults to n_q rounded up to a multiple of 32768. As in the
@@ -408,7 +537,8 @@ def make_hash_fast_scene(cfg: PointNerfConfig, cloud: NeuralPointCloud,
     fused chunk, which reads no hash cache in the reference either, is
     refused by fast_render_rays), there is no march table, and
     `cand_prune` does not apply (the reference's hash cache keeps every
-    candidate)."""
+    candidate); `base_cache` (with `params`) and the krows view are
+    built as on a dense grid."""
     q = cfg.query
     if q.coarse_step > 1:
         raise NotImplementedError(
@@ -416,13 +546,68 @@ def make_hash_fast_scene(cfg: PointNerfConfig, cloud: NeuralPointCloud,
             "mode")
     if q.knn_mode == "fused":
         raise NotImplementedError("knn_mode='fused' is dense-only")
+    if q.base_cache:
+        _check_base_cache(cfg, params)
     if max_q is None:
         nq = int(hg.n_q)
         max_q = (nq + 32767) // 32768 * 32768
     cc = fit_cand_cap(max_q, q.cand_cap, device=cloud.xyz.device,
                       what="hash fat cache")
     cache = build_fat_cache_hash(hg, cloud, q.kernel_size, max_q, cc)
+    _add_route_tables(cache, cfg, cloud, params)
     return cache, hg.ranges_min, hg.scaled_vsize
+
+
+def onehot_select_qd(keep: torch.Tensor, rank: torch.Tensor,
+                     qs: torch.Tensor, d_true: torch.Tensor, BP: int):
+    """The one-hot slot compaction of compact_mode="onehot": each ray's
+    kept (qslot, d) pairs (keep [R, Dax], 1-based rank along the ray)
+    moved to slots rank - 1 of [R, BP]; empty slots 0 (qslot clamped at
+    0, as the reference's max(qs, 0)). The reference extracts base-128
+    digits through a bf16 one-hot matmul (exact for qslot < 2^21); here
+    it is an integer scatter whose targets never collide, exact for
+    every id on every device."""
+    R, Dax = keep.shape
+    dev = keep.device
+    row = torch.arange(R, device=dev)[:, None] * BP
+    dest = torch.where(keep, row + rank.long() - 1, R * BP).reshape(-1)
+
+    def put(x):
+        out = torch.zeros(R * BP + 1, dtype=torch.int32, device=dev)
+        out[dest] = x.reshape(-1).to(torch.int32)
+        return out[:R * BP].reshape(R, BP)
+
+    return put(torch.clamp(qs, min=0)), put(d_true.expand(R, Dax))
+
+
+def onehot_compact(qs: torch.Tensor, d_true: torch.Tensor, cap: int,
+                   BP: int, M: int):
+    """compact_mode="onehot": each ray's first `cap` valid samples (qs
+    [R, Dax] >= 0, d_true [R, Dax] their sample indices) to its BP slots
+    (`onehot_select_qd`), then the slots of all rays to M in ray order
+    (targets that never collide; slots past M drop). Returns (sel_ray,
+    sel_slot, sel_d, qslot_c [M] int64, mask_c [M] bool, cnt [R] int64)."""
+    R = qs.shape[0]
+    dev = qs.device
+    mask = qs >= 0
+    rank = torch.cumsum(mask.to(torch.int32), -1)
+    keep = mask & (rank <= cap)
+    q_sel, d_sel = onehot_select_qd(keep, rank, qs, d_true, BP)
+    cnt = keep.sum(-1)
+    off = torch.cumsum(cnt, 0) - cnt
+    sloti = torch.arange(BP, device=dev).expand(R, BP)
+    dest = torch.clamp(torch.where(sloti < cnt[:, None],
+                                   off[:, None] + sloti, M), max=M)
+    dest = dest.reshape(-1)
+
+    def put(x):
+        out = torch.zeros(M + 1, dtype=torch.long, device=dev)
+        out[dest] = x.reshape(-1).long()
+        return out[:M]
+
+    mask_c = torch.arange(M, device=dev) < torch.clamp(cnt.sum(), max=M)
+    return (put(torch.arange(R, device=dev)[:, None].expand(R, BP)),
+            put(sloti), put(d_sel), put(q_sel), mask_c, cnt)
 
 
 @dataclasses.dataclass
@@ -431,6 +616,10 @@ class FastRenderOutput:
     ray_mask: torch.Tensor                 # [R] bool
     acc: torch.Tensor                      # [R]
     depth: torch.Tensor                    # [R]
+    # coarse_step only: true positive windows dropped by
+    # coarse_win_budget (non-zero: samples were lost; None when the
+    # coarse test is off)
+    win_overflow: Optional[torch.Tensor] = None
     # in-box samples past the depth window (None when the clip is off)
     dw_overflow: Optional[torch.Tensor] = None
     # box-hitting rays past ray_budget (None when packing is off)
@@ -443,6 +632,10 @@ class FastRenderOutput:
     # march_buckets, samples may be missing). None when the march is off
     # or a raster emit table (`premarch`) took the walk's place.
     mc_overflow: Optional[torch.Tensor] = None
+    # decode_mode="pair" only: valid (slot, K) pairs dropped because a
+    # chunk held more than CH * pair_budget of them (None when the budget
+    # cannot overflow, pair_budget >= K, or pair mode is off)
+    pb_overflow: Optional[torch.Tensor] = None
     # valid compacted sample slots (the rows the tower shades)
     n_valid_slots: Optional[torch.Tensor] = None
     # render_frame only: the front-end that produced the frame's samples,
@@ -482,6 +675,13 @@ def has_cb_overflow(q) -> bool:
     if march_active(q):
         # the march emits up to min(SR, BP) samples over the full D
         Dax = D
+    elif q.coarse_step > 1:
+        S = q.coarse_step
+        DS = -(-D // S)
+        BW = min(q.coarse_win_budget, DS)
+        if q.depth_window > 0:
+            BW = min(BW, min(DS, q.depth_window // S + 1))
+        Dax = BW * S
     elif q.depth_window > 0:
         Dax = min(q.depth_window, D)
     else:
@@ -489,55 +689,78 @@ def has_cb_overflow(q) -> bool:
     return min(budget, D) < min(SR, BP, Dax)
 
 
+def has_pb_overflow(q) -> bool:
+    """Whether fast_render_rays emits a pb_overflow counter for this
+    query config: decode_mode="pair" with a pair budget below K."""
+    if q.decode_mode != "pair":
+        return False
+    return (q.pair_budget if q.pair_budget > 0 else q.K) < q.K
+
+
 def _use_fused2(cfg: PointNerfConfig) -> bool:
     """The K-accumulating decode kernel runs where the config asks for
     it and the tower is one it implements (the reference also wants a
-    TPU backend; the port has no such test)."""
+    TPU backend: the port treats the card as that backend, and the CPU
+    takes the kernel's plain version)."""
     return cfg.agg.fused_decode2 and fused_decode_served(
         cfg.agg, False, cfg.query.K)
 
 
-def _check_served(cfg: PointNerfConfig, Rw2c: torch.Tensor) -> str:
-    """"chunk" (the fused chunk kernel), "staged" (select kernel + decode
-    tail) or "xla" (the XLA candidate stages + decode tail) for a config
-    the port serves; raises otherwise."""
+def _check_served(cfg: PointNerfConfig, Rw2c: torch.Tensor,
+                  prob: bool) -> str:
+    """The chunk route of a config: "chunk" (the fused chunk kernel),
+    "staged" (the selection kernel, then the decode tail: knn_mode
+    "fused", or chunk_mode "fused" where the whole fused chunk does not
+    apply, as the reference's chunk_pipeline degrades) or "xla" (the XLA
+    candidate stages, then the lane or the pair decode). Raises where the
+    reference refuses the combination."""
     q = cfg.query
-    whole = (q.chunk_mode == "fused" and not _use_fused2(cfg)
-             and fused_chunk_eligible(cfg.agg, Rw2c.ndim == 4, q.K))
-    staged = q.chunk_mode == "xla" and q.knn_mode == "fused"
-    xla = (q.chunk_mode == "xla" and q.knn_mode == "xla"
-           and q.extract_mode in ("onehot", "gather"))
-    unported = {
-        "span_tiers": bool(q.span_tiers), "coarse_step": q.coarse_step > 1,
-        "compact_mode": q.compact_mode != "topk",
-        "composite_mode": q.composite_mode != "packed",
-        "chunk_mode/knn_mode/extract_mode/agg": not (whole or staged or xla),
-        "decode_mode": q.decode_mode != "lanes",
-        "base_cache": q.base_cache,
-        "per-point Rw2c": Rw2c.ndim != 2,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+    if Rw2c.ndim != 2:
         raise NotImplementedError(
-            f"fast_render_rays: not ported for this config ({bad}); the "
-            f"port serves depth_window/ray_budget or march_steps + topk "
-            f"compaction + packed composite + decode_mode='lanes' with "
-            f"knn_mode='xla', chunk_mode='xla' and extract_mode 'onehot' "
-            f"or 'gather', with chunk_mode='fused' (an "
-            f"eligible aggregator, fused_decode2 off) or with "
-            f"knn_mode='fused', chunk_mode='xla'")
+            "fast_render_rays takes a global Rw2c [3, 3]; an edited "
+            "scene's per-point rotations render through "
+            "models/render.render_rays (the reference's fast path has no "
+            "per-point rotation either)")
+    fused2 = _use_fused2(cfg)
+    whole = (q.chunk_mode == "fused" and not fused2
+             and fused_chunk_eligible(cfg.agg, False, q.K))
+    staged = not whole and "fused" in (q.knn_mode, q.chunk_mode)
+    if q.decode_mode == "pair":
+        if whole or staged or fused2:
+            raise ValueError(
+                "decode_mode='pair' requires knn_mode/chunk_mode 'xla' and "
+                "fused_decode2 off")
+        if not pair_decode_eligible(cfg.agg, False):
+            raise ValueError(
+                "decode_mode='pair' requires agg_intrp_order >= 1 and a "
+                "global Rw2c (per-point editing rotations decode on the "
+                "lane layout)")
+    elif q.decode_mode != "lanes":
+        raise ValueError(f"unknown decode_mode {q.decode_mode!r}")
+    if q.extract_mode not in ("onehot", "gather", "krows"):
+        raise ValueError(f"unknown extract_mode {q.extract_mode!r}")
+    if prob and (whole or staged or q.decode_mode == "pair"
+                 or q.extract_mode == "krows"):
+        raise ValueError(
+            "prob-mode neighbour averages need the XLA route (knn_mode and "
+            "chunk_mode 'xla', decode_mode 'lanes', extract_mode 'onehot' "
+            "or 'gather')")
+    if prob and q.span_tiers:
+        raise ValueError("prob mode + span_tiers not supported (growth "
+                         "probes render plain chunks)")
     return "chunk" if whole else "staged" if staged else "xla"
 
 
 def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
                  campos, nsel, pnt_mask, locs, center, rd_sel,
-                 want_attrs: bool = False):
+                 want_attrs: bool = False, base_h=None):
     """(sigma [M], rgb [M, 3], found [M]) from the selected payloads
     nsel [M, K, >= 42] bf16: neighbour geometry, aggregation weights,
     then the tower (the reference's `_decode_tail`). `want_attrs` adds
     the [M, 39] weight * conf neighbour averages of the prob outputs
     (colour 3, dir 3, conf 1, embedding 32), with the wc = weight * conf
-    * pnt_mask of the legacy prob path."""
+    * pnt_mask of the legacy prob path. `base_h` [M, K, hidden]: the
+    cached layer-1 rows of the selected points (base_cache)."""
     f32 = torch.float32
     nxyz = nsel[..., :3].to(f32) + center[:, None, :]           # [M, K, 3]
     # attribute slices stay bf16 end to end, as in the reference
@@ -561,7 +784,7 @@ def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
         sig, rgb = decode_radiance(
             params, cfg.agg, neigh_emb=emb2, neigh_color=ncol,
             neigh_dir=ndir, dists=dists, weight=weight, pnt_mask=pnt_mask,
-            viewdirs=vd, Rw2c=Rw2c)
+            viewdirs=vd, Rw2c=Rw2c, base_h=base_h)
     if not want_attrs:
         return sig, rgb, pnt_mask.any(-1)
     wc = (weight * conf * pnt_mask.to(weight.dtype))[..., None].to(f32)
@@ -572,40 +795,206 @@ def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
     return sig, rgb, pnt_mask.any(-1), attrs
 
 
-def _xla_chunk(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
-               campos, kmeta, kcand, qslot, locs, center, rd_sel, mask,
-               num_shells: int, want_attrs: bool):
-    """The reference's XLA chunk body (`chunk_pipeline`, knn_mode and
-    chunk_mode "xla") on Mc slots, as torch ops: the fat-row gather by
-    qslot [Mc] (kmeta and kcand's first PAYW channels, the words of the
-    reference's rows), candidate d2 from the bf16 relative xyz plus
-    `center - locs`, the valid / radius masks, the layered K smallest d2
-    (`layered_k_nearest`: valid first, smallest column on ties), the
-    payload extract (a gather under pnt_mask, which equals the reference's
-    one-hot einsum: one bf16 value passes its f32 accumulator unchanged),
-    then `_decode_tail`."""
+def _xla_front(cfg: PointNerfConfig, cache: FatCache, qslot, locs, center,
+               mask, num_shells: int):
+    """The candidate stages of the reference's XLA chunk body on Mc slots:
+    the row gather by qslot [Mc], candidate d2 from the bf16 relative xyz
+    plus `center - locs`, the valid / radius masks and the layered K
+    smallest d2 (`layered_k_nearest`: valid first, smallest column on
+    ties). Returns (top [Mc, K], pnt_mask [Mc, K], meta [Mc, C], payload
+    [Mc, C, PK] bf16, or None under extract_mode="krows", whose
+    selection reads only the slim view's three words a candidate)."""
     q = cfg.query
-    K = q.K
     Mc = qslot.shape[0]
-    meta = kmeta[qslot]                                         # [Mc, C]
-    # the candidate rows move as 8-byte words (a bf16 index copy moves
-    # two bytes an element)
-    payload = kcand.view(torch.int64).index_select(0, qslot).view(
-        torch.bfloat16)                                         # [Mc, C, PK]
+    if q.extract_mode == "krows":
+        if cache.slim is None:
+            raise ValueError(
+                "extract_mode='krows' needs the slim cache view "
+                "(make_fast_scene builds it under this mode)")
+        slim3 = cache.slim[qslot].reshape(Mc, cache.cand, 3)
+        meta = slim3[..., 0].view(torch.int32)
+        rel = slim3[..., 1:].contiguous().view(torch.bfloat16)  # [Mc, C, 4]
+        payload = None
+    else:
+        meta = cache.kmeta[qslot]                               # [Mc, C]
+        # the candidate rows move as 8-byte words (a bf16 index copy
+        # moves two bytes an element)
+        payload = cache.kcand.view(torch.int64).index_select(0, qslot).view(
+            torch.bfloat16)                                     # [Mc, C, PK]
+        rel = payload
     cd = center - locs
-    dx = payload[..., 0].float() + cd[:, 0:1]
-    dy = payload[..., 1].float() + cd[:, 1:2]
-    dz = payload[..., 2].float() + cd[:, 2:3]
+    dx = rel[..., 0].float() + cd[:, 0:1]
+    dy = rel[..., 1].float() + cd[:, 1:2]
+    dz = rel[..., 2].float() + cd[:, 2:3]
     d2 = dx * dx + dy * dy + dz * dz
     ok = (meta >= 0) & mask[:, None]
     radius2 = q.radius_limit ** 2
     if radius2 > 0:
         ok = ok & (d2 <= radius2)
-    top, pnt_mask = layered_k_nearest(d2, ok, meta & 3, K, num_shells)
-    nsel = torch.gather(payload, 1, top[..., None].expand(Mc, K, PAYW))
-    nsel = torch.where(pnt_mask[..., None], nsel, torch.zeros_like(nsel))
-    return _decode_tail(params, cfg, Rw2c, camrotc2w, campos, nsel,
-                        pnt_mask, locs, center, rd_sel, want_attrs)
+    top, pnt_mask = layered_k_nearest(d2, ok, meta & 3, q.K, num_shells)
+    return top, pnt_mask, meta, payload
+
+
+def _xla_extract(cache: FatCache, qslot, top, pnt_mask, payload):
+    """The selected payloads nsel [Mc, K, PAYW] bf16, zero where
+    pnt_mask is off: a gather from the gathered rows (equal to the
+    reference's one-hot einsum: one bf16 value passes its f32 accumulator
+    unchanged), or, under krows (payload None), the K chosen candidates'
+    rows read straight from the cache."""
+    Mc, K = top.shape
+    if payload is None:
+        flat = qslot.long()[:, None] * cache.cand + top         # [Mc, K]
+        nsel = cache.kcand.reshape(-1, PK)[flat][..., :PAYW]
+    else:
+        nsel = torch.gather(payload, 1, top[..., None].expand(Mc, K, PAYW))
+    return torch.where(pnt_mask[..., None], nsel, torch.zeros_like(nsel))
+
+
+def _selected_base_h(cache: FatCache, meta, top, pnt_mask):
+    """base_h rows [Mc, K, hidden] of the selected points (row 0 where a
+    lane is empty: its weight is zero)."""
+    if cache.base_h is None:
+        return None
+    pidx = torch.gather(meta, 1, top) >> 2
+    return cache.base_h[torch.where(pnt_mask, pidx, 0).long()]
+
+
+def _pair_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
+               campos, cache: FatCache, qslot, top, pnt_mask, meta, payload,
+               locs, center, rd_sel, rows: int):
+    """decode_mode="pair" (the reference's `_pair_tail`): the valid (slot,
+    K) pairs packed into MP = rows * PB rows, rows being the chunk's
+    CH slots (the reference pads its last chunk to CH), then the towers on
+    the pairs and per-slot sums over each slot's run of pairs. Valid lanes
+    are a K-prefix of the stable selection, so a slot's r-th pair is lane
+    r; the owning slot of pair p is the count of slots whose runs end at
+    or before p (a binary search on the run ends: no scatter). Returns
+    (sigma, rgb, found, pb_overflow): the valid pairs past MP, dropped."""
+    q = cfg.query
+    Mc, K = pnt_mask.shape
+    C = cache.cand
+    dev = pnt_mask.device
+    PB = min(q.pair_budget if q.pair_budget > 0 else K, K)
+    MP = rows * PB
+    cntk = pnt_mask.sum(-1)                                     # [Mc]
+    off_end = torch.cumsum(cntk, 0)
+    off = off_end - cntk
+    total = off_end[-1]
+    pim = torch.arange(MP, device=dev)
+    seg = torch.clamp(torch.searchsorted(off_end, pim, right=True),
+                      max=Mc - 1)                               # [MP]
+    rank = pim - off[seg]
+    pvalid = pim < torch.clamp(total, max=MP)
+    pb = (torch.clamp(total - MP, min=0) if PB < K
+          else torch.zeros((), dtype=torch.long, device=dev)).to(torch.int32)
+    cand_p = top.reshape(-1)[seg * K + torch.clamp(rank, 0, K - 1)]
+    if payload is None:                                         # krows
+        flat = qslot.long()[seg] * C + cand_p
+        pay = cache.kcand.reshape(-1, PK)[flat][:, :PAYW]
+        meta_p = cache.kmeta.reshape(-1)[flat]
+    else:
+        flat = seg * C + cand_p
+        pay = payload.reshape(Mc * C, PK)[flat][:, :PAYW]
+        meta_p = meta.reshape(-1)[flat]
+    pay = torch.where(pvalid[:, None], pay, torch.zeros_like(pay))
+    locs_p = locs[seg]
+    nxyz = pay[:, :3].float() + center[seg]
+    emb = pay[:, 3:35]
+    conf = pay[:, 35].float()
+    ndir = pay[:, 36:39]
+    ncol = pay[:, 39:42]
+    dists = neighbor_dists(nxyz[:, None, :], locs_p, camrotc2w,
+                           campos)[:, 0]                        # [MP, 6]
+    w_raw, emb2, norm_kind = raw_aggregation_weight(
+        cfg.agg, emb, dists, pvalid, max(q.scaled_vsize), params)
+    seg_cnt = (torch.clamp(off_end, max=MP) - torch.clamp(off, max=MP))
+
+    def seg_sum(x):
+        return segment_sums_contiguous(x, off, seg_cnt, K)
+
+    if norm_kind == "norm":
+        weight = w_raw / torch.clamp(seg_sum(w_raw)[seg], min=1e-8)
+    elif norm_kind == "count":
+        weight = w_raw / torch.clamp(
+            seg_sum(pvalid.to(w_raw.dtype))[seg], min=1.0)
+    else:
+        weight = w_raw
+    if cfg.agg.conf_in_weight:
+        weight = weight * conf
+    base_h = None
+    if cache.base_h is not None:
+        base_h = cache.base_h[torch.where(pvalid, meta_p >> 2, 0).long()]
+    sig, rgb = decode_radiance_pairs(
+        params, cfg.agg, emb2, ncol, ndir, dists, weight, pvalid, seg_sum,
+        seg, rotate(rd_sel, Rw2c), Rw2c, base_h=base_h)
+    return sig, rgb, cntk > 0, pb
+
+
+def _xla_route(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
+               campos, cache: FatCache, qslot_c, locs, center, rd_sel,
+               mask_c, num_shells: int, prob: bool):
+    """The reference's XLA chunk pipeline over the M packed slots, CH
+    slots a chunk (`xla_chunk_slots`). The valid slots are a prefix of
+    the M axis; chunks past it are all padding and are skipped (one
+    read-back of the count). A chunk runs the candidate stages
+    (`_xla_front`), then the lane decode (`_xla_extract`, `_decode_tail`)
+    or the pair decode (`_pair_tail`). With `decode_chunk2` > 0 (and no
+    pair, krows, prob, base_h or fused_decode2, and M > CH, the
+    reference's gate) the pipeline runs in two phases: the candidate
+    stages chunk by chunk into a materialised [M, K] selection, then the
+    tower in pieces of decode_chunk2 slots. Returns (sig [M], rgb [M, 3],
+    found [M], pb_overflow [] int32 or None, attrs [M, 39] or None)."""
+    q = cfg.query
+    K = q.K
+    M = qslot_c.shape[0]
+    dev = qslot_c.device
+    f32 = torch.float32
+    CH = xla_chunk_slots(q, M)
+    n_valid = int(mask_c.sum())
+    sig = torch.zeros(M, dtype=f32, device=dev)
+    rgb = torch.zeros((M, 3), dtype=f32, device=dev)
+    found = torch.zeros(M, dtype=torch.bool, device=dev)
+    attrs_m = (torch.zeros((M, PAYW - 5), dtype=f32, device=dev)
+               if prob else None)
+    pair = q.decode_mode == "pair"
+    pb = torch.zeros((), dtype=torch.int32, device=dev)
+    two_phase = (q.decode_chunk2 > 0 and not pair and not _use_fused2(cfg)
+                 and q.extract_mode != "krows" and not prob
+                 and cache.base_h is None and M > CH)
+    if two_phase:
+        nsel_m = torch.zeros((M, K, PAYW), dtype=torch.bfloat16, device=dev)
+        pm_m = torch.zeros((M, K), dtype=torch.bool, device=dev)
+        for s in range(0, n_valid, CH):
+            c = slice(s, s + CH)
+            top, pm, _, payload = _xla_front(cfg, cache, qslot_c[c], locs[c],
+                                             center[c], mask_c[c], num_shells)
+            nsel_m[c] = _xla_extract(cache, qslot_c[c], top, pm, payload)
+            pm_m[c] = pm
+        DC2 = max(min(q.decode_chunk2, -(-M // CH) * CH), 1)
+        for s in range(0, n_valid, DC2):
+            c = slice(s, s + DC2)
+            sig[c], rgb[c], found[c] = _decode_tail(
+                params, cfg, Rw2c, camrotc2w, campos, nsel_m[c], pm_m[c],
+                locs[c], center[c], rd_sel[c])
+        return sig, rgb, found, None, None
+    for s in range(0, n_valid, CH):
+        c = slice(s, s + CH)
+        top, pm, meta, payload = _xla_front(cfg, cache, qslot_c[c], locs[c],
+                                            center[c], mask_c[c], num_shells)
+        if pair:
+            sig[c], rgb[c], found[c], pb_c = _pair_tail(
+                params, cfg, Rw2c, camrotc2w, campos, cache, qslot_c[c], top,
+                pm, meta, payload, locs[c], center[c], rd_sel[c], CH)
+            pb = pb + pb_c
+            continue
+        res = _decode_tail(params, cfg, Rw2c, camrotc2w, campos,
+                           _xla_extract(cache, qslot_c[c], top, pm, payload),
+                           pm, locs[c], center[c], rd_sel[c], prob,
+                           base_h=_selected_base_h(cache, meta, top, pm))
+        sig[c], rgb[c], found[c] = res[0], res[1], res[2]
+        if prob:
+            attrs_m[c] = res[3]
+    return sig, rgb, found, (pb if has_pb_overflow(q) else None), attrs_m
 
 
 def xla_chunk_slots(q, M: int) -> int:
@@ -615,20 +1004,35 @@ def xla_chunk_slots(q, M: int) -> int:
                min(2048, M))
 
 
+def pack_first(flag: torch.Tensor, RB: int):
+    """The first RB rows of `flag` [R] in row order: (ray_ids [RB] long,
+    valid [RB] bool, overflow [] int32 = the flagged rows past RB), by a
+    cumsum and a scatter whose targets never collide (no sync). Padding
+    rows repeat row 0, as in the reference."""
+    dev = flag.device
+    R = flag.shape[0]
+    pos = torch.cumsum(flag.long(), 0) - 1
+    dest = torch.where(flag & (pos < RB), pos, RB)
+    ray_ids = torch.zeros(RB + 1, dtype=torch.long, device=dev).scatter_(
+        0, dest, torch.arange(R, device=dev))[:RB]
+    n = flag.sum()
+    valid = torch.arange(RB, device=dev) < n
+    return ray_ids, valid, torch.clamp(n - RB, min=0).to(torch.int32)
+
+
 def pack_hit_rays(cache, campos, raydirs, near, far, q, ranges_min,
                   scaled_vsize, jitter: float = 0.0):
     """Ray packing of one chunk: (ray_ids [RB] long, valid [RB] bool,
     rb_overflow [] int32) for RB = min(q.ray_budget, R). `ray_ids` holds
-    the first RB box-hitting rays in ray order (cumsum + scatter, no
-    sync); the padding rows repeat ray 0, as in the reference, and are
-    False in `valid`. `jitter` (the train path's) widens the far margin
-    by jitter/2 * (far - near): jittered segment lengths sum past far.
+    the first RB box-hitting rays in ray order (`pack_first`); the
+    padding rows repeat ray 0, as in the reference, and are False in
+    `valid`. `jitter` (the train path's) widens the far margin by
+    jitter/2 * (far - near): jittered segment lengths sum past far.
     `cache` is a FatCache or a GeoCache (its voxel bounds, `cache_dims`,
     size the box)."""
     dev = raydirs.device
     f32 = torch.float32
     R = raydirs.shape[0]
-    RB = min(q.ray_budget, R)
     near = torch.as_tensor(near, dtype=f32, device=dev)
     far = torch.as_tensor(far, dtype=f32, device=dev)
     step_t = (far - near) / q.z_depth_dim
@@ -638,14 +1042,7 @@ def pack_hit_rays(cache, campos, raydirs, near, far, q, ranges_min,
     far_slack = jitter * 0.5 * (far - near) + step_t if jitter else step_t
     hit = ((t_exit + step_t >= t_enter) & (t_exit >= near - step_t)
            & (t_enter <= far + far_slack))
-    pos = torch.cumsum(hit.long(), 0) - 1
-    dest = torch.where(hit & (pos < RB), pos, RB)
-    ray_ids = torch.zeros(RB + 1, dtype=torch.long, device=dev).scatter_(
-        0, dest, torch.arange(R, device=dev))[:RB]
-    n_hit = hit.sum()
-    valid = torch.arange(RB, device=dev) < n_hit
-    rb_overflow = torch.clamp(n_hit - RB, min=0).to(torch.int32)
-    return ray_ids, valid, rb_overflow
+    return pack_first(hit, min(q.ray_budget, R))
 
 
 def qslot_lookup(cache, pos: torch.Tensor, ranges_min: torch.Tensor,
@@ -727,25 +1124,26 @@ def fast_render_rays(
                                     # place of cfg.bg_color
 ) -> FastRenderOutput:
     """Render R rays through the fast path (see the module docstring)."""
-    route = _check_served(cfg, Rw2c)
+    route = _check_served(cfg, Rw2c, prob)
     q = cfg.query
-    if prob and route != "xla":
-        raise ValueError(
-            "prob-mode neighbour averages need the XLA route (knn_mode and "
-            "chunk_mode 'xla', decode_mode 'lanes', extract_mode 'onehot' "
-            "or 'gather')")
     if cache.hash_table is not None:
         # the reference's hash cache has no kernel-facing layout, and its
         # knn_mode="fused" is dense-only
-        if route == "chunk":
+        if q.chunk_mode == "fused":
             raise ValueError(
                 "chunk_mode='fused' needs the kernel-facing cache layout, "
                 "which a hash grid's cache does not serve")
         if route == "staged":
             raise NotImplementedError("knn_mode='fused' is dense-only")
+    if q.base_cache and cache.base_h is None:
+        raise ValueError(
+            "base_cache is on but the cache has no base_h table; build it "
+            "with make_fast_scene(..., params=params)")
     if isinstance(premarch, tuple):
         table, ids = premarch
         premarch = table[ids.long()]
+    if premarch is not None and q.span_tiers:
+        raise ValueError("premarch + span_tiers not supported")
     dev = raydirs.device
     f32 = torch.float32
     R = raydirs.shape[0]
@@ -762,6 +1160,11 @@ def fast_render_rays(
     bg = (bg_ray_colors.to(f32) if bg_ray_colors is not None
           else torch.as_tensor(cfg.bg_color, dtype=f32,
                                device=dev).expand(R, 3))
+
+    if q.span_tiers:
+        return _render_span_tiers(
+            params, Rw2c, cache, campos, camrotc2w, raydirs, near, far, cfg,
+            ranges_min, scaled_vsize, bg_ray_colors, bg, rmax, step_t)
 
     if q.ray_budget > 0:
         # ---- ray packing: only box-hitting rays enter the front-end.
@@ -798,15 +1201,23 @@ def fast_render_rays(
                              sub.ray_mask),
             acc=scatter(torch.zeros(R, dtype=f32, device=dev), sub.acc),
             depth=scatter(torch.zeros(R, dtype=f32, device=dev), sub.depth),
-            dw_overflow=sub.dw_overflow, rb_overflow=rb_overflow,
-            cb_overflow=sub.cb_overflow, mc_overflow=sub.mc_overflow,
+            win_overflow=sub.win_overflow, dw_overflow=sub.dw_overflow,
+            rb_overflow=rb_overflow, cb_overflow=sub.cb_overflow,
+            mc_overflow=sub.mc_overflow, pb_overflow=sub.pb_overflow,
             n_valid_slots=sub.n_valid_slots, **prob_kw)
 
     def qs_lookup(pos):
         return qslot_lookup(cache, pos, ranges_min, scaled_vsize)
 
-    mc_overflow = dw_overflow = None
-    if march_active(q):
+    use_march = march_active(q)
+    use_coarse = not use_march and q.coarse_step > 1
+    if use_coarse and (cache.coor_2_qslot is None
+                       or cache.coarse_occ is None):
+        raise ValueError(
+            "coarse_step needs a dense-grid cache with coarse_occ "
+            "(make_fast_scene builds it when coarse_step > 1)")
+    mc_overflow = dw_overflow = win_overflow = None
+    if use_march:
         # ---- distance-field ray march (ops/march.py): tests about the
         # samples a sphere trace visits instead of the dense [R, D(W)]
         # table, and emits each ray's first-cap occupied samples directly,
@@ -837,6 +1248,15 @@ def fast_render_rays(
         qslot_c = torch.clamp((packed_m >> 9) - 1, min=0)
         sel_d = packed_m & 511
         Dax = D
+    elif use_coarse:
+        # ---- two-level sample masking (the reference's window-expanded
+        # form): window centres of coarse_step samples tested against the
+        # dilated occupancy, the first coarse_win_budget positive windows
+        # of each ray kept, and only their samples looked up. Exact while
+        # win_overflow == 0 (and dw_overflow == 0 under a depth window).
+        qs, d_true, Dax, dw_overflow, win_overflow = _coarse_front(
+            cache, q, campos, raydirs, near, far, step_t, ranges_min,
+            scaled_vsize, rmax, ray_live)
     elif q.depth_window > 0:
         # ---- per-ray depth window: the lookup domain is [R, DW]
         # samples from the ray's slab entry; exact while DW covers each
@@ -850,6 +1270,10 @@ def fast_render_rays(
         d_hi = torch.clamp(to_i32(torch.ceil(
             (torch.minimum(t_exit, far) - near) / step_t - 0.5)), max=D - 1)
         hit_box = (t_exit >= t_enter) & (d_hi >= 0)
+        if ray_live is not None:
+            # padding rows (copies of row 0) drop: their samples are no
+            # ray's (the reference counts them, ROADMAP section 3)
+            hit_box = hit_box & ray_live
         dw_overflow = torch.where(
             hit_box, torch.clamp(d_hi - (d0 + DW - 1), min=0),
             0).sum().to(torch.int32)
@@ -861,18 +1285,35 @@ def fast_render_rays(
         t_mid = near + (torch.arange(D, device=dev, dtype=f32) + 0.5) * step_t
         qs = qs_lookup(campos + raydirs[:, None, :] * t_mid[None, :, None])
         d0 = torch.zeros(R, dtype=torch.int32, device=dev)
+        d_true = torch.arange(D, device=dev, dtype=torch.int32).expand(R, D)
         Dax = D
-    if not march_active(q):
+    cap_cols = R * min(SR, BP, Dax)
+    pack_end = None
+    if use_march:
+        cnt_all = cnt.long().sum()
+    elif q.compact_mode == "topk":
         # ---- first min(SR, BP) valid columns per ray, packed to M slots
         qs = qs.to(torch.int32).contiguous()
         col_sel, cnt, ray_hit = select_first_cols(qs, BP, min(SR, BP, Dax),
                                                   q.select_mode)
-        sel_ray, sel_slot, colm, _, qslot_c, mask_c = rank_gather_pack(
+        sel_ray, sel_slot, colm, sel, qslot_c, mask_c = rank_gather_pack(
             qs, col_sel, cnt, M)
-        sel_d = d0.long()[sel_ray] + colm
-    pack_end = torch.cumsum(cnt.long(), 0)
-    cb_overflow = (torch.clamp(pack_end[-1] - M, min=0).to(torch.int32)
-                   if M < R * min(SR, BP, Dax) else None)
+        # the sample of each slot: column + the window's first sample
+        # (the coarse windows' samples are gathered)
+        sel_d = (d_true.reshape(-1)[sel].long() if use_coarse
+                 else d0.long()[sel_ray] + colm)
+        cnt_all = cnt.long().sum()
+    else:
+        # ---- the one-hot compaction (`onehot_compact`)
+        mask = qs >= 0
+        ray_hit = mask.any(-1)
+        sel_ray, sel_slot, sel_d, qslot_c, mask_c, cnt = onehot_compact(
+            qs, d_true, min(SR, BP), BP, M)
+        cnt_all = cnt.sum()
+    if q.compact_mode == "topk":
+        pack_end = torch.cumsum(cnt.long(), 0)
+    cb_overflow = (torch.clamp(cnt_all - M, min=0).to(torch.int32)
+                   if M < cap_cols else None)
 
     rd_sel = raydirs[sel_ray]
     t_sel = near + (sel_d.to(f32) + 0.5) * step_t
@@ -881,6 +1322,7 @@ def fast_render_rays(
     center = ranges_min + (vox + 0.5) * scaled_vsize
     num_shells = (q.kernel_size[0] + 1) // 2 if q.layered_search else 1
     qslot_i = qslot_c.to(torch.int32)
+    pb_overflow = None
     if route == "chunk":
         # ---- selection + tower per slot in one kernel launch
         sig, rgb, found = fused_chunk_decode(
@@ -907,35 +1349,21 @@ def fast_render_rays(
                  for s in range(0, M, piece)]
         sig, rgb, found = (torch.cat(x) for x in zip(*tails))
     else:
-        # ---- XLA candidate stages, CH slots a chunk.
-        # The valid slots are a prefix of the M axis; chunks past it are
-        # all padding and are skipped (one read-back of the count).
-        CH = xla_chunk_slots(q, M)
-        n_valid = int(mask_c.sum())
-        sig = torch.zeros(M, dtype=f32, device=dev)
-        rgb = torch.zeros((M, 3), dtype=f32, device=dev)
-        found = torch.zeros(M, dtype=torch.bool, device=dev)
-        attrs_m = (torch.zeros((M, PAYW - 5), dtype=f32, device=dev)
-                   if prob else None)
-        for s in range(0, n_valid, CH):
-            c = slice(s, s + CH)
-            res = _xla_chunk(params, cfg, Rw2c, camrotc2w, campos,
-                             cache.kmeta, cache.kcand, qslot_c[c], locs[c],
-                             center[c], rd_sel[c], mask_c[c], num_shells,
-                             prob)
-            sig[c], rgb[c], found[c] = res[0], res[1], res[2]
-            if prob:
-                attrs_m[c] = res[3]
+        sig, rgb, found, pb_overflow, attrs_m = _xla_route(
+            params, cfg, Rw2c, camrotc2w, campos, cache, qslot_c, locs,
+            center, rd_sel, mask_c, num_shells, prob)
 
     slot_ok = mask_c & found
     sig = sig * slot_ok.to(sig.dtype)
-    if prob:
-        return _grid_composite_prob(
-            cfg, sig, rgb, slot_ok, attrs_m, sel_ray, sel_slot, sel_d,
-            ray_hit, raydirs, campos, camrotc2w, near, step_t, BP, bg,
-            dict(dw_overflow=dw_overflow, cb_overflow=cb_overflow,
-                 mc_overflow=mc_overflow,
-                 n_valid_slots=mask_c.sum().to(torch.int32)))
+    counters = dict(win_overflow=win_overflow, dw_overflow=dw_overflow,
+                    cb_overflow=cb_overflow, mc_overflow=mc_overflow,
+                    pb_overflow=pb_overflow,
+                    n_valid_slots=mask_c.sum().to(torch.int32))
+    if prob or q.composite_mode != "packed" or q.compact_mode != "topk":
+        return _grid_composite(
+            cfg, sig, rgb, slot_ok, attrs_m if prob else None, sel_ray,
+            sel_slot, sel_d, ray_hit, raydirs, campos, camrotc2w, near,
+            step_t, BP, bg, counters)
 
     # ---- packed composite
     z_m = w2pers(locs, camrotc2w, campos)[..., 2]
@@ -948,18 +1376,178 @@ def fast_render_rays(
     color = torch.where(ray_mask[:, None], color, bg)
     return FastRenderOutput(
         coarse_raycolor=color, ray_mask=ray_mask, acc=acc, depth=depth,
-        dw_overflow=dw_overflow, cb_overflow=cb_overflow,
-        mc_overflow=mc_overflow, n_valid_slots=mask_c.sum().to(torch.int32))
+        **counters)
 
 
-def _grid_composite_prob(cfg, sig, rgb, slot_ok, attrs_m, sel_ray, sel_slot,
-                         sel_d, ray_hit, raydirs, campos, camrotc2w, near,
-                         step_t, BP, bg, counters) -> FastRenderOutput:
-    """The reference's slot-grid composite with the prob outputs: the [M]
-    slots scatter to [R, BP] (the per-ray opacity argmax needs the grid),
-    alpha compositing per row, then each ray's slot of largest opacity
-    (torch.argmax takes the first among equals, as jnp.argmax does), its
-    location and the neighbour averages of that slot."""
+def _coarse_front(cache: FatCache, q, campos, raydirs, near, far, step_t,
+                  ranges_min, scaled_vsize, rmax, ray_live=None):
+    """The coarse_step front-end (reference fast_render.py:949-1032):
+    (qs [R, BW * S], d_true [R, BW * S], Dax, dw_overflow or None,
+    win_overflow). Window centres are tested on the clamped cell of the
+    dilated occupancy (members of a window outside the grid can still be
+    inside); the first BW positive windows of a ray (ascending) are kept
+    by rank, an integer selection equal to the reference's top_k. The
+    counters skip the padding rows of `ray_live`."""
+    dev = raydirs.device
+    f32 = torch.float32
+    R = raydirs.shape[0]
+    D = q.z_depth_dim
+    S = q.coarse_step
+    DS = -(-D // S)
+    BW = min(q.coarse_win_budget, DS)
+    dims = cache.coor_2_qslot.shape
+    dims_t = torch.tensor(dims, device=dev)
+
+    def voxel_index(pos):
+        gc = to_i32(torch.floor((pos - ranges_min) / scaled_vsize))
+        inb = ((gc >= 0) & (gc < dims_t)).all(-1)
+        gcc = torch.minimum(torch.clamp(gc, min=0), dims_t - 1).long()
+        return (gcc[..., 0] * dims[1] + gcc[..., 1]) * dims[2] + gcc[..., 2], \
+            inb
+
+    dw_overflow = None
+    if 0 < q.depth_window < D:
+        # composed with the depth window: only the windows overlapping
+        # [d0, d0 + DW) are tested; dw_overflow counts the in-box samples
+        # past them
+        DW = q.depth_window
+        t_enter, t_exit = slab(raydirs, campos, ranges_min, rmax)
+        d_lo = to_i32(torch.floor((t_enter - near) / step_t - 0.5))
+        d0 = torch.clamp(d_lo, 0, max(D - DW, 0))
+        d_hi = torch.clamp(to_i32(torch.ceil(
+            (torch.minimum(t_exit, far) - near) / step_t - 0.5)), max=D - 1)
+        hit_box = (t_exit >= t_enter) & (d_hi >= 0)
+        if ray_live is not None:
+            hit_box = hit_box & ray_live
+        w0 = d0 // S
+        DS2 = min(DS, DW // S + 1)
+        wi = w0[:, None] + torch.arange(DS2, dtype=torch.int32, device=dev)
+        w_in = wi < DS
+        dw_overflow = torch.where(
+            hit_box, torch.clamp(d_hi - ((w0 + DS2) * S - 1), min=0),
+            0).sum().to(torch.int32)
+    else:
+        DS2 = DS
+        wi = torch.arange(DS, dtype=torch.int32, device=dev).expand(R, DS)
+        w_in = torch.ones((R, DS), dtype=torch.bool, device=dev)
+    t_c = near + (wi.to(f32) * S + (S - 1) / 2 + 0.5) * step_t
+    cfid, _ = voxel_index(campos + raydirs[:, None, :] * t_c[..., None])
+    cocc = cache.coarse_occ.reshape(-1)[cfid] & w_in             # [R, DS2]
+    BW = min(BW, DS2)
+    rank = torch.cumsum(cocc.to(torch.int32), -1)
+    pick = cocc & (rank <= BW)
+    # the picked windows to columns rank - 1 (distinct), the rest to a
+    # spare column that is dropped; unfilled columns stay DS (no sample)
+    w_sel = torch.full((R, BW + 1), DS, dtype=torch.long, device=dev)
+    w_sel.scatter_(1, torch.where(pick, rank.long() - 1, BW), wi.long())
+    w_sel = w_sel[:, :BW]
+    over = torch.clamp(rank[:, -1] - BW, min=0)
+    if ray_live is not None:
+        over = torch.where(ray_live, over, 0)
+    win_overflow = over.sum().to(torch.int32)
+    D2 = BW * S
+    d_true = (w_sel[:, :, None] * S
+              + torch.arange(S, device=dev)).reshape(R, D2)
+    in_d = d_true < D
+    t_f = near + (d_true.to(f32) + 0.5) * step_t
+    ffid, finb = voxel_index(campos + raydirs[:, None, :] * t_f[..., None])
+    finb = finb & in_d
+    qflat = cache.coor_2_qslot.reshape(-1)
+    qs = torch.where(finb, qflat[torch.where(finb, ffid, 0)], -1)
+    d_true = torch.clamp(d_true, max=D - 1)
+    return qs, d_true, D2, dw_overflow, win_overflow
+
+
+def _render_span_tiers(params, Rw2c, cache, campos, camrotc2w, raydirs, near,
+                       far, cfg, ranges_min, scaled_vsize, bg_ray_colors, bg,
+                       rmax, step_t) -> FastRenderOutput:
+    """Span-tiered ray packing (QueryConfig.span_tiers; reference
+    fast_render.py:694-796): the ray packing with one packed group per
+    span tier, each rendered at its own depth-window width (ray budget
+    span_tier_budgets[i]), with a compaction budget scaled by the tier's
+    width. Rays are disjoint across tiers; miss rays render exact
+    background. dw_overflow and rb_overflow are summed over the tiers;
+    cb_overflow, win_overflow and pb_overflow too where a tier has them."""
+    q = cfg.query
+    dev = raydirs.device
+    f32 = torch.float32
+    R = raydirs.shape[0]
+    D = q.z_depth_dim
+    SR = q.SR
+    BP = q.ray_slot_budget or min(SR, 32)
+    widths = tuple(int(w) for w in q.span_tiers)
+    budgets = tuple(int(b) for b in q.span_tier_budgets)
+    if len(widths) != len(budgets) or widths != tuple(sorted(widths)):
+        raise ValueError("span_tiers must be ascending with matching "
+                         "budgets")
+    t_enter, t_exit = slab(raydirs, campos, ranges_min, rmax)
+    hit = ((t_exit + step_t >= t_enter) & (t_exit >= near - step_t)
+           & (t_enter <= far + step_t))
+    # the in-box sample span, by the depth window's own float math
+    d_lo = to_i32(torch.floor((t_enter - near) / step_t - 0.5))
+    d_hi = torch.clamp(to_i32(torch.ceil(
+        (torch.minimum(t_exit, far) - near) / step_t - 0.5)), max=D - 1)
+    span = torch.where((t_exit >= t_enter) & (d_hi >= 0),
+                       d_hi - torch.clamp(d_lo, min=0) + 1, 0)
+    ti = torch.zeros(R, dtype=torch.int32, device=dev)
+    for w in widths[:-1]:
+        ti = ti + (span > w).to(torch.int32)   # the last tier takes the rest
+    color = bg.contiguous().clone()
+    ray_mask = torch.zeros(R, dtype=torch.bool, device=dev)
+    acc = torch.zeros(R, dtype=f32, device=dev)
+    depth = torch.zeros(R, dtype=f32, device=dev)
+    rb_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    dw_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    lists = {"cb_overflow": [], "win_overflow": [], "pb_overflow": []}
+    n_valid = torch.zeros((), dtype=torch.int32, device=dev)
+    w_bar = (sum(b * wj for b, wj in zip(budgets, widths))
+             / max(sum(budgets), 1))
+    for i, w in enumerate(widths):
+        rid, valid, over = pack_first(hit & (ti == i), min(budgets[i], R))
+        rb_overflow = rb_overflow + over
+        # valid samples per ray scale with the span: the global budget is
+        # shared in proportion to tier width (cb_overflow counts the rest)
+        if q.compact_budget > 0:
+            cb_i = max(1, -(-q.compact_budget * w // int(w_bar)))
+            cb_i = min(cb_i, SR, BP, w)
+        else:
+            cb_i = 0
+        cfg_i = dataclasses.replace(cfg, query=dataclasses.replace(
+            q, span_tiers=(), span_tier_budgets=(), ray_budget=0,
+            depth_window=min(w, D), compact_budget=cb_i))
+        sub = fast_render_rays(
+            params, Rw2c, cache, campos, camrotc2w, raydirs[rid], near, far,
+            cfg_i, ranges_min, scaled_vsize, ray_live=valid,
+            bg_ray_colors=(None if bg_ray_colors is None
+                           else bg_ray_colors[rid]))
+        ids = torch.where(valid, rid, R)
+        for base, x in ((color, sub.coarse_raycolor), (ray_mask, sub.ray_mask),
+                        (acc, sub.acc), (depth, sub.depth)):
+            ext = torch.cat([base, base[:1]])
+            ext[ids] = x.to(base.dtype)
+            base.copy_(ext[:R])
+        if sub.dw_overflow is not None:
+            dw_overflow = dw_overflow + sub.dw_overflow
+        for f, vals in lists.items():
+            if getattr(sub, f) is not None:
+                vals.append(getattr(sub, f))
+        n_valid = n_valid + sub.n_valid_slots
+    return FastRenderOutput(
+        coarse_raycolor=color, ray_mask=ray_mask, acc=acc, depth=depth,
+        dw_overflow=dw_overflow, rb_overflow=rb_overflow,
+        n_valid_slots=n_valid,
+        **{f: (sum(v) if v else None) for f, v in lists.items()})
+
+
+def _grid_composite(cfg, sig, rgb, slot_ok, attrs_m, sel_ray, sel_slot,
+                    sel_d, ray_hit, raydirs, campos, camrotc2w, near, step_t,
+                    BP, bg, counters) -> FastRenderOutput:
+    """The reference's slot-grid composite: the [M] slots scatter to
+    [R, BP] rows, then alpha compositing per row. With `attrs_m` (prob
+    mode) also each ray's slot of largest opacity (torch.argmax takes the
+    first among equals, as jnp.argmax does), its location and the
+    neighbour averages of that slot. Its sums run along the slot grid, so
+    they may differ from the packed composite's in the last bits."""
     R = raydirs.shape[0]
     dev = raydirs.device
     dest = torch.where(slot_ok, sel_ray * BP + sel_slot, R * BP)
@@ -972,22 +1560,18 @@ def _grid_composite_prob(cfg, sig, rgb, slot_ok, attrs_m, sel_ray, sel_slot,
 
     sig_rb, rgb_rb, valid_rb = grid(sig), grid(rgb), grid(slot_ok)
     d_rb = grid(sel_d.to(torch.int32))
-    attrs_rb = grid(attrs_m)
     t_rb = near + (d_rb.to(torch.float32) + 0.5) * step_t
     pos_rb = campos + raydirs[:, None, :] * t_rb[..., None]
     z_rb = w2pers(pos_rb, camrotc2w, campos)[..., 2]
-    z_masked = torch.where(valid_rb, z_rb, torch.full_like(z_rb, -1e9))
-    dist = ray_dist_from_sample_z(z_masked, valid_rb, cfg.query.vsize[2])
-    opacity = 1.0 - torch.exp(-sig_rb * dist)
-    trans = torch.cumprod(1.0 - opacity + 1e-10, -1)
-    trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], -1)
-    blend = BLEND_FUNCTIONS[cfg.blend_func](opacity, trans)
-    acc = blend.sum(-1)
-    color = (blend[..., None] * rgb_rb).sum(-2) + (1 - acc)[..., None] * bg
-    color = TONE_MAPS[cfg.tonemap_func](color)
-    depth = (blend * z_rb).sum(-1)
+    rgb_sum, acc, depth, opacity = composite_rows(
+        sig_rb, rgb_rb, z_rb, valid_rb, cfg.query.vsize[2], cfg.blend_func)
+    color = TONE_MAPS[cfg.tonemap_func](rgb_sum + (1 - acc)[..., None] * bg)
     ray_mask = ray_hit & valid_rb.any(-1)
     color = torch.where(ray_mask[:, None], color, bg)
+    if attrs_m is None:
+        return FastRenderOutput(coarse_raycolor=color, ray_mask=ray_mask,
+                                acc=acc, depth=depth, **counters)
+    attrs_rb = grid(attrs_m)
     s_star = torch.argmax(opacity, -1)                           # [R]
     ar = torch.arange(R, device=dev)
     a_star = attrs_rb[ar, s_star]                                # [R, 39]
@@ -1064,6 +1648,43 @@ def measured_depth_window(campos, raydirs, near, far, D: int,
     span, _ = frame_ray_spans(campos, raydirs, near, far, D,
                               ranges_min, dims, scaled_vsize)
     return int(min(D, int(span.max(initial=0)) + slack))
+
+
+def measured_span_tiers(campos, raydirs, near, far, D: int, ranges_min,
+                        dims, scaled_vsize, widths=None, slack: int = 4,
+                        round_to: int = 1024, chunk: int = 0):
+    """(widths, budgets) for QueryConfig.span_tiers on a known ray set:
+    widths at the span quantiles p50 and p85 rounded up to 16, and the
+    largest span plus slack (a width within 16 of the next one dropped);
+    budgets, per tier, the largest count of its rays in a `chunk` of rays
+    (the whole set by default), +3% rounded up to `round_to`. The
+    device's rb_overflow and dw_overflow re-verify both. NumPy."""
+    span, hit = frame_ray_spans(campos, raydirs, near, far, D, ranges_min,
+                                dims, scaled_vsize)
+    s = span[hit & (span > 0)]
+    smax = int(s.max(initial=1))
+    if widths is None:
+        p50, p85 = ((int(np.percentile(s, 50)), int(np.percentile(s, 85)))
+                    if s.size else (1, 1))
+        widths = [-(-p50 // 16) * 16, -(-p85 // 16) * 16]
+    widths = sorted(set(min(int(w), D) for w in widths
+                        if int(w) < smax + slack))
+    widths.append(min(smax + slack, D))
+    widths = [w for w, nxt in zip(widths, widths[1:])
+              if nxt - w >= 16] + [widths[-1]]
+    ti = np.minimum(np.searchsorted(np.asarray(widths), span, side="left"),
+                    len(widths) - 1)
+    R = span.shape[0]
+    chunk = chunk or R
+    n_chunks = max(R // chunk, 1)
+    budgets = []
+    for i in range(len(widths)):
+        cnt = (hit & (ti == i))[:n_chunks * chunk].reshape(
+            n_chunks, chunk).sum(-1).max()
+        budgets.append(int(min(chunk, max(
+            round_to, (int(cnt * 1.03) + round_to - 1) // round_to
+            * round_to))))
+    return tuple(widths), tuple(budgets)
 
 
 def slab_hit_mask(campos, raydirs, near, far, D: int, ranges_min, dims,
@@ -1159,6 +1780,7 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
                  ranges_min, scaled_vsize, *, chunk: int = 65536,
                  dw_slack: int = 4, tier_quant: int = 32,
                  budget_tier: int = 0,
+                 render_maker=None,
                  program_cache: Optional[dict] = None,
                  host_rays: Optional[np.ndarray] = None,
                  raster: Optional[tuple] = None,
@@ -1195,17 +1817,25 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
     `front_end` says which front-end rendered the frame.
 
     `budget_tier` > 0 (below cfg.query.compact_budget) renders every
-    chunk at that lower compaction budget first. `program_cache` (a dict
-    kept across frames) holds the scene's qvox table and the raster
+    chunk at that lower compaction budget first. `render_maker(cfg) ->
+    fn(rays, bg_or_None)` builds the renderer of a chunk's config (its
+    depth-window tier and budget); two-argument renderers are called
+    without the raster's rows, and the raster is off, as in the
+    reference. A frame calls the maker once per (tier, chunk, budget),
+    memoised in `program_cache` under that key; the maker's renderer
+    brings its own camera, so to render another camera pass another
+    maker or another cache. The default renders each chunk with
+    `fast_render_rays` on this call's camera. `program_cache` (a dict
+    kept across frames) also holds the scene's qvox table and the raster
     programs by ladder. `host_rays`: a host copy of `raydirs`, which
     saves the device pull. `bg_ray_colors` [Rtot, 3] (the plane model's
     per-ray background) replaces cfg.bg_color ray by ray. dw_overflow,
-    cb_overflow and mc_overflow are summed over chunks; rb_overflow is None
+    cb_overflow, mc_overflow, win_overflow and pb_overflow are summed over
+    chunks; rb_overflow is None
     (the packing happens here, by a conservative slab test that cannot drop
     a hitting ray). On a hash grid's cache the bounds are its logical dims
     and the raster is not used (it bins against the dense qslot table), as
-    in the reference. Unlike the reference there is no `render_maker`:
-    the port has no sharded renderer."""
+    in the reference."""
     q = cfg.query
     D = q.z_depth_dim
     dev = raydirs.device
@@ -1219,7 +1849,8 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
     pcache = program_cache if program_cache is not None else {}
     emit_tbl = None
     front_end = "march" if march_active(q) else "depth_window"
-    if raster is not None and march_active(q) and cache.hash_table is None:
+    if (raster is not None and render_maker is None and march_active(q)
+            and cache.hash_table is None):
         try:
             emit_tbl, _ = frame_raster_emit(
                 cache, campos, camrotc2w, raydirs, near, far, q, ranges_min,
@@ -1239,7 +1870,8 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
     ray_mask = torch.zeros(Rtot, dtype=torch.bool, device=dev)
     acc = torch.zeros(Rtot, dtype=f32, device=dev)
     depth = torch.zeros(Rtot, dtype=f32, device=dev)
-    sums = {"dw_overflow": None, "cb_overflow": None, "mc_overflow": None}
+    sums = {f: None for f in ("win_overflow", "dw_overflow", "cb_overflow",
+                              "mc_overflow", "pb_overflow")}
 
     n_chunks = (n_hit + chunk - 1) // chunk
     if n_chunks:
@@ -1255,11 +1887,17 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
             sl = slice(i * chunk, (i + 1) * chunk)
             cfg_t = dataclasses.replace(cfg, query=dataclasses.replace(
                 q, depth_window=dw, ray_budget=0, compact_budget=b))
+            bg_c = None if bg_p is None else bg_p[sl]
+            if render_maker is not None:
+                key = ("render_maker", dw, chunk, b)
+                if key not in pcache:
+                    pcache[key] = render_maker(cfg_t)
+                return pcache[key](rays_p[sl], bg_c)
             return fast_render_rays(
                 params, Rw2c, cache, campos, camrotc2w, rays_p[sl], near,
                 far, cfg_t, ranges_min, scaled_vsize,
                 premarch=None if emit_tbl is None else (emit_tbl, perm[sl]),
-                bg_ray_colors=None if bg_p is None else bg_p[sl])
+                bg_ray_colors=bg_c)
 
         b_full = q.compact_budget if q.compact_budget > 0 else q.SR
         b_cap = min(q.SR, q.ray_slot_budget or min(q.SR, 32))

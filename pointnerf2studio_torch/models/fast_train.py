@@ -33,11 +33,14 @@ sits on the gradient's path.
 `bg_ray_colors` (the plane model's per-ray background) replaces
 cfg.bg_color where given.
 
-Not ported (each raises): the one-hot compaction
-(compact_mode != "topk"), the grid composite (composite_mode !=
-"packed"), `remat` other than "none" and the perf probes
-(`debug_prefix`). A per-point Rw2c raises, as in the reference: edited
-scenes train through the legacy step (train/trainer.make_train_step). `make_geo_scene` raises where the reference would retry
+The reference's opt-in train routes are here too: the one-hot
+compaction (compact_mode="onehot", an integer selection), the slot-grid
+composite (composite_mode="grid"), `TrainConfig.remat` ("selection"
+recomputes the decode from the saved selection in the backward, "full"
+the whole chunk, both through torch.utils.checkpoint with gradients
+equal to "none" bit for bit) and the perf probes (`debug_prefix`). A
+per-point Rw2c raises, as in the reference: edited scenes train through
+the legacy step (train/trainer.make_train_step). `make_geo_scene` raises where the reference would retry
 an out-of-memory build at half the candidate width.
 """
 
@@ -47,19 +50,20 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pointnerf2studio_torch.config import PointNerfConfig
 from pointnerf2studio_torch.models.aggregator import (
     Aggregator, aggregation_weight, conf_gradient_clamp, decode_radiance)
 from pointnerf2studio_torch.models.fast_render import (
     cand_width, candidate_pieces, fit_cand_cap, march_active,
-    pack_hit_rays, qslot_lookup, query_voxels)
+    onehot_compact, pack_hit_rays, qslot_lookup, query_voxels)
 from pointnerf2studio_torch.ops.hash_grid import HashGrid
 from pointnerf2studio_torch.models.neural_points import (
     NeuralPointCloud, gather_rows)
 from pointnerf2studio_torch.ops.camera import neighbor_dists, rotate, w2pers
 from pointnerf2studio_torch.ops.compositing import (
-    TONE_MAPS, packed_alpha_composite)
+    TONE_MAPS, composite_rows, packed_alpha_composite)
 from pointnerf2studio_torch.ops.grid import PointGrid
 from pointnerf2studio_torch.ops.march import build_march_table, march_rays
 from pointnerf2studio_torch.ops.query import (
@@ -208,6 +212,10 @@ class TrainRenderOutput:
     mc_overflow: Optional[torch.Tensor] = None
 
 
+PREFIXES = ("draw", "mid", "raygen", "front", "gather", "knn", "attrs",
+            "decode")
+
+
 def _check_served(cfg: PointNerfConfig, points: NeuralPointCloud,
                   training: bool, debug_prefix) -> None:
     q = cfg.query
@@ -217,40 +225,31 @@ def _check_served(cfg: PointNerfConfig, points: NeuralPointCloud,
             "fast_train_render: a per-point Rw2c (edited scenes) trains "
             "through the legacy step, fit(fast_path=False) (ROADMAP queue 1 "
             "item 6)")
-    unported = (
-        (q.compact_mode != "topk", "compact_mode (the one-hot compaction)",
-         5),
-        (q.composite_mode != "packed", "composite_mode (the grid composite)",
-         5),
-        (training and cfg.train.remat != "none", "remat", 7),
-        (debug_prefix is not None, "debug_prefix (the perf probes)", 7),
-    )
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"fast_train_render: {what} is not ported (ROADMAP queue 1 "
-                f"item {item}); the port trains through topk compaction and "
-                f"the packed composite with a global Rw2c "
-                f"and remat='none'")
+    if cfg.train.remat not in ("none", "selection", "full"):
+        raise ValueError(f"unknown TrainConfig.remat {cfg.train.remat!r}")
+    if debug_prefix is not None and debug_prefix not in PREFIXES:
+        raise ValueError(f"unknown debug_prefix {debug_prefix!r}; the "
+                         f"cut-offs are {PREFIXES}")
 
 
-def _chunk_body(params: Aggregator, cfg: PointNerfConfig,
-                points: NeuralPointCloud, attrs: torch.Tensor,
-                geo: GeoCache, campos, camrotc2w, raydirs, t_flat,
-                ranges_min, scaled_vsize, training: bool,
-                qslot_c, sel_ray, sel_rd, mask_c):
-    """One chunk of slots: geometry gather, layered K-nearest, the
-    differentiable attribute gather, weights and the tower. Returns
-    (sigma, rgb, found, conf, pnt_mask, weight)."""
+def _chunk_select(cfg: PointNerfConfig, geo: GeoCache, campos, raydirs,
+                  t_flat, ranges_min, scaled_vsize, qslot_c, sel_ray, sel_rd,
+                  mask_c, debug_prefix=None):
+    """The selection half of a chunk: geometry gather, layered K-nearest.
+    Returns (pnt_mask [Mc, K], pidx [Mc, K], nxyz [Mc, K, 3], locs [Mc,
+    3], rd_sel [Mc, 3]), none of them with a gradient; under the "gather"
+    and "knn" cut-offs the reference's probe outputs instead."""
     q = cfg.query
     K = q.K
-    CA = points.points_embeding.shape[-1]
-    N = attrs.shape[0]
     num_shells = (q.kernel_size[0] + 1) // 2
     radius2 = q.radius_limit ** 2
     meta = geo.meta[qslot_c]                                    # [Mc, C]
     shell = meta & 3
     rel = geo.rel[qslot_c]                                      # [Mc, C, 3]
+    Mc = meta.shape[0]
+    if debug_prefix == "gather":
+        z = rel.sum((-1, -2)) + meta.float().sum(-1)
+        return _probe_rows(z, mask_c, K)
     rd_sel = raydirs[sel_ray]
     locs = campos + rd_sel * t_flat[sel_rd][:, None]            # [Mc, 3]
     vox = torch.floor((locs - ranges_min) / scaled_vsize)
@@ -264,18 +263,47 @@ def _chunk_body(params: Aggregator, cfg: PointNerfConfig,
     # the K smallest d2, ties to the smallest column (lax.top_k's order)
     top_idx, pnt_mask = layered_k_nearest(d2, ok, shell, K, num_shells,
                                           q.layered_search)
+    if debug_prefix == "knn":
+        z = torch.where(pnt_mask, torch.gather(d2, 1, top_idx), 0.0).sum(-1)
+        return _probe_rows(z, pnt_mask.any(-1), K, pnt_mask=pnt_mask)
     pidx = torch.gather(meta >> 2, 1, top_idx)                  # [Mc, K]
-    nxyz = (torch.gather(rel, 1, top_idx[..., None].expand(-1, -1, 3))
+    nxyz = (torch.gather(rel, 1, top_idx[..., None].expand(Mc, K, 3))
             + center[:, None, :])                               # [Mc, K, 3]
+    return pnt_mask, pidx, nxyz, locs, rd_sel
 
-    # the differentiable attribute gather
+
+def _probe_rows(z, found, K, pnt_mask=None, conf=None):
+    """A chunk's outputs at a probe cut-off, as the reference returns
+    them: (z, z on 3 channels, found, conf or zeros, pnt_mask or zeros,
+    zero weights)."""
+    Mc = z.shape[0]
+    zk = z.new_zeros((Mc, K))
+    return (z, z[:, None].expand(Mc, 3), found,
+            zk if conf is None else conf,
+            (torch.zeros((Mc, K), dtype=torch.bool, device=z.device)
+             if pnt_mask is None else pnt_mask), zk)
+
+
+def _chunk_decode(params: Aggregator, cfg: PointNerfConfig,
+                  points: NeuralPointCloud, attrs: torch.Tensor, campos,
+                  camrotc2w, training: bool, pnt_mask, pidx, nxyz, locs,
+                  rd_sel, debug_prefix=None):
+    """The decode half of a chunk: the differentiable attribute gather,
+    the weights and the tower. Returns (sigma, rgb, found, conf,
+    pnt_mask, weight)."""
+    q = cfg.query
+    CA = points.points_embeding.shape[-1]
+    N = attrs.shape[0]
     vals = gather_rows(attrs, torch.clamp(pidx, 0, N - 1).reshape(-1)
                        ).reshape(pidx.shape + (attrs.shape[1],))  # [Mc,K,39]
     emb = vals[..., :CA]
     conf = vals[..., CA]
     ndir = vals[..., CA + 1:CA + 4]
     ncol = vals[..., CA + 4:CA + 7]
-
+    if debug_prefix == "attrs":
+        z = vals.float().sum((-1, -2)) + nxyz.sum((-1, -2))
+        return _probe_rows(z, pnt_mask.any(-1), q.K, pnt_mask=pnt_mask,
+                           conf=conf)
     dists = neighbor_dists(nxyz, locs, camrotc2w, campos)
     weight, emb2 = aggregation_weight(cfg.agg, emb, dists, pnt_mask,
                                       max(q.scaled_vsize), params)
@@ -288,6 +316,30 @@ def _chunk_body(params: Aggregator, cfg: PointNerfConfig,
         dists=dists, weight=weight, pnt_mask=pnt_mask, viewdirs=vd,
         Rw2c=points.Rw2c)
     return sig, rgb, pnt_mask.any(-1), conf_c, pnt_mask, weight
+
+
+def _chunk_body(params: Aggregator, cfg: PointNerfConfig,
+                points: NeuralPointCloud, attrs: torch.Tensor,
+                geo: GeoCache, campos, camrotc2w, raydirs, t_flat,
+                ranges_min, scaled_vsize, training: bool,
+                qslot_c, sel_ray, sel_rd, mask_c, debug_prefix=None):
+    """One chunk of slots: the selection (`_chunk_select`), then the
+    decode (`_chunk_decode`). Returns (sigma, rgb, found, conf, pnt_mask,
+    weight). Under TrainConfig.remat "selection" the decode runs under
+    torch.utils.checkpoint (its activations recomputed in the backward
+    from the saved selection); "full" wraps the whole body, selection
+    included, by the caller."""
+    sel = _chunk_select(cfg, geo, campos, raydirs, t_flat, ranges_min,
+                        scaled_vsize, qslot_c, sel_ray, sel_rd, mask_c,
+                        debug_prefix)
+    if debug_prefix in ("gather", "knn"):
+        return sel
+    if training and cfg.train.remat == "selection":
+        return checkpoint(_chunk_decode, params, cfg, points, attrs, campos,
+                          camrotc2w, training, *sel, debug_prefix,
+                          use_reentrant=False)
+    return _chunk_decode(params, cfg, points, attrs, campos, camrotc2w,
+                         training, *sel, debug_prefix)
 
 
 def fast_train_render(
@@ -313,7 +365,16 @@ def fast_train_render(
     docstring). Jitter (cfg.train.jitter, training only) takes its draws
     from `jitter_u` where given, else from `generator`; with neither the
     samples sit at the segment midpoints. Differentiable in `params` and
-    in the cloud's trainable attributes."""
+    in the cloud's trainable attributes.
+
+    `debug_prefix` (the reference's perf probes) cuts the step after a
+    stage and returns the reference's probe outputs, reductions of what
+    the stages computed, wrong as a render and equal in shape: "draw"
+    (the jitter draw and the ray packing; under ray_budget only), "mid"
+    (the jittered sample ts), "raygen" (the sample positions), "front"
+    (the compaction), "gather", "knn" and "attrs" (inside each chunk,
+    then the composite runs on the probe rows) and "decode" (after the
+    chunks)."""
     _check_served(cfg, points, training, debug_prefix)
     q = cfg.query
     dev = raydirs.device
@@ -335,6 +396,17 @@ def fast_train_render(
     if u_full is None and jit_amount > 0.0 and generator is not None:
         u_full = jitter_uniform((R, D), generator)
 
+    def probe_output(color, mask=None, rows=M):
+        return TrainRenderOutput(
+            coarse_raycolor=color.expand(R, 3),
+            ray_mask=(torch.zeros(R, dtype=torch.bool, device=dev)
+                      if mask is None else mask),
+            acc=torch.zeros(R, dtype=f32, device=dev),
+            depth=torch.zeros(R, dtype=f32, device=dev),
+            conf_coefficient=torch.zeros((rows, K), dtype=f32, device=dev),
+            pnt_mask=torch.zeros((rows, K), dtype=torch.bool, device=dev),
+            weight=torch.zeros((rows, K), dtype=f32, device=dev))
+
     if q.ray_budget > 0:
         # ---- ray packing: only box-hitting rays enter the front-end. A
         # miss ray renders exact background (a constant: no gradient) and
@@ -345,13 +417,19 @@ def fast_train_render(
         ray_ids, valid, rb_overflow = pack_hit_rays(
             geo, campos, raydirs, near, far, q, ranges_min, scaled_vsize,
             jitter=jit_amount)
+        if debug_prefix == "draw":
+            z = (torch.zeros((), dtype=f32, device=dev) if u_full is None
+                 else u_full.sum())
+            return probe_output(
+                z * 1e-6 + ray_ids.to(f32).sum() * 1e-9,
+                valid if valid.shape[0] >= R else None, rows=1)
         cfg0 = dataclasses.replace(cfg, query=dataclasses.replace(
             q, ray_budget=0))
         sub = fast_train_render(
             params, points, geo, campos, camrotc2w, raydirs[ray_ids], near,
             far, cfg0, ranges_min, scaled_vsize, training=training,
             jitter_u=None if u_full is None else u_full[ray_ids],
-            ray_live=valid,
+            ray_live=valid, debug_prefix=debug_prefix,
             bg_ray_colors=(None if bg_ray_colors is None
                            else bg_ray_colors[ray_ids]))
         ids = torch.where(valid, ray_ids, R)       # padding rows drop
@@ -376,6 +454,10 @@ def fast_train_render(
     raypos, _, mid_ts = raygen(campos, raydirs, D, near, far,
                                jitter=jit_amount, jitter_u=u_full)
     mid_ts = mid_ts.contiguous()
+    if debug_prefix == "mid":
+        return probe_output(mid_ts.sum() * 1e-6)
+    if debug_prefix == "raygen":
+        return probe_output(raypos.sum((0, 1)) + mid_ts.sum() * 1e-6)
 
     mc_overflow = None
     if march_active(q) and not cfg.inverse and geo.hash_table is None:
@@ -401,14 +483,15 @@ def fast_train_render(
             q.march_buckets, t_tab=mid_ts, jitter=jit_amount, live=ray_live)
         ray_hit = cnt > 0
         iota = torch.arange(cap, dtype=torch.int32, device=dev).expand(R, cap)
-        sel_ray, _, _, _, packed_m, mask_c = rank_gather_pack(
+        sel_ray, sel_slot, _, _, packed_m, mask_c = rank_gather_pack(
             emit, iota, cnt, M)
         qslot_c = torch.clamp((packed_m >> 9) - 1, min=0)
         sel_d = packed_m & 511
     else:
         # ---- the dense front-end: every sample's qslot (the dense table
         # or the hash table), then the first min(SR, BP) valid columns per
-        # ray packed to M slots
+        # ray packed to M slots (the column selection, or under
+        # compact_mode="onehot" the one-hot compaction)
         qs = qslot_lookup(geo, raypos, ranges_min,
                           scaled_vsize).to(torch.int32)
         if ray_live is not None:
@@ -417,12 +500,21 @@ def fast_train_render(
             # its per-slot loss terms count ray 0's samples again)
             qs = torch.where(ray_live[:, None], qs, -1)
         qs = qs.contiguous()
-        col_sel, cnt, ray_hit = select_first_cols(qs, BP, min(SR, BP),
-                                                  q.select_mode)
-        sel_ray, _, sel_d, _, qslot_c, mask_c = rank_gather_pack(
-            qs, col_sel, cnt, M)
+        if q.compact_mode == "topk":
+            col_sel, cnt, ray_hit = select_first_cols(qs, BP, min(SR, BP),
+                                                      q.select_mode)
+            sel_ray, sel_slot, sel_d, _, qslot_c, mask_c = rank_gather_pack(
+                qs, col_sel, cnt, M)
+        else:
+            ray_hit = (qs >= 0).any(-1)
+            sel_ray, sel_slot, sel_d, qslot_c, mask_c, cnt = onehot_compact(
+                qs, torch.arange(D, dtype=torch.int32, device=dev).expand(
+                    R, D), min(SR, BP), BP, M)
     del raypos
-    pack_end = torch.cumsum(cnt.long(), 0)
+    if debug_prefix == "front":
+        return probe_output(torch.stack([
+            qslot_c.to(f32).sum() * 1e-6, sel_ray.to(f32).sum() * 1e-6,
+            mask_c.to(f32).sum() * 1e-6]), mask=ray_hit)
 
     t_flat = mid_ts.reshape(R * D)
     sel_rd = torch.clamp(sel_ray * D + sel_d, max=R * D - 1)
@@ -438,29 +530,57 @@ def fast_train_render(
         return torch.cat([x, x.new_zeros(pad)]) if pad else x
 
     ins = [cpad(x) for x in (qslot_c, sel_ray, sel_rd, mask_c)]
-    outs = [_chunk_body(params, cfg, points, attrs, geo, campos, camrotc2w,
-                        raydirs, t_flat, ranges_min, scaled_vsize, training,
-                        *(x[i * CH:(i + 1) * CH] for x in ins))
-            for i in range(n)]
+    body_args = (params, cfg, points, attrs, geo, campos, camrotc2w, raydirs,
+                 t_flat, ranges_min, scaled_vsize, training)
+    full = training and cfg.train.remat == "full"
+    outs = []
+    for i in range(n):
+        rows = tuple(x[i * CH:(i + 1) * CH] for x in ins)
+        if full:
+            outs.append(checkpoint(_chunk_body, *body_args, *rows,
+                                   debug_prefix, use_reentrant=False))
+        else:
+            outs.append(_chunk_body(*body_args, *rows, debug_prefix))
     sig, rgb, found, conf_k, pm_k, w_k = (torch.cat(x)[:M]
                                           for x in zip(*outs))
+    if debug_prefix == "decode":
+        return probe_output(torch.stack([
+            sig.sum() * 1e-6, rgb.sum() * 1e-6, found.to(f32).sum() * 1e-6]),
+            mask=ray_hit)
 
-    # ---- packed composite
     slot_ok = mask_c & found
     sig = sig * slot_ok.to(sig.dtype)
     z_sel = w2pers(campos + raydirs[sel_ray] * t_flat[sel_rd][:, None],
                    camrotc2w, campos)[..., 2]
-    rgb_sum, acc, depth, ray_found = packed_alpha_composite(
-        sig, rgb, z_sel, slot_ok, sel_ray, pack_end, cnt, q.vsize[2],
-        cfg.blend_func, max_slots=BP)
+    out = dict(conf_coefficient=conf_k, pnt_mask=pm_k & mask_c[:, None],
+               weight=w_k, mc_overflow=mc_overflow)
+    if q.composite_mode == "packed" and q.compact_mode == "topk":
+        # ---- packed composite
+        rgb_sum, acc, depth, ray_found = packed_alpha_composite(
+            sig, rgb, z_sel, slot_ok, sel_ray, torch.cumsum(cnt.long(), 0),
+            cnt, q.vsize[2], cfg.blend_func, max_slots=BP)
+    else:
+        # ---- the grid composite: the slots scatter to [R, BP] rows (a
+        # differentiable put whose targets never collide), then alpha
+        # compositing per row
+        dest = torch.where(slot_ok, sel_ray * BP + sel_slot, R * BP)
+
+        def grid(x):
+            g = x.new_zeros((R * BP + 1,) + x.shape[1:])
+            return g.index_put((dest,), x)[:R * BP].reshape(
+                (R, BP) + x.shape[1:])
+
+        valid_rb = grid(slot_ok)
+        rgb_sum, acc, depth, _ = composite_rows(
+            grid(sig), grid(rgb), grid(z_sel), valid_rb, q.vsize[2],
+            cfg.blend_func)
+        ray_found = valid_rb.any(-1)
     color = rgb_sum + (1 - acc)[..., None] * bg
     color = TONE_MAPS[cfg.tonemap_func](color)
     ray_mask = ray_hit & ray_found
     color = torch.where(ray_mask[:, None], color, bg)
-    return TrainRenderOutput(
-        coarse_raycolor=color, ray_mask=ray_mask, acc=acc, depth=depth,
-        conf_coefficient=conf_k, pnt_mask=pm_k & mask_c[:, None],
-        weight=w_k, mc_overflow=mc_overflow)
+    return TrainRenderOutput(coarse_raycolor=color, ray_mask=ray_mask,
+                             acc=acc, depth=depth, **out)
 
 
 def make_fast_train_step(cfg: PointNerfConfig):

@@ -33,6 +33,48 @@ def ray_dist_from_sample_z(sample_z: torch.Tensor, ray_valid: torch.Tensor,
     return dist * ray_valid.to(dist.dtype)
 
 
+def alpha_composite(sigma: torch.Tensor, rgb: torch.Tensor,
+                    dist: torch.Tensor, background: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Composite sigma [..., SR] (already masked), rgb [..., SR, 3] and
+    step lengths dist [..., SR] over `background` [3]: (colour [..., 3],
+    acc [...])."""
+    opacity = 1.0 - torch.exp(-sigma * dist)
+    trans = torch.cumprod(1.0 - opacity + 1e-10, -1)
+    trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], -1)
+    blend = opacity * trans
+    acc = blend.sum(-1)
+    color = (blend[..., None] * rgb).sum(-2) + (1.0 - acc)[..., None] \
+        * background
+    return color, acc
+
+
+def radiance_render(ray_feature: torch.Tensor) -> torch.Tensor:
+    """The colour channels 1:4 of a decoded per-slot feature."""
+    return ray_feature[..., 1:4]
+
+
+def white_color(ray_feature: torch.Tensor) -> torch.Tensor:
+    """All-white albedo (silhouette renders)."""
+    return torch.ones_like(ray_feature[..., 1:4])
+
+
+def segment_sums_contiguous(vals: torch.Tensor, off: torch.Tensor,
+                            cnt: torch.Tensor, width: int) -> torch.Tensor:
+    """Per-segment sums of vals [P, L] over contiguous runs
+    [off[s], off[s] + cnt[s]) of at most `width` rows: `width` row
+    gathers added in the run's order, so each segment's sum restarts at
+    zero (no global running sum to cancel) and no write collides (no
+    atomics): the order of the sums is fixed on every device."""
+    P = vals.shape[0]
+    out = vals.new_zeros((off.shape[0],) + vals.shape[1:])
+    for r in range(width):
+        row = vals[torch.clamp(off + r, max=max(P - 1, 0))]
+        on = (cnt > r).reshape((-1,) + (1,) * (vals.ndim - 1))
+        out = out + torch.where(on, row, torch.zeros_like(row))
+    return out
+
+
 def alpha_blend(opacity: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     return opacity * trans
 
@@ -58,6 +100,7 @@ def no_tone_map(color: torch.Tensor) -> torch.Tensor:
 
 
 BLEND_FUNCTIONS = {"alpha": alpha_blend, "alpha2": alpha2_blend}
+RENDER_FUNCTIONS = {"radiance": radiance_render, "white": white_color}
 TONE_MAPS = {"gamma": simple_tone_map, "normalize": normalize_tone_map,
              "off": no_tone_map}
 
@@ -96,16 +139,25 @@ def packed_alpha_composite(
         return g[:R * BP].reshape((R, BP) + x.shape[1:])
 
     ok_g = grid(slot_ok, False)
-    z_g = grid(z_m, 0.0)
-    sig_g = grid(sig, 0.0)
-    rgb_g = grid(rgb, 0.0)
-    zmask = torch.where(ok_g, z_g, torch.full_like(z_g, -1e9))
-    dist = ray_dist_from_sample_z(zmask, ok_g, vsize_z)
-    opacity = 1.0 - torch.exp(-sig_g * dist)
+    rgb_sum, acc, depth, _ = composite_rows(
+        grid(sig, 0.0), grid(rgb, 0.0), grid(z_m, 0.0), ok_g, vsize_z,
+        blend_func)
+    return rgb_sum, acc, depth, ok_g.any(-1)
+
+
+def composite_rows(sig: torch.Tensor, rgb: torch.Tensor, z: torch.Tensor,
+                   valid: torch.Tensor, vsize_z: float, blend_func: str
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """Alpha-composite each row of an [R, S] slot grid (sig [R, S], rgb
+    [R, S, 3], camera-space z [R, S]; cells off `valid` are the
+    reference's z = -1e9 holes): (rgb_sum [R, 3], acc [R], depth [R],
+    opacity [R, S]). Differentiable."""
+    zmask = torch.where(valid, z, torch.full_like(z, -1e9))
+    dist = ray_dist_from_sample_z(zmask, valid, vsize_z)
+    opacity = 1.0 - torch.exp(-sig * dist)
     trans = torch.cumprod(1.0 - opacity + 1e-10, -1)
     trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], -1)
     blend = BLEND_FUNCTIONS[blend_func](opacity, trans)
-    rgb_sum = (blend[..., None] * rgb_g).sum(-2)
-    acc = blend.sum(-1)
-    depth = (blend * z_g).sum(-1)
-    return rgb_sum, acc, depth, ok_g.any(-1)
+    return ((blend[..., None] * rgb).sum(-2), blend.sum(-1),
+            (blend * z).sum(-1), opacity)

@@ -43,10 +43,13 @@ from pointnerf2studio_torch.ops.hash_grid import HashGrid
 from pointnerf2studio_torch.utils import metrics as M
 
 
-def _make_scene(cfg: PointNerfConfig, points, grid):
+def _make_scene(cfg: PointNerfConfig, points, grid, near, far, params):
+    """The fat cache of the evaluation, dense or hash by the grid; `params`
+    for a base_cache config, near/far size the coarse dilation."""
     if isinstance(grid, HashGrid):
-        return make_hash_fast_scene(cfg, points, grid)
-    return make_fast_scene(cfg, points, grid)
+        return make_hash_fast_scene(cfg, points, grid, params=params)
+    return make_fast_scene(cfg, points, grid, near=near, far=far,
+                           params=params)
 
 
 def make_render_chunk_fn(cfg: PointNerfConfig):
@@ -65,18 +68,19 @@ def make_render_chunk_fn(cfg: PointNerfConfig):
 
 
 def make_fast_chunk_fn(cfg: PointNerfConfig, points, grid, near: float,
-                       far: float):
+                       far: float, params=None):
     """A chunk renderer through `fast_render_rays` on a fat cache built
     here once, dense or hash by the grid (the points and grid arguments of
-    each call are ignored). A negative depth_window becomes the grid box's
-    chord bound. The first chunk's dw / rb overflow counters are read and
-    a non-zero one is reported."""
+    each call are ignored; `params` builds a base_cache config's table). A
+    negative depth_window becomes the grid box's chord bound. The first
+    chunk's win / dw / rb overflow counters are read and a non-zero one is
+    reported."""
     if cfg.query.depth_window < 0:
         dw = suggest_depth_window(grid.dims, cfg.query.scaled_vsize, near,
                                   far, cfg.query.z_depth_dim)
         cfg = dataclasses.replace(cfg, query=dataclasses.replace(
             cfg.query, depth_window=dw))
-    cache, rmin, svs = _make_scene(cfg, points, grid)
+    cache, rmin, svs = _make_scene(cfg, points, grid, near, far, params)
     Rw2c = points.Rw2c
     checked: List[int] = []
 
@@ -87,7 +91,8 @@ def make_fast_chunk_fn(cfg: PointNerfConfig, points, grid, near: float,
                                bg_ray_colors=bg_rgb)
         if not checked:
             checked.append(1)
-            for name, knob in (("dw_overflow", "depth_window"),
+            for name, knob in (("win_overflow", "coarse_win_budget"),
+                               ("dw_overflow", "depth_window"),
                                ("rb_overflow", "ray_budget")):
                 v = getattr(out, name)
                 if v is not None and int(v) > 0:
@@ -101,7 +106,7 @@ def make_fast_chunk_fn(cfg: PointNerfConfig, points, grid, near: float,
 
 def make_fast_frame_renderer(cfg: PointNerfConfig, points, grid, near: float,
                              far: float, chunk: int = 65536,
-                             tier_quant: int = 32, raster=None):
+                             tier_quant: int = 32, raster=None, params=None):
     """A full-frame renderer through `render_frame` on a fat cache built
     here once, dense or hash by the grid: render(params, campos, camrotc2w,
     raydirs, bg=None) -> FastRenderOutput (`bg` [H*W, 3]: per-ray
@@ -110,7 +115,7 @@ def make_fast_frame_renderer(cfg: PointNerfConfig, points, grid, near: float,
     frame's dw_overflow is read and a non-zero one reported."""
     cfg = dataclasses.replace(cfg, query=dataclasses.replace(
         cfg.query, depth_window=0, ray_budget=0))
-    cache, rmin, svs = _make_scene(cfg, points, grid)
+    cache, rmin, svs = _make_scene(cfg, points, grid, near, far, params)
     Rw2c = points.Rw2c
     programs: Dict = {}
     warned: List[int] = []
@@ -189,10 +194,10 @@ def evaluate_dataset(cfg: PointNerfConfig, params, points, grid,
                              float(k[0, 2]), float(k[1, 2])))
         frame_render = make_fast_frame_renderer(
             cfg, points, grid, dataset.near, dataset.far, chunk=chunk,
-            raster=raster)
+            raster=raster, params=params)
     elif fast:
         render_chunk = make_fast_chunk_fn(cfg, points, grid, dataset.near,
-                                          dataset.far)
+                                          dataset.far, params)
     else:
         render_chunk = make_render_chunk_fn(cfg)
     views = views if views is not None else list(range(dataset.num_views))
@@ -306,9 +311,11 @@ def render_video(cfg: PointNerfConfig, params, points, grid,
             raster = (hw[0], hw[1], (float(k[0, 0]), float(k[1, 1]),
                                      float(k[0, 2]), float(k[1, 2])))
         frame_render = make_fast_frame_renderer(cfg, points, grid, near, far,
-                                                chunk=chunk, raster=raster)
+                                                chunk=chunk, raster=raster,
+                                                params=params)
     else:
-        render_chunk = (make_fast_chunk_fn(cfg, points, grid, near, far)
+        render_chunk = (make_fast_chunk_fn(cfg, points, grid, near, far,
+                                           params)
                         if fast else make_render_chunk_fn(cfg))
     h, w = hw
     i, j = np.meshgrid(np.arange(w), np.arange(h))

@@ -64,11 +64,12 @@ def probe_cfg(cfg: PointNerfConfig) -> PointNerfConfig:
         use_cache=False))
 
 
-def make_probe_scene(cfg: PointNerfConfig, points, grid):
+def make_probe_scene(cfg: PointNerfConfig, points, grid, params=None):
     """(cfg_p, cache, ranges_min, scaled_vsize) for the fast probe: one
-    fat cache a growth event, shared by every probe view."""
+    fat cache a growth event, shared by every probe view (`params` builds
+    a base_cache config's table)."""
     cfg_p = probe_cfg(cfg)
-    cache, rmin, svs = make_fast_scene(cfg_p, points, grid)
+    cache, rmin, svs = make_fast_scene(cfg_p, points, grid, params=params)
     return cfg_p, cache, rmin, svs
 
 
@@ -153,7 +154,7 @@ def probe_and_grow(
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     t0 = time.perf_counter()
     views = views if views is not None else list(range(dataset.num_views))
-    fast_scene = (make_probe_scene(cfg, state.points, grid)
+    fast_scene = (make_probe_scene(cfg, state.points, grid, state.params)
                   if probe == "fast" else None)
     parts = [probe_view(cfg, state.params, state.points, grid, dataset, v,
                         chunk=chunk, opacity_thresh=opacity_thresh,

@@ -92,6 +92,16 @@ def compute_losses(
     return total, parts
 
 
+def compute_loss(out, gt_rgb: torch.Tensor, zero_epsilon: float = 1e-3,
+                 zero_one_weight: float = 1e-4
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """`compute_losses` under a TrainConfig that sets only the zero-one
+    term's epsilon and weight (the other fields at their defaults)."""
+    t = TrainConfig(zero_epsilon=zero_epsilon,
+                    zero_one_loss_weight=zero_one_weight)
+    return compute_losses(out, gt_rgb, t)
+
+
 def masked_psnr(out, gt_rgb: torch.Tensor) -> torch.Tensor:
     """PSNR over the rays that hit the scene (reference
     utils/visualizer.py:142-152)."""

@@ -189,15 +189,6 @@ def test_depth_window_helpers_match(scene):
                                         s.far, q.z_depth_dim))
 
 
-def test_unported_config_raises(scene):
-    s, cache, rmin, svs, rays = scene
-    cfg = _port_cfg(dataclasses.replace(s.cfg, query=dataclasses.replace(
-        s.cfg.query, compact_mode="onehot")))
-    with pytest.raises(NotImplementedError, match="compact_mode"):
-        tfr.fast_render_rays(None, torch.eye(3), None, None, None,
-                             torch.zeros(4, 3), 1.0, 3.0, cfg, None, None)
-
-
 def test_port_never_imports_jax():
     mods = [m.name for m in pkgutil.walk_packages(
         pointnerf2studio_torch.__path__, "pointnerf2studio_torch.")]

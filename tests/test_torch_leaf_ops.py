@@ -223,3 +223,124 @@ def test_gather_neighbors_exact():
     for k, v in got.items():
         assert v.shape[:3] == pidx.shape
         np.testing.assert_array_equal(v.numpy(), np.asarray(want[k]))
+
+
+# ---- the leaf functions no path of either package runs: the other ray
+# generators, importance resampling, the plain composite, the render
+# functions, the linear weight and the loss wrapper. Uniform draws come
+# from the reference's own key and are handed to the port.
+
+LEAF_RD = np.random.default_rng(5).normal(size=(6, 3)).astype(np.float32)
+LEAF_RD /= np.linalg.norm(LEAF_RD, axis=-1, keepdims=True)
+LEAF_CAM = np.array([0.1, -0.2, 0.3], np.float32)
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.4])
+def test_near_middle_far_ray_generation(jitter):
+    key = jax.random.PRNGKey(2) if jitter else None
+    want = jraygen.near_middle_far_ray_generation(
+        jnp.asarray(LEAF_CAM), jnp.asarray(LEAF_RD), 20, 0.5, 2.0, 8.0,
+        middle_split=0.6, jitter=jitter, key=key)
+    u = (np.array(jax.random.uniform(key, (1, 6, 20), dtype=jnp.float32))
+         if jitter else None)
+    got = traygen.near_middle_far_ray_generation(
+        torch.as_tensor(LEAF_CAM), torch.as_tensor(LEAF_RD), 20, 0.5, 2.0,
+        8.0, middle_split=0.6, jitter=jitter,
+        jitter_u=None if u is None else torch.as_tensor(u))
+    # running sums of the segments in another order: a few ulps of 8
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=4e-6)
+
+
+@pytest.mark.parametrize("det", [True, False])
+def test_sample_pdf_and_refine(det):
+    _, _, ts = jraygen.near_far_linear_ray_generation(
+        jnp.asarray(LEAF_CAM), jnp.asarray(LEAF_RD), 32, 0.5, 5.0)
+    w = jnp.exp(-((ts - 2.0) ** 2) / 0.05) + 0.01 * jnp.arange(32) / 32
+    key = None if det else jax.random.PRNGKey(7)
+    want = jraygen.sample_pdf(ts, w, 16, det=det, key=key)
+    u = (None if det else torch.as_tensor(np.asarray(jax.random.uniform(
+        key, (6, 16), dtype=jnp.float32))))
+    got = traygen.sample_pdf(torch.as_tensor(np.array(ts)),
+                             torch.as_tensor(np.array(w)), 16, det=det, u=u)
+    assert got.shape == (6, 48) and not got.requires_grad
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    jitter = 0.0 if det else 0.5
+    want = jraygen.refine_ray_generation(
+        jnp.asarray(LEAF_CAM), jnp.asarray(LEAF_RD), 24, ts, w,
+        jitter=jitter, key=key)
+    u = (None if det else torch.as_tensor(np.asarray(jax.random.uniform(
+        key, (1, 6, 25), dtype=jnp.float32))[0]))
+    got = traygen.refine_ray_generation(
+        torch.as_tensor(LEAF_CAM), torch.as_tensor(LEAF_RD), 24,
+        torch.as_tensor(np.array(ts)), torch.as_tensor(np.array(w)),
+        jitter=jitter, u=u)
+    for g, wt in zip(got, want):
+        assert g.shape == np.asarray(wt).shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(wt), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_alpha_composite_and_render_functions():
+    rng = np.random.default_rng(11)
+    sigma = rng.random((5, 12)).astype(np.float32) * 4
+    rgb = rng.random((5, 12, 3)).astype(np.float32)
+    dist = rng.random((5, 12)).astype(np.float32) * 0.1
+    bg = np.array([1.0, 0.5, 0.25], np.float32)
+    want = jcomp.alpha_composite(*(jnp.asarray(a) for a in (sigma, rgb, dist,
+                                                            bg)))
+    got = tcomp.alpha_composite(*(torch.as_tensor(a) for a in (sigma, rgb,
+                                                               dist, bg)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-6)
+    feat = rng.normal(size=(4, 7, 9)).astype(np.float32)
+    for name in ("radiance", "white"):
+        np.testing.assert_array_equal(
+            tcomp.RENDER_FUNCTIONS[name](torch.as_tensor(feat)).numpy(),
+            np.asarray(jcomp.RENDER_FUNCTIONS[name](jnp.asarray(feat))))
+
+
+@pytest.mark.parametrize("axis_weight", [(1.0, 1.0, 1.0), (2.0, 0.5, 3.0)])
+def test_inverse_distance_weight(axis_weight):
+    from pointnerf2studio_torch.models import aggregator as tagg
+    from pointnerf2studio_tpu.models import aggregator as jagg
+    rng = np.random.default_rng(4)
+    dists = rng.normal(size=(10, 8, 6)).astype(np.float32) * 0.05
+    mask = rng.random((10, 8)) > 0.3
+    want = jagg.inverse_distance_weight(jnp.asarray(dists),
+                                        jnp.asarray(mask), axis_weight)
+    got = tagg.inverse_distance_weight(torch.as_tensor(dists),
+                                       torch.as_tensor(mask), axis_weight)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-6,
+                               atol=1e-7)
+
+
+def test_compute_loss_wrapper():
+    from pointnerf2studio_torch.models.fast_train import TrainRenderOutput
+    from pointnerf2studio_torch.train.loss import compute_loss as tloss
+    from pointnerf2studio_tpu.models.render import RenderOutput
+    from pointnerf2studio_tpu.train.loss import compute_loss as jloss
+    rng = np.random.default_rng(3)
+    arrs = dict(coarse_raycolor=rng.random((16, 3)),
+                ray_mask=rng.random(16) > 0.5, acc=rng.random(16),
+                depth=rng.random(16) * 3, conf_coefficient=rng.random((24, 4)),
+                pnt_mask=rng.random((24, 4)) > 0.3,
+                weight=rng.random((24, 4)))
+    arrs = {k: (v if v.dtype == bool else v.astype(np.float32))
+            for k, v in arrs.items()}
+    gt = rng.random((16, 3)).astype(np.float32)
+    want_t, want = jloss(RenderOutput(**{k: jnp.asarray(v)
+                                         for k, v in arrs.items()}),
+                         jnp.asarray(gt), zero_epsilon=2e-3,
+                         zero_one_weight=3e-4)
+    got_t, got = tloss(TrainRenderOutput(**{k: torch.as_tensor(v)
+                                            for k, v in arrs.items()}),
+                       torch.as_tensor(gt), zero_epsilon=2e-3,
+                       zero_one_weight=3e-4)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6,
+                                   err_msg=k)

@@ -22,9 +22,11 @@ against the JAX reference, on the CPU.
     host-sampled batches: the per-step losses within the trajectory bound
     above (rtol 5e-2 / atol 1e-3), and the plane maps change the loss;
   * every part of fit() and fast_train_render that is not ported raises
-    NotImplementedError naming its ROADMAP item, and fit() with no device
-    raises without a card. (The legacy step behind fit(fast_path=False)
-    is held to the reference in tests/test_torch_legacy_train.py.)"""
+    NotImplementedError naming its ROADMAP item (the reference's opt-in
+    train routes are held in tests/test_torch_routes_train.py), and fit()
+    with no device raises without a card. (The legacy step behind
+    fit(fast_path=False) is held to the reference in
+    tests/test_torch_legacy_train.py.)"""
 
 import dataclasses
 import os
@@ -459,32 +461,23 @@ def test_probe_views_by_miss():
 
 
 UNPORTED_RENDER = {
-    "one-hot compaction": (dict(compact_mode="onehot"), False, "item 5"),
-    "grid composite": (dict(composite_mode="grid"), False, "item 5"),
-    "remat": ({}, True, "item 7"),
-    "per-point Rw2c": ({}, False, "item 6"),
-    "debug_prefix": ({}, False, "item 7"),
+    "per-point Rw2c": "item 6",
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_RENDER))
 def test_fast_train_render_unported_raises(s, name):
-    q_over, remat, item = UNPORTED_RENDER[name]
-    cfg = s["pc"]
-    cfg = dataclasses.replace(cfg, query=dataclasses.replace(cfg.query,
-                                                             **q_over))
-    if remat:
-        cfg = with_train(cfg, remat="full")
+    """What the fast train path still refuses: a per-point Rw2c, which
+    the reference refuses too (edited scenes train on the legacy step)."""
     pts = s["cloud"]
-    if name == "per-point Rw2c":
-        pts = dataclasses.replace(pts, Rw2c=torch.eye(3).expand(
-            pts.capacity, 8, 3, 3))
-    kw = dict(debug_prefix="front") if name == "debug_prefix" else {}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+    pts = dataclasses.replace(pts, Rw2c=torch.eye(3).expand(
+        pts.capacity, 8, 3, 3))
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP queue 1 {UNPORTED_RENDER[name]}"):
         tft.fast_train_render(
             s["params"], pts, None, torch.zeros(3), torch.eye(3),
-            torch.zeros(4, 3), 2.0, 6.0, cfg, torch.zeros(3),
-            torch.ones(3), training=True, **kw)
+            torch.zeros(4, 3), 2.0, 6.0, s["pc"], torch.zeros(3),
+            torch.ones(3), training=True)
 
 
 def test_legacy_step_and_loader_raise(tmp_path):
