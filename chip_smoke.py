@@ -100,9 +100,12 @@ ray budget measured on the frame as the JAX bench sizes them:
      bit for bit; at float32 against the fast step without ray packing and
      with SR slots a ray, loss within rtol 1e-4 and every gradient within
      rtol 2e-3 / atol 1e-6; `fit(fast_path=False)` 100 steps, the loss down
-     at least 4x; its it/s beside the fast dense step's, in turns; one step
+     at least 4x; its it/s beside the fast dense step's, in turns, each
+     also with the gather backward's prefix sums as one 1-D torch.cumsum
+     (the scan that `neural_points._prefix_sums` replaced); one step
      under the profiler split into forward, backward and optimizer, where
-     torch's `indexing_backward_kernel` must not appear.
+     torch's `indexing_backward_kernel` must not appear, and again with
+     the 1-D scan.
  12. structure: growth, pruning, evaluation and checkpoints on the
      chair-train scene, with the scene's weights rescaled for the phase
      (mlp_base's first layer x4, the density head x30: at the scene's own
@@ -235,6 +238,36 @@ ray budget measured on the frame as the JAX bench sizes them:
      to end in the port's ValueError for an empty cloud. LPIPS (alex,
      random weights) of the trained chair's test view 0 on the card and on
      the host within 1e-4 relative.
+  17. multi: multi-device execution (`parallel/`) on the one card. The
+     parent saves the chair scene, its weights, the frame's rays and the
+     train phase's batch and jitter draw; each rank is a process of its own
+     (`sharding.run_ranks`) that loads them and builds its grid and caches
+     on the card, and every rank's results must equal rank 0's. (a) One
+     NCCL rank: the sharded legacy step (on the grid) and the sharded fast
+     dense step equal the parent's unsharded steps bit for bit (loss,
+     gradients, updated weights; float32 compute), and
+     `make_sharded_fast_render` renders chunk 0 as the direct call does,
+     bit for bit. (b) Two gloo ranks
+     sharing the card, a 1-D mesh: the ray-sharded fused-chunk frame
+     equals the parent's frame bit for bit, counters 0 and their sums the
+     single frame's; chunk 0 through the legacy render at compact budget 0
+     with fused_decode bit for bit; both sharded steps within 1e-6 of the
+     loss and 1e-5 of each gradient's max (float32: at bfloat16 each rank's
+     weight gradients are bf16-rounded before the sum); `fit(mesh=)`
+     MULTI_FIT_STEPS legacy steps on the host sampler's batches, the loss
+     of the last window at most a quarter of the first. (c) Four gloo
+     ranks, a 2x2 mesh: the point-sharded legacy step within the same
+     bound, each rank holding half of the attribute rows and moments; the
+     XLA frame with fused_decode2 on the point-sharded fat cache bit-equal
+     to the parent's unsharded one (each rank's cache bytes beside the
+     whole); the slab-sharded query on chunk 0's rays equal to the
+     unsharded query (neighbour sets, locations, masks); the reference's
+     structure sequence (capacity expansion, a legacy probe and growth on a
+     MULTI_PROBE_HW view, a prune), re-sharding after each event, then a
+     step, every rank's state equal. (d) `cli train --num-devices 2` must
+     raise "need 2 devices, have 1". Each rank's launches by job, peak
+     bytes and seconds are printed; the sharded it/s is gloo on one card,
+     not a multi-GPU rate.
 
 The launch counts are set to 0 just before each path and read just
 after it. It fails (non-zero exit, no result line) when there is no
@@ -254,7 +287,8 @@ differs from the same chunk rendered through the plain versions
 (ray_mask exactly, colour within the same bound), when a check of the
 payload phase, of the train phase, of the routes phase, of the legacy
 phase, of the structure phase, of the plane phase, of the large-scene
-phase, of the data phase or of the mvs phase fails. Printed
+phase, of the data phase, of the mvs phase or of the multi phase fails
+(a failed rank fails the phase). Printed
 before the last line: the card's name and power limit, build and phase times, each
 kernel's and its plain version's time at its path's shapes beside the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -1092,6 +1126,7 @@ def train_phases(c) -> dict:
     from pointnerf2studio_torch.data.blender import BlenderDataset
     from pointnerf2studio_torch.models import fast_render as fr
     from pointnerf2studio_torch.models import fast_train as ft
+    from pointnerf2studio_torch.models import neural_points as npm
     from pointnerf2studio_torch.ops import _cuda
     from pointnerf2studio_torch.ops import march as mr
     from pointnerf2studio_torch.ops import select as sl
@@ -1313,9 +1348,11 @@ def train_phases(c) -> dict:
                           index=name.endswith("index_backward"))
 
     def go(r, n):
-        orig = ft.gather_rows
+        # the fast step gathers through neural_points.gather_rows
+        # (gather_attrs)
+        orig = npm.gather_rows
         if r["index"]:
-            ft.gather_rows = lambda table, idx: table[idx]
+            npm.gather_rows = lambda table, idx: table[idx]
         try:
             for _ in range(n):
                 cp, cr, rd, gt, _ = r["smp"].next_batch()
@@ -1324,7 +1361,7 @@ def train_phases(c) -> dict:
                 r["ctr"] += (aux.get("rb_overflow", 0)
                              + aux.get("mc_overflow", 0))
         finally:
-            ft.gather_rows = orig
+            npm.gather_rows = orig
 
     ips = steps_in_turns(runs, go, c.smi)
     for name, r in runs.items():
@@ -2007,37 +2044,34 @@ def legacy_phases(c) -> dict:
         query=dataclasses.replace(ts["cfg"].query, ray_budget=0,
                                   ray_slot_budget=q.SR))
     geo, rmin, svs = ts["geo"]
-    ids = {}
-    orig_g_np, orig_g_ft, orig_cs = npm.gather_rows, ft.gather_rows, \
-        lr.compact_samples
+    # both steps gather their attributes through neural_points.gather_rows
+    # (the legacy step once, the fast step once a chunk)
+    ids = {"legacy": [], "fast": []}
+    orig_g, orig_cs = npm.gather_rows, lr.compact_samples
+    route = ["legacy"]
 
-    def cap_l(t_, i_):
-        ids["legacy"] = i_
-        return orig_g_np(t_, i_)
-
-    def cap_f(t_, i_):
-        ids.setdefault("fast", []).append(i_)
-        return orig_g_ft(t_, i_)
+    def cap_g(t_, i_):
+        ids[route[0]].append(i_)
+        return orig_g(t_, i_)
 
     def cap_cs(*a):
         ids["compact"] = orig_cs(*a)
         return ids["compact"]
 
-    npm.gather_rows, ft.gather_rows, lr.compact_samples = cap_l, cap_f, \
-        cap_cs
+    npm.gather_rows, lr.compact_samples = cap_g, cap_cs
     try:
         with torch.no_grad():
             o_l = lr.render_rays(scene.params, scene.cloud, grid_c, *batch[:3],
                                  near, far, cfg_l32, training=True,
                                  jitter_u=u)
+            route[0] = "fast"
             o_f = ft.fast_train_render(scene.params, scene.cloud, geo,
                                        *batch[:3], near, far, cfg_f32, rmin,
                                        svs, training=True, jitter_u=u)
     finally:
-        npm.gather_rows, ft.gather_rows, lr.compact_samples = orig_g_np, \
-            orig_g_ft, orig_cs
+        npm.gather_rows, lr.compact_samples = orig_g, orig_cs
     K = q.K
-    i_l = ids["legacy"].view(-1, K)
+    i_l = ids["legacy"][-1].view(-1, K)
     i_f = torch.cat(ids["fast"]).view(-1, K)[:i_l.shape[0]]
     flip = (torch.sort(torch.where(o_l.pnt_mask, i_l, -1), -1).values
             != torch.sort(torch.where(o_f.pnt_mask, i_f, -1), -1).values
@@ -2105,11 +2139,31 @@ def legacy_phases(c) -> dict:
              f"than 4x")
     del res
 
-    # ---- it/s: the legacy step and the fast dense step in turns
+    # ---- it/s: the legacy step and the fast dense step in turns, each
+    # also with the gather backward's prefix sums as one 1-D torch.cumsum
+    # (the scan before `neural_points._prefix_sums`, whose float sums group
+    # differently from run to run): what the deterministic scan costs
+    scan_2l = npm._prefix_sums
+
+    def scan_1d(x):
+        return torch.cumsum(x, 0)
+
+    def with_scan(fn, scan):
+        def run(*a):
+            npm._prefix_sums = scan
+            try:
+                return fn(*a)
+            finally:
+                npm._prefix_sums = scan_2l
+        return run
+
     runs = {}
-    for name, cf in (("legacy", cfg_l), ("fast dense", ts["cfg"])):
+    for name, cf, scan in (("legacy", cfg_l, scan_2l),
+                           ("fast dense", ts["cfg"], scan_2l),
+                           ("legacy 1-D scan", cfg_l, scan_1d),
+                           ("fast dense 1-D scan", ts["cfg"], scan_1d)):
         g = torch.Generator(device=dev).manual_seed(5)
-        if name == "legacy":
+        if cf is cfg_l:
             fn_l = make_train_step(cf)
 
             def fn(st, cp, cr, rd, gt, g, fn_l=fn_l):
@@ -2121,7 +2175,7 @@ def legacy_phases(c) -> dict:
             def fn(st, cp, cr, rd, gt, g, fn_f=fn_f):
                 return fn_f(st, geo, rmin, svs, cp, cr, rd, gt, near, far,
                             generator=g)
-        runs[name] = dict(cf=cf, fn=fn, g=g, ips=[],
+        runs[name] = dict(cf=cf, fn=with_scan(fn, scan), g=g, ips=[],
                           st=create_train_state(scene.params, scene.cloud,
                                                 cf),
                           smp=loop.DeviceSampler(ds, TRAIN_RAYS, g))
@@ -2151,6 +2205,13 @@ def legacy_phases(c) -> dict:
     bad = [n for n in prof.pop("names") if "indexing_backward" in n]
     if bad:
         fail(f"legacy train step: torch's indexing backward ran: {bad}")
+    npm._prefix_sums = scan_1d
+    try:
+        prof_1d = step_profile("train legacy 1-D scan", fwd,
+                               lambda: apply_updates(st, cfg_l), c.prof_dir)
+    finally:
+        npm._prefix_sums = scan_2l
+    prof_1d.pop("names")
 
     qs_t, bp_t = captured["fvc_train"]
     t_sel = cuda_ms(lambda: sl.first_valid_cols(qs_t, bp_t), 48, 3,
@@ -2176,7 +2237,7 @@ def legacy_phases(c) -> dict:
         "served_vs_plain": served_diff, "weight_kernels": kernels,
         "legacy_vs_fast_f32": legacy_vs_fast,
         "it_per_s": ips, "fit": {"first": first, "last": last, "s": t_fit},
-        "profile": prof,
+        "profile": prof, "profile_1d_scan": prof_1d,
     }
 
 
@@ -4323,6 +4384,518 @@ def mvs_phase(c, data) -> dict:
             "s": t_total}
 
 
+# the multi phase: fit()'s steps under a mesh, the structure sequence's
+# probe view (pixels a side), and its worlds (name, ranks, backend): one
+# NCCL rank; two and four gloo ranks sharing the card
+MULTI_FIT_STEPS, MULTI_PROBE_HW = 100, 200
+MULTI_WORLDS = (("a", 1, "nccl"), ("b", 2, "gloo"), ("c", 4, "gloo"))
+# seconds a world of ranks may take before its ranks are stopped
+MULTI_RANK_TIMEOUT = 300
+
+
+def _digest(x) -> str:
+    import hashlib
+    return hashlib.sha1(x.detach().contiguous().cpu().numpy().tobytes()
+                        ).hexdigest()
+
+
+def _multi_step(kind, cfg, d, mesh, params, cloud, grid, geo, st=None):
+    """One train step of `kind` ("legacy" on the grid, "fast" on the dense
+    geo cache) on the fixed batch and jitter draw: through the sharded
+    step where `mesh` is given, else the single-device step. Returns
+    (state, aux); the gradients stay on the state's tensors."""
+    from pointnerf2studio_torch.models import fast_train as ft
+    from pointnerf2studio_torch.parallel import sharding as sh
+    from pointnerf2studio_torch.train.trainer import (
+        create_train_state, make_train_step)
+    if st is None:
+        st = create_train_state(params, cloud, cfg)
+        if mesh is not None:
+            sh.shard_state(st, mesh)
+    near, far, u = d["near"], d["far"], d["u"]
+    if kind == "legacy":
+        fn = (sh.make_sharded_train_step(cfg, mesh) if mesh is not None
+              else make_train_step(cfg))
+        return fn(st, grid, *d["batch"], near, far, jitter_u=u)
+    fn = (sh.make_sharded_fast_train_step(cfg, mesh) if mesh is not None
+          else ft.make_fast_train_step(cfg))
+    return fn(st, *geo, *d["batch"], near, far, jitter_u=u)
+
+
+def _step_tensors(st, mesh=None):
+    """The gradients, then the updated weights, of the tower and of the
+    point attributes (whole: a row-sharded state's gradients
+    are put together over "points")."""
+    from pointnerf2studio_torch.parallel import sharding as sh
+    pts = sh.points_axis(mesh) if mesh is not None else None
+    p = list(st.params.parameters())
+    a = list(st.points.trainable().values())
+    return ([x.grad for x in p] + [sh.gather_blocks(x.grad, pts) for x in a]
+            + [x.detach() for x in p]
+            + [sh.gather_blocks(x.detach(), pts) for x in a])
+
+
+def _multi_rank(rank, path, world):
+    """One rank of the multi phase (`world` "a": one NCCL rank; "b": two
+    gloo ranks, a 1-D mesh; "c": four gloo ranks, a 2x2 mesh), every rank
+    on the parent's card. Saves its launches, seconds, peak bytes, digests
+    of what it computed and, on rank 0, the arrays the parent checks."""
+    import torch
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.models import fast_train as ft
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.ops.grid import (
+        build_grid_from_points, live_bbox)
+    from pointnerf2studio_torch.ops.raygen import (
+        near_far_linear_ray_generation)
+    from pointnerf2studio_torch.parallel import grid_shard as gs
+    from pointnerf2studio_torch.parallel import sharding as sh
+    from pointnerf2studio_torch.train import loop
+    from pointnerf2studio_torch.train.trainer import MOMENTS
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = torch.load(path, weights_only=False)
+    dev = next(d["params"].parameters()).device     # the parent's card
+    torch.cuda.set_device(dev)
+    mesh = {"a": lambda: sh.make_mesh(1, device=dev),
+            "b": lambda: sh.make_mesh(2, device=dev),
+            "c": lambda: sh.make_mesh_2d(2, 2, device=dev)}[world]()
+    pts = sh.points_axis(mesh)
+    params, cloud, cfg = d["params"], d["cloud"], d["cfg"]
+    grid = build_grid_from_points(cloud.xyz, cloud.alive, cfg.query)
+    geo = ft.make_geo_scene(d["cfg_t"], cloud, grid)
+    res = {"rank": rank, "launches": {}, "secs": {}, "digest": {},
+           "n_occ": int(grid.n_occ), "arrays": {}}
+    keep = rank == 0
+
+    def job(name, fn):
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res["secs"][name] = time.perf_counter() - t0
+        res["launches"][name] = dict(_cuda.LAUNCHES)
+        return out
+
+    def put(name, tensors):
+        res["digest"][name] = [_digest(x) for x in tensors]
+        if keep:
+            res["arrays"][name] = [x.detach().cpu() for x in tensors]
+
+    def frame(render, cache):
+        outs = [render(params, cloud.Rw2c, cache, d["campos"], d["camrot"],
+                       d["rays"][i * CHUNK:(i + 1) * CHUNK], d["near"],
+                       d["far"], *d["rmin_svs"])
+                for i in range(-(-d["rays"].shape[0] // CHUNK))]
+        return [torch.cat([getattr(o, f) for o in outs]) for f in
+                ("coarse_raycolor", "ray_mask", "acc", "depth")] + [
+            torch.stack([getattr(o, f) if getattr(o, f) is not None else
+                         torch.zeros((), dtype=torch.int32, device=dev)
+                         for o in outs]) for f in
+            ("dw_overflow", "rb_overflow", "cb_overflow", "n_valid_slots")]
+
+    for kind in ("legacy", "fast"):
+        cf = d["step_cfg"][kind]
+        st, aux = job(f"step_{kind}", lambda: _multi_step(
+            kind, cf, d, mesh, params, cloud, grid, geo))
+        res[f"loss_{kind}"] = float(aux["total"])
+        res[f"rows_{kind}"] = [int(x.shape[0]) for x in
+                               st.points.trainable().values()]
+        res[f"moment_rows_{kind}"] = [
+            int(st.opt_points.state[x][k].shape[0])
+            for x in st.points.trainable().values() for k in MOMENTS]
+        put(f"step_{kind}", _step_tensors(st, mesh))
+        del st
+
+    if world == "a":
+        render = sh.make_sharded_fast_render(cfg, mesh)
+        out = job("chunk0", lambda: render(
+            params, cloud.Rw2c, fr.make_fast_scene(cfg, cloud, grid)[0],
+            d["campos"], d["camrot"], d["rays"][:CHUNK], d["near"],
+            d["far"], *d["rmin_svs"]))
+        put("chunk0", [out.coarse_raycolor, out.ray_mask, out.acc])
+    elif world == "b":
+        cache = fr.make_fast_scene(cfg, cloud, grid)[0]
+        render = sh.make_sharded_fast_render(cfg, mesh)
+        put("frame", job("frame", lambda: frame(render, cache)))
+        del cache
+        legacy = sh.make_sharded_render(d["cfg_b0"], mesh)
+        out = job("legacy_chunk", lambda: legacy(
+            params, cloud, grid, d["campos"], d["camrot"],
+            d["rays"][:CHUNK], d["near"], d["far"]))
+        put("legacy_chunk", [out.coarse_raycolor, out.ray_mask, out.acc])
+        del out
+        out_dir = d["fit_dir"]
+        fit = job("fit", lambda: loop.fit(
+            d["cfg_fit"], d["ds"], params, cloud, out_dir,
+            max_steps=MULTI_FIT_STEPS, print_freq=10, seed=3, mesh=mesh,
+            resume=False))
+        res["fit_log"] = [r["total"] for r in fit.log]
+        put("fit_state", list(fit.state.params.parameters())
+            + list(fit.state.points.trainable().values()))
+        del fit
+    else:
+        cache = fr.make_fast_scene(d["cfg_x"], cloud, grid)[0]
+        whole_bytes = nbytes(cache.kmeta, cache.kcand, cache.kxyz)
+        cache = sh.shard_fat_cache(cache, mesh)
+        torch.cuda.empty_cache()
+        res["cache_bytes"] = (nbytes(cache.kmeta, cache.kcand, cache.kxyz),
+                              whole_bytes)
+        render = sh.make_sharded_fast_render_pt(d["cfg_x"], mesh)
+        put("xla_frame", job("xla_frame", lambda: frame(render, cache)))
+        del cache
+        # the slab query on chunk 0's rays over the "points" axis
+        q = cfg.query
+        raypos = near_far_linear_ray_generation(
+            d["campos"], d["rays"][:CHUNK], q.z_depth_dim, d["near"],
+            d["far"])[0]
+        rmin, dims, slab_w, halo = gs.slab_geometry(
+            q, *live_bbox(cloud.xyz, cloud.alive), 2)
+        query = gs.make_sharded_query(q, mesh, rmin, dims, slab_w, halo,
+                                      max_o_local=q.max_o)
+        qo = job("slab_query", lambda: query(cloud.xyz, cloud.alive,
+                                             raypos))
+        res["slab"] = (int(dims[0]), slab_w, halo)
+        put("slab_query", [torch.sort(qo[0], -1).values, *qo[1:]])
+        del raypos, qo
+        # the structure sequence of the reference's dry run, then a step
+        res["structure"] = job("structure", lambda: _multi_structure(
+            d, mesh, params, cloud, grid))
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["secs"]["rank"] = time.perf_counter() - t_start
+    torch.save(res, f"{path}.{world}.{rank}")
+
+
+def _multi_structure(d, mesh, params, cloud, grid):
+    """Capacity expansion to a capacity the "points" axis divides, probe
+    and grow on one view, prune, each with the state whole for the event
+    and re-sharded after it, then a sharded step."""
+    import torch
+    from pointnerf2studio_torch.data.blender import BlenderDataset
+    from pointnerf2studio_torch.models import neural_points as npm
+    from pointnerf2studio_torch.ops.grid import build_grid_from_points
+    from pointnerf2studio_torch.parallel import sharding as sh
+    from pointnerf2studio_torch.train.grow import probe_and_grow
+    from pointnerf2studio_torch.train.trainer import (
+        MOMENTS, expand_state_capacity)
+    cfg = d["cfg_l"]
+    st, _ = _multi_step("legacy", cfg, d, mesh, params, cloud, grid, None)
+    cap0 = st.points.capacity
+    with sh.whole_state(st, mesh):
+        expand_state_capacity(st, cap0 + 4097)
+    hw = MULTI_PROBE_HW
+    pose = orbit_pose(30.0)
+    ds = BlenderDataset(
+        images=np.broadcast_to(np.asarray(TRAIN_COLOUR, np.float32),
+                               (1, hw, hw, 3)).copy(),
+        poses=pose[None], intrinsics=np.array(
+            [[FOCAL * hw / W, 0, hw / 2], [0, FOCAL * hw / W, hw / 2],
+             [0, 0, 1]], np.float32),
+        near=d["near"], far=d["far"], split="train")
+    with sh.whole_state(st, mesh):
+        st, grid, n_new = probe_and_grow(cfg, st, grid, ds, views=[0],
+                                         chunk=CHUNK, opacity_thresh=0.05,
+                                         probe="legacy")
+    n_grown = int(st.points.num_alive)
+    with sh.whole_state(st, mesh), torch.no_grad():
+        st.points.points_conf[:64] = 0.01
+        st.points = npm.prune(st.points, 0.1)
+    grid = build_grid_from_points(st.points.xyz, st.points.alive, cfg.query)
+    st, aux = _multi_step("legacy", cfg, d, mesh, params, cloud, grid, None,
+                          st=st)
+    out = dict(cap0=cap0, cap=st.points.capacity, n_new=int(n_new),
+               n_grown_alive=n_grown, n_alive=int(st.points.num_alive),
+               local_rows=int(st.points.points_embeding.shape[0]),
+               moment_rows=[int(st.opt_points.state[x][k].shape[0])
+                            for x in st.points.trainable().values()
+                            for k in MOMENTS],
+               loss=float(aux["total"]))
+    sh.unshard_state(st, mesh)
+    out["digest"] = [_digest(x) for x in _step_tensors(st)[-4:]]
+    return out
+
+
+def multi_phase(c) -> dict:
+    """Multi-device execution (parallel/sharding.py) on the one card: (a)
+    one NCCL rank, (b) two gloo ranks on cuda:0 as a 1-D mesh, (c) four
+    as a 2x2 mesh, each rank in a process of its own loading the chair
+    scene and weights the parent saves, held to the parent's single-device
+    results; (d) `cli train --num-devices 2` refused on one card. The
+    sharded steps' it/s is gloo on one card, not a multi-GPU rate."""
+    import tempfile
+
+    import torch
+    from pointnerf2studio_torch import cli
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.models import fast_train as ft
+    from pointnerf2studio_torch.models import render as lr
+    from pointnerf2studio_torch.ops.query import query_grid_point_index
+    from pointnerf2studio_torch.ops.raygen import (
+        near_far_linear_ray_generation)
+    from pointnerf2studio_torch.parallel import sharding as sh
+
+    t_phase = time.perf_counter()
+    scene, dev, grid = c.scene, c.dev, c.scene.grid
+    ts = c.train_setup
+    q = c.cfg.query
+    cfg_t = ts["cfg"]
+    cfg_l = dataclasses.replace(cfg_t, train=dataclasses.replace(
+        cfg_t.train, fast_path=False))
+    cfg_b0 = dataclasses.replace(
+        c.cfg, query=dataclasses.replace(q, compact_budget=0),
+        agg=dataclasses.replace(c.cfg.agg, fused_decode=True))
+    cfg_x = dataclasses.replace(
+        c.cfg, query=dataclasses.replace(q, chunk_mode="xla",
+                                         knn_mode="xla",
+                                         fast_chunk=ROUTE_XLA_CHUNK),
+        agg=dataclasses.replace(c.cfg.agg, fused_decode2=True))
+    cfg_fit = dataclasses.replace(cfg_l, train=dataclasses.replace(
+        cfg_l.train, device_sampling=False))
+    # the steps held to the single-device step run at float32: at bfloat16
+    # each rank's weight gradients come out of bf16 matmuls, rounded to
+    # bf16 before the sum over ranks, a relative 2^-8 from the single
+    # step's rounding of the whole sum
+    step_cfg = {k: dataclasses.replace(cf, agg=dataclasses.replace(
+        cf.agg, compute_dtype="float32"))
+        for k, cf in (("legacy", cfg_l), ("fast", cfg_t))}
+    tmp = pathlib.Path(tempfile.mkdtemp(dir="build"))
+    d = dict(
+        cfg=c.cfg, cfg_t=cfg_t, cfg_l=cfg_l, cfg_b0=cfg_b0, cfg_x=cfg_x,
+        cfg_fit=cfg_fit, step_cfg=step_cfg, params=scene.params,
+        cloud=scene.cloud,
+        campos=scene.campos, camrot=scene.camrotc2w, rays=c.raydirs,
+        near=scene.near, far=scene.far, rmin_svs=(c.rmin, c.svs),
+        batch=ts["batch"][:4], u=ts["u"], ds=ts["ds"],
+        fit_dir=str(tmp / "fit"))
+    path = str(tmp / "inputs.pt")
+    torch.save(d, path)
+    log(f"multi: the chair scene, weights, frame rays and train batch saved "
+        f"for the ranks ({os.path.getsize(path)} B)")
+
+    # ---- the parent's single-device results, on the weights as they are
+    # now (the frame of path 1 rendered again)
+    single = {}
+    geo = ft.make_geo_scene(cfg_t, scene.cloud, grid)
+    for kind in ("legacy", "fast"):
+        st, aux = _multi_step(kind, step_cfg[kind], d, None, scene.params,
+                              scene.cloud, grid, geo)
+        single[kind] = (float(aux["total"]), _step_tensors(st))
+        del st
+    with torch.no_grad():
+        out = lr.render_rays(scene.params, scene.cloud, grid, scene.campos,
+                             scene.camrotc2w, c.raydirs[:CHUNK], scene.near,
+                             scene.far, cfg_b0)
+    single["legacy_chunk"] = [out.coarse_raycolor, out.ray_mask, out.acc]
+    del out
+    cache_x = fr.make_fast_scene(cfg_x, scene.cloud, grid)[0]
+    outs_x = [fr.fast_render_rays(
+        scene.params, scene.cloud.Rw2c, cache_x, scene.campos,
+        scene.camrotc2w, c.raydirs[i * CHUNK:(i + 1) * CHUNK], scene.near,
+        scene.far, cfg_x, c.rmin, c.svs) for i in range(c.n_chunks)]
+    del cache_x
+
+    def frame_of(outs):
+        return [torch.cat([getattr(o, f) for o in outs]) for f in
+                ("coarse_raycolor", "ray_mask", "acc", "depth")]
+
+    cache = fr.make_fast_scene(c.cfg, scene.cloud, grid)[0]
+    outs = [fr.fast_render_rays(
+        scene.params, scene.cloud.Rw2c, cache, scene.campos,
+        scene.camrotc2w, c.raydirs[i * CHUNK:(i + 1) * CHUNK], scene.near,
+        scene.far, c.cfg, c.rmin, c.svs) for i in range(c.n_chunks)]
+    del cache
+    single["frame"] = frame_of(outs)
+    single["frame_counters"] = {
+        f: sum(int(getattr(o, f)) for o in outs
+               if getattr(o, f) is not None)
+        for f in ("dw_overflow", "rb_overflow", "cb_overflow",
+                  "n_valid_slots")}
+    single["xla_frame"] = frame_of(outs_x)
+    single["chunk0"] = [outs[0].coarse_raycolor, outs[0].ray_mask,
+                        outs[0].acc]
+    del outs_x, outs
+    raypos = near_far_linear_ray_generation(
+        scene.campos, c.raydirs[:CHUNK], q.z_depth_dim, scene.near,
+        scene.far)[0]
+    r = query_grid_point_index(grid, scene.cloud.xyz, raypos, q.SR, q.K,
+                               q.radius_limit ** 2, q.kernel_size,
+                               layered=q.layered_search)
+    single["slab_query"] = [torch.sort(r.sample_pidx, -1).values,
+                            r.sample_loc_w, r.sample_mask, r.ray_mask]
+    del raypos, r
+    torch.cuda.synchronize()
+    log(f"multi: single-device results in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    def equal(name, got, want):
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if not torch.equal(a.to(b.device), b)]
+        if bad or len(got) != len(want):
+            fail(f"multi {name}: tensors {bad} of {len(want)} differ")
+
+    def near_step(name, loss, got, want):
+        loss1, ten = want
+        n = len(ten) // 2
+        if abs(loss - loss1) > 1e-6 * abs(loss1):
+            fail(f"multi {name}: loss {loss!r} against {loss1!r}")
+        worst = max(float((a.to(b.device) - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(got[:n], ten[:n]))
+        if worst > 1e-5:
+            fail(f"multi {name}: a gradient {worst:.3e} of its max apart")
+        return worst
+
+    torch.cuda.empty_cache()        # the ranks share the card
+    runs = {}
+    for world, n, backend in MULTI_WORLDS:
+        t0 = time.perf_counter()
+        try:
+            sh.run_ranks(_multi_rank, n, backend, (path, world),
+                         timeout=MULTI_RANK_TIMEOUT)
+        except Exception as e:      # a rank failed: its error is above
+            fail(f"multi ({world}): a rank failed: {e}")
+        ranks = [torch.load(f"{path}.{world}.{k}", weights_only=False)
+                 for k in range(n)]
+        runs[world] = ranks
+        for rk in ranks[1:]:
+            if rk["digest"] != ranks[0]["digest"]:
+                fail(f"multi ({world}): rank {rk['rank']} computed other "
+                     f"results than rank 0")
+            if rk["n_occ"] != int(grid.n_occ):
+                fail(f"multi ({world}): the rank's grid differs")
+        for rk in ranks:
+            log(f"multi ({world}, {backend}) rank {rk['rank']}: launches "
+                f"{rk['launches']}, peak {rk['peak_bytes']} B, seconds "
+                f"{ {k: round(v, 2) for k, v in rk['secs'].items()} }")
+        log(f"multi ({world}): {n} rank(s) over {backend} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    # each kernel of a job's path launched on every rank
+    want = {"a": {"step_legacy": ["first_valid_cols"],
+                  "step_fast": ["first_valid_cols"],
+                  "chunk0": ["first_valid_cols", "fused_chunk_decode"]},
+            "b": {"frame": ["first_valid_cols", "fused_chunk_decode"],
+                  "legacy_chunk": ["first_valid_cols", "fused_decode"],
+                  "step_legacy": ["first_valid_cols"],
+                  "step_fast": ["first_valid_cols"],
+                  "fit": ["first_valid_cols"]},
+            "c": {"step_legacy": ["first_valid_cols"],
+                  "xla_frame": ["first_valid_cols", "fused_decode2"],
+                  "structure": ["first_valid_cols"]}}
+    for world, jobs in want.items():
+        for rk in runs[world]:
+            for job, names in jobs.items():
+                for name in names:
+                    if rk["launches"][job].get(name, 0) < 1:
+                        fail(f"multi ({world}) rank {rk['rank']}: {name} "
+                             f"not launched on {job}")
+    out = {}
+
+    # ---- (a) one NCCL rank: the sharded steps are the unsharded ones
+    a = runs["a"][0]
+    for kind in ("legacy", "fast"):
+        if a[f"loss_{kind}"] != single[kind][0]:
+            fail(f"multi (a): sharded {kind} step's loss differs")
+        equal(f"(a) {kind} step", a["arrays"][f"step_{kind}"],
+              single[kind][1])
+    equal("(a) chunk 0", a["arrays"]["chunk0"], single["chunk0"])
+    log("multi (a): NCCL world of 1: sharded legacy and fast dense steps "
+        "bit-equal to the unsharded steps (loss, gradients, updated "
+        "weights); make_sharded_fast_render's chunk 0 bit-equal to the "
+        "direct call's")
+
+    # ---- (b) two gloo ranks on cuda:0
+    b = runs["b"][0]
+    fb = b["arrays"]["frame"]
+    equal("(b) fused-chunk frame", fb[:4], single["frame"])
+    sums = {f: int(x.sum()) for f, x in zip(
+        ("dw_overflow", "rb_overflow", "cb_overflow", "n_valid_slots"),
+        fb[4:])}
+    if any(sums[f] for f in ("dw_overflow", "rb_overflow", "cb_overflow")) \
+            or sums != single["frame_counters"]:
+        fail(f"multi (b): counters {sums} against "
+             f"{single['frame_counters']}")
+    equal("(b) legacy chunk", b["arrays"]["legacy_chunk"],
+          single["legacy_chunk"])
+    worst_b = {k: near_step(f"(b) {k} step", b[f"loss_{k}"],
+                            b["arrays"][f"step_{k}"], single[k])
+               for k in ("legacy", "fast")}
+    fl = b["fit_log"]
+    if not (len(fl) == MULTI_FIT_STEPS // 10 and fl[-1] <= fl[0] / 4):
+        fail(f"multi (b): fit(mesh=) loss {fl}")
+    ips_b = MULTI_FIT_STEPS / b["secs"]["fit"]
+    log(f"multi (b): 2 gloo ranks on {dev}: the {H}x{W} fused-chunk frame "
+        f"bit-equal, counters summed {sums}; the {CHUNK}-ray legacy chunk "
+        f"at compact budget 0 (fused_decode) bit-equal; sharded steps "
+        f"against the single step: gradients within {worst_b} of their max; "
+        f"fit(mesh=) {MULTI_FIT_STEPS} legacy steps, loss {fl[0]:.6f} -> "
+        f"{fl[-1]:.6f} ({fl[0] / fl[-1]:.1f}x), both ranks' states equal; "
+        f"{ips_b:.2f} it/s of {TRAIN_RAYS}-ray steps (gloo on one card: no "
+        f"multi-GPU rate; fit's set-up included; {c.smi})")
+
+    # ---- (c) four gloo ranks on cuda:0 as a 2x2 mesh
+    cc_ = runs["c"][0]
+    worst_c = near_step("(c) point-sharded legacy step", cc_["loss_legacy"],
+                        cc_["arrays"]["step_legacy"], single["legacy"])
+    cap = scene.cloud.capacity
+    for rk in runs["c"]:
+        half = -(-cap // 2)
+        if (rk["rows_legacy"] != [half] * 4
+                or rk["moment_rows_legacy"] != [half] * 8):
+            fail(f"multi (c): rank {rk['rank']} holds rows "
+                 f"{rk['rows_legacy']}, moments {rk['moment_rows_legacy']}")
+    equal("(c) point-sharded XLA frame", cc_["arrays"]["xla_frame"][:4],
+          single["xla_frame"])
+    if any(int(x.sum()) for x in cc_["arrays"]["xla_frame"][4:7]):
+        fail("multi (c): a counter of the point-sharded frame is non-zero")
+    equal("(c) slab query", cc_["arrays"]["slab_query"],
+          single["slab_query"])
+    s_ = cc_["structure"]
+    digests = {tuple(rk["structure"]["digest"]) for rk in runs["c"]}
+    if (len(digests) != 1 or s_["cap"] % 2 or s_["cap"] <= s_["cap0"]
+            or s_["local_rows"] != s_["cap"] // 2
+            or s_["moment_rows"] != [s_["cap"] // 2] * 8
+            or not np.isfinite(s_["loss"])):
+        fail(f"multi (c): structure sequence {s_}")
+    log(f"multi (c): 2x2 gloo ranks on {dev}: point-sharded legacy step "
+        f"within {worst_c:.3e} of the single step, each rank holding "
+        f"{half} of {cap} attribute rows and their moments; the point-"
+        f"sharded XLA frame (fused_decode2) bit-equal to the unsharded "
+        f"one, each rank's cache {cc_['cache_bytes'][0]} B of "
+        f"{cc_['cache_bytes'][1]} B; the slab query over 2 slabs "
+        f"{cc_['slab']} equal to the unsharded query on chunk 0's rays; "
+        f"structure: capacity {s_['cap0']} -> {s_['cap']}, grown "
+        f"{s_['n_new']}, alive {s_['n_grown_alive']} -> {s_['n_alive']} "
+        f"after the prune, then a step (loss {s_['loss']:.6f}); every "
+        f"rank's state equal")
+
+    # ---- (d) the CLI on one card
+    try:
+        cli.main(["train", "--data", str(tmp), "--point-cloud", str(tmp),
+                  "--out", str(tmp), "--num-devices", "2"])
+    except ValueError as e:
+        if f"need 2 devices, have {torch.cuda.device_count()}" not in str(e):
+            fail(f"multi (d): cli refused with {e}")
+        log(f"multi (d): cli train --num-devices 2 on one card: {e}")
+    else:
+        fail("multi (d): cli train --num-devices 2 ran on one card")
+    shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"multi: phase {secs:.1f} s")
+    for world, ranks in runs.items():
+        out[world] = [{"launches": rk["launches"], "peak_bytes":
+                       rk["peak_bytes"], "secs": rk["secs"]}
+                      for rk in ranks]
+    out.update(secs=secs, fit_it_per_s_gloo_one_card=ips_b,
+               grad_rel={"b": worst_b, "c": worst_c},
+               cache_bytes_2x2=cc_["cache_bytes"],
+               structure={k: v for k, v in s_.items() if k != "digest"},
+               fit_loss=fl)
+    return out
+
+
 def steps_in_turns(runs: dict, go, smi: str) -> dict:
     """Train it/s of each run (`go(run, n)` takes n steps): 10 warm-up
     steps each, then 3 windows of 20 steps, the runs in turns; the median
@@ -4885,6 +5458,19 @@ def main() -> int:
     # =================================================================
     mvs = mvs_phase(ns, data)
 
+    # =================================================================
+    # Multi-device execution: one NCCL rank, two and four gloo ranks
+    # sharing the card
+    # =================================================================
+    multi = multi_phase(ns)
+
+    def multi_launches(kernel):
+        """The kernel's launches per job on every rank of the multi
+        phase's worlds."""
+        return {w: [{j: v.get(kernel, 0) for j, v in rk["launches"].items()
+                     if v.get(kernel, 0)} for rk in ranks]
+                for w, ranks in multi.items() if w in ("a", "b", "c")}
+
     # ---- the least time the card could take for each kernel's work at
     # these inputs: every input read once, every output written once,
     # over the memory rate; the tower's operations on the rows and slots
@@ -5005,7 +5591,8 @@ def main() -> int:
                              "mvs": {
                                  k: v.get("first_valid_cols", 0)
                                  for k, v in mvs["launches"].items()},
-                             "routes": by_route("first_valid_cols")}),
+                             "routes": by_route("first_valid_cols"),
+                             "multi": multi_launches("first_valid_cols")}),
         record("fused_candidate_select", "fused_select.cu",
                "fused_select.py:60", launches_a["fused_candidate_select"],
                fsel_err, t_fs_k, t_fs_p, b_fs,
@@ -5025,11 +5612,13 @@ def main() -> int:
                                 for k, v in data["launches"].items()},
                             "mvs": {
                                 k: v.get("fused_decode", 0)
-                                for k, v in mvs["launches"].items()}}),
+                                for k, v in mvs["launches"].items()},
+                            "multi": multi_launches("fused_decode")}),
         record("fused_decode2", "fused_decode.cu", "fused_decode.py:235",
                launches_a["fused_decode2"], kacc_err, t_ka_k, t_ka_p, b_ka,
                f_ka, extra={"large_scene": room["kacc"],
-                            "routes": by_route("fused_decode2")}),
+                            "routes": by_route("fused_decode2"),
+                            "multi": multi_launches("fused_decode2")}),
         record("fused_chunk_decode", "fused_chunk.cu", "fused_chunk.py:86",
                launches["fused_chunk_decode"], fused_err, t_fc_k, t_fc_p,
                b_fc, f_fc, t_fc_parts, extra={"structure": {
@@ -5040,7 +5629,8 @@ def main() -> int:
                              for k, v in plane["launches"].items()},
                    "data": {k: v.get("fused_chunk_decode", 0)
                             for k, v in data["launches"].items()},
-                   "routes": by_route("fused_chunk_decode")}),
+                   "routes": by_route("fused_chunk_decode"),
+                   "multi": multi_launches("fused_chunk_decode")}),
         record("march_rays", "march.cu", "march.py:70", **{
             **fe["record"], "extra": {**fe["record"]["extra"],
                                       "train": train["march"]}}),
@@ -5061,7 +5651,8 @@ def main() -> int:
         "large_scene": {k: v for k, v in room.items()
                         if k not in ("select", "kacc", "chunk_gt")},
         "data": {k: v for k, v in data.items() if k != "launches"},
-        "mvs": {k: v for k, v in mvs.items() if k != "launches"}}),
+        "mvs": {k: v for k, v in mvs.items() if k != "launches"},
+        "multi": multi}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

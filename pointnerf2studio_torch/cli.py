@@ -27,8 +27,10 @@ alone. `gen-points` without `--from-ply` runs MVSNet point generation
 (`models/mvsnet/pointgen.py`) and raises ValueError where its filters
 leave no point; `train-joint` trains the MVS stack and the fields
 together (`train/joint.py`) and prints the points its gate let through at
-the first step. Not ported: `train --num-devices` above 1, which raises
-NotImplementedError naming ROADMAP queue 1 item 12.
+the first step. `train --num-devices N` (N > 1) spawns N ranks
+(parallel/sharding.run_ranks), each running `fit(mesh=make_mesh(N))`: on
+the card one GPU a rank over NCCL (with fewer than N cards it raises
+"need N devices, have M"), under `--device cpu` N gloo ranks on the host.
 """
 
 from __future__ import annotations
@@ -83,15 +85,10 @@ def _load_checkpoint(path: str, cfg, device, capacity=None):
                                          capacity=capacity, device=device)
 
 
-def cmd_train(args):
+def _train(args, dev, mesh=None):
     from pointnerf2studio_torch.train.loop import fit
 
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            "train --num-devices > 1: sharded training is not ported "
-            "(ROADMAP queue 1 item 12)")
     cfg, train_ds, eval_ds = _load_scene(args)
-    dev = _device(args)
     params, points = _load_checkpoint(args.point_cloud, cfg, dev,
                                       capacity=args.capacity)
     if points is None:
@@ -99,8 +96,32 @@ def cmd_train(args):
     res = fit(cfg, train_ds, params, points, args.out,
               eval_dataset=eval_ds, eval_views=list(range(args.eval_views)),
               eval_freq=args.eval_freq, tensorboard=args.tensorboard,
-              eval_save_images=args.eval_images, device=dev)
-    print("final metrics:", res.metrics)
+              eval_save_images=args.eval_images, mesh=mesh, device=dev)
+    if mesh is None or mesh.rank == 0:
+        print("final metrics:", res.metrics)
+
+
+def _train_rank(rank, args, device_type):
+    from pointnerf2studio_torch.parallel.sharding import make_mesh
+    mesh = make_mesh(args.num_devices,
+                     device="cpu" if device_type == "cpu" else None)
+    _train(args, mesh.device, mesh)
+
+
+def cmd_train(args):
+    n = args.num_devices
+    if n <= 1:
+        _train(args, _device(args))
+        return
+    import torch
+    from pointnerf2studio_torch.parallel.sharding import run_ranks
+    kind = torch.device(args.device or "cuda").type
+    if kind == "cuda":
+        have = torch.cuda.device_count()
+        if have < n:
+            raise ValueError(f"need {n} devices, have {have}")
+    run_ranks(_train_rank, n, "nccl" if kind == "cuda" else "gloo",
+              (args, kind))
 
 
 def cmd_eval(args):

@@ -64,8 +64,10 @@ two-phase pipeline (`decode_chunk2`), the valid-pair decode
 the pruned candidate width (`cand_prune`); in the front-end the span
 tiers (`span_tiers`), the two-level coarse test (`coarse_step`,
 `win_overflow`) and the one-hot compaction; the slot-grid composite
-(composite_mode="grid"); and `render_frame`'s `render_maker`. Sharding
-is not ported (ROADMAP queue 1 item 12).
+(composite_mode="grid"); and `render_frame`'s `render_maker`. With
+`pshard_axis` the cache's candidate rows are one rank's qslot slab of a
+cache sharded over a mesh axis (parallel/sharding.py): the XLA route
+computes the slots the slab owns and a psum reassembles them.
 
 Host synchronisation: none per chunk on the kernel routes (ray packing
 and slot packing are cumsum/scatter compactions on the device, and the
@@ -934,9 +936,10 @@ def _xla_route(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
                campos, cache: FatCache, qslot_c, locs, center, rd_sel,
                mask_c, num_shells: int, prob: bool):
     """The reference's XLA chunk pipeline over the M packed slots, CH
-    slots a chunk (`xla_chunk_slots`). The valid slots are a prefix of
-    the M axis; chunks past it are all padding and are skipped (one
-    read-back of the count). A chunk runs the candidate stages
+    slots a chunk (`xla_chunk_slots`). A chunk that holds no valid slot
+    is skipped (one read-back of the live chunks: past the valid prefix
+    of an unsharded call, or outside the rank's slab of a point-sharded
+    cache). A chunk runs the candidate stages
     (`_xla_front`), then the lane decode (`_xla_extract`, `_decode_tail`)
     or the pair decode (`_pair_tail`). With `decode_chunk2` > 0 (and no
     pair, krows, prob, base_h or fused_decode2, and M > CH, the
@@ -950,7 +953,12 @@ def _xla_route(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
     dev = qslot_c.device
     f32 = torch.float32
     CH = xla_chunk_slots(q, M)
-    n_valid = int(mask_c.sum())
+
+    def starts(step):
+        n = -(-M // step)
+        live = F.pad(mask_c, (0, n * step - M)).view(n, step).any(1)
+        return (torch.nonzero(live)[:, 0] * step).tolist()
+
     sig = torch.zeros(M, dtype=f32, device=dev)
     rgb = torch.zeros((M, 3), dtype=f32, device=dev)
     found = torch.zeros(M, dtype=torch.bool, device=dev)
@@ -964,20 +972,20 @@ def _xla_route(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
     if two_phase:
         nsel_m = torch.zeros((M, K, PAYW), dtype=torch.bfloat16, device=dev)
         pm_m = torch.zeros((M, K), dtype=torch.bool, device=dev)
-        for s in range(0, n_valid, CH):
+        for s in starts(CH):
             c = slice(s, s + CH)
             top, pm, _, payload = _xla_front(cfg, cache, qslot_c[c], locs[c],
                                              center[c], mask_c[c], num_shells)
             nsel_m[c] = _xla_extract(cache, qslot_c[c], top, pm, payload)
             pm_m[c] = pm
         DC2 = max(min(q.decode_chunk2, -(-M // CH) * CH), 1)
-        for s in range(0, n_valid, DC2):
+        for s in starts(DC2):
             c = slice(s, s + DC2)
             sig[c], rgb[c], found[c] = _decode_tail(
                 params, cfg, Rw2c, camrotc2w, campos, nsel_m[c], pm_m[c],
                 locs[c], center[c], rd_sel[c])
         return sig, rgb, found, None, None
-    for s in range(0, n_valid, CH):
+    for s in starts(CH):
         c = slice(s, s + CH)
         top, pm, meta, payload = _xla_front(cfg, cache, qslot_c[c], locs[c],
                                             center[c], mask_c[c], num_shells)
@@ -1122,10 +1130,17 @@ def fast_render_rays(
     bg_ray_colors: Optional[torch.Tensor] = None,   # [R, 3] per-ray
                                     # background (the plane model's) in
                                     # place of cfg.bg_color
+    pshard_axis=None,               # parallel/sharding.Axis: the cache's
+                                    # candidate rows are this rank's qslot
+                                    # slab (sharding.shard_fat_cache)
 ) -> FastRenderOutput:
     """Render R rays through the fast path (see the module docstring)."""
     route = _check_served(cfg, Rw2c, prob)
     q = cfg.query
+    if pshard_axis is not None and route != "xla":
+        raise ValueError(
+            "a point-sharded cache renders through the XLA candidate stages "
+            "only (knn_mode and chunk_mode 'xla')")
     if cache.hash_table is not None:
         # the reference's hash cache has no kernel-facing layout, and its
         # knn_mode="fused" is dense-only
@@ -1164,7 +1179,8 @@ def fast_render_rays(
     if q.span_tiers:
         return _render_span_tiers(
             params, Rw2c, cache, campos, camrotc2w, raydirs, near, far, cfg,
-            ranges_min, scaled_vsize, bg_ray_colors, bg, rmax, step_t)
+            ranges_min, scaled_vsize, bg_ray_colors, bg, rmax, step_t,
+            pshard_axis)
 
     if q.ray_budget > 0:
         # ---- ray packing: only box-hitting rays enter the front-end.
@@ -1182,7 +1198,8 @@ def fast_render_rays(
                                premarch=(None if premarch is None
                                          else premarch[ray_ids]), prob=prob,
                                bg_ray_colors=(None if bg_ray_colors is None
-                                              else bg_ray_colors[ray_ids]))
+                                              else bg_ray_colors[ray_ids]),
+                               pshard_axis=pshard_axis)
         ids = torch.where(valid, ray_ids, R)       # padding rows drop
 
         def scatter(base, x):
@@ -1287,6 +1304,12 @@ def fast_render_rays(
         d0 = torch.zeros(R, dtype=torch.int32, device=dev)
         d_true = torch.arange(D, device=dev, dtype=torch.int32).expand(R, D)
         Dax = D
+    if not use_march and ray_live is not None:
+        # padding rows (copies of row 0) take no slots: they carry no ray,
+        # so their samples would only spend the M budget (and count in
+        # cb_overflow and n_valid_slots), as the march and the train path
+        # give them none
+        qs = torch.where(ray_live[:, None], qs, -1)
     cap_cols = R * min(SR, BP, Dax)
     pack_end = None
     if use_march:
@@ -1348,6 +1371,28 @@ def fast_render_rays(
                               rd_sel[s:s + piece])
                  for s in range(0, M, piece)]
         sig, rgb, found = (torch.cat(x) for x in zip(*tails))
+    elif pshard_axis is not None:
+        # ---- point-sharded cache (reference :1165-1192): this rank owns
+        # qslot slab [off, off + n_local) and computes only its own slots
+        # (a chunk with none is skipped); each valid slot has one owner,
+        # so one psum of the per-slot outputs reassembles them exactly
+        from pointnerf2studio_torch.parallel.sharding import axis_index, psum
+        n_local = cache.max_q
+        off = axis_index(pshard_axis) * n_local
+        owned = (qslot_c >= off) & (qslot_c < off + n_local)
+        mask_o = mask_c & owned
+        sig, rgb, found, pb_overflow, attrs_m = _xla_route(
+            params, cfg, Rw2c, camrotc2w, campos, cache,
+            torch.where(owned, qslot_c - off, 0), locs, center, rd_sel,
+            mask_o, num_shells, prob)
+        okl = (mask_o & found).to(sig.dtype)
+        sig = psum(sig * okl, pshard_axis)
+        rgb = psum(rgb * okl[:, None], pshard_axis)
+        if prob:
+            attrs_m = psum(attrs_m * okl[:, None], pshard_axis)
+        found = psum(found, pshard_axis)
+        if pb_overflow is not None:
+            pb_overflow = psum(pb_overflow, pshard_axis)
     else:
         sig, rgb, found, pb_overflow, attrs_m = _xla_route(
             params, cfg, Rw2c, camrotc2w, campos, cache, qslot_c, locs,
@@ -1460,7 +1505,7 @@ def _coarse_front(cache: FatCache, q, campos, raydirs, near, far, step_t,
 
 def _render_span_tiers(params, Rw2c, cache, campos, camrotc2w, raydirs, near,
                        far, cfg, ranges_min, scaled_vsize, bg_ray_colors, bg,
-                       rmax, step_t) -> FastRenderOutput:
+                       rmax, step_t, pshard_axis=None) -> FastRenderOutput:
     """Span-tiered ray packing (QueryConfig.span_tiers; reference
     fast_render.py:694-796): the ray packing with one packed group per
     span tier, each rendered at its own depth-window width (ray budget
@@ -1519,7 +1564,7 @@ def _render_span_tiers(params, Rw2c, cache, campos, camrotc2w, raydirs, near,
             params, Rw2c, cache, campos, camrotc2w, raydirs[rid], near, far,
             cfg_i, ranges_min, scaled_vsize, ray_live=valid,
             bg_ray_colors=(None if bg_ray_colors is None
-                           else bg_ray_colors[rid]))
+                           else bg_ray_colors[rid]), pshard_axis=pshard_axis)
         ids = torch.where(valid, rid, R)
         for base, x in ((color, sub.coarse_raycolor), (ray_mask, sub.ray_mask),
                         (acc, sub.acc), (depth, sub.depth)):

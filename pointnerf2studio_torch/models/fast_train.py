@@ -60,7 +60,7 @@ from pointnerf2studio_torch.models.fast_render import (
     onehot_compact, pack_hit_rays, qslot_lookup, query_voxels)
 from pointnerf2studio_torch.ops.hash_grid import HashGrid
 from pointnerf2studio_torch.models.neural_points import (
-    NeuralPointCloud, gather_rows)
+    NeuralPointCloud, gather_attrs, gather_rows)
 from pointnerf2studio_torch.ops.camera import neighbor_dists, rotate, w2pers
 from pointnerf2studio_torch.ops.compositing import (
     TONE_MAPS, composite_rows, packed_alpha_composite)
@@ -285,17 +285,15 @@ def _probe_rows(z, found, K, pnt_mask=None, conf=None):
 
 
 def _chunk_decode(params: Aggregator, cfg: PointNerfConfig,
-                  points: NeuralPointCloud, attrs: torch.Tensor, campos,
-                  camrotc2w, training: bool, pnt_mask, pidx, nxyz, locs,
-                  rd_sel, debug_prefix=None):
-    """The decode half of a chunk: the differentiable attribute gather,
-    the weights and the tower. Returns (sigma, rgb, found, conf,
-    pnt_mask, weight)."""
+                  points: NeuralPointCloud, attrs: torch.Tensor,
+                  points_axis, campos, camrotc2w, training: bool, pnt_mask,
+                  pidx, nxyz, locs, rd_sel, debug_prefix=None):
+    """The decode half of a chunk: the differentiable attribute gather
+    (row-sharded over `points_axis` where given), the weights and the
+    tower. Returns (sigma, rgb, found, conf, pnt_mask, weight)."""
     q = cfg.query
     CA = points.points_embeding.shape[-1]
-    N = attrs.shape[0]
-    vals = gather_rows(attrs, torch.clamp(pidx, 0, N - 1).reshape(-1)
-                       ).reshape(pidx.shape + (attrs.shape[1],))  # [Mc,K,39]
+    vals = gather_attrs(attrs, pidx, points_axis)               # [Mc,K,39]
     emb = vals[..., :CA]
     conf = vals[..., CA]
     ndir = vals[..., CA + 1:CA + 4]
@@ -319,7 +317,7 @@ def _chunk_decode(params: Aggregator, cfg: PointNerfConfig,
 
 
 def _chunk_body(params: Aggregator, cfg: PointNerfConfig,
-                points: NeuralPointCloud, attrs: torch.Tensor,
+                points: NeuralPointCloud, attrs: torch.Tensor, points_axis,
                 geo: GeoCache, campos, camrotc2w, raydirs, t_flat,
                 ranges_min, scaled_vsize, training: bool,
                 qslot_c, sel_ray, sel_rd, mask_c, debug_prefix=None):
@@ -335,11 +333,11 @@ def _chunk_body(params: Aggregator, cfg: PointNerfConfig,
     if debug_prefix in ("gather", "knn"):
         return sel
     if training and cfg.train.remat == "selection":
-        return checkpoint(_chunk_decode, params, cfg, points, attrs, campos,
-                          camrotc2w, training, *sel, debug_prefix,
-                          use_reentrant=False)
-    return _chunk_decode(params, cfg, points, attrs, campos, camrotc2w,
-                         training, *sel, debug_prefix)
+        return checkpoint(_chunk_decode, params, cfg, points, attrs,
+                          points_axis, campos, camrotc2w, training, *sel,
+                          debug_prefix, use_reentrant=False)
+    return _chunk_decode(params, cfg, points, attrs, points_axis, campos,
+                         camrotc2w, training, *sel, debug_prefix)
 
 
 def fast_train_render(
@@ -360,6 +358,7 @@ def fast_train_render(
     ray_live: Optional[torch.Tensor] = None,    # [R] bool real-ray rows
     debug_prefix: Optional[str] = None,
     bg_ray_colors: Optional[torch.Tensor] = None,   # [R, 3] per-ray bg
+    points_axis=None,
 ) -> TrainRenderOutput:
     """Render R rays through the differentiable fast path (see the module
     docstring). Jitter (cfg.train.jitter, training only) takes its draws
@@ -374,7 +373,12 @@ def fast_train_render(
     (the jittered sample ts), "raygen" (the sample positions), "front"
     (the compaction), "gather", "knn" and "attrs" (inside each chunk,
     then the composite runs on the probe rows) and "decode" (after the
-    chunks)."""
+    chunks).
+
+    With `points_axis` (a parallel/sharding.Axis) the cloud's trainable
+    attributes are this rank's rows of a cloud row-sharded over that
+    axis, and the attribute gather completes with a psum over it
+    (`neural_points.gather_attrs`)."""
     _check_served(cfg, points, training, debug_prefix)
     q = cfg.query
     dev = raydirs.device
@@ -431,7 +435,8 @@ def fast_train_render(
             jitter_u=None if u_full is None else u_full[ray_ids],
             ray_live=valid, debug_prefix=debug_prefix,
             bg_ray_colors=(None if bg_ray_colors is None
-                           else bg_ray_colors[ray_ids]))
+                           else bg_ray_colors[ray_ids]),
+            points_axis=points_axis)
         ids = torch.where(valid, ray_ids, R)       # padding rows drop
 
         def scatter(base, x):
@@ -530,8 +535,9 @@ def fast_train_render(
         return torch.cat([x, x.new_zeros(pad)]) if pad else x
 
     ins = [cpad(x) for x in (qslot_c, sel_ray, sel_rd, mask_c)]
-    body_args = (params, cfg, points, attrs, geo, campos, camrotc2w, raydirs,
-                 t_flat, ranges_min, scaled_vsize, training)
+    body_args = (params, cfg, points, attrs, points_axis, geo, campos,
+                 camrotc2w, raydirs, t_flat, ranges_min, scaled_vsize,
+                 training)
     full = training and cfg.train.remat == "full"
     outs = []
     for i in range(n):

@@ -1,9 +1,10 @@
 """Neural point cloud: the point store.
 
 Port of `pointnerf2studio_tpu/models/neural_points.py` (NeuralPointCloud
-with its trainable set, from_arrays, the single-device gather_neighbors,
-and the structure changes prune, grow and expand_capacity, each of which
-returns a new cloud and leaves its argument as it is). Static-capacity
+with its trainable set, from_arrays, gather_neighbors, whole or
+row-sharded over a mesh axis, and the structure changes prune, grow and
+expand_capacity, each of which returns a new cloud and leaves its
+argument as it is). Static-capacity
 layout: arrays are allocated at `capacity` rows with an `alive` mask;
 names match the reference checkpoint keys (xyz, points_embeding,
 points_conf, points_dir, points_color, Rw2c: [3, 3] global or [N, 3, 3]
@@ -25,6 +26,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pointnerf2studio_torch.ops._cuda import resolve_device
 
@@ -92,6 +94,27 @@ def from_arrays(
         alive=(torch.arange(cap) < n).to(device))
 
 
+SCAN_ROW = 4096     # elements a row of the two-level prefix sum
+
+
+def _prefix_sums(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of a 1-D tensor whose association is fixed:
+    rows of SCAN_ROW elements scanned along their last dim, then the row
+    totals, each row offset by the sum of the rows before it. torch's
+    cumsum of a 1-D CUDA tensor (one device-wide scan whose tiles take
+    their predecessors' sums as the threads happen to publish them) groups
+    a float sum differently from run to run; a scan along the last dim of
+    a [rows, SCAN_ROW] tensor does not."""
+    n = x.shape[0]
+    B = max(-(-n // SCAN_ROW), 1)
+    rows = torch.cumsum(F.pad(x, (0, B * SCAN_ROW - n)).view(B, SCAN_ROW), 1)
+    tot = rows[:, -1]
+    # the row totals as two rows, so that this scan too runs along a last
+    # dim and not as one device-wide scan
+    off = torch.cumsum(torch.stack([tot, torch.zeros_like(tot)]), 1)[0] - tot
+    return (rows + off[:, None]).view(-1)[:n]
+
+
 def _segment_sum_rows(g: torch.Tensor, idx: torch.Tensor, n_rows: int
                       ) -> torch.Tensor:
     """sum over i with idx[i] == r of g[i], for every r < n_rows: the rows
@@ -99,11 +122,11 @@ def _segment_sum_rows(g: torch.Tensor, idx: torch.Tensor, n_rows: int
     as the difference of its ends, written once to its row. No step
     depends on the order in which threads run. The prefix sums run as one
     scan of the flat [C, n] array (a scan down dim 0 of [n, C] runs only C
-    parallel chains: 6 ms a chunk on the card), each column's sums then
-    taken relative to its start."""
+    parallel chains: 6 ms a chunk on the card; `_prefix_sums`), each
+    column's sums then taken relative to its start."""
     n, C = g.shape
     sidx, perm = torch.sort(idx, stable=True)
-    flat = torch.cumsum(g[perm].double().t().reshape(-1), 0).view(C, n)
+    flat = _prefix_sums(g[perm].double().t().reshape(-1)).view(C, n)
     before_col = torch.cat([flat.new_zeros(1), flat[:-1, -1]])
     cs = (flat - before_col[:, None]).t()                        # [n, C]
     pos = torch.arange(n, device=g.device)
@@ -138,20 +161,44 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _GatherRows.apply(table, idx.long())
 
 
-def gather_neighbors(points: NeuralPointCloud, sample_pidx: torch.Tensor
-                     ) -> Dict[str, torch.Tensor]:
+def gather_attrs(attrs: torch.Tensor, pidx: torch.Tensor,
+                 points_axis=None) -> torch.Tensor:
+    """attrs[pidx] for ids pidx [...] (-1 = empty, gathered clamped) as
+    [..., C], through `gather_rows`. With `points_axis`
+    (parallel/sharding.Axis) the table holds this rank's rows [j *
+    n_local, (j + 1) * n_local) of a table row-sharded over that axis:
+    each rank gathers the rows it owns, zeroes the others, and one psum
+    completes the gather (its backward the identity, so the gradient
+    reaches each rank's rows through `gather_rows`' backward alone). The
+    empty ids gather zeros there, where the whole table gives row 0."""
+    n_local = attrs.shape[0]
+    if points_axis is None:
+        idx = torch.clamp(pidx, 0, n_local - 1)
+        return gather_rows(attrs, idx.reshape(-1)).reshape(
+            pidx.shape + (attrs.shape[1],))
+    from pointnerf2studio_torch.parallel.sharding import axis_index, psum
+    loc = pidx.long() - axis_index(points_axis) * n_local
+    own = (loc >= 0) & (loc < n_local)
+    vals = gather_rows(attrs, torch.clamp(loc, 0, n_local - 1).reshape(-1)
+                       ).reshape(pidx.shape + (attrs.shape[1],))
+    return psum(vals * own[..., None].to(vals.dtype), points_axis)
+
+
+def gather_neighbors(points: NeuralPointCloud, sample_pidx: torch.Tensor,
+                     points_axis=None) -> Dict[str, torch.Tensor]:
     """Per-neighbour attributes for point ids sample_pidx [..., K]
     (-1 = empty) as padded [..., K, .] tensors: xyz, embeding, conf,
     dir, color, and Rw2c [..., K, 3, 3] for a per-point Rw2c. Empty slots
     gather a clamped index and must be masked downstream via
     `sample_pidx >= 0`. The trainable attributes go through one
-    `gather_rows`, so their gradient takes its backward. Single device
-    only: the reference's row-sharded gather is not ported."""
+    `gather_attrs`, so their gradient takes `gather_rows`' backward. With
+    `points_axis` the trainable attributes are this rank's rows of a
+    cloud row-sharded over that axis (parallel/sharding.shard_cloud),
+    while xyz, Rw2c and the ids stay whole (reference :97-145)."""
     idx = torch.clamp(sample_pidx, 0, points.capacity - 1).long()
     attrs = torch.cat([points.points_embeding, points.points_conf,
                        points.points_dir, points.points_color], -1)
-    vals = gather_rows(attrs, idx.reshape(-1)).reshape(
-        idx.shape + (attrs.shape[1],))
+    vals = gather_attrs(attrs, sample_pidx, points_axis)
     C = points.points_embeding.shape[1]
     out = {"xyz": points.xyz[idx], "embeding": vals[..., :C],
            "conf": vals[..., C:C + 1], "dir": vals[..., C + 1:C + 4],

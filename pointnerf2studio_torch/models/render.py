@@ -1,10 +1,9 @@
 """The legacy end-to-end render step.
 
-Port of `pointnerf2studio_tpu/models/render.py::render_rays` (all of it
-but the row-sharded gather, `points_axis`): stratified ray generation ->
-voxel-grid ray masking -> shading-slot compaction -> K-NN -> neighbour
-gather -> weights and the MLP tower -> alpha compositing over the [R, D]
-sample grid -> background fill.
+Port of `pointnerf2studio_tpu/models/render.py::render_rays`: stratified
+ray generation -> voxel-grid ray masking -> shading-slot compaction ->
+K-NN -> neighbour gather -> weights and the MLP tower -> alpha
+compositing over the [R, D] sample grid -> background fill.
 
 The K-NN runs on the grid's candidate cache where the grid carries one
 (`ops/grid.build_grid_from_points` with `QueryConfig.use_cache`, the
@@ -15,8 +14,12 @@ samples are jittered (cfg.train.jitter; draws from `jitter_u` [R, D] or
 and gradients flow into the tower and the cloud's trainable attributes;
 `prob` adds the point-growing outputs; `bg_ray_colors` [R, 3] replaces
 the constant background in the blend and the miss fill; a per-point Rw2c
-[N, 3, 3] rotates each neighbour's offsets and directions. Serving runs
-under `torch.no_grad()` at the call site.
+[N, 3, 3] rotates each neighbour's offsets and directions. With
+`points_axis` (a parallel/sharding.Axis) the cloud's trainable
+attributes are this rank's rows of a cloud row-sharded over that axis,
+and the neighbour gather completes with a psum over it
+(`neural_points.gather_neighbors`). Serving runs under
+`torch.no_grad()` at the call site.
 
 The tower is the row-wise decode kernel (ops/fused_decode.py::
 fused_decode) where `AggregatorConfig.fused_decode` is set, `training`
@@ -108,6 +111,7 @@ def render_rays(
     bg_ray_colors: Optional[torch.Tensor] = None,   # [R, 3]
     generator: Optional[torch.Generator] = None,
     jitter_u: Optional[torch.Tensor] = None,        # [R, D] jitter draws
+    points_axis=None,
 ) -> RenderOutput:
     """Render R rays through the legacy path (see the module docstring).
     Differentiable in `params` and the cloud's trainable attributes."""
@@ -149,7 +153,7 @@ def render_rays(
                             q.radius_limit ** 2, q.kernel_size,
                             layered=q.layered_search)         # [M, K]
     pnt_mask = pidx >= 0
-    neigh = gather_neighbors(points, pidx)
+    neigh = gather_neighbors(points, pidx, points_axis)
     dists = neighbor_dists(neigh["xyz"], locs, camrotc2w, campos)
 
     weight, emb = aggregation_weight(cfg.agg, neigh["embeding"], dists,

@@ -58,6 +58,11 @@ class PointGrid:
     n_occ: torch.Tensor             # [] int32 occupied voxels
     occ_2_coor: torch.Tensor        # [max_o, 3] int32 voxel coord per slot
     cache: Optional[CandidateCache] = None
+    # a slab of a larger grid (parallel/grid_shard.py): the tables' first
+    # voxel, counted from ranges_min, the larger grid's origin; a voxel
+    # comes from the same float arithmetic as in the larger grid, then an
+    # integer shift (None: the tables start at ranges_min)
+    origin: Optional[Tuple[int, int, int]] = None
 
     @property
     def dims(self) -> Tuple[int, int, int]:
@@ -98,8 +103,11 @@ def _dilate_occupancy(occ: torch.Tensor,
 def build_grid(xyz: torch.Tensor, alive: torch.Tensor,
                ranges_min: torch.Tensor, scaled_vsize: torch.Tensor,
                dims: Tuple[int, int, int], max_o: int, P: int,
-               query_size: Tuple[int, int, int]) -> PointGrid:
-    """Build the dense voxel grid. Deterministic."""
+               query_size: Tuple[int, int, int],
+               origin: Optional[Tuple[int, int, int]] = None) -> PointGrid:
+    """Build the dense voxel grid (with `origin`, the slab of dims `dims`
+    whose first voxel is `origin` of the grid at ranges_min; see
+    `PointGrid.origin`). Deterministic."""
     dev = xyz.device
     n = xyz.shape[0]
     gx, gy, gz = dims
@@ -107,6 +115,8 @@ def build_grid(xyz: torch.Tensor, alive: torch.Tensor,
     i32 = torch.int32
 
     gcoor = torch.floor((xyz - ranges_min) / scaled_vsize).long()
+    if origin is not None:
+        gcoor = gcoor - torch.tensor(origin, device=dev)
     dims_t = torch.tensor(dims, device=dev)
     inb = alive & ((gcoor >= 0) & (gcoor < dims_t)).all(-1)
     flat = gcoor[:, 0] * (gy * gz) + gcoor[:, 1] * gz + gcoor[:, 2]
@@ -148,7 +158,7 @@ def build_grid(xyz: torch.Tensor, alive: torch.Tensor,
         ranges_min=ranges_min.float(), scaled_vsize=scaled_vsize.float(),
         coor_2_occ=coor_2_occ, coor_occ=coor_occ,
         occ_2_pnts=occ_2_pnts[:max_o], occ_numpnts=occ_numpnts[:max_o],
-        n_occ=n_occ, occ_2_coor=occ_2_coor)
+        n_occ=n_occ, occ_2_coor=occ_2_coor, origin=origin)
 
 
 @torch.no_grad()

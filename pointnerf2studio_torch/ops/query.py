@@ -88,10 +88,20 @@ def voxel_coords(xyz: torch.Tensor, ranges_min: torch.Tensor,
     return torch.floor((xyz - ranges_min) / scaled_vsize).long()
 
 
+def grid_coords(grid: PointGrid, xyz: torch.Tensor) -> torch.Tensor:
+    """The voxel of each position in the grid's tables: its voxel from
+    the grid's origin, less the tables' first voxel where the grid is a
+    slab of a larger one (`PointGrid.origin`)."""
+    gcoor = voxel_coords(xyz, grid.ranges_min, grid.scaled_vsize)
+    if grid.origin is not None:
+        gcoor = gcoor - torch.tensor(grid.origin, device=xyz.device)
+    return gcoor
+
+
 def mask_raypos(grid: PointGrid, raypos: torch.Tensor) -> torch.Tensor:
     """[R, D] bool: sample position lies in a dilated-occupied voxel."""
     dims = torch.tensor(grid.dims, device=raypos.device)
-    gcoor = voxel_coords(raypos, grid.ranges_min, grid.scaled_vsize)
+    gcoor = grid_coords(grid, raypos)
     inb = ((gcoor >= 0) & (gcoor < dims)).all(-1)
     gc = torch.minimum(torch.clamp(gcoor, min=0), dims - 1)
     return inb & grid.coor_occ[gc[..., 0], gc[..., 1], gc[..., 2]]
@@ -142,7 +152,7 @@ def _knn_chunk(grid: PointGrid, xyz: torch.Tensor, locs: torch.Tensor,
     dev = locs.device
     dims = torch.tensor(grid.dims, device=dev)
 
-    center = voxel_coords(locs, grid.ranges_min, grid.scaled_vsize)
+    center = grid_coords(grid, locs)
     nb = center[:, None, :] + offsets[None, :, :]                  # [C, V, 3]
     nb_inb = ((nb >= 0) & (nb < dims)).all(-1)
     nbc = torch.minimum(torch.clamp(nb, min=0), dims - 1)

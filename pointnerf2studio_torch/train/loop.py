@@ -35,8 +35,15 @@ run returns without a step. The sampling generator restarts at `seed`
 on resume, as the reference's PRNG key does. A device out-of-memory
 error raises (the reference's sleep-and-retry is not ported).
 
-Not ported, raising NotImplementedError that names its ROADMAP item:
-sharding (`mesh`).
+With `mesh` (parallel/sharding.Mesh; every rank calls fit alike) the
+steps are the sharded ones (`make_sharded_train_step`,
+`make_sharded_fast_train_step`): every rank samples the same batch on
+the host, as the reference turns device sampling off under a mesh, and
+takes its rows of it. On a mesh with a "points" axis the state is
+row-sharded (`sharding.shard_state`) and made whole on every rank for
+each structure event, checkpoint and evaluation, then cut again.
+Checkpoints, the log and evaluations are rank 0's alone; every rank
+returns the same whole state.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
 from pointnerf2studio_torch.ops._cuda import resolve_device
 from pointnerf2studio_torch.ops.hash_grid import HashGrid, build_query_grid
 from pointnerf2studio_torch.ops.march import build_march_table, plan_march
+from pointnerf2studio_torch.parallel import sharding
 from pointnerf2studio_torch.train.evaluator import evaluate_dataset
 from pointnerf2studio_torch.train.grow import probe_and_grow
 from pointnerf2studio_torch.train.trainer import (
@@ -92,11 +100,18 @@ class FitResult:
         return None
 
 
-def _unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit: sharded training (mesh) is not ported (ROADMAP queue 1 "
-            "item 12)")
+class _NoLog:
+    """The log of a rank other than 0: accumulates nothing, writes
+    nothing."""
+
+    def accumulate(self, losses) -> None:
+        pass
+
+    def flush(self, step, extra=None):
+        return None
+
+    def close(self) -> None:
+        pass
 
 
 def save_checkpoint(out_dir: str, state: TrainState, step: int,
@@ -241,13 +256,17 @@ def fit(
     raises without one), to which `points` and `params` must already
     belong. Returns the final state, the final evaluation's metrics, one
     log record per `print_freq` window and per growth event, the
-    evaluation history and the growth history."""
+    evaluation history and the growth history (the metrics, the log and
+    the evaluation history empty on a rank other than 0 of a `mesh`)."""
+    if mesh is not None and device is None:
+        device = mesh.device
     device = resolve_device(device)
-    _unported(mesh)
     if points.xyz.device.type != device.type:
         raise ValueError(f"points are on {points.xyz.device}, fit runs on "
                          f"{device}")
-    logger = Logger(out_dir, tensorboard=tensorboard)
+    lead = mesh is None or mesh.rank == 0
+    logger = (Logger(out_dir, tensorboard=tensorboard) if lead
+              else _NoLog())
     max_steps = max_steps or cfg.train.max_iterations
     t = cfg.train
     state = create_train_state(params, points, cfg)
@@ -260,7 +279,13 @@ def fit(
             # a finished run (last >= max_steps) restores and returns
             state = cio.restore_train_state(ckpt_dir, last, state, cfg)
             start_step = last + 1
-            print(f"resumed from step {last}")
+            if lead:
+                print(f"resumed from step {last}")
+    if mesh is not None:
+        sharding.shard_state(state, mesh)
+
+    def whole_state():
+        return sharding.whole_state(state, mesh)
     q = cfg.query
     # the grid, the candidate cache for the legacy step only
     cfg_g = dataclasses.replace(cfg, query=dataclasses.replace(
@@ -301,14 +326,18 @@ def fit(
             print(f"train march auto-plan: steps {cfg.query.march_steps} "
                   f"buckets {cfg.query.march_buckets}")
         geo["scene"] = make_geo()
-        fast_step = make_fast_train_step(cfg)
+        if mesh is not None:
+            fast_step = sharding.make_sharded_fast_train_step(cfg, mesh)
+        else:
+            fast_step = make_fast_train_step(cfg)
 
         def step_fn(st, campos, camrot, rays, gt, near, far, **kw):
             g, rmin, svs = geo["scene"]
             return fast_step(st, g, rmin, svs, campos, camrot, rays, gt,
                              near, far, **kw)
     else:
-        legacy_step = make_train_step(cfg)
+        legacy_step = (sharding.make_sharded_train_step(cfg, mesh)
+                       if mesh is not None else make_train_step(cfg))
 
         def step_fn(st, campos, camrot, rays, gt, near, far, **kw):
             return legacy_step(st, grid, campos, camrot, rays, gt, near,
@@ -323,7 +352,8 @@ def fit(
     need_mask = (dataset.alphas is not None
                  and any(n.startswith("ray_depth_masked_")
                          for n in t.color_loss_items))
-    use_dev = t.device_sampling and t.random_sample == "random"
+    use_dev = (mesh is None and t.device_sampling
+               and t.random_sample == "random")
     if use_dev:
         sampler = DeviceSampler(dataset, t.rays_per_batch, gen, need_mask)
     else:
@@ -336,14 +366,28 @@ def fit(
     last_saved = -1
 
     def evaluate(step, **kw):
-        m = evaluate_dataset(cfg, state.params, state.points, grid,
-                             eval_dataset, views=eval_views,
-                             chunk=eval_chunk, fast=is_hash,
-                             bg_src_dataset=(dataset if bg_maps is not None
-                                             else None), **kw)
+        with whole_state():
+            if not lead:
+                return {}
+            m = evaluate_dataset(cfg, state.params, state.points, grid,
+                                 eval_dataset, views=eval_views,
+                                 chunk=eval_chunk, fast=is_hash,
+                                 bg_src_dataset=(dataset if bg_maps
+                                                 is not None else None),
+                                 **kw)
         eval_history.append({"step": step,
                              "wall_s": round(time.time() - t_fit0, 1), **m})
         return m
+
+    def flush(step, extra):
+        rec = logger.flush(step, extra=extra)
+        if rec is not None:
+            log.append(rec)
+
+    def save(step):
+        with whole_state():
+            if lead:
+                save_checkpoint(out_dir, state, step)
 
     K = max(1, int(t.steps_per_dispatch)) if use_dev else 1
     step = start_step
@@ -383,14 +427,14 @@ def fit(
             return freq and (s_end // freq) > ((s0 - 1) // freq)
 
         if crossed(print_freq):
-            log.append(logger.flush(
-                s_end, extra={"n_points": int(state.points.num_alive)}))
+            flush(s_end, {"n_points": int(state.points.num_alive)})
 
         # prune low-confidence points, rebuild the grid and the step's
         # cache (reference train_ft.py:834-842)
         if (t.prune_iter > 0 and crossed(t.prune_iter)
                 and s0 <= t.prune_max_iter):
-            state.points = npts.prune(state.points, t.prune_thresh)
+            with whole_state():
+                state.points = npts.prune(state.points, t.prune_thresh)
             grid = None         # the stale grid goes before the build
             grid = build_query_grid(state.points.xyz, state.points.alive,
                                     cfg_g.query)
@@ -402,17 +446,19 @@ def fit(
                 miss_pairs, max(1, dataset.num_views // t.prob_num_step),
                 dataset.num_views, s_end)
             miss_pairs.clear()
-            state, grid, n_new = probe_and_grow(
-                cfg_g, state, grid, dataset, views=views, chunk=eval_chunk,
-                opacity_thresh=t.prob_thresh, prob_mul=t.prob_mul)
+            with whole_state():
+                state, grid, n_new = probe_and_grow(
+                    cfg_g, state, grid, dataset, views=views,
+                    chunk=eval_chunk, opacity_thresh=t.prob_thresh,
+                    prob_mul=t.prob_mul)
             if n_new:
                 rebuild_geo()
             grow_history.append({"step": s_end, "grown_points": int(n_new),
                                  "n_alive": int(state.points.num_alive)})
-            log.append(logger.flush(s_end, extra={"grown_points": n_new}))
+            flush(s_end, {"grown_points": n_new})
 
         if save_freq and crossed(save_freq):
-            save_checkpoint(out_dir, state, s_end)
+            save(s_end)
             last_saved = s_end
 
         if crossed(eval_freq) and eval_dataset is not None:
@@ -420,17 +466,17 @@ def fit(
                 s_end, save_images=eval_save_images,
                 out_dir=(os.path.join(out_dir, f"evalimg_{s_end:06d}")
                          if eval_save_images else None))
-            log.append(logger.flush(
-                s_end, extra={f"eval_{k}": v for k, v in m.items()}))
+            flush(s_end, {f"eval_{k}": v for k, v in m.items()})
 
     if last_saved != max_steps:
         # the cadence save may have written this step already
-        save_checkpoint(out_dir, state, max_steps)
+        save(max_steps)
     metrics: Dict[str, float] = {}
     if eval_dataset is not None:
         metrics = evaluate(max_steps)
-        log.append(logger.flush(
-            max_steps, extra={f"final_{k}": v for k, v in metrics.items()}))
+        flush(max_steps, {f"final_{k}": v for k, v in metrics.items()})
     logger.close()
+    if mesh is not None:
+        sharding.unshard_state(state, mesh)
     return FitResult(state=state, out_dir=out_dir, metrics=metrics, log=log,
                      eval_history=eval_history, grow_history=grow_history)

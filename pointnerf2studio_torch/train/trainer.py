@@ -23,7 +23,9 @@ Structure changes act on the state in place: `set_points` writes a new
 cloud's values into the state's trainable tensors (the ones the points
 group owns), `reset_point_opt_slots` zeroes the Adam moments of grown
 slots, and `expand_state_capacity` re-pads the cloud and its moments,
-moving each tensor's Adam state to its padded successor.
+moving each tensor's Adam state to its padded successor
+(`rebind_points`, which parallel/sharding.py also uses to cut a state
+into a rank's rows and put it together again).
 """
 
 from __future__ import annotations
@@ -163,17 +165,19 @@ def reset_point_opt_slots(opt_points: torch.optim.Adam,
                 st[k][slots.to(st[k].device)] = 0.0
 
 
+MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
 @torch.no_grad()
-def expand_state_capacity(state: TrainState, new_capacity: int) -> None:
-    """Re-pad the cloud to `new_capacity` rows (`expand_capacity`) and its
-    Adam moments with zero rows: each trainable tensor is replaced by its
-    padded successor in the points group, which takes over its state with
-    the step count kept; the scheduler's position is untouched."""
-    from pointnerf2studio_torch.models.neural_points import expand_capacity
+def rebind_points(state: TrainState, points: NeuralPointCloud,
+                  moment_fn) -> None:
+    """Make `points` the state's cloud: its trainable tensors (copied,
+    with gradients on) take the place of the points group's tensors, each
+    taking over its predecessor's Adam state with the two moments mapped
+    by `moment_fn` and the step count kept; the schedulers stay."""
     old = state.points.trainable()
-    grown = expand_capacity(state.points, new_capacity)
-    new = {k: v.clone().requires_grad_(True)
-           for k, v in grown.trainable().items()}
+    new = {k: v.detach().clone().requires_grad_(True)
+           for k, v in points.trainable().items()}
     swap = {id(old[k]): new[k] for k in old}
     opt = state.opt_points
     for group in opt.param_groups:
@@ -181,10 +185,18 @@ def expand_state_capacity(state: TrainState, new_capacity: int) -> None:
             q = swap[id(p)]
             st = opt.state.pop(p, None)
             if st:
-                pad = q.shape[0] - p.shape[0]
-                opt.state[q] = {
-                    k: (torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
-                        if k in ("exp_avg", "exp_avg_sq") else v)
-                    for k, v in st.items()}
+                opt.state[q] = {k: (moment_fn(v) if k in MOMENTS else v)
+                                for k, v in st.items()}
             group["params"][i] = q
-    state.points = grown.with_trainable(new)
+    state.points = points.with_trainable(new)
+
+
+@torch.no_grad()
+def expand_state_capacity(state: TrainState, new_capacity: int) -> None:
+    """Re-pad the cloud to `new_capacity` rows (`expand_capacity`) and its
+    Adam moments with zero rows (`rebind_points`); the step counts and the
+    scheduler's position are kept."""
+    from pointnerf2studio_torch.models.neural_points import expand_capacity
+    pad = new_capacity - state.points.capacity
+    rebind_points(state, expand_capacity(state.points, new_capacity),
+                  lambda v: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])]))

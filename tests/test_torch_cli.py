@@ -14,9 +14,10 @@ a ground truth composited onto white gives the JAX CLI's metrics within
 rtol 1e-9 and eval's PSNR within what 8-bit rounding can move it;
 render-video's frames (both routes of the port against the JAX CLI's
 legacy route), visualize's PLY and train's files and checkpoint layout
-are the JAX CLI's. `train --num-devices` above 1, which the port does not
-serve, refuses with its ROADMAP item; MVSNet's `gen-points` and
-`train-joint` are held in tests/test_torch_cli_mvs.py."""
+are the JAX CLI's. `train --num-devices 2 --device cpu` runs two gloo
+ranks and writes what the single-device train writes; on the card, with
+fewer cards than ranks, it raises "need N devices, have M". MVSNet's
+`gen-points` and `train-joint` are held in tests/test_torch_cli_mvs.py."""
 
 import ast
 import contextlib
@@ -378,17 +379,51 @@ def test_train_matches_jax_cli(run):
     assert [sorted(r) for r in t_rec] == [sorted(r) for r in j_rec]
 
 
-REFUSED = {
-    "num-devices": (["train", "--data", "d", "--point-cloud", "p", "--out",
-                     "o", "--num-devices", "2", *DEV], "item 12"),
-}
+def test_train_num_devices_on_cpu_ranks(run, tmp_path):
+    """train --num-devices 2 --device cpu: two gloo ranks, each running
+    fit(mesh=make_mesh(2)); rank 0 writes what the single-device train
+    writes (checkpoints, the metrics log with the same records, the
+    evaluation images)."""
+    out = str(tmp_path / "mesh")
+    os.makedirs(out)
+    start = os.path.join(run["out"], "0_net_ray_marching.pth")
+    with open(start, "rb") as f, \
+            open(os.path.join(out, "0_net_ray_marching.pth"), "wb") as g:
+        g.write(f.read())
+    tcli.main(["train", "--scene", "chair", "--data", run["data"],
+               "--point-cloud", out, "--out", out, "--max-steps", "3",
+               "--rays-per-batch", "64", "--capacity", CAPACITY,
+               "--eval-views", "1", "--eval-freq", "3", "--eval-images",
+               "--num-devices", "2", *DEV])
+
+    def files(d):
+        return {os.path.relpath(os.path.join(r, f), d)
+                for r, _, fs in os.walk(d) for f in fs}
+
+    assert files(out) == files(run["out"])
+    for d in (out, run["out"]):
+        assert os.path.isdir(os.path.join(d, "ckpt", "step_3"))
+    recs = []
+    for d in (out, run["out"]):
+        with open(os.path.join(d, "train_metrics.jsonl")) as f:
+            recs.append([sorted(json.loads(ln)) for ln in f])
+    assert recs[0] == recs[1]
+    got = tcio.load_torch_state_dict(os.path.join(out,
+                                                  "3_net_ray_marching.pth"))
+    first = tcio.load_torch_state_dict(start)
+    assert not np.array_equal(got["neural_points.points_embeding"],
+                              first["neural_points.points_embeding"])
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_unported_commands_raise(name):
-    argv, item = REFUSED[name]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        tcli.main(argv)
+def test_train_num_devices_needs_the_cards():
+    """On the card, one GPU a rank: with fewer cards than ranks the CLI
+    raises the reference's message and never stacks ranks on one card."""
+    have = torch.cuda.device_count()
+    if have >= 2:
+        pytest.skip("two cards are present: the ranks would run")
+    with pytest.raises(ValueError, match=f"need 2 devices, have {have}"):
+        tcli.main(["train", "--data", "d", "--point-cloud", "p", "--out",
+                   "o", "--num-devices", "2", "--device", "cuda"])
 
 
 def test_parser_is_the_reference_plus_device():

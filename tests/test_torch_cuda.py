@@ -590,3 +590,23 @@ def test_train_march_equals_dense(dev):
     m = _train_step(w, w["cfg_m"])
     assert m[1].get("first_valid_cols", 0) == 0
     _train_equal(m, _train_step(w, w["cfg"]))
+
+
+def test_gather_rows_backward_same_bits_every_run(dev):
+    """The attribute gather's backward gives the same bits on every run at
+    a train step's size (262,144 rows of 39 channels into 558,000 points):
+    its float64 prefix sums are scanned row by row, where one device-wide
+    scan of a 1-D tensor groups the sums as its tiles happen to finish."""
+    from pointnerf2studio_torch.models.neural_points import gather_rows
+    g = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn((558_000, 39), generator=g, device=dev,
+                        requires_grad=True)
+    idx = torch.randint(0, 558_000, (262_144,), generator=g, device=dev)
+    up = torch.randn((262_144, 39), generator=g, device=dev)
+    first = None
+    for _ in range(20):
+        table.grad = None
+        gather_rows(table, idx).backward(up)
+        if first is None:
+            first = table.grad.clone()
+        assert torch.equal(table.grad, first)

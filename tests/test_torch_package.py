@@ -51,7 +51,9 @@ def test_sources_found():
                 "models/mvsnet/layers.py", "models/mvsnet/featurenet.py",
                 "models/mvsnet/mvsnet.py", "models/mvsnet/costvol.py",
                 "models/mvsnet/pointgen.py", "models/mvsnet/__init__.py",
-                "data/mvs_batches.py", "train/joint.py", "utils/lpips.py"):
+                "data/mvs_batches.py", "train/joint.py", "utils/lpips.py",
+                "parallel/__init__.py", "parallel/sharding.py",
+                "parallel/grid_shard.py"):
         assert f"pointnerf2studio_torch/{mod}" in SOURCES
 
 
