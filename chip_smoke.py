@@ -268,6 +268,24 @@ ray budget measured on the frame as the JAX bench sizes them:
      raise "need 2 devices, have 1". Each rank's launches by job, peak
      bytes and seconds are printed; the sharded it/s is gloo on one card,
      not a multi-GPU rate.
+  18. probes (run right after the routes phase): the render probes of the
+     XLA route (`chunk_pipeline` and `fast_render_rays` with debug_ablate;
+     pointnerf2studio_torch/tools/probe_stages.py) on chair-800p's scene,
+     cache and weights, with the reference tools' front-end (all 400
+     samples of a ray looked up, #1, the slots packed at compact budget 8)
+     on chunk 0 of the frame. The tool's compaction and its slots'
+     geometry must be what fast_render_rays' XLA route hands its chunk
+     body, and `chunk_pipeline(None)` on them must return what the body
+     returned, bit for bit (one body: a determinism check). Then the cumulative cut-offs (p_gather,
+     p_geom, p_knn, p_extract, p_dists, decode, full), the single-stage
+     fakes (gather, knn, extract, weights, decode) and full with
+     fused_decode2 (#4), each timed over PROBE_SETS jittered copies of the
+     chunk's rays after a warm-up on another (ms a call, the deltas of the
+     prefixes printed); #1's launches in the front-end and #4's in the
+     fused_decode2 runs go into the kernels line as "probes". Every
+     cut-off's outputs on the card must equal the port's CPU run of it on
+     the first PROBE_CPU_SLOTS slots: found and pb exactly, sigma within
+     ATOL + SIG_RTOL |sigma|, rgb within ATOL, mean |diff| < MEAN_TOL.
 
 The launch counts are set to 0 just before each path and read just
 after it. It fails (non-zero exit, no result line) when there is no
@@ -285,10 +303,10 @@ frame it is held to, when first_valid_cols is launched behind the march
 or the raster, or when a path's first chunk rendered through the kernels
 differs from the same chunk rendered through the plain versions
 (ray_mask exactly, colour within the same bound), when a check of the
-payload phase, of the train phase, of the routes phase, of the legacy
-phase, of the structure phase, of the plane phase, of the large-scene
-phase, of the data phase, of the mvs phase or of the multi phase fails
-(a failed rank fails the phase). Printed
+payload phase, of the train phase, of the routes phase, of the probes
+phase, of the legacy phase, of the structure phase, of the plane phase,
+of the large-scene phase, of the data phase, of the mvs phase or of the
+multi phase fails (a failed rank fails the phase). Printed
 before the last line: the card's name and power limit, build and phase times, each
 kernel's and its plain version's time at its path's shapes beside the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -1760,6 +1778,169 @@ def routes_phase(c) -> dict:
     log(f"routes phase: {stats['phase_s']:.1f} s")
     return {"stats": stats, "launches": {f"route_{k}": v
                                          for k, v in launches.items()}}
+
+
+# the probes phase: timed jittered ray sets a variant (one more for the
+# warm-up) and the slots each cut-off is held to its CPU twin on
+PROBE_SETS, PROBE_CPU_SLOTS = 8, 4096
+
+
+def probes_phase(c) -> dict:
+    """The render probes of the XLA route (`chunk_pipeline`'s and
+    `fast_render_rays`' debug_ablate; pointnerf2studio_torch/tools/
+    probe_stages.py) on chair-800p's scene, cache and weights, section
+    "probes" of the module docstring. Returns each cut-off's ms, the
+    checks' numbers and the launches of #1 and #4."""
+    import copy
+    import types
+
+    import torch
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.tools import probe_stages as ps
+
+    t_phase = time.perf_counter()
+    scene, cache = c.scene, c.cache
+    # the reference tools' route: the XLA candidate stages on the
+    # compaction of all D samples of a ray (no depth window, no packing)
+    cfg = dataclasses.replace(c.cfg, query=dataclasses.replace(
+        c.cfg.query, chunk_mode="xla", knn_mode="xla", depth_window=0,
+        ray_budget=0))
+    cfg2 = dataclasses.replace(cfg, agg=dataclasses.replace(
+        cfg.agg, fused_decode2=True))
+    rays0 = c.raydirs[:CHUNK].contiguous()
+    sets = ps.jittered(rays0, PROBE_SETS + 1)
+    stats = {}
+
+    # ---- the tool's compaction is what fast_render_rays' XLA route hands
+    # its chunk body on chunk 0 (the slots and their geometry, bit for
+    # bit), and chunk_pipeline(None) on it returns the body's outputs bit
+    # for bit: both run one body, so the second is a determinism check of
+    # the card's chunk, not a second implementation's parity
+    seen = {}
+    orig = fr._chunk_body
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        seen["args"], seen["out"] = a, out
+        return out
+
+    fr._chunk_body = spy
+    try:
+        fr.fast_render_rays(scene.params, scene.cloud.Rw2c, cache,
+                            scene.campos, scene.camrotc2w, rays0, scene.near,
+                            scene.far, cfg, c.rmin, c.svs)
+    finally:
+        fr._chunk_body = orig
+    _cuda.LAUNCHES.clear()
+    comp0 = ps.compaction(cache, cfg, scene.campos, rays0, scene.near,
+                          scene.far, c.rmin, c.svs)
+    direct = ps.chunk_outputs(scene, cache, cfg, c.rmin, c.svs, rays0, comp0,
+                              "full")
+    near, far = (torch.as_tensor(x, dtype=torch.float32,
+                                 device=scene.campos.device)
+                 for x in (scene.near, scene.far))
+    step_t = (far - near) / cfg.query.z_depth_dim
+    geom0 = fr.slot_geometry(rays0, scene.campos, near, step_t, comp0[1],
+                             comp0[2], c.rmin, c.svs)
+    torch.cuda.synchronize()
+    # _chunk_body's (qslot_c, mask_c, rd_sel, locs, center)
+    body_in = seen["args"][7:12]
+    same_in = (all(torch.equal(a.long(), b.long()) for a, b in zip(
+        body_in[:2], (comp0[0], comp0[3])))
+        and all(torch.equal(a, b) for a, b in zip(body_in[2:], geom0)))
+    same_out = all(torch.equal(a, b) for a, b in zip(seen["out"], direct))
+    n_valid = int(comp0[3].sum())
+    stats.update(n_valid=n_valid, live_chunks=-(-n_valid // cfg.query.fast_chunk),
+                 slots=int(comp0[3].shape[0]))
+    log(f"probes: chunk 0 ({CHUNK} rays, all {cfg.query.z_depth_dim} samples "
+        f"looked up): {n_valid} valid slots of {comp0[3].shape[0]}, "
+        f"{stats['live_chunks']} live chunks of {cfg.query.fast_chunk}; the "
+        f"tool's compaction {'equals' if same_in else 'differs from'} "
+        f"fast_render_rays', chunk_pipeline(None) "
+        f"{'bit-equal to' if same_out else 'differs from'} its chunk body "
+        f"(a determinism check: one body)")
+    if not (same_in and same_out):
+        fail("probes: chunk_pipeline(None) is not the XLA route's chunk body")
+
+    # ---- each cut-off's time over the jittered sets (stages, then the
+    # single-stage fakes, then full with fused_decode2), launches counted
+    inputs = ps.chunk_inputs(scene, cache, cfg, c.rmin, c.svs, sets)
+    torch.cuda.synchronize()
+    # #1 once a compaction: chunk 0's and each set's
+    launches = {"first_valid_cols": _cuda.LAUNCHES.get("first_valid_cols",
+                                                       0)}
+    if launches["first_valid_cols"] != PROBE_SETS + 2:
+        fail(f"probes: first_valid_cols launched "
+             f"{launches['first_valid_cols']} times on {PROBE_SETS + 2} "
+             f"compactions")
+
+    def plog(m):
+        log(f"probes {m} ({c.smi})")
+
+    stages = ps.probe_times("stages", scene, cache, cfg, c.rmin, c.svs,
+                            inputs, log=plog)
+    chunks = ps.probe_times("chunks", scene, cache, cfg, c.rmin, c.svs,
+                            inputs, variants=ps.CHUNKS[:-1], log=plog)
+    _cuda.LAUNCHES.clear()
+    full2 = ps.probe_times("chunks", scene, cache, cfg2, c.rmin, c.svs,
+                           inputs, variants=("full",),
+                           log=lambda m: plog(m + " with fused_decode2"))
+    torch.cuda.synchronize()
+    # #4 once a live chunk of each full pipeline (the warm-up's included)
+    launches["fused_decode2"] = _cuda.LAUNCHES.get("fused_decode2", 0)
+    want4 = sum(-(-int(x[1][3].sum()) // cfg.query.fast_chunk)
+                for x in inputs)
+    if launches["fused_decode2"] != want4:
+        fail(f"probes: fused_decode2 launched {launches['fused_decode2']} "
+             f"times on {want4} live chunks")
+    stats.update(stages_ms=stages, chunks_ms=chunks,
+                 full_fused_decode2_ms=full2["full"])
+
+    # ---- every cut-off on the card against the port's CPU run of it on
+    # the first PROBE_CPU_SLOTS slots (a cache of the rows they read):
+    # found and pb exactly, sigma within ATOL + SIG_RTOL |sigma|, rgb
+    # within ATOL, mean |diff| over both < MEAN_TOL
+    n = PROBE_CPU_SLOTS
+    qs0 = comp0[0][:n]
+    rows = torch.unique(torch.cat([qs0.new_zeros(1), qs0]))   # row 0: gather
+    cpu_cache = fr.FatCache(
+        coor_2_qslot=None, kmeta=cache.kmeta[rows].cpu(),
+        kcand=cache.kcand[rows].cpu(), kxyz=cache.kxyz[rows].cpu(),
+        n_q=cache.n_q.cpu())
+    comp_cpu = (torch.searchsorted(rows, qs0).cpu(),
+                *(x[:n].cpu() for x in comp0[1:]))
+    cpu = types.SimpleNamespace(
+        params=copy.deepcopy(scene.params).to("cpu"),
+        cloud=types.SimpleNamespace(Rw2c=scene.cloud.Rw2c.cpu()),
+        campos=scene.campos.cpu(), camrotc2w=scene.camrotc2w.cpu(),
+        near=scene.near, far=scene.far)
+    twins = {}
+    cuts = ps.STAGES + tuple(v for v in ps.CHUNKS if v not in ps.STAGES)
+    for name, cf, probe in ([(v, cfg, v) for v in cuts]
+                            + [("full_fused_decode2", cfg2, "full")]):
+        got = ps.chunk_outputs(scene, cache, cf, c.rmin, c.svs, rays0, comp0,
+                               probe)
+        want = ps.chunk_outputs(cpu, cpu_cache, cf, c.rmin.cpu(),
+                                c.svs.cpu(), rays0.cpu(), comp_cpu, probe)
+        sig, rgb, found, pb = (x.cpu() for x in got)
+        sig, rgb, found = sig[:n], rgb[:n], found[:n]
+        d_sig, d_rgb = (sig - want[0]).abs(), (rgb - want[1]).abs()
+        mean = float(torch.cat([d_sig, d_rgb.reshape(-1)]).mean())
+        twins[name] = dict(max_abs=float(max(d_sig.max(), d_rgb.max())),
+                           mean_abs=mean)
+        log(f"probes {name}: card vs CPU on the first {n} slots: found "
+            f"{'equal' if torch.equal(found, want[2]) else 'DIFFERS'}, "
+            f"max |diff| sigma {float(d_sig.max()):.3e} rgb "
+            f"{float(d_rgb.max()):.3e}, mean {mean:.3e}")
+        if not (torch.equal(found, want[2]) and int(pb) == int(want[3]) == 0
+                and bool((d_sig <= ATOL + SIG_RTOL * want[0].abs()).all())
+                and float(d_rgb.max()) <= ATOL and mean < MEAN_TOL):
+            fail(f"probes {name}: the card's outputs disagree with the CPU's")
+    stats.update(cpu_twins=twins, launches=launches,
+                 phase_s=time.perf_counter() - t_phase)
+    log(f"probes phase: {stats['phase_s']:.1f} s, launches {launches}")
+    return stats
 
 
 LEGACY_KERNELS = ("linear", "quadric", "avg", "numlinear", "numquadric")
@@ -5429,6 +5610,11 @@ def main() -> int:
     routes = routes_phase(ns)
 
     # =================================================================
+    # The render probes of the XLA route, stage by stage, on chair-800p
+    # =================================================================
+    probes = probes_phase(ns)
+
+    # =================================================================
     # The reference's default route: the candidate cache, the legacy step
     # =================================================================
     legacy = legacy_phases(ns)
@@ -5592,6 +5778,7 @@ def main() -> int:
                                  k: v.get("first_valid_cols", 0)
                                  for k, v in mvs["launches"].items()},
                              "routes": by_route("first_valid_cols"),
+                             "probes": probes["launches"]["first_valid_cols"],
                              "multi": multi_launches("first_valid_cols")}),
         record("fused_candidate_select", "fused_select.cu",
                "fused_select.py:60", launches_a["fused_candidate_select"],
@@ -5618,6 +5805,7 @@ def main() -> int:
                launches_a["fused_decode2"], kacc_err, t_ka_k, t_ka_p, b_ka,
                f_ka, extra={"large_scene": room["kacc"],
                             "routes": by_route("fused_decode2"),
+                            "probes": probes["launches"]["fused_decode2"],
                             "multi": multi_launches("fused_decode2")}),
         record("fused_chunk_decode", "fused_chunk.cu", "fused_chunk.py:86",
                launches["fused_chunk_decode"], fused_err, t_fc_k, t_fc_p,
@@ -5638,6 +5826,7 @@ def main() -> int:
                             "legacy": launches_b, **fe["launches"],
                             **legacy["launches"], **routes["launches"]},
         "routes": routes["stats"],
+        "probes": {k: v for k, v in probes.items() if k != "launches"},
         "front_end_frame_ms": fe["frame_ms"],
         "raster_emit_program_ms": fe["emit_program_ms"],
         "raster_emit_ms": fe["emit_ms"], "march_plan": fe["march_plan"],

@@ -17,11 +17,13 @@ stored candidate-major, which every route reads: see `FatCache`),
 
 with every exactness counter the reference returns on that path
 (win_overflow, dw_overflow, rb_overflow, cb_overflow, pb_overflow) and
-n_valid_slots. The chunk decode is one of
+n_valid_slots. The chunk decode, `chunk_pipeline` (the reference's, with
+its arguments: perf probes time it on compaction outputs handed in), is
+one of
 
   knn_mode="xla", chunk_mode="xla" (the reference's default): the XLA
-  candidate stages of `chunk_pipeline` as torch ops, in chunks of CH
-  slots (`_xla_route`; `_xla_front`: the fat-row gather, candidate d2,
+  candidate stages as torch ops, in chunks of CH slots (`_xla_route`;
+  `_xla_front`: the fat-row gather, candidate d2,
   the radius / valid / layered-shell masks, the exact K smallest by a
   stable sort; `_xla_extract`: the payload extract), then `_decode_tail`
   or, under decode_mode="pair", `_pair_tail`; the only route that gives
@@ -64,15 +66,16 @@ two-phase pipeline (`decode_chunk2`), the valid-pair decode
 the pruned candidate width (`cand_prune`); in the front-end the span
 tiers (`span_tiers`), the two-level coarse test (`coarse_step`,
 `win_overflow`) and the one-hot compaction; the slot-grid composite
-(composite_mode="grid"); and `render_frame`'s `render_maker`. With
+(composite_mode="grid"); `render_frame`'s `render_maker`; and the perf
+probes (`debug_ablate`, PROBES) and `chunk_pipeline`'s `skip_policy`. With
 `pshard_axis` the cache's candidate rows are one rank's qslot slab of a
 cache sharded over a mesh axis (parallel/sharding.py): the XLA route
 computes the slots the slab owns and a psum reassembles them.
 
 Host synchronisation: none per chunk on the kernel routes (ray packing
 and slot packing are cumsum/scatter compactions on the device, and the
-kernels skip masked slots themselves); the XLA route reads the valid
-slot count back once per call, to skip its all-padding chunks as the
+kernels skip masked slots themselves); the XLA route reads its live
+chunks back once per call, to skip its all-padding chunks as the
 reference's `chunk_or_skip` does.
 """
 
@@ -108,7 +111,7 @@ from pointnerf2studio_torch.ops.hash_grid import (
 from pointnerf2studio_torch.ops.march import (
     build_march_table, march_rays, slab, to_i32)
 from pointnerf2studio_torch.ops.query import (
-    candidate_keep_mask, layered_k_nearest, neighbor_offsets)
+    candidate_keep_mask, layered_k_nearest, neighbor_offsets, shell_eligible)
 from pointnerf2studio_torch.ops.raster import (
     RasterUnserved, _voxel_footprint, build_qvox, make_raster_program)
 from pointnerf2studio_torch.ops.select import (
@@ -119,6 +122,13 @@ PAYW = 44                 # bf16 payload per candidate: xyz_rel(3) +
 ROWW = 1 + PAYW // 2      # f32 words per candidate in the reference's
                           # "rows" layout (its cache sizing counts them)
 TAIL_CHUNK = 1 << 16      # slots per piece of the decode_radiance tail
+# the perf probes (`debug_ablate`) of fast_render_rays' front-end, and of
+# chunk_pipeline: one stage faked, or the chunk cut short after a stage
+# (the "p_" keys, cumulative prefixes of the chunk body)
+FRONT_PROBES = ("qslot", "compact", "selonly", "scatterback")
+CHUNK_PROBES = ("gather", "knn", "extract", "weights", "decode",
+                "p_gather", "p_geom", "p_knn", "p_extract", "p_dists")
+PROBES = FRONT_PROBES + CHUNK_PROBES
 
 
 @dataclasses.dataclass
@@ -709,13 +719,18 @@ def _use_fused2(cfg: PointNerfConfig) -> bool:
 
 
 def _check_served(cfg: PointNerfConfig, Rw2c: torch.Tensor,
-                  prob: bool) -> str:
+                  prob: bool, debug_ablate=None) -> str:
     """The chunk route of a config: "chunk" (the fused chunk kernel),
     "staged" (the selection kernel, then the decode tail: knn_mode
     "fused", or chunk_mode "fused" where the whole fused chunk does not
     apply, as the reference's chunk_pipeline degrades) or "xla" (the XLA
-    candidate stages, then the lane or the pair decode). Raises where the
-    reference refuses the combination."""
+    candidate stages, then the lane or the pair decode). A perf probe
+    (`debug_ablate`) takes the XLA candidate stages and the lane decode
+    whatever the config asks for, as in the reference; fused_decode2
+    stays. Raises where the reference refuses the combination."""
+    if debug_ablate is not None and debug_ablate not in PROBES:
+        raise ValueError(f"unknown debug_ablate {debug_ablate!r}; the probes "
+                         f"are {PROBES}")
     q = cfg.query
     if Rw2c.ndim != 2:
         raise NotImplementedError(
@@ -723,6 +738,20 @@ def _check_served(cfg: PointNerfConfig, Rw2c: torch.Tensor,
             "scene's per-point rotations render through "
             "models/render.render_rays (the reference's fast path has no "
             "per-point rotation either)")
+    if q.decode_mode not in ("lanes", "pair"):
+        raise ValueError(f"unknown decode_mode {q.decode_mode!r}")
+    if q.extract_mode not in ("onehot", "gather", "krows"):
+        raise ValueError(f"unknown extract_mode {q.extract_mode!r}")
+    if prob and q.span_tiers:
+        raise ValueError("prob mode + span_tiers not supported (growth "
+                         "probes render plain chunks)")
+    if debug_ablate is not None:
+        if prob:
+            raise ValueError(
+                "prob-mode neighbour averages (want_attrs) need the default "
+                "XLA one-hot decode path, which a perf probe (debug_ablate) "
+                "replaces")
+        return "xla"
     fused2 = _use_fused2(cfg)
     whole = (q.chunk_mode == "fused" and not fused2
              and fused_chunk_eligible(cfg.agg, False, q.K))
@@ -737,32 +766,35 @@ def _check_served(cfg: PointNerfConfig, Rw2c: torch.Tensor,
                 "decode_mode='pair' requires agg_intrp_order >= 1 and a "
                 "global Rw2c (per-point editing rotations decode on the "
                 "lane layout)")
-    elif q.decode_mode != "lanes":
-        raise ValueError(f"unknown decode_mode {q.decode_mode!r}")
-    if q.extract_mode not in ("onehot", "gather", "krows"):
-        raise ValueError(f"unknown extract_mode {q.extract_mode!r}")
     if prob and (whole or staged or q.decode_mode == "pair"
                  or q.extract_mode == "krows"):
         raise ValueError(
             "prob-mode neighbour averages need the XLA route (knn_mode and "
             "chunk_mode 'xla', decode_mode 'lanes', extract_mode 'onehot' "
             "or 'gather')")
-    if prob and q.span_tiers:
-        raise ValueError("prob mode + span_tiers not supported (growth "
-                         "probes render plain chunks)")
     return "chunk" if whole else "staged" if staged else "xla"
+
+
+def _sum32(x: torch.Tensor, dims) -> torch.Tensor:
+    """A probe's reduction of `x` over `dims` as float32, summed in float64:
+    the same value on the CPU and the card, whatever order each sums in."""
+    return x.sum(dims, dtype=torch.float64).float()
 
 
 def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
                  campos, nsel, pnt_mask, locs, center, rd_sel,
-                 want_attrs: bool = False, base_h=None):
+                 want_attrs: bool = False, base_h=None, debug_ablate=None):
     """(sigma [M], rgb [M, 3], found [M]) from the selected payloads
     nsel [M, K, >= 42] bf16: neighbour geometry, aggregation weights,
     then the tower (the reference's `_decode_tail`). `want_attrs` adds
     the [M, 39] weight * conf neighbour averages of the prob outputs
     (colour 3, dir 3, conf 1, embedding 32), with the wc = weight * conf
     * pnt_mask of the legacy prob path. `base_h` [M, K, hidden]: the
-    cached layer-1 rows of the selected points (base_cache)."""
+    cached layer-1 rows of the selected points (base_cache). The perf
+    probes of this stage: "p_dists" ends the chunk after the neighbour
+    geometry, "weights" puts 0.1 in place of each aggregation weight,
+    "decode" a sum of the weights and the mean neighbour colour in place
+    of the tower (wrong values, the rest's real time)."""
     f32 = torch.float32
     nxyz = nsel[..., :3].to(f32) + center[:, None, :]           # [M, K, 3]
     # attribute slices stay bf16 end to end, as in the reference
@@ -771,12 +803,23 @@ def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
     ndir = nsel[..., 36:39]
     ncol = nsel[..., 39:42]
     dists = neighbor_dists(nxyz, locs, camrotc2w, campos)
-    weight, emb2 = aggregation_weight(cfg.agg, emb, dists, pnt_mask,
-                                      max(cfg.query.scaled_vsize), params)
-    if cfg.agg.conf_in_weight:
-        weight = weight * conf
+    if debug_ablate == "p_dists":
+        return (_sum32(dists, (-1, -2)) + _sum32(conf, -1),
+                _sum32(emb, (-1, -2))[:, None] + ncol.to(f32).mean(-2)
+                + ndir.to(f32).mean(-2), pnt_mask.any(-1))
+    if debug_ablate == "weights":
+        weight, emb2 = pnt_mask.to(f32) * 0.1, emb
+    else:
+        weight, emb2 = aggregation_weight(cfg.agg, emb, dists, pnt_mask,
+                                          max(cfg.query.scaled_vsize), params)
+        if cfg.agg.conf_in_weight:
+            weight = weight * conf
     vd = rotate(rd_sel, Rw2c)
-    if _use_fused2(cfg):
+    if debug_ablate == "decode":
+        # the mean of bf16 values is a bf16 value, as in the reference
+        sig = (weight * pnt_mask).sum(-1) * 100.0
+        rgb = (ncol.to(f32).sum(-2) / ncol.shape[-2]).to(ncol.dtype).to(f32)
+    elif _use_fused2(cfg):
         dists_rot, dirdot, wk, dir_pe = tower_inputs(
             cfg.agg, dists, ndir, vd, weight, pnt_mask, Rw2c)
         sig, rgb = fused_decode2(
@@ -798,17 +841,25 @@ def _decode_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
 
 
 def _xla_front(cfg: PointNerfConfig, cache: FatCache, qslot, locs, center,
-               mask, num_shells: int):
+               mask, num_shells: int, debug_ablate=None):
     """The candidate stages of the reference's XLA chunk body on Mc slots:
     the row gather by qslot [Mc], candidate d2 from the bf16 relative xyz
     plus `center - locs`, the valid / radius masks and the layered K
     smallest d2 (`layered_k_nearest`: valid first, smallest column on
     ties). Returns (top [Mc, K], pnt_mask [Mc, K], meta [Mc, C], payload
     [Mc, C, PK] bf16, or None under extract_mode="krows", whose
-    selection reads only the slim view's three words a candidate)."""
+    selection reads only the slim view's three words a candidate).
+
+    The perf probes of these stages: "gather" broadcasts row 0 in place of
+    the row gather and "knn" takes the first K candidates in place of the
+    selection (wrong values, the rest's real time); "p_gather", "p_geom"
+    and "p_knn" end the chunk after the gather, after the masks and after
+    the selection, and return the reference's cut-off (sigma [Mc], rgb
+    [Mc, 3], found [Mc]) in place of the four stages' outputs."""
     q = cfg.query
     Mc = qslot.shape[0]
-    if q.extract_mode == "krows":
+    K = q.K
+    if q.extract_mode == "krows" and debug_ablate is None:
         if cache.slim is None:
             raise ValueError(
                 "extract_mode='krows' needs the slim cache view "
@@ -818,11 +869,18 @@ def _xla_front(cfg: PointNerfConfig, cache: FatCache, qslot, locs, center,
         rel = slim3[..., 1:].contiguous().view(torch.bfloat16)  # [Mc, C, 4]
         payload = None
     else:
-        meta = cache.kmeta[qslot]                               # [Mc, C]
-        # the candidate rows move as 8-byte words (a bf16 index copy
-        # moves two bytes an element)
-        payload = cache.kcand.view(torch.int64).index_select(0, qslot).view(
-            torch.bfloat16)                                     # [Mc, C, PK]
+        if debug_ablate == "gather":
+            meta = cache.kmeta[:1].expand(Mc, -1)
+            payload = cache.kcand[:1].expand(Mc, -1, -1)
+        else:
+            meta = cache.kmeta[qslot]                           # [Mc, C]
+            # the candidate rows move as 8-byte words (a bf16 index copy
+            # moves two bytes an element)
+            payload = cache.kcand.view(torch.int64).index_select(
+                0, qslot).view(torch.bfloat16)                  # [Mc, C, PK]
+        if debug_ablate == "p_gather":
+            return (_sum32(payload[..., :PAYW], (-1, -2)),
+                    _sum32(meta, -1)[:, None].expand(Mc, 3), mask)
         rel = payload
     cd = center - locs
     dx = rel[..., 0].float() + cd[:, 0:1]
@@ -833,17 +891,33 @@ def _xla_front(cfg: PointNerfConfig, cache: FatCache, qslot, locs, center,
     radius2 = q.radius_limit ** 2
     if radius2 > 0:
         ok = ok & (d2 <= radius2)
-    top, pnt_mask = layered_k_nearest(d2, ok, meta & 3, q.K, num_shells)
+    ok = shell_eligible(ok, meta & 3, K, num_shells)
+    if debug_ablate == "p_geom":
+        return (_sum32(d2, -1) + _sum32(ok, -1),
+                _sum32(dx + dy + dz, -1)[:, None].expand(Mc, 3), mask)
+    if debug_ablate == "knn":
+        top = torch.arange(K, device=qslot.device).expand(Mc, K)
+        pnt_mask = ok[:, :K]
+    else:
+        top, pnt_mask = layered_k_nearest(d2, ok, meta & 3, K, 1)
+    if debug_ablate == "p_knn":
+        key = torch.where(pnt_mask, torch.gather(d2, 1, top), 0.0)
+        return (_sum32(key, -1), _sum32(top, -1)[:, None].expand(Mc, 3),
+                pnt_mask.any(-1))
     return top, pnt_mask, meta, payload
 
 
-def _xla_extract(cache: FatCache, qslot, top, pnt_mask, payload):
+def _xla_extract(cache: FatCache, qslot, top, pnt_mask, payload,
+                 debug_ablate=None):
     """The selected payloads nsel [Mc, K, PAYW] bf16, zero where
     pnt_mask is off: a gather from the gathered rows (equal to the
     reference's one-hot einsum: one bf16 value passes its f32 accumulator
     unchanged), or, under krows (payload None), the K chosen candidates'
-    rows read straight from the cache."""
+    rows read straight from the cache. The probe "extract" takes the
+    first K candidates' payloads, unmasked, in place of the extract."""
     Mc, K = top.shape
+    if debug_ablate == "extract":
+        return payload[:, :K, :PAYW]
     if payload is None:
         flat = qslot.long()[:, None] * cache.cand + top         # [Mc, K]
         nsel = cache.kcand.reshape(-1, PK)[flat][..., :PAYW]
@@ -934,19 +1008,22 @@ def _pair_tail(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
 
 def _xla_route(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
                campos, cache: FatCache, qslot_c, locs, center, rd_sel,
-               mask_c, num_shells: int, prob: bool):
+               mask_c, num_shells: int, want_attrs: bool, debug_ablate=None,
+               skip_policy: str = "prefix"):
     """The reference's XLA chunk pipeline over the M packed slots, CH
-    slots a chunk (`xla_chunk_slots`). A chunk that holds no valid slot
-    is skipped (one read-back of the live chunks: past the valid prefix
-    of an unsharded call, or outside the rank's slab of a point-sharded
-    cache). A chunk runs the candidate stages
-    (`_xla_front`), then the lane decode (`_xla_extract`, `_decode_tail`)
-    or the pair decode (`_pair_tail`). With `decode_chunk2` > 0 (and no
-    pair, krows, prob, base_h or fused_decode2, and M > CH, the
-    reference's gate) the pipeline runs in two phases: the candidate
-    stages chunk by chunk into a materialised [M, K] selection, then the
-    tower in pieces of decode_chunk2 slots. Returns (sig [M], rgb [M, 3],
-    found [M], pb_overflow [] int32 or None, attrs [M, 39] or None)."""
+    slots a chunk (`xla_chunk_slots`). A chunk is skipped by
+    `skip_policy`: "prefix", where its first slot is invalid (the packed
+    slots are a valid prefix), or "any", where it holds no valid slot (a
+    point-sharded cache's ownership mask has holes); one read-back of the
+    live chunks. A chunk runs the candidate stages (`_xla_front`), then
+    the lane decode (`_xla_extract`, `_decode_tail`) or the pair decode
+    (`_pair_tail`). With `decode_chunk2` > 0 (and no pair, krows, prob,
+    base_h, fused_decode2 or probe, and M > CH, the reference's gate) the
+    pipeline runs in two phases: the candidate stages chunk by chunk into
+    a materialised [M, K] selection, then the tower in pieces of
+    decode_chunk2 slots, each skipped by the same policy. Returns (sig
+    [M], rgb [M, 3], found [M], pb_overflow [] int32, attrs [M, 39] or
+    None)."""
     q = cfg.query
     K = q.K
     M = qslot_c.shape[0]
@@ -956,19 +1033,20 @@ def _xla_route(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
 
     def starts(step):
         n = -(-M // step)
-        live = F.pad(mask_c, (0, n * step - M)).view(n, step).any(1)
+        pieces = F.pad(mask_c, (0, n * step - M)).view(n, step)
+        live = pieces[:, 0] if skip_policy == "prefix" else pieces.any(1)
         return (torch.nonzero(live)[:, 0] * step).tolist()
 
     sig = torch.zeros(M, dtype=f32, device=dev)
     rgb = torch.zeros((M, 3), dtype=f32, device=dev)
     found = torch.zeros(M, dtype=torch.bool, device=dev)
     attrs_m = (torch.zeros((M, PAYW - 5), dtype=f32, device=dev)
-               if prob else None)
-    pair = q.decode_mode == "pair"
+               if want_attrs else None)
+    pair = q.decode_mode == "pair" and debug_ablate is None
     pb = torch.zeros((), dtype=torch.int32, device=dev)
-    two_phase = (q.decode_chunk2 > 0 and not pair and not _use_fused2(cfg)
-                 and q.extract_mode != "krows" and not prob
-                 and cache.base_h is None and M > CH)
+    two_phase = (q.decode_chunk2 > 0 and debug_ablate is None and not pair
+                 and not _use_fused2(cfg) and q.extract_mode != "krows"
+                 and not want_attrs and cache.base_h is None and M > CH)
     if two_phase:
         nsel_m = torch.zeros((M, K, PAYW), dtype=torch.bfloat16, device=dev)
         pm_m = torch.zeros((M, K), dtype=torch.bool, device=dev)
@@ -984,25 +1062,125 @@ def _xla_route(params: Aggregator, cfg: PointNerfConfig, Rw2c, camrotc2w,
             sig[c], rgb[c], found[c] = _decode_tail(
                 params, cfg, Rw2c, camrotc2w, campos, nsel_m[c], pm_m[c],
                 locs[c], center[c], rd_sel[c])
-        return sig, rgb, found, None, None
+        return sig, rgb, found, pb, None
     for s in starts(CH):
         c = slice(s, s + CH)
-        top, pm, meta, payload = _xla_front(cfg, cache, qslot_c[c], locs[c],
-                                            center[c], mask_c[c], num_shells)
+        front = _xla_front(cfg, cache, qslot_c[c], locs[c], center[c],
+                           mask_c[c], num_shells, debug_ablate)
+        if debug_ablate in ("p_gather", "p_geom", "p_knn"):
+            sig[c], rgb[c], found[c] = front
+            continue
+        top, pm, meta, payload = front
         if pair:
             sig[c], rgb[c], found[c], pb_c = _pair_tail(
                 params, cfg, Rw2c, camrotc2w, campos, cache, qslot_c[c], top,
                 pm, meta, payload, locs[c], center[c], rd_sel[c], CH)
             pb = pb + pb_c
             continue
-        res = _decode_tail(params, cfg, Rw2c, camrotc2w, campos,
-                           _xla_extract(cache, qslot_c[c], top, pm, payload),
-                           pm, locs[c], center[c], rd_sel[c], prob,
-                           base_h=_selected_base_h(cache, meta, top, pm))
+        nsel = _xla_extract(cache, qslot_c[c], top, pm, payload, debug_ablate)
+        if debug_ablate == "p_extract":
+            sig[c] = _sum32(nsel, (-1, -2))
+            rgb[c] = _sum32(pm, -1)[:, None].expand(-1, 3)
+            found[c] = pm.any(-1)
+            continue
+        res = _decode_tail(params, cfg, Rw2c, camrotc2w, campos, nsel, pm,
+                           locs[c], center[c], rd_sel[c], want_attrs,
+                           base_h=_selected_base_h(cache, meta, top, pm),
+                           debug_ablate=debug_ablate)
         sig[c], rgb[c], found[c] = res[0], res[1], res[2]
-        if prob:
+        if want_attrs:
             attrs_m[c] = res[3]
-    return sig, rgb, found, (pb if has_pb_overflow(q) else None), attrs_m
+    return sig, rgb, found, pb, attrs_m
+
+
+def slot_geometry(raydirs, campos, near, step_t, sel_ray, sel_d, ranges_min,
+                  scaled_vsize):
+    """Per packed slot: its ray's direction rd_sel [M, 3], its sample's
+    location locs [M, 3] (near + (d + 0.5) * step_t along the ray) and the
+    centre [M, 3] of the voxel it lies in."""
+    rd_sel = raydirs[sel_ray]
+    t_sel = near + (sel_d.to(torch.float32) + 0.5) * step_t
+    locs = campos + rd_sel * t_sel[:, None]
+    vox = torch.floor((locs - ranges_min) / scaled_vsize)
+    return rd_sel, locs, ranges_min + (vox + 0.5) * scaled_vsize
+
+
+@torch.no_grad()
+def chunk_pipeline(params: Aggregator, Rw2c, cache: FatCache, raydirs, campos,
+                   camrotc2w, near, step_t, cfg: PointNerfConfig, ranges_min,
+                   scaled_vsize, qslot_c, sel_ray, sel_d, mask_c,
+                   debug_ablate: Optional[str] = None,
+                   skip_policy: str = "prefix", want_attrs: bool = False):
+    """The chunk decode of `fast_render_rays` over M packed slots (qslot_c
+    [M], sel_ray [M], sel_d [M], mask_c [M] bool), as the reference's
+    module-level `chunk_pipeline` (same arguments in the same order), so
+    that perf probes can time it on real compaction outputs. `near` and
+    `step_t` are the depth range's start and the sample spacing.
+
+    Routes as `_check_served` says: the fused chunk kernel, the selection
+    kernel then the decode tail, or the XLA candidate stages (`_xla_route`)
+    then the lane or the pair decode. `debug_ablate` (one of CHUNK_PROBES,
+    or a front-end probe of `fast_render_rays`, which passes its key on)
+    takes the XLA stages with the lane decode and one stage faked or the
+    chunk cut short after a stage: the outputs are wrong, the time of the
+    rest is real. `skip_policy` is how an all-padding chunk is found (see
+    `_xla_route`). Returns (sig [M], rgb [M, 3], found [M], pb_overflow []
+    int32: the valid pairs the pair decode dropped, else 0), and the [M,
+    39] neighbour averages of the prob outputs with `want_attrs`."""
+    if skip_policy not in ("prefix", "any"):
+        raise ValueError(f"unknown skip_policy {skip_policy!r}")
+    route = _check_served(cfg, Rw2c, want_attrs, debug_ablate)
+    geom = slot_geometry(raydirs, campos, near, step_t, sel_ray, sel_d,
+                         ranges_min, scaled_vsize)
+    return _chunk_body(params, Rw2c, cache, campos, camrotc2w, cfg, route,
+                       qslot_c, mask_c, *geom, debug_ablate, skip_policy,
+                       want_attrs)
+
+
+def _chunk_body(params: Aggregator, Rw2c, cache: FatCache, campos,
+                camrotc2w, cfg: PointNerfConfig, route: str, qslot_c, mask_c,
+                rd_sel, locs, center, debug_ablate, skip_policy: str,
+                want_attrs: bool):
+    """`chunk_pipeline` on the route `_check_served` gave and the slots'
+    `slot_geometry` (rd_sel, locs, center [M, 3]), which `fast_render_rays`
+    computes once for the chunks and its packed composite."""
+    q = cfg.query
+    K = q.K
+    M = qslot_c.shape[0]
+    num_shells = (q.kernel_size[0] + 1) // 2 if q.layered_search else 1
+    zero_pb = torch.zeros((), dtype=torch.int32, device=qslot_c.device)
+    if route == "chunk":
+        # ---- selection + tower per slot in one kernel launch
+        sig, rgb, found = fused_chunk_decode(
+            params, Rw2c, camrotc2w, campos, cache.kmeta, cache.kcand,
+            cache.kxyz, qslot_c.to(torch.int32), locs.contiguous(),
+            center.contiguous(), rd_sel.contiguous(), mask_c, K=K,
+            radius2=q.radius_limit ** 2, num_shells=num_shells,
+            nff=cfg.agg.num_feat_freqs, ndf=cfg.agg.num_dist_freqs,
+            nvf=cfg.agg.num_viewdir_freqs, act_super=cfg.agg.act_super)
+        return sig, rgb, found, zero_pb
+    if route == "staged":
+        # ---- staged: the select kernel, then the decode tail. Under
+        # decode_radiance the tail runs in pieces of TAIL_CHUNK slots:
+        # every stage is per slot, so the pieces change no result; they
+        # bound the [M, K, 284] feature and its PE intermediates
+        nsel, pnt_mask = fused_candidate_select(
+            cache.kmeta, cache.kcand, cache.kxyz, qslot_c.to(torch.int32),
+            (center - locs).contiguous(), mask_c, K, q.radius_limit ** 2,
+            num_shells)
+        piece = max(M, 1) if _use_fused2(cfg) else TAIL_CHUNK
+        tails = [_decode_tail(params, cfg, Rw2c, camrotc2w, campos,
+                              nsel[s:s + piece], pnt_mask[s:s + piece],
+                              locs[s:s + piece], center[s:s + piece],
+                              rd_sel[s:s + piece])
+                 for s in range(0, M, piece)]
+        sig, rgb, found = (torch.cat(x) for x in zip(*tails))
+        return sig, rgb, found, zero_pb
+    sig, rgb, found, pb, attrs = _xla_route(
+        params, cfg, Rw2c, camrotc2w, campos, cache, qslot_c, locs, center,
+        rd_sel, mask_c, num_shells, want_attrs, debug_ablate, skip_policy)
+    return (sig, rgb, found, pb, attrs) if want_attrs else (sig, rgb, found,
+                                                            pb)
 
 
 def xla_chunk_slots(q, M: int) -> int:
@@ -1053,20 +1231,29 @@ def pack_hit_rays(cache, campos, raydirs, near, far, q, ranges_min,
     return pack_first(hit, min(q.ray_budget, R))
 
 
+def voxel_index(cache, pos: torch.Tensor, ranges_min: torch.Tensor,
+                scaled_vsize: torch.Tensor):
+    """The voxel of each position [..., 3] in the grid of `cache` (a
+    FatCache or a GeoCache): (gc [..., 3] int32 cell, inb [...] inside the
+    grid, fi [...] the flat index of the cell clamped into the grid)."""
+    dims = cache_dims(cache)
+    dims_t = torch.tensor(dims, device=pos.device)
+    gc = torch.floor((pos - ranges_min) / scaled_vsize).to(torch.int32)
+    inb = ((gc >= 0) & (gc < dims_t)).all(-1)
+    gcc = torch.minimum(torch.clamp(gc, min=0), dims_t - 1).long()
+    fi = (gcc[..., 0] * dims[1] + gcc[..., 1]) * dims[2] + gcc[..., 2]
+    return gc, inb, fi
+
+
 def qslot_lookup(cache, pos: torch.Tensor, ranges_min: torch.Tensor,
                  scaled_vsize: torch.Tensor) -> torch.Tensor:
     """The qslot of the voxel each position [..., 3] lies in, -1 outside
     the grid or outside every query voxel: a gather from the dense qslot
     table of `cache` (a FatCache or a GeoCache), or its hash table's
     lookup (the reference's `_qs_lookup`)."""
-    dims = cache_dims(cache)
-    dims_t = torch.tensor(dims, device=pos.device)
-    gc = torch.floor((pos - ranges_min) / scaled_vsize).to(torch.int32)
-    inb = ((gc >= 0) & (gc < dims_t)).all(-1)
+    gc, inb, fi = voxel_index(cache, pos, ranges_min, scaled_vsize)
     if cache.hash_table is not None:
         return table_qslot(cache.hash_table, gc, inb)
-    gcc = torch.minimum(torch.clamp(gc, min=0), dims_t - 1).long()
-    fi = (gcc[..., 0] * dims[1] + gcc[..., 1]) * dims[2] + gcc[..., 2]
     qslot_flat = cache.coor_2_qslot.reshape(-1)
     return torch.where(inb, qslot_flat[torch.where(inb, fi, 0)], -1)
 
@@ -1133,9 +1320,23 @@ def fast_render_rays(
     pshard_axis=None,               # parallel/sharding.Axis: the cache's
                                     # candidate rows are this rank's qslot
                                     # slab (sharding.shard_fat_cache)
+    debug_ablate: Optional[str] = None,     # perf probes only: one of
+                                    # PROBES fakes a stage or cuts the chunk
+                                    # short (wrong output, real timing)
 ) -> FastRenderOutput:
-    """Render R rays through the fast path (see the module docstring)."""
-    route = _check_served(cfg, Rw2c, prob)
+    """Render R rays through the fast path (see the module docstring).
+
+    The perf probes (`debug_ablate`, the reference's): "qslot" fakes the
+    qslot table gather (the flat voxel index mod 97, over all D samples:
+    no march, coarse test or depth window), "compact" the compaction
+    (fabricated slots, some 3.4 a ray; the grid composite), "selonly" the
+    column selection (a static column slice), "scatterback" the grid
+    composite's scatter to [R, BP] (broadcasts of the first BP slots); the
+    march is off under the first three. A chunk probe (CHUNK_PROBES) is
+    passed on to `chunk_pipeline`, and any probe takes the XLA candidate
+    stages there. The outputs are wrong on purpose; the time of the rest
+    is real."""
+    route = _check_served(cfg, Rw2c, prob, debug_ablate)
     q = cfg.query
     if pshard_axis is not None and route != "xla":
         raise ValueError(
@@ -1144,7 +1345,7 @@ def fast_render_rays(
     if cache.hash_table is not None:
         # the reference's hash cache has no kernel-facing layout, and its
         # knn_mode="fused" is dense-only
-        if q.chunk_mode == "fused":
+        if q.chunk_mode == "fused" and debug_ablate is None:
             raise ValueError(
                 "chunk_mode='fused' needs the kernel-facing cache layout, "
                 "which a hash grid's cache does not serve")
@@ -1180,7 +1381,7 @@ def fast_render_rays(
         return _render_span_tiers(
             params, Rw2c, cache, campos, camrotc2w, raydirs, near, far, cfg,
             ranges_min, scaled_vsize, bg_ray_colors, bg, rmax, step_t,
-            pshard_axis)
+            pshard_axis, debug_ablate)
 
     if q.ray_budget > 0:
         # ---- ray packing: only box-hitting rays enter the front-end.
@@ -1199,7 +1400,8 @@ def fast_render_rays(
                                          else premarch[ray_ids]), prob=prob,
                                bg_ray_colors=(None if bg_ray_colors is None
                                               else bg_ray_colors[ray_ids]),
-                               pshard_axis=pshard_axis)
+                               pshard_axis=pshard_axis,
+                               debug_ablate=debug_ablate)
         ids = torch.where(valid, ray_ids, R)       # padding rows drop
 
         def scatter(base, x):
@@ -1226,8 +1428,13 @@ def fast_render_rays(
     def qs_lookup(pos):
         return qslot_lookup(cache, pos, ranges_min, scaled_vsize)
 
-    use_march = march_active(q)
-    use_coarse = not use_march and q.coarse_step > 1
+    use_march = (march_active(q)
+                 and debug_ablate not in ("qslot", "compact", "selonly"))
+    use_coarse = (not use_march and q.coarse_step > 1
+                  and debug_ablate != "qslot")
+    # under "compact" no column of qs is read: the table gather is skipped,
+    # as the reference's compiled program drops it
+    look = debug_ablate != "compact"
     if use_coarse and (cache.coor_2_qslot is None
                        or cache.coarse_occ is None):
         raise ValueError(
@@ -1274,7 +1481,7 @@ def fast_render_rays(
         qs, d_true, Dax, dw_overflow, win_overflow = _coarse_front(
             cache, q, campos, raydirs, near, far, step_t, ranges_min,
             scaled_vsize, rmax, ray_live)
-    elif q.depth_window > 0:
+    elif q.depth_window > 0 and debug_ablate != "qslot":
         # ---- per-ray depth window: the lookup domain is [R, DW]
         # samples from the ray's slab entry; exact while DW covers each
         # ray's in-box span (dw_overflow counts the dropped samples)
@@ -1296,29 +1503,57 @@ def fast_render_rays(
             0).sum().to(torch.int32)
         d_true = d0[:, None] + torch.arange(DW, device=dev, dtype=torch.int32)
         t_f = near + (d_true.to(f32) + 0.5) * step_t
-        qs = qs_lookup(campos + raydirs[:, None, :] * t_f[..., None])
+        qs = (qs_lookup(campos + raydirs[:, None, :] * t_f[..., None])
+              if look else None)
         Dax = DW
     else:
         t_mid = near + (torch.arange(D, device=dev, dtype=f32) + 0.5) * step_t
-        qs = qs_lookup(campos + raydirs[:, None, :] * t_mid[None, :, None])
+        pos_mid = campos + raydirs[:, None, :] * t_mid[None, :, None]
+        if debug_ablate == "qslot":
+            # the table gather faked: the flat voxel index mod 97
+            _, inb, fi = voxel_index(cache, pos_mid, ranges_min, scaled_vsize)
+            qs = torch.where(inb, fi % 97, -1)
+        else:
+            qs = qs_lookup(pos_mid) if look else None
         d0 = torch.zeros(R, dtype=torch.int32, device=dev)
         d_true = torch.arange(D, device=dev, dtype=torch.int32).expand(R, D)
         Dax = D
-    if not use_march and ray_live is not None:
+    if not use_march and ray_live is not None and look:
         # padding rows (copies of row 0) take no slots: they carry no ray,
         # so their samples would only spend the M budget (and count in
         # cb_overflow and n_valid_slots), as the march and the train path
         # give them none
         qs = torch.where(ray_live[:, None], qs, -1)
     cap_cols = R * min(SR, BP, Dax)
-    pack_end = None
+    pack_end = cnt_all = None
     if use_march:
         cnt_all = cnt.long().sum()
+    elif debug_ablate == "compact":
+        # the compaction faked: slots spread over the rays, some 3.4 valid
+        # slots a ray (the reference's bench scene), so that the chunk
+        # skipping and the decode work stay comparable
+        Bc = max(M // R, 1)
+        mi = torch.arange(M, device=dev)
+        sel_ray = torch.clamp(mi // Bc, max=R - 1)
+        sel_d = (mi % Bc) * (D // Bc)
+        sel_slot = mi % BP
+        qslot_c = (mi * 37) % torch.clamp(cache.n_q.long(), min=1)
+        mask_c = mi < (R * 34) // 10
+        ray_hit = torch.ones(R, dtype=torch.bool, device=dev)
     elif q.compact_mode == "topk":
         # ---- first min(SR, BP) valid columns per ray, packed to M slots
         qs = qs.to(torch.int32).contiguous()
-        col_sel, cnt, ray_hit = select_first_cols(qs, BP, min(SR, BP, Dax),
-                                                  q.select_mode)
+        if debug_ablate == "selonly":
+            # the column selection faked: a static slice of BP columns
+            mask = qs >= 0
+            ray_hit = mask.any(-1)
+            col_sel = (torch.arange(BP, dtype=torch.int32, device=dev)
+                       * (Dax // BP)).expand(R, BP)
+            cnt = torch.clamp(mask.sum(-1), max=min(SR, BP, Dax)).to(
+                torch.int32)
+        else:
+            col_sel, cnt, ray_hit = select_first_cols(
+                qs, BP, min(SR, BP, Dax), q.select_mode)
         sel_ray, sel_slot, colm, sel, qslot_c, mask_c = rank_gather_pack(
             qs, col_sel, cnt, M)
         # the sample of each slot: column + the window's first sample
@@ -1326,6 +1561,7 @@ def fast_render_rays(
         sel_d = (d_true.reshape(-1)[sel].long() if use_coarse
                  else d0.long()[sel_ray] + colm)
         cnt_all = cnt.long().sum()
+        pack_end = torch.cumsum(cnt.long(), 0)
     else:
         # ---- the one-hot compaction (`onehot_compact`)
         mask = qs >= 0
@@ -1333,45 +1569,15 @@ def fast_render_rays(
         sel_ray, sel_slot, sel_d, qslot_c, mask_c, cnt = onehot_compact(
             qs, d_true, min(SR, BP), BP, M)
         cnt_all = cnt.sum()
-    if q.compact_mode == "topk":
+    if use_march and q.compact_mode == "topk":
         pack_end = torch.cumsum(cnt.long(), 0)
     cb_overflow = (torch.clamp(cnt_all - M, min=0).to(torch.int32)
-                   if M < cap_cols else None)
+                   if M < cap_cols and cnt_all is not None else None)
 
-    rd_sel = raydirs[sel_ray]
-    t_sel = near + (sel_d.to(f32) + 0.5) * step_t
-    locs = campos + rd_sel * t_sel[:, None]
-    vox = torch.floor((locs - ranges_min) / scaled_vsize)
-    center = ranges_min + (vox + 0.5) * scaled_vsize
-    num_shells = (q.kernel_size[0] + 1) // 2 if q.layered_search else 1
-    qslot_i = qslot_c.to(torch.int32)
-    pb_overflow = None
-    if route == "chunk":
-        # ---- selection + tower per slot in one kernel launch
-        sig, rgb, found = fused_chunk_decode(
-            params, Rw2c, camrotc2w, campos, cache.kmeta, cache.kcand,
-            cache.kxyz, qslot_i, locs.contiguous(), center.contiguous(),
-            rd_sel.contiguous(), mask_c, K=K, radius2=q.radius_limit ** 2,
-            num_shells=num_shells,
-            nff=cfg.agg.num_feat_freqs, ndf=cfg.agg.num_dist_freqs,
-            nvf=cfg.agg.num_viewdir_freqs, act_super=cfg.agg.act_super)
-    elif route == "staged":
-        # ---- staged: the select kernel, then the decode tail. Under
-        # decode_radiance the tail runs in pieces of TAIL_CHUNK slots:
-        # every stage is per slot, so the pieces change no result; they
-        # bound the [M, K, 284] feature and its PE intermediates
-        nsel, pnt_mask = fused_candidate_select(
-            cache.kmeta, cache.kcand, cache.kxyz, qslot_i,
-            (center - locs).contiguous(), mask_c, K, q.radius_limit ** 2,
-            num_shells)
-        piece = max(M, 1) if _use_fused2(cfg) else TAIL_CHUNK
-        tails = [_decode_tail(params, cfg, Rw2c, camrotc2w, campos,
-                              nsel[s:s + piece], pnt_mask[s:s + piece],
-                              locs[s:s + piece], center[s:s + piece],
-                              rd_sel[s:s + piece])
-                 for s in range(0, M, piece)]
-        sig, rgb, found = (torch.cat(x) for x in zip(*tails))
-    elif pshard_axis is not None:
+    rd_sel, locs, center = slot_geometry(raydirs, campos, near, step_t,
+                                         sel_ray, sel_d, ranges_min,
+                                         scaled_vsize)
+    if pshard_axis is not None:
         # ---- point-sharded cache (reference :1165-1192): this rank owns
         # qslot slab [off, off + n_local) and computes only its own slots
         # (a chunk with none is skipped); each valid slot has one owner,
@@ -1381,22 +1587,27 @@ def fast_render_rays(
         off = axis_index(pshard_axis) * n_local
         owned = (qslot_c >= off) & (qslot_c < off + n_local)
         mask_o = mask_c & owned
-        sig, rgb, found, pb_overflow, attrs_m = _xla_route(
-            params, cfg, Rw2c, camrotc2w, campos, cache,
-            torch.where(owned, qslot_c - off, 0), locs, center, rd_sel,
-            mask_o, num_shells, prob)
+        res = _chunk_body(
+            params, Rw2c, cache, campos, camrotc2w, cfg, route,
+            torch.where(owned, qslot_c - off, 0), mask_o, rd_sel, locs,
+            center, debug_ablate, "any", prob)
+        sig, rgb, found, pb = res[:4]
+        attrs_m = res[4] if prob else None
         okl = (mask_o & found).to(sig.dtype)
         sig = psum(sig * okl, pshard_axis)
         rgb = psum(rgb * okl[:, None], pshard_axis)
         if prob:
             attrs_m = psum(attrs_m * okl[:, None], pshard_axis)
         found = psum(found, pshard_axis)
-        if pb_overflow is not None:
-            pb_overflow = psum(pb_overflow, pshard_axis)
+        if has_pb_overflow(q):
+            pb = psum(pb, pshard_axis)
     else:
-        sig, rgb, found, pb_overflow, attrs_m = _xla_route(
-            params, cfg, Rw2c, camrotc2w, campos, cache, qslot_c, locs,
-            center, rd_sel, mask_c, num_shells, prob)
+        res = _chunk_body(
+            params, Rw2c, cache, campos, camrotc2w, cfg, route, qslot_c,
+            mask_c, rd_sel, locs, center, debug_ablate, "prefix", prob)
+        sig, rgb, found, pb = res[:4]
+        attrs_m = res[4] if prob else None
+    pb_overflow = pb if has_pb_overflow(q) else None
 
     slot_ok = mask_c & found
     sig = sig * slot_ok.to(sig.dtype)
@@ -1404,11 +1615,12 @@ def fast_render_rays(
                     cb_overflow=cb_overflow, mc_overflow=mc_overflow,
                     pb_overflow=pb_overflow,
                     n_valid_slots=mask_c.sum().to(torch.int32))
-    if prob or q.composite_mode != "packed" or q.compact_mode != "topk":
+    if (prob or q.composite_mode != "packed" or q.compact_mode != "topk"
+            or debug_ablate == "compact"):
         return _grid_composite(
-            cfg, sig, rgb, slot_ok, attrs_m if prob else None, sel_ray,
-            sel_slot, sel_d, ray_hit, raydirs, campos, camrotc2w, near,
-            step_t, BP, bg, counters)
+            cfg, sig, rgb, slot_ok, attrs_m, sel_ray, sel_slot, sel_d,
+            ray_hit, raydirs, campos, camrotc2w, near, step_t, BP, bg,
+            counters, scatterback=debug_ablate == "scatterback")
 
     # ---- packed composite
     z_m = w2pers(locs, camrotc2w, campos)[..., 2]
@@ -1505,7 +1717,8 @@ def _coarse_front(cache: FatCache, q, campos, raydirs, near, far, step_t,
 
 def _render_span_tiers(params, Rw2c, cache, campos, camrotc2w, raydirs, near,
                        far, cfg, ranges_min, scaled_vsize, bg_ray_colors, bg,
-                       rmax, step_t, pshard_axis=None) -> FastRenderOutput:
+                       rmax, step_t, pshard_axis=None,
+                       debug_ablate=None) -> FastRenderOutput:
     """Span-tiered ray packing (QueryConfig.span_tiers; reference
     fast_render.py:694-796): the ray packing with one packed group per
     span tier, each rendered at its own depth-window width (ray budget
@@ -1564,7 +1777,8 @@ def _render_span_tiers(params, Rw2c, cache, campos, camrotc2w, raydirs, near,
             params, Rw2c, cache, campos, camrotc2w, raydirs[rid], near, far,
             cfg_i, ranges_min, scaled_vsize, ray_live=valid,
             bg_ray_colors=(None if bg_ray_colors is None
-                           else bg_ray_colors[rid]), pshard_axis=pshard_axis)
+                           else bg_ray_colors[rid]), pshard_axis=pshard_axis,
+            debug_ablate=debug_ablate)
         ids = torch.where(valid, rid, R)
         for base, x in ((color, sub.coarse_raycolor), (ray_mask, sub.ray_mask),
                         (acc, sub.acc), (depth, sub.depth)):
@@ -1586,18 +1800,22 @@ def _render_span_tiers(params, Rw2c, cache, campos, camrotc2w, raydirs, near,
 
 def _grid_composite(cfg, sig, rgb, slot_ok, attrs_m, sel_ray, sel_slot,
                     sel_d, ray_hit, raydirs, campos, camrotc2w, near, step_t,
-                    BP, bg, counters) -> FastRenderOutput:
+                    BP, bg, counters, scatterback=False) -> FastRenderOutput:
     """The reference's slot-grid composite: the [M] slots scatter to
     [R, BP] rows, then alpha compositing per row. With `attrs_m` (prob
     mode) also each ray's slot of largest opacity (torch.argmax takes the
     first among equals, as jnp.argmax does), its location and the
     neighbour averages of that slot. Its sums run along the slot grid, so
-    they may differ from the packed composite's in the last bits."""
+    they may differ from the packed composite's in the last bits. The
+    probe `scatterback` broadcasts the first BP slots to every row in
+    place of the scatter (wrong values, the composite's real time)."""
     R = raydirs.shape[0]
     dev = raydirs.device
     dest = torch.where(slot_ok, sel_ray * BP + sel_slot, R * BP)
 
     def grid(x):
+        if scatterback:
+            return x[None, :BP].expand((R, BP) + x.shape[1:])
         g = torch.zeros((R * BP + 1,) + x.shape[1:], dtype=x.dtype,
                         device=dev)
         g[dest] = x

@@ -213,6 +213,20 @@ def knn_for_locs(grid: PointGrid, xyz: torch.Tensor, locs: torch.Tensor,
         for s in range(0, total, chunk)])
 
 
+def shell_eligible(ok: torch.Tensor, shell: torch.Tensor, K: int,
+                   num_shells: int) -> torch.Tensor:
+    """`ok` [M, C] narrowed to the shells the layered search reaches: shell
+    s is searched only while the shells inside it kept fewer than K."""
+    if num_shells <= 1:
+        return ok
+    eligible = shell == 0
+    before = torch.zeros_like(shell[:, :1])
+    for s in range(1, num_shells):
+        before = before + (ok & (shell == s - 1)).sum(-1, keepdim=True)
+        eligible = eligible | ((shell == s) & (before < K))
+    return ok & eligible
+
+
 def layered_k_nearest(d2: torch.Tensor, ok: torch.Tensor,
                       shell: torch.Tensor, K: int, num_shells: int,
                       layered: bool = True
@@ -222,13 +236,8 @@ def layered_k_nearest(d2: torch.Tensor, ok: torch.Tensor,
     ids, found [M, K] bool). With `layered` a shell is searched only while
     the shells inside it kept fewer than K. Ties go to the smaller column
     (a stable sort; `torch.topk` promises no order)."""
-    if layered and num_shells > 1:
-        eligible = shell == 0
-        before = torch.zeros_like(shell[:, :1])
-        for s in range(1, num_shells):
-            before = before + (ok & (shell == s - 1)).sum(-1, keepdim=True)
-            eligible = eligible | ((shell == s) & (before < K))
-        ok = ok & eligible
+    if layered:
+        ok = shell_eligible(ok, shell, K, num_shells)
     key = torch.where(ok, d2, float("inf"))
     top_key, top = torch.sort(key, dim=-1, stable=True)
     return top[:, :K], top_key[:, :K] < float("inf")

@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+from pinned_weights import pinned_reference_weights  # noqa: F401
+
 from pointnerf2studio_torch import cli as tcli
 from pointnerf2studio_torch.data import procedural as tproc
 from pointnerf2studio_torch.models.mvsnet.featurenet import (

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from pinned_weights import pinned_reference_weights  # noqa: F401
+
 from pointnerf2studio_torch import config as tcfg
 from pointnerf2studio_torch import convert
 from pointnerf2studio_torch.data import blender as tblender

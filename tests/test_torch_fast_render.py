@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from pinned_weights import pinned_reference_weights  # noqa: F401
+
 import pointnerf2studio_torch
 from pointnerf2studio_torch import config as tcfg
 from pointnerf2studio_torch import convert

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from pinned_weights import pinned_reference_weights  # noqa: F401
+
 from pointnerf2studio_torch import convert
 from pointnerf2studio_torch.config import AggregatorConfig as TAggConfig
 from pointnerf2studio_torch.models import aggregator as tagg

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from pinned_weights import pinned_reference_weights  # noqa: F401
+
 from pointnerf2studio_torch import convert
 from pointnerf2studio_torch.config import AggregatorConfig as TAggConfig
 from pointnerf2studio_torch.ops import _cuda

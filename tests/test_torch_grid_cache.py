@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from pinned_weights import pinned_reference_weights  # noqa: F401
+
 from pointnerf2studio_torch import convert
 from pointnerf2studio_torch.config import QueryConfig as TQueryConfig
 from pointnerf2studio_torch.models import fast_render as tfr

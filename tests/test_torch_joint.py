@@ -32,6 +32,7 @@ from pointnerf2studio_torch import config as tconfig
 from pointnerf2studio_torch.train import joint as tj
 from pointnerf2studio_tpu.ops.grid import compute_grid_geometry
 from pointnerf2studio_tpu.train import joint as jj
+from pinned_weights import pinned_reference_weights  # noqa: F401
 from test_joint_mvs import V, live_fields, make_batch, tiny_cfg
 
 torch.set_num_threads(1)

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from pinned_weights import pinned_reference_weights  # noqa: F401
+
 from pointnerf2studio_torch.data.synthetic import camera_rays
 from pointnerf2studio_torch.ops import march as tm
 from pointnerf2studio_torch.ops import raster as tr

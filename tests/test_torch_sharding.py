@@ -19,16 +19,22 @@ saves what it computed; the tests read those files.
     to the unsharded one bit for bit, its counters summed.
   * The sharded train steps (legacy, fast on the dense and on the hash
     GeoCache; 1-D and 2x2) against the JAX sharded step, jitter off: loss
-    within 1e-5 relative, and every gradient within 1e-5 * max|g| of the
-    JAX step's gradient divided by n. The JAX step hands its optimizer n
-    times the gradient (the fault test below): n = n_rays = 2 for the
-    tower, and n_rays * n_points = 4 for the point attributes of the 2x2
-    legacy step, whose gather adds a psum over "points". Its gradients
-    are read through its own optimizer update: optax's Adam is replaced,
-    for the JAX steps only, by a transformation that moves no weight and
-    keeps the gradient it is handed as its state. The 2x2 fast steps are
-    held to the JAX 1-D fast step: both shard the rays in two, and the
-    reference's fast step keeps the state replicated over "points".
+    within 1e-5 relative, and every gradient element within 1e-5 * max|g|
+    of the JAX step's gradient divided by n, plus the two single-device
+    gaps of that element on the same weights (`held`): the port's
+    single-device gradient against the reference's, itself held to the
+    single-device parity bound (rtol 2e-3 / atol 1e-6, as in
+    tests/test_torch_legacy_train.py), and the reference's sharded / n
+    against its own single-device gradient. The JAX step hands its
+    optimizer n times the gradient (the fault test below): n = n_rays = 2
+    for the tower, and n_rays * n_points = 4 for the point attributes of
+    the 2x2 legacy step, whose gather adds a psum over "points". Its
+    gradients are read through its own optimizer update: optax's Adam is
+    replaced, for the JAX steps only, by a transformation that moves no
+    weight and keeps the gradient it is handed as its state. The 2x2 fast
+    steps are held to the JAX 1-D fast step: both shard the rays in two,
+    and the reference's fast step keeps the state replicated over
+    "points".
   * The same steps against the port's single-device step on the same
     injected jitter_u: loss within 1e-6 relative, every gradient within
     1e-5 * max|g|.
@@ -48,6 +54,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+
+from pinned_weights import pinned_reference_weights  # noqa: F401
 
 from pointnerf2studio_torch import config as tcfg
 from pointnerf2studio_torch import convert
@@ -112,12 +120,15 @@ def _grads(st, mesh):
             _point_grads(st, mesh))
 
 
-def _grad_tree(st, mesh):
-    """The gradients named as the JAX tree names its weights."""
+def _tower_grads(st):
+    """The tower's gradients named as the JAX tree names its weights."""
     tree = convert.aggregator_to_jax(st.params, grad=True)
-    return ({f"{n}[{i}].{k}": lyr[k] for n, lyrs in tree.items()
-             for i, lyr in enumerate(lyrs) for k in ("kernel", "bias")},
-            _point_grads(st, mesh))
+    return {f"{n}[{i}].{k}": lyr[k] for n, lyrs in tree.items()
+            for i, lyr in enumerate(lyrs) for k in ("kernel", "bias")}
+
+
+def _grad_tree(st, mesh):
+    return _tower_grads(st), _point_grads(st, mesh)
 
 
 def _step(d, mesh, kind, cfg, st, **kw):
@@ -243,7 +254,8 @@ def ref(tmp_path_factory):
         camera_rays, make_sphere_scene, sphere_config)
     from pointnerf2studio_tpu.models.fast_render import make_fast_scene
     from pointnerf2studio_tpu.models.fast_train import (
-        make_geo_scene, make_hash_geo_scene)
+        make_fast_train_step as jfast_step, make_geo_scene,
+        make_hash_geo_scene)
     from pointnerf2studio_tpu.ops.hash_grid import (
         build_hash_grid_from_points)
     from pointnerf2studio_tpu.parallel import sharding as jsh
@@ -348,6 +360,16 @@ def ref(tmp_path_factory):
                         jnp.asarray(gs), *args[:3], jnp.asarray(gt), near,
                         far, key)
             want[name] = (float(aux["total"]), st)
+        # the reference's single-device steps on the same weights and rays
+        st, aux = jtrainer.make_train_step(cfg)(
+            jstate(s.params, s.cloud, cfg), s.grid, *args[:3],
+            jnp.asarray(gt), near, far, key)
+        want["single_legacy"] = (float(aux["total"]), st)
+        for name, (g, gr, gs) in (("fast", geo), ("hash", hgeo)):
+            st, aux = jfast_step(cfg)(
+                jstate(s.params, s.cloud, cfg), g, jnp.asarray(gr),
+                jnp.asarray(gs), *args[:3], jnp.asarray(gt), near, far, key)
+            want[f"single_{name}"] = (float(aux["total"]), st)
 
         # the fault: the gradient of psum(sum((w x)^2)) / psum(count)
         # inside shard_map(check_vma=False), psum'd over "rays" as the
@@ -397,7 +419,9 @@ def teacher(d, camera_rays):
 
 
 def single(d):
-    """The port's single-device renders and steps on the same inputs."""
+    """The port's single-device renders and steps on the same inputs: with
+    the injected jitter draw, and at jitter 0 as the JAX steps run
+    ("<kind>_nojitter", gradients named as the JAX tree names them)."""
     args = (d["campos"], d["camrot"], d["rays"], d["near"], d["far"])
     cache, rmin, svs = d["cache"]
     with torch.no_grad():
@@ -411,21 +435,21 @@ def single(d):
             d["params"], d["cloud"].Rw2c, d["cache_k"], *args, d["cfg_k"],
             rmin, svs).coarse_raycolor)
     for kind in STEPS:
-        cfg = d["cfgj"]
-        st = create_train_state(d["params"], d["cloud"], cfg)
-        if kind == "legacy":
-            st, aux = make_train_step(cfg)(
-                st, d["grid"], *args[:3], d["gt"], *args[3:],
-                jitter_u=d["u"])
-        else:
-            geo, gr, gs = d["geo"] if kind == "fast" else d["hgeo"]
-            st, aux = make_fast_train_step(cfg)(
-                st, geo, gr, gs, *args[:3], d["gt"], *args[3:],
-                jitter_u=d["u"])
-        res[kind] = (float(aux["total"]),
-                     ([_np(p.grad) for p in st.params.parameters()],
-                      {k: _np(v.grad)
-                       for k, v in st.points.trainable().items()}))
+        for tag, cfg, kw in (("", d["cfgj"], dict(jitter_u=d["u"])),
+                             ("_nojitter", d["cfg0"], {})):
+            st = create_train_state(d["params"], d["cloud"], cfg)
+            if kind == "legacy":
+                st, aux = make_train_step(cfg)(
+                    st, d["grid"], *args[:3], d["gt"], *args[3:], **kw)
+            else:
+                geo, gr, gs = d["geo"] if kind == "fast" else d["hgeo"]
+                st, aux = make_fast_train_step(cfg)(
+                    st, geo, gr, gs, *args[:3], d["gt"], *args[3:], **kw)
+            points = {k: _np(v.grad)
+                      for k, v in st.points.trainable().items()}
+            res[kind + tag] = (float(aux["total"]), (
+                _tower_grads(st) if tag
+                else [_np(p.grad) for p in st.params.parameters()], points))
     return res
 
 
@@ -473,29 +497,58 @@ def test_ray_sharded_fast_render_equals_unsharded(ref):
     assert int(one["n_valid_slots"]) > 0
 
 
+def jax_grads(st, n_f, n_p):
+    """The gradients a JAX step handed its optimizer (KeepGrads), divided
+    by its factors n: (tower leaves by name, point attributes)."""
+    return ({f"{n}[{i}].{k}": np.asarray(lyr[k]) / n_f
+             for n, lyrs in st.opt_state_fields.items()
+             for i, lyr in enumerate(lyrs) for k in ("kernel", "bias")},
+            {k: np.asarray(v) / n_p for k, v in st.opt_state_points.items()})
+
+
+def held(a, b, one, port, what):
+    """The port's sharded gradient `a` against the JAX sharded one / n `b`,
+    element by element within 1e-5 * max|b| plus the element's two
+    single-device gaps: the port's single-device gradient `port` against
+    the reference's `one`, held to the single-device parity bound, and the
+    reference's `b` against its own `one`. The float32 sums of the two
+    packages run in other orders; where a pre-activation of the tower lies
+    within that rounding of leaky_relu's kink, its derivative is 1 in one
+    package and 0.1 in the other, in the single-device and the sharded step
+    alike (ROADMAP section 3: one (sample, neighbour, unit) of mlp_head[0]
+    at -3.7e-9 against +3.7e-9 under the pinned draw). What sharding adds
+    must stay within 1e-5 * max|b|."""
+    np.testing.assert_allclose(port, one, rtol=2e-3, atol=1e-6, err_msg=what)
+    bound = 1e-5 * np.abs(b).max() + np.abs(port - one) + np.abs(one - b)
+    assert (np.abs(a - b) <= bound).all(), (what, np.abs(a - b).max())
+
+
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("step", STEPS)
 def test_sharded_step_matches_jax(ref, kind, step):
     """The port's sharded gradient is the JAX sharded step's gradient
-    divided by its factor n (JAX_GRAD_FACTOR), within 1e-5 * max|g|."""
+    divided by its factor n (JAX_GRAD_FACTOR), within 1e-5 * max|g| and
+    the single-device gaps (`held`). That bound follows from
+    test_sharded_step_matches_single_device (1e-5) and the two
+    single-device gaps, so the sharded parity is carried by that
+    port-against-port test; this one holds the factor n and the sharded
+    loss to the reference's, and would fail a gradient off by a factor."""
     name = f"legacy_{kind}" if step == "legacy" else step
     loss_j, st_j = ref["want"][name]
     n_f, n_p = JAX_GRAD_FACTOR[name]
-    want_f = {f"{n}[{i}].{k}": np.asarray(lyr[k]) / n_f
-              for n, lyrs in st_j.opt_state_fields.items()
-              for i, lyr in enumerate(lyrs) for k in ("kernel", "bias")}
-    want_p = {k: np.asarray(v) / n_p
-              for k, v in st_j.opt_state_points.items()}
+    want_f, want_p = jax_grads(st_j, n_f, n_p)
+    one_f, one_p = jax_grads(ref["want"][f"single_{step}"][1], 1, 1)
+    port_f, port_p = ref["single"][f"{step}_nojitter"][1]
     assert max(np.abs(b).max() for b in want_f.values()) > 0
     for res in ref["got"][kind]:
         loss, (g, gp) = res[f"jax_{step}"]
         assert abs(loss - loss_j) <= 1e-5 * abs(loss_j), (loss, loss_j)
         for k, b in want_f.items():
-            assert np.abs(g[k] - b).max() <= 1e-5 * np.abs(b).max(), k
+            held(g[k], b, one_f[k], port_f[k], k)
         for k, b in want_p.items():
             assert np.abs(b).max() > 0, k
-            a = gp[k][:b.shape[0]]
-            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), k
+            n = b.shape[0]
+            held(gp[k][:n], b, one_p[k][:n], port_p[k][:n], k)
 
 
 @pytest.mark.parametrize("kind", KINDS)
