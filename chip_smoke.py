@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `pointnerf2studio_torch/csrc/` (five
-sources, the tower header and the selection header two of them share
-each) with nvcc (sm_90a), builds the 558k-point procedural chair scene,
+Builds the port's CUDA kernels from `pointnerf2studio_torch/csrc/` (seven
+sources and four headers: the tuned tower and the generic tower, each
+shared by two sources, the selection and the fused chunk's selection
+kernel) with nvcc (sm_90a), one nvcc a source, all started together,
+builds the 558k-point procedural chair scene,
 its voxel grid and its candidate cache (metas, candidate-major payload,
 xyz planes) on the GPU, and drives three
 paths and then the reference's default frame front-ends (4 to 7 below)
@@ -286,6 +288,38 @@ ray budget measured on the frame as the JAX bench sizes them:
      cut-off's outputs on the card must equal the port's CPU run of it on
      the first PROBE_CPU_SLOTS slots: found and pb exactly, sigma within
      ATOL + SIG_RTOL |sigma|, rgb within ATOL, mean |diff| < MEAN_TOL.
+  19. widths (the last phase): the generic kernels (csrc/decode_any.cu,
+     csrc/chunk_any.cu, fused_candidate_select_any of csrc/fused_select.cu)
+     at widths the tuned kernels are not built for, on chair-800p's scene
+     at full size and depth (558,000 points, 800x800, 400 samples a ray,
+     the frame's depth window and ray budget), random weights from seed 0
+     at each width (density bias +5, as the scene's). "wide": K 16 of
+     cand_cap 128 (a fat cache of its own, 7.25 GB of kcand; the C = 64
+     cache stays, so that the two frames are timed in turns), hidden 512,
+     colour 256 x 4 layers, PE octaves (4, 6, 5): the fused-chunk frame
+     (#1 and fused_chunk_decode_any once a chunk), the staged chunk 0 (#1,
+     fused_candidate_select_any, fused_decode2_any) and one legacy chunk
+     with fused_decode (#1, fused_decode_any once a decode piece), then the
+     flagship frame and the wide frame in turns (flagship, wide, wide,
+     flagship). "narrow": K 4 of cand_cap 32, hidden 128, colour 64 x 2,
+     octaves (2, 4, 3): the staged chunk 0 (#1, the tuned selection,
+     fused_decode2_any), the XLA route's chunk 0 with fused_decode2 (#1,
+     fused_decode2_any once a live chunk) and one legacy chunk at 16
+     features (#1, fused_decode_any), whose towers are held again at 3
+     dists (agg_dist_pers 0) on the same rows. Every render computes the
+     neighbour dists 6 wide and the fast path's payload holds 32 features,
+     in the reference too, so the renders take 6 dists and the fast ones
+     32 features. Each run's launches are checked exactly (the tuned
+     kernels launched 0 times), every exactness counter is 0, and each
+     generic kernel is held to its plain version on chunk 0's inputs:
+     selections, masks and `found` exactly, colour within ATOL / MEAN_TOL,
+     sigma within ATOL + SIG_RTOL |sigma|, hw under `tower_check`'s bounds;
+     the staged chunk 0 against the fused-chunk frame's (wide) and the XLA
+     route's against the staged one (narrow): ray_mask equal, colour
+     within ATOL / MEAN_TOL. Printed: kernel ms (queued behind a busy
+     device where under 50 us), plain ms and the bound at these widths,
+     the frames' ms in turns, peak device memory; the generic kernels join
+     the kernels line.
 
 The launch counts are set to 0 just before each path and read just
 after it. It fails (non-zero exit, no result line) when there is no
@@ -305,8 +339,8 @@ differs from the same chunk rendered through the plain versions
 (ray_mask exactly, colour within the same bound), when a check of the
 payload phase, of the train phase, of the routes phase, of the probes
 phase, of the legacy phase, of the structure phase, of the plane phase,
-of the large-scene phase, of the data phase, of the mvs phase or of the
-multi phase fails (a failed rank fails the phase). Printed
+of the large-scene phase, of the data phase, of the mvs phase, of the
+multi phase (a failed rank fails the phase) or of the widths phase fails. Printed
 before the last line: the card's name and power limit, build and phase times, each
 kernel's and its plain version's time at its path's shapes beside the
 least time the card could take (bytes over 3.35 TB/s or operations over
@@ -1941,6 +1975,448 @@ def probes_phase(c) -> dict:
                  phase_s=time.perf_counter() - t_phase)
     log(f"probes phase: {stats['phase_s']:.1f} s, launches {launches}")
     return stats
+
+
+# ---- the widths phase: the generic kernels on chair-800p
+# the two width sets: aggregator widths, K, cand_cap. narrow's renders
+# take 32 features and 6 dists (the fast path's payload and every
+# render's neighbour dists fix them, in the reference too); its legacy
+# chunk takes 16 features, and its towers are held at 3 dists as well
+WIDTH_SETS = {
+    "wide": (dict(hidden_size=512, hidden_size_color=256, num_color_layers=4,
+                  num_feat_freqs=4, num_dist_freqs=6, num_viewdir_freqs=5),
+             16, 128),
+    "narrow": (dict(hidden_size=128, hidden_size_color=64,
+                    num_color_layers=2, num_feat_freqs=2, num_dist_freqs=4,
+                    num_viewdir_freqs=3), 4, 32),
+}
+NARROW_LEGACY_FEATURES = 16
+
+
+def tower_macs(C, D, H, nff, ndf) -> int:
+    """Multiply-adds of the per-neighbour tower a row (the flagship's
+    ROW_MACS at 32, 6, 256, 3, 5)."""
+    return (C + 2 * C * nff + 2 * D * ndf) * H + H * H + (H + 7) * H \
+        + H * H + H
+
+
+def colour_macs(H, HC, layers, nvf) -> int:
+    """Multiply-adds of the colour tower a slot (SLOT_MACS at 256, 128, 3,
+    4)."""
+    return (H + 6 * nvf) * HC + (layers - 1) * HC * HC + HC * 3
+
+
+def kernel_ms(fn) -> float:
+    """CUDA-event ms a call of `fn`; under 50 us, again with the calls
+    queued behind a busy device (`cuda_ms`)."""
+    t = cuda_ms(fn, 3, 1)
+    return cuda_ms(fn, 20, 2, queued=True) if t < 0.05 else t
+
+
+def widths_phase(c) -> dict:
+    """The generic kernels on chair-800p's scene at full size and depth,
+    section "widths" of the module docstring. Returns per kernel its
+    launches on its path, max |diff| against its plain version, kernel,
+    plain and bound ms at both width sets, and the phase's frame times
+    and peak memory."""
+    import torch
+    from pointnerf2studio_torch.data.synthetic import _scene_params
+    from pointnerf2studio_torch.models import fast_render as fr
+    from pointnerf2studio_torch.models import render as lr
+    from pointnerf2studio_torch.ops import _cuda
+    from pointnerf2studio_torch.ops import fused_chunk as fc
+    from pointnerf2studio_torch.ops import fused_decode as fd
+    from pointnerf2studio_torch.ops import fused_select as fs
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    scene, grid = c.scene, c.scene.grid
+    rays0 = c.raydirs[:CHUNK].contiguous()
+    out = {"kernels": {}, "narrow": {}}
+
+    def setup(name, **agg_extra):
+        agg_kw, K, cap = WIDTH_SETS[name]
+        cfg = dataclasses.replace(
+            c.cfg, query=dataclasses.replace(c.cfg.query, K=K, cand_cap=cap),
+            agg=dataclasses.replace(c.cfg.agg, **agg_kw, **agg_extra))
+        return cfg, _scene_params(cfg, 0, c.dev)
+
+    def render_with(cache, rmin, svs, params, cfg, rays):
+        return fr.fast_render_rays(
+            params, scene.cloud.Rw2c, cache, scene.campos, scene.camrotc2w,
+            rays, scene.near, scene.far, cfg, rmin, svs)
+
+    def spy(module, name, box):
+        """Wrap module.name so that its first call's arguments land in
+        box[name]; returns the restore function."""
+        orig = getattr(module, name)
+
+        def wrapped(*a, **k):
+            box.setdefault(name, (a, k))
+            box[name + "_calls"] = box.get(name + "_calls", 0) + 1
+            return orig(*a, **k)
+
+        setattr(module, name, wrapped)
+        return lambda: setattr(module, name, orig)
+
+    def counters_zero(what, outs_):
+        ctr = {f: [int(getattr(o, f)) for o in outs_]
+               for f in ("dw_overflow", "rb_overflow", "cb_overflow")
+               if getattr(outs_[0], f) is not None}
+        if any(v for vals in ctr.values() for v in vals):
+            fail(f"widths {what}: non-zero exactness counter: {ctr}")
+        log(f"widths {what}: exactness counters {ctr}")
+
+    def check_chunk_pair(what, a, b):
+        """Two renders of chunk 0 (one route against another): ray_mask
+        equal, colour within ATOL / MEAN_TOL."""
+        if not torch.equal(a.ray_mask, b.ray_mask):
+            fail(f"widths {what}: ray_mask differs on "
+                 f"{int((a.ray_mask != b.ray_mask).sum())} rays")
+        d = (a.coarse_raycolor - b.coarse_raycolor).abs()
+        log(f"widths {what}: ray_mask equal, colour max |diff| "
+            f"{float(d.max()):.3e}, mean {float(d.mean()):.3e}")
+        if not (float(d.max()) <= ATOL and float(d.mean()) < MEAN_TOL):
+            fail(f"widths {what}: colour disagrees")
+
+    def select_check(name, args):
+        """fused_candidate_select against its plain version: pnt_mask and
+        every payload bit."""
+        ns_k, pm_k = fs.fused_candidate_select(*args)
+        ns_p, pm_p = fs.fused_candidate_select_plain(*args)
+        torch.cuda.synchronize()
+        bits = int((ns_k.view(torch.int16) != ns_p.view(torch.int16)).sum())
+        if not torch.equal(pm_k, pm_p) or bits:
+            fail(f"widths {name}: fused_candidate_select differs from its "
+                 f"plain version (pnt_mask on {int((pm_k != pm_p).sum())}, "
+                 f"payload on {bits})")
+        m_, n_pairs = args[5], int(pm_k.sum())
+        b = bound(int(m_.sum()) * (args[0].shape[1] * 10) + n_pairs * 96
+                  + m_.shape[0] * 17 + nbytes(ns_k, pm_k), 0)
+        t_k = kernel_ms(lambda: fs.fused_candidate_select(*args))
+        t_p = cuda_ms(lambda: fs.fused_candidate_select_plain(*args), 2, 1)
+        log(f"widths {name}: fused_candidate_select (K {args[6]}, C "
+            f"{args[0].shape[1]}) == plain on M={m_.shape[0]} slots "
+            f"({int(m_.sum())} valid, {n_pairs} neighbours); kernel "
+            f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {b[0]:.4f} ms by "
+            f"{b[1]} ({c.smi})")
+        return dict(max_abs_err=float((ns_k.float() - ns_p.float()).abs()
+                                      .max()), ms=t_k, plain_ms=t_p,
+                    bound_ms=b[0], bound_by=b[1], M=m_.shape[0],
+                    neighbours=n_pairs)
+
+    def tower_stats(name, entry, kern, plain, a, k, agg_cfg):
+        """A decode tower held to its plain version (`tower_check`), timed,
+        beside its bound at these widths."""
+        err = tower_check(f"widths {name}: {entry}", kern, plain, a, k)
+        C, D = a[1].shape[-1], a[2].shape[-1]
+        H = agg_cfg.hidden_size
+        macs = tower_macs(C, D, H, k["nff"], k["ndf"])
+        rows = int((a[5] != 0).sum())
+        outs_ = kern(*a, **k)
+        w_bytes = 2 * macs + 4 * (4 * H + 1)
+        b = bound(nbytes(*a[1:6]) + w_bytes + nbytes(*outs_),
+                  2 * rows * macs)
+        t_k = kernel_ms(lambda: kern(*a, **k))
+        t_p = cuda_ms(lambda: plain(*a, **k), 2, 1)
+        log(f"widths {name}: {entry} (C {C}, D {D}, H {H}, octaves "
+            f"({k['nff']}, {k['ndf']}), K {a[1].shape[1]}) M={a[1].shape[0]}, "
+            f"{rows} rows: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+            f"{b[0]:.4f} ms by {b[1]}, kernel / bound {t_k / b[0]:.2f}, "
+            f"{2 * rows * macs / t_k / 1e9:.1f} TFLOP/s of useful work "
+            f"({c.smi})")
+        return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b[0],
+                    bound_by=b[1], M=a[1].shape[0], rows=rows)
+
+    # =================================================================
+    # wide: K 16 of C 128, hidden 512, colour 256 x 4, octaves (4, 6, 5)
+    # =================================================================
+    cfg_w, params_w = setup("wide")
+    t0 = time.perf_counter()
+    cache_w, rmin, svs = fr.make_fast_scene(cfg_w, scene.cloud, grid)
+    torch.cuda.synchronize()
+    log(f"widths wide: fat cache C {cache_w.cand}, kcand "
+        f"{tuple(cache_w.kcand.shape)} {nbytes(cache_w.kcand)} B, kmeta "
+        f"{nbytes(cache_w.kmeta)} B, kxyz {nbytes(cache_w.kxyz)} B, built "
+        f"in {time.perf_counter() - t0:.1f} s; device memory allocated "
+        f"{torch.cuda.memory_allocated()} B")
+    if cache_w.cand != WIDTH_SETS["wide"][2]:
+        fail(f"widths wide: cache width {cache_w.cand}")
+
+    def frame_w():
+        return [render_with(cache_w, rmin, svs, params_w, cfg_w,
+                            c.raydirs[i * CHUNK:(i + 1) * CHUNK])
+                for i in range(c.n_chunks)]
+
+    # ---- the fused-chunk frame (#1, #5 generic), launches counted
+    box = {}
+    restore = spy(fr, "fused_chunk_decode", box)
+    _cuda.LAUNCHES.clear()
+    try:
+        t0 = time.perf_counter()
+        outs_w = frame_w()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = dict(_cuda.LAUNCHES)
+    log(f"widths wide: fused-chunk frame (first pass) in "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches}")
+    check_launches("widths wide frame", launches, {
+        "first_valid_cols": c.n_chunks, "fused_chunk_decode_any": c.n_chunks,
+        "fused_chunk_decode": 0})
+    counters_zero("wide frame", outs_w)
+    color_w = torch.cat([o.coarse_raycolor for o in outs_w])
+    mask_w = torch.cat([o.ray_mask for o in outs_w])
+    if not torch.isfinite(color_w).all() or not bool(mask_w.any()):
+        fail("widths wide: frame colour not finite or no ray hit")
+    bg = torch.tensor(c.cfg.bg_color, device=c.dev)
+    if not torch.equal(color_w[~mask_w], bg.expand(int((~mask_w).sum()), 3)):
+        fail("widths wide: miss rays are not exactly background")
+    out["wide_frame_launches"] = launches
+
+    # chunk 0's fused_chunk_decode against its plain version
+    args, kw = box["fused_chunk_decode"]
+    sig_k, rgb_k, fnd_k = fc.fused_chunk_decode(*args, **kw)
+    sig_p, rgb_p, fnd_p = fc.fused_chunk_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(fnd_k, fnd_p):
+        fail(f"widths wide: fused_chunk_decode found differs on "
+             f"{int((fnd_k != fnd_p).sum())} slots")
+    m_sl = args[-1]
+    d_sig, d_rgb = (sig_k - sig_p).abs()[m_sl], (rgb_k - rgb_p).abs()[m_sl]
+    mean = float(torch.cat([d_sig, d_rgb.reshape(-1)]).mean())
+    log(f"widths wide: fused_chunk_decode vs plain on M={m_sl.shape[0]} "
+        f"slots ({int(m_sl.sum())} valid, {int(fnd_k.sum())} found): found "
+        f"equal, max |diff| sigma {float(d_sig.max()):.3e} rgb "
+        f"{float(d_rgb.max()):.3e}, mean {mean:.3e}")
+    if not (bool((d_sig <= ATOL + SIG_RTOL * sig_p.abs()[m_sl]).all())
+            and float(d_rgb.max()) <= ATOL and mean < MEAN_TOL):
+        fail("widths wide: fused_chunk_decode disagrees with its plain "
+             "version")
+    # pairs with a neighbour, slots found: the towers' work on this data
+    ns_w, pm_w = fs.fused_candidate_select_plain(
+        args[4], args[5], args[6], args[7],
+        (args[9] - args[8]).contiguous(), m_sl, kw["K"], kw["radius2"],
+        kw["num_shells"])
+    n_pairs, n_found = int(pm_w.sum()), int(fnd_k.sum())
+    agg_w = cfg_w.agg
+    rmac = tower_macs(32, 6, agg_w.hidden_size, agg_w.num_feat_freqs,
+                      agg_w.num_dist_freqs)
+    smac = colour_macs(agg_w.hidden_size, agg_w.hidden_size_color,
+                       agg_w.num_color_layers, agg_w.num_viewdir_freqs)
+    C = cache_w.cand
+    b_fc = bound(int(m_sl.sum()) * C * 10 + n_pairs * 96
+                 + m_sl.shape[0] * 58 + fused_chunk_weight_bytes(params_w),
+                 2 * (n_pairs * rmac + n_found * smac))
+    t_fc = kernel_ms(lambda: fc.fused_chunk_decode(*args, **kw))
+    t_fc_p = cuda_ms(lambda: fc.fused_chunk_decode_plain(*args, **kw), 1, 1)
+    log(f"widths wide: fused_chunk_decode_any M={m_sl.shape[0]}, "
+        f"{n_pairs} pairs, {n_found} slots found: kernel {t_fc:.3f} ms, "
+        f"plain {t_fc_p:.3f} ms, bound {b_fc[0]:.3f} ms by {b_fc[1]}, "
+        f"kernel / bound {t_fc / b_fc[0]:.2f}, "
+        f"{2 * (n_pairs * rmac + n_found * smac) / t_fc / 1e9:.1f} TFLOP/s "
+        f"of useful work ({c.smi})")
+    out["kernels"]["fused_chunk_decode_any"] = dict(
+        launches=launches["fused_chunk_decode_any"],
+        max_abs_err=float(max(d_sig.max(), d_rgb.max())), ms=t_fc,
+        plain_ms=t_fc_p, bound_ms=b_fc[0], bound_by=b_fc[1],
+        M=m_sl.shape[0], pairs=n_pairs)
+
+    # ---- the staged chunk 0 (#1, #2 at (128, 16), #4 generic)
+    cfg_ws = dataclasses.replace(
+        cfg_w, query=dataclasses.replace(cfg_w.query, knn_mode="fused",
+                                         chunk_mode="xla"),
+        agg=dataclasses.replace(cfg_w.agg, fused_decode2=True))
+    box = {}
+    restores = [spy(fr, "fused_candidate_select", box),
+                spy(fd, "kacc_tower", box)]
+    _cuda.LAUNCHES.clear()
+    try:
+        out_ws = render_with(cache_w, rmin, svs, params_w, cfg_ws, rays0)
+        torch.cuda.synchronize()
+    finally:
+        for r in restores:
+            r()
+    launches = dict(_cuda.LAUNCHES)
+    log(f"widths wide: staged chunk 0 launches {launches}")
+    check_launches("widths wide staged", launches, {
+        "first_valid_cols": 1, "fused_candidate_select_any": 1,
+        "fused_decode2_any": 1, "fused_candidate_select": 0,
+        "fused_decode2": 0})
+    counters_zero("wide staged", [out_ws])
+    check_chunk_pair("wide staged chunk 0 vs the fused-chunk frame's",
+                     out_ws, outs_w[0])
+    st = select_check("wide", box["fused_candidate_select"][0])
+    st["launches"] = launches["fused_candidate_select_any"]
+    out["kernels"]["fused_candidate_select_any"] = st
+    a, k = box["kacc_tower"]
+    st = tower_stats("wide", "fused_decode2_any", fd.kacc_tower,
+                     fd.kacc_tower_reference, a, k, cfg_w.agg)
+    st["launches"] = launches["fused_decode2_any"]
+    out["kernels"]["fused_decode2_any"] = st
+
+    # ---- one legacy chunk with fused_decode (#1, #3 generic)
+    cfg_wb = dataclasses.replace(cfg_w, agg=dataclasses.replace(
+        cfg_w.agg, fused_decode=True))
+    qb = cfg_wb.query
+    m_b = min(CHUNK * (qb.compact_budget or qb.SR), CHUNK * qb.z_depth_dim)
+    box = {}
+    restore = spy(fd, "pair_tower", box)
+    _cuda.LAUNCHES.clear()
+    try:
+        with torch.no_grad():
+            out_wb = lr.render_rays(params_w, scene.cloud, grid, scene.campos,
+                                    scene.camrotc2w, rays0, scene.near,
+                                    scene.far, cfg_wb)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = dict(_cuda.LAUNCHES)
+    log(f"widths wide: legacy chunk launches {launches}")
+    check_launches("widths wide legacy", launches, {
+        "first_valid_cols": 1, "fused_decode_any": -(-m_b // qb.decode_chunk),
+        "fused_decode": 0})
+    if not torch.isfinite(out_wb.coarse_raycolor).all():
+        fail("widths wide: legacy colour not finite")
+    a, k = box["pair_tower"]
+    st = tower_stats("wide", "fused_decode_any", fd.pair_tower,
+                     fd.pair_tower_reference, a, k, cfg_w.agg)
+    st["launches"] = launches["fused_decode_any"]
+    out["kernels"]["fused_decode_any"] = st
+
+    # ---- the wide frame beside the flagship frame, in turns
+    def frame_main():
+        return [render_with(c.cache, c.rmin, c.svs, scene.params, c.cfg,
+                            c.raydirs[i * CHUNK:(i + 1) * CHUNK])
+                for i in range(c.n_chunks)]
+
+    turns = {"flagship": [], "wide": []}
+    for name in ("flagship", "wide", "wide", "flagship"):
+        turns[name].append(cuda_ms(frame_main if name == "flagship"
+                                   else frame_w, 1))
+    log(f"widths: frame ms in turns, flagship {[round(t, 2) for t in turns['flagship']]}, "
+        f"wide {[round(t, 2) for t in turns['wide']]} ({c.smi})")
+    out["frame_ms"] = turns
+    del cache_w, outs_w, out_ws, out_wb, box, args, kw, a, k
+    torch.cuda.empty_cache()
+
+    # =================================================================
+    # narrow: K 4 of C 32, hidden 128, colour 64 x 2, octaves (2, 4, 3)
+    # =================================================================
+    cfg_n, params_n = setup("narrow")
+    cache_n, rmin, svs = fr.make_fast_scene(cfg_n, scene.cloud, grid)
+    if cache_n.cand != WIDTH_SETS["narrow"][2]:
+        fail(f"widths narrow: cache width {cache_n.cand}")
+    # ---- the staged chunk 0 (#1, #2 tuned, #4 generic)
+    cfg_ns = dataclasses.replace(
+        cfg_n, query=dataclasses.replace(cfg_n.query, knn_mode="fused",
+                                         chunk_mode="xla"),
+        agg=dataclasses.replace(cfg_n.agg, fused_decode2=True))
+    box = {}
+    restores = [spy(fr, "fused_candidate_select", box),
+                spy(fd, "kacc_tower", box)]
+    _cuda.LAUNCHES.clear()
+    try:
+        out_ns = render_with(cache_n, rmin, svs, params_n, cfg_ns, rays0)
+        torch.cuda.synchronize()
+    finally:
+        for r in restores:
+            r()
+    launches = dict(_cuda.LAUNCHES)
+    log(f"widths narrow: staged chunk 0 launches {launches}")
+    check_launches("widths narrow staged", launches, {
+        "first_valid_cols": 1, "fused_candidate_select": 1,
+        "fused_decode2_any": 1, "fused_candidate_select_any": 0,
+        "fused_decode2": 0})
+    counters_zero("narrow staged", [out_ns])
+    st = select_check("narrow", box["fused_candidate_select"][0])
+    out["narrow"]["fused_candidate_select"] = st
+    a, k = box["kacc_tower"]
+    out["narrow"]["fused_decode2_any"] = tower_stats(
+        "narrow", "fused_decode2_any", fd.kacc_tower,
+        fd.kacc_tower_reference, a, k, cfg_n.agg)
+    out["narrow"]["staged_launches"] = launches
+
+    # ---- the XLA route with fused_decode2 (#1, #4 generic), chunk 0
+    cfg_nx = dataclasses.replace(
+        cfg_n, query=dataclasses.replace(cfg_n.query, knn_mode="xla",
+                                         chunk_mode="xla"),
+        agg=dataclasses.replace(cfg_n.agg, fused_decode2=True))
+    box = {}
+    restores = [spy(fd, "kacc_tower", box), spy(fr, "_xla_route", box)]
+    _cuda.LAUNCHES.clear()
+    try:
+        out_nx = render_with(cache_n, rmin, svs, params_n, cfg_nx, rays0)
+        torch.cuda.synchronize()
+    finally:
+        for r in restores:
+            r()
+    launches = dict(_cuda.LAUNCHES)
+    M_x = box["_xla_route"][0][6].shape[0]
+    want4 = -(-int(out_nx.n_valid_slots) // fr.xla_chunk_slots(
+        cfg_nx.query, M_x))
+    log(f"widths narrow: XLA route chunk 0 launches {launches} "
+        f"({int(out_nx.n_valid_slots)} valid slots of {M_x}, "
+        f"{want4} live chunks)")
+    check_launches("widths narrow XLA route", launches, {
+        "first_valid_cols": 1, "fused_decode2_any": want4,
+        "fused_decode2": 0})
+    counters_zero("narrow XLA route", [out_nx])
+    check_chunk_pair("narrow XLA route chunk 0 vs the staged chunk 0",
+                     out_nx, out_ns)
+    out["narrow"]["xla_launches"] = launches
+
+    # ---- a legacy chunk with fused_decode at 16 features (#1, #3
+    # generic); its tower again at 3 dists on the same rows
+    cfg_nb, params_nb = setup(
+        "narrow", point_features_dim=NARROW_LEGACY_FEATURES,
+        fused_decode=True)
+    cloud16 = dataclasses.replace(
+        scene.cloud, points_embeding=scene.cloud.points_embeding[
+            :, :NARROW_LEGACY_FEATURES].contiguous())
+    qb = cfg_nb.query
+    m_b = min(CHUNK * (qb.compact_budget or qb.SR), CHUNK * qb.z_depth_dim)
+    box = {}
+    restore = spy(fd, "pair_tower", box)
+    _cuda.LAUNCHES.clear()
+    try:
+        with torch.no_grad():
+            out_nb = lr.render_rays(params_nb, cloud16, grid, scene.campos,
+                                    scene.camrotc2w, rays0, scene.near,
+                                    scene.far, cfg_nb)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = dict(_cuda.LAUNCHES)
+    log(f"widths narrow: legacy chunk (16 features) launches {launches}")
+    check_launches("widths narrow legacy", launches, {
+        "first_valid_cols": 1, "fused_decode_any": -(-m_b // qb.decode_chunk),
+        "fused_decode": 0})
+    if not torch.isfinite(out_nb.coarse_raycolor).all():
+        fail("widths narrow: legacy colour not finite")
+    a, k = box["pair_tower"]
+    out["narrow"]["fused_decode_any"] = tower_stats(
+        "narrow", "fused_decode_any", fd.pair_tower,
+        fd.pair_tower_reference, a, k, cfg_nb.agg)
+    out["narrow"]["legacy_launches"] = launches
+    cfg_n3, params_n3 = setup(
+        "narrow", point_features_dim=NARROW_LEGACY_FEATURES, agg_dist_pers=0)
+    a3 = (params_n3, a[1], a[2][..., :3].contiguous(), *a[3:])
+    for entry, kern, plain in (
+            ("fused_decode_any", fd.pair_tower, fd.pair_tower_reference),
+            ("fused_decode2_any", fd.kacc_tower, fd.kacc_tower_reference)):
+        n0 = _cuda.LAUNCHES[entry]
+        out["narrow"][entry + "_dist3"] = tower_stats(
+            "narrow, 3 dists", entry, kern, plain, a3, k, cfg_n3.agg)
+        if _cuda.LAUNCHES[entry] <= n0:
+            fail(f"widths narrow: {entry} was not launched at 3 dists")
+    del cache_n, box, a, a3, k
+    torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"widths phase: {out['phase_s']:.1f} s, peak device memory "
+        f"{out['peak_bytes']} B")
+    return out
 
 
 LEGACY_KERNELS = ("linear", "quadric", "avg", "numlinear", "numquadric")
@@ -5650,6 +6126,12 @@ def main() -> int:
     # =================================================================
     multi = multi_phase(ns)
 
+    # =================================================================
+    # The generic kernels: the widths the tuned kernels are not built
+    # for, on chair-800p at full size and depth
+    # =================================================================
+    widths = widths_phase(ns)
+
     def multi_launches(kernel):
         """The kernel's launches per job on every rank of the multi
         phase's worlds."""
@@ -5743,6 +6225,18 @@ def main() -> int:
         rec.update(extra or {})
         return rec
 
+    def any_record(name, source, replaces):
+        """A generic kernel's record: its launches, error and times on its
+        wide path's chunk 0; its narrow runs beside them."""
+        r = widths["kernels"][name]
+        narrow = {k: v for k, v in widths["narrow"].items()
+                  if k.startswith(name.replace("_any", "") + "_any")}
+        return record(name, source, replaces, r["launches"],
+                      r["max_abs_err"], r["ms"], r["plain_ms"],
+                      (r["bound_ms"], r["bound_by"]),
+                      extra={"widths": "wide", "M": r["M"],
+                             "narrow": narrow})
+
     def by_route(kernel):
         """The kernel's launches on each route of the routes phase."""
         return {k: v[kernel] for k, v in routes["launches"].items()
@@ -5822,7 +6316,13 @@ def main() -> int:
         record("march_rays", "march.cu", "march.py:70", **{
             **fe["record"], "extra": {**fe["record"]["extra"],
                                       "train": train["march"]}}),
-    ], "launches_by_path": {"fused_chunk": launches, "staged": launches_a,
+    ] + [any_record(*r) for r in (
+        ("fused_candidate_select_any", "fused_select.cu",
+         "fused_select.py:60"),
+        ("fused_decode_any", "decode_any.cu", "fused_decode.py:91"),
+        ("fused_decode2_any", "decode_any.cu", "fused_decode.py:235"),
+        ("fused_chunk_decode_any", "chunk_any.cu", "fused_chunk.py:86"))],
+        "launches_by_path": {"fused_chunk": launches, "staged": launches_a,
                             "legacy": launches_b, **fe["launches"],
                             **legacy["launches"], **routes["launches"]},
         "routes": routes["stats"],
@@ -5841,7 +6341,8 @@ def main() -> int:
                         if k not in ("select", "kacc", "chunk_gt")},
         "data": {k: v for k, v in data.items() if k != "launches"},
         "mvs": {k: v for k, v in mvs.items() if k != "launches"},
-        "multi": multi}),
+        "multi": multi,
+        "widths": {k: v for k, v in widths.items() if k != "kernels"}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,9 @@
 // tower on all K lanes, valid or not. On the TPU one kernel did all of
 // it; here its parts want different shapes, so the entry point launches
 // three kernels back to back:
-//   * chunk_select_kernel, many small blocks (the gathers are bound by
+//   * chunk_select_kernel (csrc/chunk_select.cuh, at eight lanes a
+//     slot; csrc/chunk_any.cu launches it at 16 and 32 for the widths
+//     this file is not built for), many small blocks (the gathers are bound by
 //     memory latency and need warps in flight, which a tower block of 8
 //     consumer warps does not have): it reads the cache rows itself
 //     through qslot, so the gathered candidate block never exists in
@@ -61,17 +63,17 @@
 // every multiply and add rounds separately, in the reference's order.
 // Slots whose mask is false output (0, 0, false).
 
-#include "select.cuh"
+#include "chunk_select.cuh"
 #include "tower.cuh"
 
 using namespace tower;
+using chunksel::Scratch;
 
 namespace {
 
 constexpr int kHC = 128;                // colour tower width
 constexpr int kNvf = 4;                 // PE octaves of the view direction
 constexpr int kColourSeq = 5;           // stage uses of a colour tile
-constexpr int kSelectThreads = 128;     // chunk_select_kernel: 16 slots
 // colour weights after the tower's slabs: sub-slabs of 64 inputs x 128
 // outputs (16 KB): wc0 five (k 0-319, 280 used), wc1 two, wc2 two
 constexpr int kColour0 = kTowerSlabs * kSlabBytes;
@@ -82,227 +84,6 @@ constexpr int kBC0 = kNTowerF32, kBC1 = kBC0 + kHC, kBC2 = kBC1 + kHC;
 constexpr int kWCH = kBC2 + kHC;        // [3][128] colour head (bf16 values)
 constexpr int kBCH = kWCH + 3 * kHC;
 constexpr int kNParams = kBCH + 16;
-// the scratch buffer between the kernels, for M slots of K pairs
-struct Scratch {
-  bf16* emb;        // [M*K, 32]
-  bf16* hw;         // [M, 256] sum_k h * w_k, the colour tower's input
-  float* dists;     // [M*K, 6] bf16-rounded values
-  float* cd;        // [M*K, 7] colour, dirdot
-  float* wk;        // [M*K] normalised weights
-  float* vd;        // [M, 3] Rw2c-rotated view direction
-  signed char* nk;  // [M] neighbours found, -1: slot masked off
-};
-constexpr int kPairBytes = kC * 2 + (kD + kCD + 1) * 4;   // 120
-constexpr int kSlotBytes = kH * 2 + 3 * 4 + 1;
-
-__host__ __device__ inline Scratch carve(void* base, int M, int K) {
-  const size_t mk = (size_t)M * K;
-  Scratch s;
-  s.emb = (bf16*)base;
-  s.hw = s.emb + mk * kC;
-  s.dists = (float*)(s.hw + (size_t)M * kH);
-  s.cd = s.dists + mk * kD;
-  s.wk = s.cd + mk * kCD;
-  s.vd = s.wk + mk;
-  s.nk = (signed char*)(s.vd + (size_t)M * 3);
-  return s;
-}
-
-// ---------------------------------------------------------------------
-// selection, extract, weights and geometry: four slots a warp
-// ---------------------------------------------------------------------
-__global__ void __launch_bounds__(kSelectThreads)
-chunk_select_kernel(const int32_t* __restrict__ kmeta,
-                    const bf16* __restrict__ kcand,
-                    const bf16* __restrict__ kxyz,
-                    const int32_t* __restrict__ qslot,
-                    const float* __restrict__ locs,
-                    const float* __restrict__ center,
-                    const float* __restrict__ rd,
-                    const uint8_t* __restrict__ mask,
-                    const float* __restrict__ consts, Scratch out,
-                    float* __restrict__ sig, float* __restrict__ rgb,
-                    uint8_t* __restrict__ found, int M, int C, int K,
-                    float radius2, int num_shells) {
-  __shared__ float sc[32];
-  if (threadIdx.x < 21) sc[threadIdx.x] = consts[threadIdx.x];
-  __syncthreads();
-  const float* cam = sc;        // campos
-  const float* Rc = sc + 3;     // camrotc2w, row-major
-  const float* Wr = sc + 12;    // Rw2c, row-major
-  const int lane = threadIdx.x & 31, l = lane & 7, gbase = lane & ~7;
-  const int j = (blockIdx.x * (kSelectThreads / 32) + (threadIdx.x >> 5)) * 4 +
-                (lane >> 3);
-  const int m = min(j, M - 1);
-  const bool act = j < M && mask[m] != 0;   // uniform in the 8-lane group
-  int q = 0;
-  float key[8], px[3][8], loc[3], cen[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) loc[i] = cen[i] = 0.f;
-  if (act) {
-    q = qslot[m];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      loc[i] = locs[(size_t)m * 3 + i];
-      cen[i] = center[(size_t)m * 3 + i];
-    }
-  }
-  knn::candidate_keys(kmeta, kxyz, q, C, K, l, act, cen[0] - loc[0],
-                      cen[1] - loc[1], cen[2] - loc[2], radius2, num_shells,
-                      key, px);
-
-  // K rounds; lane k of the group keeps neighbour k's column and weight
-  float wsum = 0.f, my_w = 0.f;
-  int nk = 0, my_c = 0;
-  for (int k = 0; k < K; ++k) {
-    // the smallest (d2, column) of the slot's 64 candidates
-    float bk;
-    int bc;
-    knn::group_argmin(key, l, bk, bc);
-    // group-uniform; once false it stays false (no key is left)
-    const bool got = bk < CUDART_INF_F;
-    if (!__any_sync(0xffffffffu, got)) break;
-    float mine[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      if (bc == l * 8 + i) {
-        key[i] = CUDART_INF_F;
-        mine[0] = px[0][i];
-        mine[1] = px[1][i];
-        mine[2] = px[2][i];
-      }
-    float dw[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float sx = __shfl_sync(0xffffffffu, mine[a], gbase | (bc >> 3));
-      dw[a] = (sx + cen[a]) - loc[a];
-    }
-    const float dw2 = dw[0] * dw[0] + dw[1] * dw[1] + dw[2] * dw[2];
-    const float w = 1.0f / fmaxf(sqrtf(dw2), 1e-6f);
-    if (got) {
-      wsum = wsum + w;
-      nk = k + 1;
-      if (l == k) {
-        my_c = bc;
-        my_w = w;
-      }
-    }
-  }
-  const float wnorm = 1.0f / fmaxf(wsum, 1e-8f);
-  my_w = my_w * wnorm;
-
-  // per slot: count, view direction, and the sample in camera space
-  float vd[3], lc[3];
-  {
-    const float r0 = act ? rd[(size_t)m * 3 + 0] : 0.f,
-                r1 = act ? rd[(size_t)m * 3 + 1] : 0.f,
-                r2 = act ? rd[(size_t)m * 3 + 2] : 0.f;
-    const float ls0 = loc[0] - cam[0], ls1 = loc[1] - cam[1],
-                ls2 = loc[2] - cam[2];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      vd[a] = r0 * Wr[0 * 3 + a] + r1 * Wr[1 * 3 + a] + r2 * Wr[2 * 3 + a];
-      lc[a] = ls0 * Rc[0 * 3 + a] + ls1 * Rc[1 * 3 + a] + ls2 * Rc[2 * 3 + a];
-    }
-  }
-  const float lpx = lc[0] / lc[2], lpy = lc[1] / lc[2];
-  if (l == 0 && j < M) {
-    out.nk[m] = (signed char)(act ? nk : -1);
-    if (act) {
-      out.vd[(size_t)m * 3 + 0] = vd[0];
-      out.vd[(size_t)m * 3 + 1] = vd[1];
-      out.vd[(size_t)m * 3 + 2] = vd[2];
-    } else {
-      sig[m] = 0.f;
-      rgb[(size_t)m * 3 + 0] = rgb[(size_t)m * 3 + 1] =
-          rgb[(size_t)m * 3 + 2] = 0.f;
-      found[m] = 0;
-    }
-  }
-
-  // extract: neighbour k's payload row is 96 contiguous bytes of kcand
-  // (channels 0-2 rel xyz, 3-34 emb, 35 conf, 36-38 dir, 39-41 colour);
-  // the group's lanes 0-5 load 16 bytes of it each, channels 8 l .. 8 l + 7
-  // as the 32-bit words 4 l .. 4 l + 3 of the row. The embedding starts
-  // three channels in, so lane l < 4 forms its 16 bytes of the scratch row
-  // from its words 1-3 and the next lane's words 0-1, shifted by one
-  // channel; xyz (lane 0) and dir / colour (lanes 4 and 5) go to lane k,
-  // which does row k's geometry
-  const bf16* cand_rows = kcand + (size_t)q * C * knn::kPK;
-  float pv[3] = {0.f, 0.f, 0.f}, ndir[3] = {0.f, 0.f, 0.f},
-        ncol[3] = {0.f, 0.f, 0.f};
-  const int kmax = __reduce_max_sync(0xffffffffu, nk);
-  for (int k = 0; k < kmax; ++k) {
-    const int c = __shfl_sync(0xffffffffu, my_c, gbase | k);
-    const bool row = k < nk;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row && l < 6)
-      v = *(const uint4*)(cand_rows + (size_t)c * knn::kPK + l * 8);
-    const uint32_t n0 = __shfl_down_sync(0xffffffffu, v.x, 1, 8);
-    const uint32_t n1 = __shfl_down_sync(0xffffffffu, v.y, 1, 8);
-    if (row && l < 4) {
-      uint4 e;
-      e.x = __funnelshift_r(v.y, v.z, 16);
-      e.y = __funnelshift_r(v.z, v.w, 16);
-      e.z = __funnelshift_r(v.w, n0, 16);
-      e.w = __funnelshift_r(n0, n1, 16);
-      *(uint4*)(out.emb + ((size_t)m * K + k) * kC + l * 8) = e;
-    }
-    const uint32_t x0 = __shfl_sync(0xffffffffu, v.x, gbase);
-    const uint32_t x1 = __shfl_sync(0xffffffffu, v.y, gbase);
-    const uint32_t d0 = __shfl_sync(0xffffffffu, v.z, gbase | 4);
-    const uint32_t d1 = __shfl_sync(0xffffffffu, v.w, gbase | 4);
-    const uint32_t c0 = __shfl_sync(0xffffffffu, v.x, gbase | 5);
-    if (l == k) {
-      pv[0] = knn::bf_lo(x0);
-      pv[1] = knn::bf_hi(x0);
-      pv[2] = knn::bf_lo(x1);
-      ndir[0] = knn::bf_lo(d0);
-      ndir[1] = knn::bf_hi(d0);
-      ndir[2] = knn::bf_lo(d1);
-      ncol[0] = knn::bf_hi(d1);
-      ncol[1] = knn::bf_lo(c0);
-      ncol[2] = knn::bf_hi(c0);
-    }
-  }
-  if (l < nk) {
-    float nx[3], dw[3], ns[3], nc[3], dr[3], ndr[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      nx[a] = pv[a] + cen[a];
-      dw[a] = nx[a] - loc[a];
-      ns[a] = nx[a] - cam[a];
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      nc[a] = ns[0] * Rc[0 * 3 + a] + ns[1] * Rc[1 * 3 + a] +
-              ns[2] * Rc[2 * 3 + a];
-      dr[a] = dw[0] * Wr[0 * 3 + a] + dw[1] * Wr[1 * 3 + a] +
-              dw[2] * Wr[2 * 3 + a];
-      ndr[a] = ndir[0] * Wr[0 * 3 + a] + ndir[1] * Wr[1 * 3 + a] +
-               ndir[2] * Wr[2 * 3 + a];
-    }
-    const float npx = nc[0] / nc[2], npy = nc[1] / nc[2];
-    const size_t g = (size_t)m * K + l;
-    float* d = out.dists + g * kD;
-    d[0] = bf_round(dr[0]);
-    d[1] = bf_round(dr[1]);
-    d[2] = bf_round(dr[2]);
-    d[3] = bf_round(npx * nc[2] - lpx * lc[2]);
-    d[4] = bf_round(npy * nc[2] - lpy * lc[2]);
-    d[5] = bf_round(nc[2] - lc[2]);
-    float* o = out.cd + g * kCD;
-    o[0] = ncol[0];
-    o[1] = ncol[1];
-    o[2] = ncol[2];
-    o[3] = ndr[0] - vd[0];
-    o[4] = ndr[1] - vd[1];
-    o[5] = ndr[2] - vd[2];
-    o[6] = ndr[0] * vd[0] + ndr[1] * vd[1] + ndr[2] * vd[2];
-    out.wk[g] = my_w;
-  }
-}
-
 // ---------------------------------------------------------------------
 // the towers on the selected pairs
 // ---------------------------------------------------------------------
@@ -538,7 +319,8 @@ extern "C" int fused_chunk_n_weight_bytes() { return kNWeightBytes; }
 extern "C" int fused_chunk_n_params() { return kNParams; }
 // bytes of scratch the entry point needs for M slots of K neighbours
 extern "C" long long fused_chunk_scratch_bytes(int M, int K) {
-  return (long long)M * K * kPairBytes + (long long)M * kSlotBytes;
+  return (long long)M * K * chunksel::kPairBytes +
+         (long long)M * chunksel::slot_bytes(kH);
 }
 
 extern "C" int fused_chunk_decode(const void* kmeta, const void* kcand,
@@ -554,10 +336,11 @@ extern "C" int fused_chunk_decode(const void* kmeta, const void* kcand,
   if (C < 1 || C > knn::kCMax || K < 1 || K > kKMax)
     return (int)cudaErrorInvalidValue;
   if (M <= 0) return 0;
-  const Scratch s = carve(scratch, M, K);
-  const int per_block = kSelectThreads / 32 * 4;
-  chunk_select_kernel<<<(M + per_block - 1) / per_block, kSelectThreads, 0,
-                        (cudaStream_t)stream>>>(
+  const Scratch s = chunksel::carve(scratch, M, K, kH);
+  const int per_block = chunksel::kSelectThreads / 32 * 4;
+  chunksel::chunk_select_kernel<8>
+      <<<(M + per_block - 1) / per_block, chunksel::kSelectThreads, 0,
+         (cudaStream_t)stream>>>(
       (const int32_t*)kmeta, (const bf16*)kcand, (const bf16*)kxyz,
       (const int32_t*)qslot, (const float*)locs, (const float*)center,
       (const float*)rd, (const uint8_t*)mask, (const float*)consts, s,

@@ -6,7 +6,11 @@
 // k) and the neighbour mask pmask [M, K].
 //
 // Replaces the Pallas kernel pointnerf2studio_tpu/ops/fused_select.py::
-// _select_kernel (fused_candidate_select).
+// _select_kernel (fused_candidate_select). Two entry points: the tuned
+// fused_candidate_select (C <= 64, K <= 8: eight lanes a slot) and
+// fused_candidate_select_any (C <= 256, K <= 32: 16 lanes a slot up to
+// C 128 and K 16, a whole warp beyond), one kernel template on the group
+// width, the same order and arithmetic.
 //
 // What bounds it on Hopper: device-memory bytes. A valid slot needs its
 // 64 metas, the 3 xyz values of its 64 candidates and the 48 channels
@@ -39,11 +43,11 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kThreads = 128;                     // 16 slots a block
-constexpr int kSlotsPerBlock = kThreads / knn::kGroup;
+constexpr int kThreads = 128;                     // 16 slots a block at G 8
 constexpr int kPieces = knn::kPK * 2 / 16;        // 16-byte pieces of a row
-constexpr int kTurns = knn::kKMax * kPieces / knn::kGroup;
 
+// G lanes a slot, at most 8 G candidates and G neighbours
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 fused_select_kernel(const int32_t* __restrict__ kmeta,
                     const bf16* __restrict__ kcand,
@@ -53,10 +57,13 @@ fused_select_kernel(const int32_t* __restrict__ kmeta,
                     const uint8_t* __restrict__ mask,
                     bf16* __restrict__ nsel, uint8_t* __restrict__ pmask,
                     int M, int C, int K, float radius2, int num_shells) {
-  const int lane = threadIdx.x & 31, l = lane & 7, gbase = lane & ~7;
-  const int j = blockIdx.x * kSlotsPerBlock + (threadIdx.x >> 3);
+  constexpr int kSlotsPerBlock = kThreads / G;
+  constexpr int kTurns = kPieces;   // G neighbours x 6 pieces over G lanes
+  const int lane = threadIdx.x & 31, l = lane & (G - 1),
+            gbase = lane & ~(G - 1);
+  const int j = blockIdx.x * kSlotsPerBlock + (int)threadIdx.x / G;
   const int m = min(j, M - 1);
-  const bool act = j < M && mask[m] != 0;   // uniform in the 8-lane group
+  const bool act = j < M && mask[m] != 0;   // uniform in the group
   int q = 0;
   float c0 = 0.f, c1 = 0.f, c2 = 0.f;
   if (act) {
@@ -66,15 +73,15 @@ fused_select_kernel(const int32_t* __restrict__ kmeta,
     c2 = cd0[(size_t)m * 3 + 2];
   }
   float key[8], px[3][8];
-  knn::candidate_keys(kmeta, kxyz, q, C, K, l, act, c0, c1, c2, radius2,
-                      num_shells, key, px);
+  knn::candidate_keys<G>(kmeta, kxyz, q, C, K, l, act, c0, c1, c2, radius2,
+                         num_shells, key, px);
 
   // K rounds; lane k of the group keeps neighbour k's column
   int nk = 0, my_c = 0;
   for (int k = 0; k < K; ++k) {
     float bk;
     int bc;
-    knn::group_argmin(key, l, bk, bc);
+    knn::group_argmin<G>(key, l, bk, bc);
     // group-uniform; once false it stays false (no key is left)
     const bool got = bk < CUDART_INF_F;
     if (!__any_sync(0xffffffffu, got)) break;
@@ -87,14 +94,14 @@ fused_select_kernel(const int32_t* __restrict__ kmeta,
     }
   }
 
-  // extract: piece p = l + 8 t of the slot's K * 6 pieces is piece p % 6
+  // extract: piece p = l + G t of the slot's K * 6 pieces is piece p % 6
   // of neighbour p / 6; zeros past the count
   const uint4* rows = (const uint4*)(kcand + (size_t)q * C * knn::kPK);
   uint4 v[kTurns];
 #pragma unroll
   for (int t = 0; t < kTurns; ++t) {
-    const int p = l + knn::kGroup * t;
-    const int k = min(p / kPieces, knn::kKMax - 1);
+    const int p = l + G * t;
+    const int k = min(p / kPieces, G - 1);
     const int c = __shfl_sync(0xffffffffu, my_c, gbase | k);
     v[t] = make_uint4(0u, 0u, 0u, 0u);
     if (k < nk) v[t] = rows[c * kPieces + p % kPieces];
@@ -103,12 +110,27 @@ fused_select_kernel(const int32_t* __restrict__ kmeta,
     uint4* out = (uint4*)(nsel + (size_t)m * K * knn::kPK);
 #pragma unroll
     for (int t = 0; t < kTurns; ++t) {
-      const int p = l + knn::kGroup * t;
+      const int p = l + G * t;
       if (p < K * kPieces) out[p] = v[t];
     }
     // min-extraction takes the valid candidates first: the mask is a prefix
     if (l < K) pmask[(size_t)m * K + l] = l < nk;
   }
+}
+
+template <int G>
+int launch(const void* kmeta, const void* kcand, const void* kxyz,
+           const void* qslot, const void* cd0, const void* mask, void* nsel,
+           void* pmask, int M, int C, int K, float radius2, int num_shells,
+           void* stream) {
+  if (M <= 0) return 0;
+  const int per_block = kThreads / G;
+  fused_select_kernel<G><<<(M + per_block - 1) / per_block, kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      (const int32_t*)kmeta, (const bf16*)kcand, (const bf16*)kxyz,
+      (const int32_t*)qslot, (const float*)cd0, (const uint8_t*)mask,
+      (bf16*)nsel, (uint8_t*)pmask, M, C, K, radius2, num_shells);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -121,11 +143,21 @@ extern "C" int fused_candidate_select(const void* kmeta, const void* kcand,
                                       void* stream) {
   if (C < 1 || C > knn::kCMax || K < 1 || K > knn::kKMax)
     return (int)cudaErrorInvalidValue;
-  if (M <= 0) return 0;
-  const int blocks = (M + kSlotsPerBlock - 1) / kSlotsPerBlock;
-  fused_select_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)kmeta, (const bf16*)kcand, (const bf16*)kxyz,
-      (const int32_t*)qslot, (const float*)cd0, (const uint8_t*)mask,
-      (bf16*)nsel, (uint8_t*)pmask, M, C, K, radius2, num_shells);
-  return (int)cudaGetLastError();
+  return launch<8>(kmeta, kcand, kxyz, qslot, cd0, mask, nsel, pmask, M, C,
+                   K, radius2, num_shells, stream);
+}
+
+// any C <= 256 and K <= 32: 16 lanes a slot up to C 128 and K 16,
+// 32 beyond
+extern "C" int fused_candidate_select_any(
+    const void* kmeta, const void* kcand, const void* kxyz, const void* qslot,
+    const void* cd0, const void* mask, void* nsel, void* pmask, int M, int C,
+    int K, float radius2, int num_shells, void* stream) {
+  if (C < 1 || C > 256 || K < 1 || K > 32)
+    return (int)cudaErrorInvalidValue;
+  if (C <= 128 && K <= 16)
+    return launch<16>(kmeta, kcand, kxyz, qslot, cd0, mask, nsel, pmask, M, C,
+                      K, radius2, num_shells, stream);
+  return launch<32>(kmeta, kcand, kxyz, qslot, cd0, mask, nsel, pmask, M, C,
+                    K, radius2, num_shells, stream);
 }

@@ -1,5 +1,6 @@
 // The K-nearest-candidate selection that csrc/fused_select.cu and
-// chunk_select_kernel of csrc/fused_chunk.cu share: per shading slot, d2
+// chunk_select_kernel (csrc/chunk_select.cuh, for csrc/fused_chunk.cu and
+// csrc/chunk_any.cu) share: per shading slot, d2
 // of its C candidates from their bf16 relative xyz plus (centre - locs),
 // the valid / radius / layered-shell masks, and K rounds of an arg-min
 // on (d2, column) - lax.top_k's order, smallest column first among equal
@@ -14,11 +15,15 @@
 //                               whole 32-byte sectors, so a chosen neighbour
 //                               is read with 16-byte loads
 //
-// Thread shape: eight lanes serve one slot and hold its (at most) 64
-// candidates, eight consecutive columns a lane, so a lane's metas are two
-// 16-byte loads and each of its xyz planes one; a warp selects for four
-// slots in lockstep. A round's arg-min is seven compares in registers and
-// three shuffle levels inside the 8-lane group.
+// Thread shape: a group of G lanes (G = 8, 16 or 32, a template
+// parameter) serves one slot and holds its (at most) 8 G candidates,
+// eight consecutive columns a lane, so a lane's metas are two 16-byte
+// loads and each of its xyz planes one; a warp selects for 32 / G slots
+// in lockstep. A round's arg-min is seven compares in registers and
+// log2 G shuffle levels inside the group. G = 8 (C <= 64, K <= 8) is the
+// tuned shape; 16 and 32 take C <= 128, K <= 16 and C <= 256, K <= 32
+// with the same eight candidates a lane. Lane k of a group keeps
+// neighbour k, so K <= G.
 //
 // Every function here is called by all 32 lanes of a warp (the shuffles
 // name the full mask); `act` says whether the lane's slot takes part.
@@ -37,9 +42,10 @@
 namespace knn {
 
 constexpr int kPK = 48;     // payload channels of a candidate
-constexpr int kCMax = 64;   // candidates per slot at most
-constexpr int kKMax = 8;    // neighbours per slot at most
-constexpr int kGroup = 8;   // lanes per slot; each holds 8 candidates
+constexpr int kCMax = 64;   // candidates per slot at most (G = 8)
+constexpr int kKMax = 8;    // neighbours per slot at most (G = 8)
+constexpr int kGroup = 8;   // lanes per slot (tuned); each holds 8 candidates
+constexpr int kCPerLane = 8;
 
 // the two bf16 values of a 32-bit word, exactly
 __device__ __forceinline__ float bf_lo(uint32_t w) {
@@ -51,7 +57,8 @@ __device__ __forceinline__ float bf_hi(uint32_t w) {
 
 // key[i] = d2 of column l * 8 + i where that candidate may be chosen,
 // +inf elsewhere; px[a][i] its relative xyz (0 where there is no column).
-// cl = centre - locs of the slot.
+// cl = centre - locs of the slot; l the lane's index in its group of G.
+template <int G = kGroup>
 __device__ __forceinline__ void candidate_keys(
     const int32_t* __restrict__ kmeta,
     const __nv_bfloat16* __restrict__ kxyz, int q, int C, int K, int l,
@@ -123,9 +130,9 @@ __device__ __forceinline__ void candidate_keys(
       int n = 0;
 #pragma unroll
       for (int i = 0; i < 8; ++i) n += ok[i] && shell[i] == sh - 1;
-      n += __shfl_xor_sync(0xffffffffu, n, 1);
-      n += __shfl_xor_sync(0xffffffffu, n, 2);
-      n += __shfl_xor_sync(0xffffffffu, n, 4);
+#pragma unroll
+      for (int o = 1; o < G; o <<= 1)
+        n += __shfl_xor_sync(0xffffffffu, n, o);
       before += n;
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -139,7 +146,8 @@ __device__ __forceinline__ void candidate_keys(
 }
 
 // The smallest (d2, column) of the slot's candidates, the same in all
-// eight lanes of its group; bk is +inf when no candidate is left.
+// G lanes of its group; bk is +inf when no candidate is left.
+template <int G = kGroup>
 __device__ __forceinline__ void group_argmin(const float (&key)[8], int l,
                                              float& bk, int& bc) {
   bk = key[0];
@@ -151,7 +159,7 @@ __device__ __forceinline__ void group_argmin(const float (&key)[8], int l,
       bc = l * 8 + i;
     }
 #pragma unroll
-  for (int o = 4; o > 0; o >>= 1) {
+  for (int o = G / 2; o > 0; o >>= 1) {
     const float ok2 = __shfl_xor_sync(0xffffffffu, bk, o);
     const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
     if (ok2 < bk || (ok2 == bk && oc < bc)) {

@@ -711,9 +711,10 @@ def has_pb_overflow(q) -> bool:
 
 def _use_fused2(cfg: PointNerfConfig) -> bool:
     """The K-accumulating decode kernel runs where the config asks for
-    it and the tower is one it implements (the reference also wants a
+    it and the tower is one its gate takes (the reference also wants a
     TPU backend: the port treats the card as that backend, and the CPU
-    takes the kernel's plain version)."""
+    takes the kernel's plain version); an eligible tower outside the
+    kernels' envelope raises NotImplementedError on either device."""
     return cfg.agg.fused_decode2 and fused_decode_served(
         cfg.agg, False, cfg.query.K)
 

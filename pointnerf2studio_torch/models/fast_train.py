@@ -223,8 +223,8 @@ def _check_served(cfg: PointNerfConfig, points: NeuralPointCloud,
         # as in the reference: edited scenes train on the legacy path
         raise NotImplementedError(
             "fast_train_render: a per-point Rw2c (edited scenes) trains "
-            "through the legacy step, fit(fast_path=False) (ROADMAP queue 1 "
-            "item 6)")
+            "through the legacy step, fit(fast_path=False), as in the "
+            "reference, whose fast step has no per-point rotation either")
     if cfg.train.remat not in ("none", "selection", "full"):
         raise ValueError(f"unknown TrainConfig.remat {cfg.train.remat!r}")
     if debug_prefix is not None and debug_prefix not in PREFIXES:

@@ -16,9 +16,12 @@ rsqrt(var + eps) * weight + bias` in the reference's order of operations.
 Convolutions run channel-first (torch NCHW / NCDHW). The functions of the
 reference's API take and return its channel-last arrays ([H, W, C],
 [D, H, W, C]) and permute at their edges. On the card they run in full
-float32: `f32_convs()` turns cuDNN's TF32 off around them, since the
-depth net's 0.8 confidence gate and its truncated expectation index are
-decided on the float edge.
+float32 and with cuDNN's deterministic algorithms: `f32_convs()` turns
+TF32 off around them, since the depth net's 0.8 confidence gate and its
+truncated expectation index are decided on the float edge, and asks for
+the same bits on every run: CostRegNet's 3-D convolutions otherwise give
+other last bits from run to run, which move generated points across the
+image border and, now and then, change the joint step's loss.
 
 `bilinear_grid_sample` is the reference's four-tap sampler, written tap by
 tap as there and not with F.grid_sample, whose edge handling and rounding
@@ -37,10 +40,10 @@ import torch.nn.functional as F
 
 @contextlib.contextmanager
 def f32_convs():
-    """cuDNN convolutions without TF32 inside the block (a no-op off the
-    card)."""
+    """cuDNN convolutions without TF32 and with deterministic algorithms
+    inside the block (a no-op off the card)."""
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                    allow_tf32=False):
+                                    allow_tf32=False, deterministic=True):
         yield
 
 

@@ -169,7 +169,7 @@ def render_rays(
         rw2c, vd_sel = neigh["Rw2c"], raydirs[ray_id]
     else:
         rw2c, vd_sel = points.Rw2c, rotate(raydirs, points.Rw2c)[ray_id]
-    # raises for an eligible config whose kernel the port lacks
+    # raises for an eligible config outside the decode kernels' envelope
     use_fused = (cfg.agg.fused_decode and not training
                  and fused_decode_served(cfg.agg, per_point, K))
 

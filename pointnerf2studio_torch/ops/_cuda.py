@@ -40,12 +40,15 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # weighted sums as its plain version does; march does so because the
 # render path recomputes each emitted sample's position and voxel with
 # separately rounded torch ops, and a sample on a voxel face must fall to
-# the same side in both.
+# the same side in both. decode_any and chunk_any, the generic-width
+# sources, do so for fused_decode's and fused_chunk's reasons.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "first_valid_cols": [],
     "fused_chunk": ["-fmad=false"],
     "fused_select": ["-fmad=false"],
     "fused_decode": ["-fmad=false"],
+    "decode_any": ["-fmad=false"],
+    "chunk_any": ["-fmad=false"],
     "march": ["-fmad=false"],
 }
 

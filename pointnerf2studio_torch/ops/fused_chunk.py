@@ -12,8 +12,14 @@ aggregate plus PE(viewdir). Output: (sigma, rgb, found) per slot.
 `csrc/fused_chunk.cu` (replacing the Pallas kernel `_kernel`,
 ops/fused_chunk.py:86 of the reference; its one entry point launches
 three kernels back to back: selection and gathers, the tower, the colour
-tower). On CUDA tensors it launches the
-kernel; on CPU tensors it runs the plain version
+tower) at the flagship widths (hidden 256, colour 128 x 3 layers, PE
+octaves 3 / 5 / 4, K <= 8, C <= 64), and of `csrc/chunk_any.cu`'s
+`fused_chunk_decode_any` (the same three steps on the generic towers of
+`csrc/tower_any.cuh`, counted in `_cuda.LAUNCHES` under that name) at
+every other width of the envelope `check_envelope` states: K 1-32, C
+1-256, hidden 1-512, colour width 1-512 and 1-8 colour layers, PE octaves
+1-10 each. Outside it both devices raise NotImplementedError. On CUDA
+tensors it launches a kernel; on CPU tensors it runs the plain version
 `fused_chunk_decode_reference`, which mirrors the Pallas kernel op for
 op. Both read the candidate rows through `qslot` from the cache
 (`models/fast_render.py::FatCache`). The wrapper takes the cache's
@@ -42,10 +48,52 @@ from pointnerf2studio_torch.config import AggregatorConfig
 from pointnerf2studio_torch.models.aggregator import Aggregator
 from pointnerf2studio_torch.ops import _cuda
 from pointnerf2studio_torch.ops.fused_decode import (
-    _pe_blocks, _w1_permutation, pack_tower, swizzle_slabs)
+    FREQS_MAX, HIDDEN_MAX, _pe_blocks, _round32, _w1_permutation, pack_tower,
+    pack_tower_any, padded_width, swizzle_slabs)
 
 PK = 48                 # payload channels (PAYW = 44 padded to 48)
 FEAT = 32               # embedding width the cache payload fixes
+K_MAX, C_MAX, COLOUR_LAYERS_MAX = 32, 256, 8   # the envelope's limits
+
+
+def _widths(agg: Aggregator):
+    """(hidden, colour width, colour layers) of an aggregator's towers."""
+    return (agg.mlp_base[0].weight.shape[0],
+            agg.mlp_color[0].weight.shape[0], len(agg.mlp_color))
+
+
+def check_envelope(agg: Aggregator, K: int, C: int, nff: int, ndf: int,
+                   nvf: int) -> None:
+    """Raise NotImplementedError, on any device, for a chunk outside the
+    widths the fused chunk kernels take: K neighbours 1-32 of C
+    candidates 1-256, hidden 1-512, colour width 1-512 in 1-8 layers, PE
+    octaves 1-10 for the embedding, the dists and the view direction."""
+    H, HC, layers = _widths(agg)
+    got = {"K": K, "cand": C, "hidden_size": H, "hidden_size_color": HC,
+           "num_color_layers": layers, "num_feat_freqs": nff,
+           "num_dist_freqs": ndf, "num_viewdir_freqs": nvf}
+    ok = {"K": 1 <= K <= K_MAX, "cand": 1 <= C <= C_MAX,
+          "hidden_size": 1 <= H <= HIDDEN_MAX,
+          "hidden_size_color": 1 <= HC <= HIDDEN_MAX,
+          "num_color_layers": 1 <= layers <= COLOUR_LAYERS_MAX,
+          "num_feat_freqs": 1 <= nff <= FREQS_MAX,
+          "num_dist_freqs": 1 <= ndf <= FREQS_MAX,
+          "num_viewdir_freqs": 1 <= nvf <= FREQS_MAX}
+    bad = {k: got[k] for k, v in ok.items() if not v}
+    if bad:
+        raise NotImplementedError(
+            f"the fused chunk kernels are not ported for {bad}; they take "
+            f"K 1-{K_MAX}, C 1-{C_MAX}, hidden and colour width "
+            f"1-{HIDDEN_MAX}, 1-{COLOUR_LAYERS_MAX} colour layers and PE "
+            f"octaves 1-{FREQS_MAX}")
+
+
+def tuned(agg: Aggregator, K: int, C: int, nff: int, ndf: int,
+          nvf: int) -> bool:
+    """Whether csrc/fused_chunk.cu (the tuned kernels) serves these
+    widths; every other width of the envelope takes csrc/chunk_any.cu."""
+    return (_widths(agg) == (256, 128, 3) and (nff, ndf, nvf) == (3, 5, 4)
+            and K <= 8 and C <= 64)
 
 
 def fused_chunk_eligible(cfg: AggregatorConfig, per_point_rw2c: bool,
@@ -130,9 +178,6 @@ def _kernel_params(plist, n_color_rest: int):
     its bias, all bf16 values, padded to 16."""
     (w1a, w1b, w1c, b1, w2, b2, w3a, w3b, b3, w4, b4, wd, bd,
      wc0a, wc0b, bc0) = plist[:16]
-    if n_color_rest != 2 or w2.shape != (256, 256) or wc0a.shape[1] != 128:
-        raise ValueError("the CUDA fused chunk kernel is built for hidden "
-                         "256, colour width 128 and 3 colour layers")
     wc1, bc1, wc2, bc2 = plist[16:16 + 2 * n_color_rest]
     wch, bch = plist[-2:]
     bf = torch.bfloat16
@@ -152,18 +197,60 @@ def _kernel_params(plist, n_color_rest: int):
     return weights.contiguous(), params.contiguous()
 
 
+def _kernel_params_any(plist, n_color_rest: int):
+    """Pack the prepped weights for csrc/chunk_any.cu: (weights, params).
+    `weights` (bf16): the tower's (`pack_tower_any`), then the colour
+    tower's as [out][in] matrices of Nc = padded_width(HC) outputs: wc0
+    [Nc][kin] (its K-sum rows at 0 .. H-1, its PE(viewdir) rows at H ..,
+    kin a multiple of 32), then each further layer [Nc][Nc]. `params`
+    (f32): the tower's (biases rounded to bf16), then each colour layer's
+    bias [Nc], the colour head's weights [3][Nc] and its bias, all bf16
+    values, and 13 zeros. Zeros pad every matrix and vector."""
+    (w1a, w1b, w1c, b1, w2, b2, w3a, w3b, b3, w4, b4, wd, bd,
+     wc0a, wc0b, bc0) = plist[:16]
+    rest = plist[16:16 + 2 * n_color_rest]
+    wch, bch = plist[-2:]
+    bf = torch.bfloat16
+    weights, params = pack_tower_any(
+        torch.cat([w1a, w1b, w1c]), w2, torch.cat([w3a, w3b]), w4, wd,
+        (b1, b2, b3, b4), bd, round_bias=True)
+    H, HC = wc0a.shape
+    n_c = padded_width(HC)
+    wc0 = torch.cat([wc0a, wc0b])
+    mats = [wc0.new_zeros((n_c, _round32(wc0.shape[0])), dtype=bf)]
+    mats[0][:HC, :wc0.shape[0]] = wc0.T.to(bf)
+    for w in rest[0::2]:
+        mats.append(w.new_zeros((n_c, n_c), dtype=bf))
+        mats[-1][:HC, :HC] = w.T.to(bf)
+
+    def rb(x, n=n_c):
+        x = x.reshape(-1).to(bf).float()
+        return torch.cat([x, x.new_zeros(n - x.numel())])
+
+    head = torch.zeros((3, n_c), dtype=torch.float32, device=wch.device)
+    head[:, :HC] = wch.T.to(bf).float()
+    params = torch.cat([params, rb(bc0)] + [rb(b) for b in rest[1::2]] + [
+        head.reshape(-1), rb(bch, 16)])
+    weights = torch.cat([weights] + [m.reshape(-1) for m in mats])
+    return weights.contiguous(), params.contiguous()
+
+
 def _param_tensors(agg: Aggregator):
     return [p for lyr in (*agg.mlp_base, *agg.mlp_head, *agg.density_head,
                           *agg.mlp_color, *agg.color_head)
             for p in (lyr.weight, lyr.bias)]
 
 
-def _packed_params(agg: Aggregator, nff: int, ndf: int, nvf: int):
-    """`_kernel_params` of `agg`, packed once per set of weights: again
-    only after a weight was moved or written in place."""
+def _packed_params(agg: Aggregator, nff: int, ndf: int, nvf: int,
+                   any_width: bool = False):
+    """`_kernel_params` (or, `any_width`, `_kernel_params_any`) of `agg`,
+    packed once per set of weights and octaves: again only after a
+    weight was moved or written in place."""
+    pack = _kernel_params_any if any_width else _kernel_params
     return _cuda.packed_once(
-        agg, "_chunk_kernel_params", _param_tensors(agg),
-        lambda: _kernel_params(*_prep_params(agg, FEAT, nff, ndf, nvf)))
+        agg, f"_chunk_kernel_params_{int(any_width)}_{nff}_{ndf}_{nvf}",
+        _param_tensors(agg),
+        lambda: pack(*_prep_params(agg, FEAT, nff, ndf, nvf)))
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
@@ -363,22 +450,18 @@ def fused_chunk_decode(
     _cuda.require(kmeta, "kmeta", torch.int32, (max_q, C), dev)
     _cuda.require(kcand, "kcand", torch.bfloat16, (max_q, C, PK), dev)
     _cuda.require(kxyz, "kxyz", torch.bfloat16, (max_q, 3, C), dev)
+    check_envelope(params, K, C, nff, ndf, nvf)
     if not kmeta.is_cuda:
         return fused_chunk_decode_plain(
             params, Rw2c, camrotc2w, campos, kmeta, kcand, kxyz, qslot, locs,
             center, rd, mask, K=K, radius2=radius2, num_shells=num_shells,
             nff=nff, ndf=ndf, nvf=nvf, act_super=act_super)
-    if (nff, ndf, nvf) != (3, 5, 4):
-        raise ValueError("the CUDA fused chunk kernel is built for PE "
-                         "freqs (3, 5, 4)")
-    if not (1 <= K <= 8 and 1 <= C <= 64):
-        raise ValueError(f"the CUDA fused chunk kernel needs K <= 8 and "
-                         f"C <= 64, got K={K}, C={C}")
     _cuda.require(qslot, "qslot", torch.int32, (M,), dev)
     for name, t in (("locs", locs), ("center", center), ("rd", rd)):
         _cuda.require(t, name, torch.float32, (M, 3), dev)
     _cuda.require(mask, "mask", torch.bool, (M,), dev)
-    weights, fparams = _packed_params(params, nff, ndf, nvf)
+    fast = tuned(params, K, C, nff, ndf, nvf)
+    weights, fparams = _packed_params(params, nff, ndf, nvf, not fast)
     _cuda.require(weights, "aggregator weights", torch.bfloat16,
                   (weights.numel(),), dev)
     _cuda.require(fparams, "aggregator biases", torch.float32,
@@ -388,28 +471,51 @@ def fused_chunk_decode(
     sig = torch.empty(M, dtype=torch.float32, device=dev)
     rgb = torch.empty((M, 3), dtype=torch.float32, device=dev)
     found = torch.empty(M, dtype=torch.bool, device=dev)
-    lib = _cuda.library("fused_chunk")
-    lib.fused_chunk_n_weight_bytes.restype = ctypes.c_int
-    lib.fused_chunk_n_params.restype = ctypes.c_int
-    lib.fused_chunk_scratch_bytes.restype = ctypes.c_longlong
-    lib.fused_chunk_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    if (lib.fused_chunk_n_weight_bytes() != 2 * weights.numel()
-            or lib.fused_chunk_n_params() != fparams.numel()):
-        raise RuntimeError("packed parameter layout does not match "
-                           "csrc/fused_chunk.cu")
-    # what the kernels hand each other: 120 bytes a (slot, k) pair and
-    # 525 a slot, written and read for the valid ones only
-    scratch = torch.empty(lib.fused_chunk_scratch_bytes(M, K),
-                          dtype=torch.uint8, device=dev)
-    fn = lib.fused_chunk_decode
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _cuda.LAUNCHES["fused_chunk_decode"] += 1
-    _cuda.check(fn(*[_cuda.ptr(t) for t in (
+    ptrs = [_cuda.ptr(t) for t in (
         kmeta, kcand, kxyz, qslot, locs, center, rd, mask, consts, weights,
-        fparams, scratch, sig, rgb, found)], M, C, K, float(radius2),
-        int(num_shells), int(act_super), _cuda.stream_handle(dev)),
-        "fused_chunk_decode launch")
+        fparams)]
+    outs = [_cuda.ptr(t) for t in (sig, rgb, found)]
+    if fast:
+        lib = _cuda.library("fused_chunk")
+        lib.fused_chunk_n_weight_bytes.restype = ctypes.c_int
+        lib.fused_chunk_n_params.restype = ctypes.c_int
+        lib.fused_chunk_scratch_bytes.restype = ctypes.c_longlong
+        lib.fused_chunk_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        if (lib.fused_chunk_n_weight_bytes() != 2 * weights.numel()
+                or lib.fused_chunk_n_params() != fparams.numel()):
+            raise RuntimeError("packed parameter layout does not match "
+                               "csrc/fused_chunk.cu")
+        # what the kernels hand each other: 120 bytes a (slot, k) pair and
+        # 525 a slot, written and read for the valid ones only
+        scratch = torch.empty(lib.fused_chunk_scratch_bytes(M, K),
+                              dtype=torch.uint8, device=dev)
+        entry, widths = "fused_chunk_decode", []
+    else:
+        H, HC, layers = _widths(params)
+        lib = _cuda.library("chunk_any")
+        lib.chunk_any_n_weights.restype = ctypes.c_longlong
+        lib.chunk_any_n_weights.argtypes = [ctypes.c_int] * 6
+        lib.chunk_any_n_params.restype = ctypes.c_int
+        lib.chunk_any_n_params.argtypes = [ctypes.c_int] * 3
+        lib.chunk_any_scratch_bytes.restype = ctypes.c_longlong
+        lib.chunk_any_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        if (lib.chunk_any_n_weights(H, HC, layers, nff, ndf, nvf)
+                != weights.numel()
+                or lib.chunk_any_n_params(H, HC, layers) != fparams.numel()):
+            raise RuntimeError("packed parameter layout does not match "
+                               "csrc/chunk_any.cu")
+        # 120 bytes a (slot, k) pair and 2 * round8(H) + 13 a slot
+        scratch = torch.empty(lib.chunk_any_scratch_bytes(M, K, H),
+                              dtype=torch.uint8, device=dev)
+        entry, widths = "fused_chunk_decode_any", [H, HC, layers, nff, ndf,
+                                                   nvf]
+    fn = getattr(lib, entry)
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_int] * len(widths) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _cuda.LAUNCHES[entry] += 1
+    _cuda.check(fn(*ptrs, _cuda.ptr(scratch), *outs, M, C, K,
+                   float(radius2), int(num_shells), int(act_super), *widths,
+                   _cuda.stream_handle(dev)), f"{entry} launch")
     return sig, rgb, found

@@ -22,7 +22,14 @@ and return (sigma [M], rgb [M, 3]).
 `pair_tower` and `kacc_tower` are the wrappers of the two entry points
 of the hand-written CUDA source `csrc/fused_decode.cu` (replacing the
 Pallas kernels `_pair_kernel`, ops/fused_decode.py:91, and
-`_kacc_kernel`, :235, of the reference). On CUDA tensors they launch the
+`_kacc_kernel`, :235, of the reference) at the flagship widths (32
+features, 6 dists, hidden 256, PE octaves 3 / 5, K <= 8), and of the
+entry points `fused_decode_any` / `fused_decode2_any` of
+`csrc/decode_any.cu` (the generic tower of `csrc/tower_any.cuh`,
+counted in `_cuda.LAUNCHES` under those names) at every other width of
+the envelope `check_envelope` states: features 1-64, dist_dim 3, 4 or
+6, hidden 1-512, PE octaves 1-10, K 1-32. Outside it both devices raise
+NotImplementedError. On CUDA tensors they launch a
 kernel; on CPU tensors they run the plain versions
 `pair_tower_reference` / `kacc_tower_reference`, which follow the Pallas
 kernel bodies step by step. `fused_decode_reference` and
@@ -52,6 +59,36 @@ from pointnerf2studio_torch.ops.camera import rotate
 from pointnerf2studio_torch.ops.encoding import positional_encoding
 
 HIDDEN, FEAT, DIST = 256, 32, 6     # the widths csrc/fused_decode.cu is built for
+TUNED_FREQS, TUNED_K = (3, 5), 8
+# the envelope of the decode kernels (csrc/decode_any.cu beyond the tuned)
+FEAT_MAX, HIDDEN_MAX, FREQS_MAX, K_MAX = 64, 512, 10, 32
+DIST_DIMS = (3, 4, 6)
+
+
+def check_envelope(C: int, D: int, H: int, nff: int, ndf: int,
+                   K: int) -> None:
+    """Raise NotImplementedError, on any device, for a tower outside the
+    widths the decode kernels take: C features 1-64, D dists 3, 4 or 6,
+    hidden H 1-512, nff and ndf PE octaves 1-10, K neighbours 1-32."""
+    got = {"shading_feature_dim": C, "dist_dim": D, "hidden_size": H,
+           "num_feat_freqs": nff, "num_dist_freqs": ndf, "K": K}
+    ok = {"shading_feature_dim": 1 <= C <= FEAT_MAX, "dist_dim": D in DIST_DIMS,
+          "hidden_size": 1 <= H <= HIDDEN_MAX,
+          "num_feat_freqs": 1 <= nff <= FREQS_MAX,
+          "num_dist_freqs": 1 <= ndf <= FREQS_MAX, "K": 1 <= K <= K_MAX}
+    bad = {k: got[k] for k, v in ok.items() if not v}
+    if bad:
+        raise NotImplementedError(
+            f"the fused decode kernels are not ported for {bad}; they take "
+            f"features 1-{FEAT_MAX}, dist_dim {DIST_DIMS}, hidden "
+            f"1-{HIDDEN_MAX}, PE octaves 1-{FREQS_MAX} and K 1-{K_MAX}")
+
+
+def tuned(C: int, D: int, H: int, nff: int, ndf: int, K: int) -> bool:
+    """Whether csrc/fused_decode.cu (the tuned wgmma tower) serves these
+    widths; every other width of the envelope takes csrc/decode_any.cu."""
+    return ((C, D, H, (nff, ndf)) == (FEAT, DIST, HIDDEN, TUNED_FREQS)
+            and K <= TUNED_K)
 
 
 def fused_decode_eligible(cfg: AggregatorConfig, per_point_rw2c: bool,
@@ -71,27 +108,15 @@ def fused_decode_eligible(cfg: AggregatorConfig, per_point_rw2c: bool,
 def fused_decode_served(cfg: AggregatorConfig, per_point_rw2c: bool,
                         K: int) -> bool:
     """`fused_decode_eligible`, and for an eligible config a check that
-    the port has its kernel: csrc/fused_decode.cu is built for 32
-    features, 6 dists, hidden 256, PE freqs (3, 5) and K <= 8. Every
-    weight kernel of the gate is served: the weights reach the kernels
-    from outside (`tower_inputs`). An eligible config outside that
-    raises NotImplementedError on either device; it does not take
-    `decode_radiance` quietly."""
+    its widths lie in the envelope of the decode kernels
+    (`check_envelope`). Every weight kernel of the gate is served: the
+    weights reach the kernels from outside (`tower_inputs`). An eligible
+    config outside the envelope raises NotImplementedError on either
+    device; it does not take `decode_radiance` quietly."""
     if not fused_decode_eligible(cfg, per_point_rw2c, K):
         return False
-    got = {"shading_feature_dim": cfg.shading_feature_dim,
-           "dist_dim": cfg.dist_dim, "hidden_size": cfg.hidden_size,
-           "num_feat_freqs": cfg.num_feat_freqs,
-           "num_dist_freqs": cfg.num_dist_freqs}
-    want = {"shading_feature_dim": FEAT, "dist_dim": DIST,
-            "hidden_size": HIDDEN, "num_feat_freqs": 3, "num_dist_freqs": 5}
-    bad = {k: v for k, v in got.items() if v != want[k]}
-    if not 1 <= K <= 8:
-        bad["K"] = K
-    if bad:
-        raise NotImplementedError(
-            f"the fused decode kernels are not ported for {bad}; they "
-            f"serve {want} with K <= 8")
+    check_envelope(cfg.shading_feature_dim, cfg.dist_dim, cfg.hidden_size,
+                   cfg.num_feat_freqs, cfg.num_dist_freqs, K)
     return True
 
 
@@ -311,9 +336,6 @@ def _kernel_params(agg: Aggregator, nff: int, ndf: int):
     """(weights, params) of `pack_tower` for csrc/fused_decode.cu, packed
     once per set of weights: again only after a weight was moved or
     written in place."""
-    if (nff, ndf) != (3, 5):
-        raise ValueError("the CUDA decode kernels are built for PE freqs "
-                         "(3, 5)")
     return _cuda.packed_once(agg, "_decode_kernel_params",
                              _tower_tensors(agg),
                              lambda: _pack_decode(agg, nff, ndf))
@@ -322,8 +344,6 @@ def _kernel_params(agg: Aggregator, nff: int, ndf: int):
 def _launch(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
     dev = emb.device
     M, K, C = emb.shape
-    if not 1 <= K <= 8:
-        raise ValueError(f"the CUDA decode kernels need K <= 8, got {K}")
     weights, params = _kernel_params(agg, nff, ndf)
     emb = emb.to(torch.bfloat16).contiguous()
     dists = dists.float().contiguous()
@@ -361,28 +381,137 @@ def _launch(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
     return aw, hw
 
 
+def padded_width(h: int) -> int:
+    """csrc/tower_any.cuh's padded_width: a layer's width as 64 NT
+    outputs, NT 1, 2, 4 or 8."""
+    return 64 if h <= 64 else 128 if h <= 128 else 256 if h <= 256 else 512
+
+
+def _round32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def pack_tower_any(w1, w2, w3, w4, wd, biases, bd, round_bias: bool):
+    """The per-neighbour tower's parameters as csrc/tower_any.cuh takes
+    them. `weights` (bf16): the four layers as [out][in] matrices, the
+    width padded to Np = padded_width(H) outputs and zeros elsewhere:
+    [Np][kin1] (w1's rows in the block PE order, kin1 a multiple of 32),
+    [Np][Np], [Np][Np + 32] (w3's rows 0..H-1, then its colour and
+    dirdot rows at Np .. Np + 6), [Np][Np]. `params` (f32): b1..b4 and
+    the density head's weights (bf16 values), each [Np], then its bias
+    and 15 zeros; with `round_bias` the biases are rounded to bf16.
+    Zero weights with a zero bias add exactly 0, so the padding changes
+    no result."""
+    bf = torch.bfloat16
+    H = w2.shape[0]
+    n_p = padded_width(H)
+    n1 = w1.shape[0]
+    mats = []
+    for w, kin, rows in ((w1, _round32(n1), [(0, 0, n1)]),
+                         (w2, n_p, [(0, 0, H)]),
+                         (w3, n_p + 32, [(0, 0, H), (H, n_p, w3.shape[0] - H)]),
+                         (w4, n_p, [(0, 0, H)])):
+        m = w.new_zeros((n_p, kin), dtype=bf)
+        for src, dst, n in rows:
+            m[:H, dst:dst + n] = w[src:src + n].T.to(bf)
+        mats.append(m.reshape(-1))
+
+    def rb(b):
+        b = b.reshape(-1).float()
+        b = b.to(bf).float() if round_bias else b
+        return torch.cat([b, b.new_zeros(n_p - b.numel())])
+
+    params = torch.cat([rb(b) for b in biases] + [
+        torch.cat([wd.reshape(-1).to(bf).float(),
+                   wd.new_zeros(n_p - H, dtype=torch.float32)]),
+        rb(bd)[:1], bd.new_zeros(15, dtype=torch.float32)])
+    return torch.cat(mats).contiguous(), params.contiguous()
+
+
+def _pack_decode_any(agg: Aggregator, C: int, D: int, nff: int, ndf: int):
+    w1, b1, w2, b2, w3, b3, w4, b4, wd, bd = _tower_params(
+        agg, C, D, nff, ndf)
+    return pack_tower_any(w1, w2, w3, w4, wd, (b1, b2, b3, b4), bd,
+                          round_bias=False)
+
+
+def _launch_any(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
+    """csrc/decode_any.cu's entry `entry` (fused_decode_any or
+    fused_decode2_any) on CUDA tensors, weights packed once per set of
+    weights and widths."""
+    dev = emb.device
+    M, K, C = emb.shape
+    D = dists.shape[-1]
+    H = agg.mlp_base[0].weight.shape[0]
+    weights, params = _cuda.packed_once(
+        agg, f"_decode_any_params_{C}_{D}_{nff}_{ndf}", _tower_tensors(agg),
+        lambda: _pack_decode_any(agg, C, D, nff, ndf))
+    emb = emb.to(torch.bfloat16).contiguous()
+    dists = dists.float().contiguous()
+    cd = torch.cat([color.float(), dirdot.float()], -1).contiguous()
+    wk = wk.float().contiguous()
+    _cuda.require(cd, "colour + dirdot", torch.float32, (M, K, 7), dev)
+    _cuda.require(wk, "wk", torch.float32, (M, K), dev)
+    _cuda.require(weights, "tower weights", torch.bfloat16,
+                  (weights.numel(),), dev)
+    _cuda.require(params, "tower biases", torch.float32, (params.numel(),),
+                  dev)
+    lib = _cuda.library("decode_any")
+    lib.decode_any_n_weights.restype = ctypes.c_longlong
+    lib.decode_any_n_weights.argtypes = [ctypes.c_int] * 5
+    lib.decode_any_n_params.restype = ctypes.c_int
+    lib.decode_any_n_params.argtypes = [ctypes.c_int]
+    if (lib.decode_any_n_weights(C, D, H, nff, ndf) != weights.numel()
+            or lib.decode_any_n_params(H) != params.numel()):
+        raise RuntimeError("packed parameter layout does not match "
+                           "csrc/tower_any.cuh")
+    if entry == "fused_decode_any":
+        aw = torch.empty((M, K), dtype=torch.float32, device=dev)
+        hw = torch.empty((M, K, H), dtype=torch.bfloat16, device=dev)
+    else:
+        aw = torch.empty((M,), dtype=torch.float32, device=dev)
+        hw = torch.empty((M, H), dtype=torch.float32, device=dev)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _cuda.LAUNCHES[entry] += 1
+    _cuda.check(fn(*[_cuda.ptr(t) for t in (
+        emb, dists, cd, wk, weights, params, aw, hw)], M, K, C, D, H, nff,
+        ndf, _cuda.stream_handle(dev)), f"{entry} launch")
+    return aw, hw
+
+
+def _tower(kacc: bool, agg, emb, dists, color, dirdot, wk, nff, ndf):
+    """The envelope check on any device, then the plain version (CPU
+    tensors), the tuned kernel or the generic one (CUDA tensors)."""
+    M, K, C = emb.shape
+    D, H = dists.shape[-1], agg.mlp_base[0].weight.shape[0]
+    check_envelope(C, D, H, nff, ndf, K)
+    if not emb.is_cuda:
+        plain = kacc_tower_reference if kacc else pair_tower_reference
+        return plain(agg, emb, dists, color, dirdot, wk, nff=nff, ndf=ndf)
+    if tuned(C, D, H, nff, ndf, K):
+        return _launch("fused_decode2" if kacc else "fused_decode", agg,
+                       emb, dists, color, dirdot, wk, nff, ndf)
+    return _launch_any("fused_decode2_any" if kacc else "fused_decode_any",
+                       agg, emb, dists, color, dirdot, wk, nff, ndf)
+
+
 @torch.no_grad()
 def pair_tower(agg: Aggregator, emb, dists, color, dirdot, wk, *,
                nff: int, ndf: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(aw [M, K] f32, hw [M, K, H] bf16) per (slot, k) row. CUDA
-    tensors launch the kernel; CPU tensors take the plain version."""
-    if not emb.is_cuda:
-        return pair_tower_reference(agg, emb, dists, color, dirdot, wk,
-                                    nff=nff, ndf=ndf)
-    return _launch("fused_decode", agg, emb, dists, color, dirdot, wk,
-                   nff, ndf)
+    tensors launch a kernel; CPU tensors take the plain version."""
+    return _tower(False, agg, emb, dists, color, dirdot, wk, nff, ndf)
 
 
 @torch.no_grad()
 def kacc_tower(agg: Aggregator, emb, dists, color, dirdot, wk, *,
                nff: int, ndf: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(aw [M] f32, hw [M, H] f32) summed over k in k order. CUDA
-    tensors launch the kernel; CPU tensors take the plain version."""
-    if not emb.is_cuda:
-        return kacc_tower_reference(agg, emb, dists, color, dirdot, wk,
-                                    nff=nff, ndf=ndf)
-    return _launch("fused_decode2", agg, emb, dists, color, dirdot, wk,
-                   nff, ndf)
+    tensors launch a kernel; CPU tensors take the plain version."""
+    return _tower(True, agg, emb, dists, color, dirdot, wk, nff, ndf)
 
 
 def _color_tower(agg: Aggregator, sigma, agg_feat, dir_pe):

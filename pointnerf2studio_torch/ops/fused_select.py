@@ -9,8 +9,13 @@ tie-break (`lax.top_k(-d2)`'s order) and their payload rows.
 
 `fused_candidate_select` is the wrapper of the hand-written CUDA kernel
 `csrc/fused_select.cu` (replacing the Pallas kernel `_select_kernel`,
-ops/fused_select.py:60 of the reference). On CUDA tensors it launches
-the kernel; on CPU tensors it runs the plain version
+ops/fused_select.py:60 of the reference). It serves K <= 32 neighbours
+of C <= 256 candidates (`check_envelope`, on either device): the tuned
+entry point at K <= 8 and C <= 64 (eight lanes a slot), the entry point
+`fused_candidate_select_any` of the same source at every other width (16
+or 32 lanes a slot; counted in `_cuda.LAUNCHES` under that name). On
+CUDA tensors it launches the kernel; on CPU tensors it runs the plain
+version
 `fused_candidate_select_reference`, which mirrors the Pallas kernel op
 for op. Unlike the reference, which consumes the XLA-gathered
 `kmeta[qslot]` / `kpay[qslot]` block, both read the candidate rows
@@ -41,6 +46,23 @@ import torch
 from pointnerf2studio_torch.ops import _cuda
 
 PK = 48                 # payload channels (PAYW = 44 padded to 48)
+K_MAX, C_MAX = 32, 256  # the widths the selection kernels take
+TUNED_K, TUNED_C = 8, 64   # the tuned entry point's
+
+
+def check_envelope(K: int, C: int) -> None:
+    """Raise NotImplementedError, on any device, for a selection the
+    port's kernels do not take: K neighbours in 1..32 of C candidates in
+    1..256 (K may exceed C: the selection finds the valid ones)."""
+    if not (1 <= K <= K_MAX and 1 <= C <= C_MAX):
+        raise NotImplementedError(
+            f"the selection kernels take K <= {K_MAX} neighbours of C <= "
+            f"{C_MAX} candidates, got K={K}, C={C}")
+
+
+def tuned(K: int, C: int) -> bool:
+    """Whether the tuned entry point (eight lanes a slot) serves K, C."""
+    return K <= TUNED_K and C <= TUNED_C
 
 
 def _select_block(meta, pay, cd0, mask, K, radius2, num_shells):
@@ -133,24 +155,24 @@ def fused_candidate_select(
     _cuda.require(kmeta, "kmeta", torch.int32, (max_q, C), dev)
     _cuda.require(kcand, "kcand", torch.bfloat16, (max_q, C, PK), dev)
     _cuda.require(kxyz, "kxyz", torch.bfloat16, (max_q, 3, C), dev)
+    check_envelope(K, C)
     if not kmeta.is_cuda:
         return fused_candidate_select_plain(
             kmeta, kcand, kxyz, qslot, cdelta0, mask, K, radius2, num_shells)
-    if not (1 <= K <= 8 and 1 <= C <= 64):
-        raise ValueError(f"the CUDA fused select kernel needs K <= 8 and "
-                         f"C <= 64, got K={K}, C={C}")
     _cuda.require(qslot, "qslot", torch.int32, (M,), dev)
     _cuda.require(cdelta0, "cdelta0", torch.float32, (M, 3), dev)
     _cuda.require(mask, "mask", torch.bool, (M,), dev)
     nsel = torch.empty((M, K, PK), dtype=torch.bfloat16, device=dev)
     pmask = torch.empty((M, K), dtype=torch.bool, device=dev)
-    fn = _cuda.library("fused_select").fused_candidate_select
+    entry = ("fused_candidate_select" if tuned(K, C)
+             else "fused_candidate_select_any")
+    fn = getattr(_cuda.library("fused_select"), entry)
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    _cuda.LAUNCHES["fused_candidate_select"] += 1
+    _cuda.LAUNCHES[entry] += 1
     _cuda.check(fn(*[_cuda.ptr(t) for t in (
         kmeta, kcand, kxyz, qslot, cdelta0, mask, nsel, pmask)], M, C, K,
         float(radius2), int(num_shells), _cuda.stream_handle(dev)),
-        "fused_candidate_select launch")
+        f"{entry} launch")
     return nsel, pmask

@@ -13,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from pointnerf2studio_torch.config import AggregatorConfig
 from pointnerf2studio_torch.data.synthetic import (
     camera_rays, make_sphere_scene, sphere_config)
 from pointnerf2studio_torch.models import fast_render as fr
+from pointnerf2studio_torch.models.aggregator import Aggregator
 from pointnerf2studio_torch.ops import _cuda
 from pointnerf2studio_torch.ops import fused_chunk as fc
 from pointnerf2studio_torch.ops import fused_decode as fd
@@ -72,12 +74,29 @@ def test_first_valid_cols_kernel_unaligned_rows(dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def _chunk_call(dev, cand_cap, K, layered):
+# the widths of the generic kernels (csrc/decode_any.cu, csrc/chunk_any.cu,
+# fused_candidate_select_any): aggregator widths, K, cand_cap
+WIDTH_SETS = {
+    "wide": (dict(hidden_size=512, hidden_size_color=256, num_color_layers=4,
+                  num_feat_freqs=4, num_dist_freqs=6, num_viewdir_freqs=5),
+             16, 128),
+    "narrow": (dict(hidden_size=128, hidden_size_color=64,
+                    num_color_layers=2, num_feat_freqs=2, num_dist_freqs=4,
+                    num_viewdir_freqs=3), 4, 32),
+    "edge": (dict(hidden_size=100, hidden_size_color=40, num_color_layers=1,
+                  num_feat_freqs=10, num_dist_freqs=10, num_viewdir_freqs=10),
+             32, 256),
+    "flagship_k12": ({}, 12, 64),
+}
+
+
+def _chunk_call(dev, cand_cap, K, layered, agg_kw=None):
     """Render a small sphere through the fused-chunk path and return
     (out, args, kwargs) of its `fused_chunk_decode` call."""
     cfg = sphere_config(sr=16, d=48, k=K)
     cfg = dataclasses.replace(
-        cfg, agg=dataclasses.replace(cfg.agg, compute_dtype="bfloat16"),
+        cfg, agg=dataclasses.replace(cfg.agg, compute_dtype="bfloat16",
+                                     **(agg_kw or {})),
         query=dataclasses.replace(cfg.query, ray_slot_budget=16,
                                   chunk_mode="fused", select_mode="pallas",
                                   compact_budget=8, cand_cap=cand_cap,
@@ -103,11 +122,11 @@ def _chunk_call(dev, cand_cap, K, layered):
     return (out,) + captured["args"]
 
 
-def _chunk_check(a, k):
-    n0 = _cuda.LAUNCHES["fused_chunk_decode"]
+def _chunk_check(a, k, entry="fused_chunk_decode"):
+    n0 = _cuda.LAUNCHES[entry]
     sig, rgb, found = fc.fused_chunk_decode(*a, **k)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["fused_chunk_decode"] == n0 + 1
+    assert _cuda.LAUNCHES[entry] == n0 + 1
     sig_p, rgb_p, found_p = fc.fused_chunk_decode_plain(*a, **k)
     mask = a[-1]
     assert torch.equal(found, found_p)
@@ -126,6 +145,24 @@ def test_fused_chunk_kernel_and_render(dev, cand_cap, K, layered):
     out, a, k = _chunk_call(dev, cand_cap, K, layered)
     assert bool(_chunk_check(a, k).any())
     assert bool(out.ray_mask.any()) and int(out.cb_overflow) == 0
+
+
+@pytest.mark.parametrize("name", ["wide", "narrow", "edge", "flagship_k12"])
+def test_fused_chunk_any_kernel_and_render(dev, name):
+    """csrc/chunk_any.cu at the widths the tuned kernels are not built for
+    (K to 32, C to 256, hidden 100-512, colour 40-256 in 1-4 layers, PE
+    octaves to 10), held to the plain version as the tuned kernel is;
+    then its tile edges: a ragged M and no valid slot."""
+    agg_kw, K, cap = WIDTH_SETS[name]
+    out, a, k = _chunk_call(dev, cap, K, True, agg_kw)
+    assert bool(_chunk_check(a, k, "fused_chunk_decode_any").any())
+    assert bool(out.ray_mask.any()) and int(out.cb_overflow) == 0
+    a = list(a)
+    for i in range(7, 12):
+        a[i] = a[i][:1001].contiguous()
+    assert bool(_chunk_check(a, k, "fused_chunk_decode_any").any())
+    a[-1] = torch.zeros_like(a[-1])
+    assert not _chunk_check(a, k, "fused_chunk_decode_any").any()
 
 
 @pytest.mark.parametrize("edge", ["ragged", "one_slot", "no_valid_slot",
@@ -155,12 +192,18 @@ def test_fused_chunk_kernel_tile_edges(dev, edge):
     (5000, 64, 8, 0.03, 3, False), (777, 64, 8, 0.012, 1, True),
     (4096, 32, 4, 0.0, 2, True), (3, 17, 3, 0.03, 3, False),
     (1001, 20, 8, 0.0, 1, True), (37, 63, 5, 0.03, 2, False),
-    (16, 8, 8, 0.0, 1, False), (1, 64, 1, 0.03, 3, False)])
+    (16, 8, 8, 0.0, 1, False), (1, 64, 1, 0.03, 3, False),
+    (5000, 128, 16, 0.03, 3, False), (777, 256, 32, 0.012, 1, True),
+    (1001, 100, 12, 0.0, 2, True), (37, 40, 16, 0.03, 2, False),
+    (300, 200, 9, 0.0, 1, False), (16, 8, 20, 0.0, 1, False),
+    (1, 256, 1, 0.03, 3, False)])
 def test_fused_select_kernel_exact(dev, M, C, K, radius, shells, ties):
     """pnt_mask and every payload bit equal the plain version's, with
     layered shells, the radius test, masked slots, short rows and exact
     distance ties; C a multiple of 8 (16-byte loads of metas and xyz) and
-    not, M a multiple of the 16 slots a block serves and not, K < 8."""
+    not, M a multiple of the 16 slots a block serves and not, K < 8; and
+    past the tuned entry point (K <= 8, C <= 64) the generic one: 16 lanes
+    a slot to C 128 and K 16, a warp beyond, K above C."""
     rng = np.random.default_rng(M + C)
     max_q = 300
     n = (rng.random(max_q) * C * 1.2).astype(np.int64).clip(0, C)
@@ -183,12 +226,14 @@ def test_fused_select_kernel_exact(dev, M, C, K, radius, shells, ties):
     if M == 1:
         rest[0][0] = 2            # the full row
     kmeta = torch.as_tensor(kmeta, device=dev)
-    n0 = _cuda.LAUNCHES["fused_candidate_select"]
+    entry = ("fused_candidate_select" if fs.tuned(K, C)
+             else "fused_candidate_select_any")
+    n0 = _cuda.LAUNCHES[entry]
     nsel, pm = fs.fused_candidate_select(
         kmeta, kpay.transpose(1, 2).contiguous(),
         kpay[:, :3, :].contiguous(), *rest)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["fused_candidate_select"] == n0 + 1
+    assert _cuda.LAUNCHES[entry] == n0 + 1
     nsel_p, pm_p = fs.fused_candidate_select_reference(kmeta, kpay, *rest)
     assert torch.equal(pm, pm_p) and bool(pm.any())
     assert torch.equal(nsel.view(torch.int16), nsel_p.view(torch.int16))
@@ -207,7 +252,7 @@ def test_cuda_wrappers_refuse_a_strided_payload(dev):
             z(2, dtype=torch.bool, device=dev), 8, 0.0, 1)
 
 
-def _decode_inputs(dev, M, K, seed, fill="mixed"):
+def _decode_inputs(dev, M, K, seed, fill="mixed", C=32, D=6):
     rng = np.random.default_rng(seed)
     T = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)  # noqa
     if fill == "mixed":
@@ -217,8 +262,8 @@ def _decode_inputs(dev, M, K, seed, fill="mixed"):
         pm = np.full((M, K), fill == "full")
     w = rng.random((M, K)) * pm
     w /= np.maximum(w.sum(-1, keepdims=True), 1e-8)
-    return (T(rng.normal(size=(M, K, 32)) * 0.1).to(torch.bfloat16),
-            T(rng.normal(size=(M, K, 6)) * 0.01),
+    return (T(rng.normal(size=(M, K, C)) * 0.1).to(torch.bfloat16),
+            T(rng.normal(size=(M, K, D)) * 0.01),
             T(rng.random((M, K, 3))).to(torch.bfloat16),
             T(rng.normal(size=(M, K, 4))), T(w))
 
@@ -256,6 +301,55 @@ def test_decode_kernels_match_plain(dev, M, K, fill):
         assert float(d.mean()) <= 2.0 ** -8 * float(size.mean())
         zero = args[4] == 0
         if name == "fused_decode":
+            assert not aw[zero].any() and not hw[zero].any()
+        else:
+            none = zero.all(-1)
+            assert not aw[none].any() and not hw[none].any()
+
+
+# generic decode widths: the aggregator's overrides (features and
+# agg_dist_pers give C and D), K, M
+DECODE_ANY = {
+    "wide": (dict(WIDTH_SETS["wide"][0]), 16, 3001),
+    "narrow": (dict(WIDTH_SETS["narrow"][0], point_features_dim=16,
+                    agg_dist_pers=0), 4, 1025),
+    "edge": (dict(WIDTH_SETS["edge"][0], point_features_dim=64,
+                  agg_dist_pers=30), 32, 300),
+    "flagship_k12": ({}, 12, 777),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_ANY))
+@pytest.mark.parametrize("fill", ["mixed", "full", "empty"])
+def test_decode_any_kernels_match_plain(dev, name, fill):
+    """csrc/decode_any.cu (fused_decode_any, fused_decode2_any) at the
+    widths csrc/fused_decode.cu is not built for, under the bounds of the
+    tuned kernels' test; rows with wk == 0 give exactly 0."""
+    kw, K, M = DECODE_ANY[name]
+    cfg = AggregatorConfig(compute_dtype="bfloat16", **kw)
+    agg = Aggregator(cfg, seed=3, device=dev)
+    with torch.no_grad():
+        agg.density_head[0].bias += 1.0
+    C, D = cfg.shading_feature_dim, cfg.dist_dim
+    args = _decode_inputs(dev, M, K, M, fill, C, D)
+    k = dict(nff=cfg.num_feat_freqs, ndf=cfg.num_dist_freqs)
+    for entry, kern, plain in (
+            ("fused_decode_any", fd.pair_tower, fd.pair_tower_reference),
+            ("fused_decode2_any", fd.kacc_tower, fd.kacc_tower_reference)):
+        n0 = _cuda.LAUNCHES[entry]
+        aw, hw = kern(agg, *args, **k)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[entry] == n0 + 1
+        aw_p, hw_p = plain(agg, *args, **k)
+        assert aw.shape == aw_p.shape and hw.shape == hw_p.shape
+        assert hw.dtype == hw_p.dtype
+        assert bool(((aw - aw_p).abs() <= 2e-2 + 2.0 ** -7 * aw_p.abs())
+                    .all())
+        d, size = (hw.float() - hw_p.float()).abs(), hw_p.float().abs()
+        assert bool((d <= 1e-3 + 2.0 ** -7 * size).all())
+        assert float(d.mean()) <= 2.0 ** -8 * max(float(size.mean()), 1e-30)
+        zero = args[4] == 0
+        if entry == "fused_decode_any":
             assert not aw[zero].any() and not hw[zero].any()
         else:
             none = zero.all(-1)
@@ -590,6 +684,26 @@ def test_train_march_equals_dense(dev):
     m = _train_step(w, w["cfg_m"])
     assert m[1].get("first_valid_cols", 0) == 0
     _train_equal(m, _train_step(w, w["cfg"]))
+
+
+def test_cost_volume_net_same_bits_every_run(dev):
+    """CostRegNet and ProbNet give the same bits on every run at the joint
+    step's size (128 planes of 100x100, 3 views): `f32_convs` asks cuDNN
+    for deterministic algorithms, without which the 3-D convolutions'
+    last bits change from run to run and move generated points."""
+    from pointnerf2studio_torch.models.mvsnet import costvol as cv
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = cv.init_costvol_params(torch.Generator().manual_seed(0),
+                                    num_views=3, device=dev)
+    vol = torch.randn((128, 100, 100, 41), generator=g, device=dev)
+    first = None
+    with torch.no_grad():
+        for _ in range(8):
+            prob = cv.prob_net(params.probnet,
+                               cv.cost_reg_net8(params.costreg, vol))
+            if first is None:
+                first = prob.clone()
+            assert torch.equal(prob, first)
 
 
 def test_gather_rows_backward_same_bits_every_run(dev):

@@ -210,19 +210,29 @@ SERVED = {
     "no_dir": (dict(point_dir_mode=False), False),
     "quadric": (dict(agg_distance_kernel="quadric"), True),
     "numlinear": (dict(agg_distance_kernel="numlinear"), True),
-    "hidden128": (dict(hidden_size=128), None),
-    "features16": (dict(point_features_dim=16), None),
-    "feat_freqs2": (dict(num_feat_freqs=2), None),
-    "dist_freqs4": (dict(num_dist_freqs=4), None),
-    "dist_dim3": (dict(agg_dist_pers=0), None),
+    "hidden128": (dict(hidden_size=128), True),
+    "features16": (dict(point_features_dim=16), True),
+    "feat_freqs2": (dict(num_feat_freqs=2), True),
+    "dist_freqs4": (dict(num_dist_freqs=4), True),
+    "dist_dim3": (dict(agg_dist_pers=0), True),
+    "dist_dim4": (dict(agg_dist_pers=30), True),
+    "hidden512": (dict(hidden_size=512), True),
+    "hidden513": (dict(hidden_size=513), None),
+    "features64": (dict(point_features_dim=64), True),
+    "features65": (dict(point_features_dim=65), None),
+    "feat_freqs10": (dict(num_feat_freqs=10), True),
+    "feat_freqs11": (dict(num_feat_freqs=11), None),
+    "dist_freqs11": (dict(num_dist_freqs=11), None),
 }
 
 
 @pytest.mark.parametrize("name", sorted(SERVED))
 def test_served_gate(name):
     """An ineligible config is not served (it takes decode_radiance); an
-    eligible one outside what csrc/fused_decode.cu is built for raises
-    on any device instead of rendering on the CPU only."""
+    eligible one inside the decode kernels' envelope is served (the tuned
+    kernel at the flagship widths, the generic one elsewhere, the plain
+    version on the CPU), and one outside it raises on any device instead
+    of rendering on one device only."""
     kw, want = SERVED[name]
     cfg = dataclasses.replace(TAggConfig(), **kw)
     if want is None:
@@ -235,11 +245,18 @@ def test_served_gate(name):
 
 
 def test_served_gate_reaches_both_paths():
+    """The fast path's fused_decode2 switch and the legacy render's gate
+    serve hidden 128 and K up to 32, and raise one step past the envelope
+    (hidden 513, K 33); tests/test_torch_widths.py renders both."""
     from pointnerf2studio_torch.config import PointNerfConfig
     from pointnerf2studio_torch.models import fast_render as tfr
     narrow = dataclasses.replace(TAggConfig(), hidden_size=128,
                                  fused_decode2=True)
+    assert tfr._use_fused2(PointNerfConfig(agg=narrow))
     with pytest.raises(NotImplementedError, match="hidden_size"):
-        tfr._use_fused2(PointNerfConfig(agg=narrow))
-    with pytest.raises(NotImplementedError, match="K"):
-        tfd.fused_decode_served(TAggConfig(), False, 12)
+        tfr._use_fused2(PointNerfConfig(agg=dataclasses.replace(
+            narrow, hidden_size=513)))
+    assert tfd.fused_decode_served(narrow, False, 12)
+    assert tfd.fused_decode_served(TAggConfig(), False, 32)
+    with pytest.raises(NotImplementedError, match="'K'"):
+        tfd.fused_decode_served(TAggConfig(), False, 33)

@@ -35,6 +35,7 @@ from pointnerf2studio_torch.ops import query as tquery
 from pointnerf2studio_torch.ops import raygen as traygen
 from pointnerf2studio_tpu.data.synthetic import (
     camera_rays, make_sphere_scene, sphere_config)
+from pointnerf2studio_tpu.models.aggregator import init_aggregator_params
 from pointnerf2studio_tpu.models.render import render_rays_jit
 from pointnerf2studio_tpu.ops import query as jquery
 from pointnerf2studio_tpu.ops import raygen as jraygen
@@ -236,8 +237,11 @@ def test_padded_slots_leave_ray_zero_alone(scene):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(agg=dict(fused_decode=True, hidden_size=128))])
+    dict(agg=dict(fused_decode=True, hidden_size=513))])
 def test_unported_render_options_raise(scene, kw):
+    """One step past the decode kernels' envelope (hidden 513) raises on
+    the CPU as on the card; hidden 128, refused before the generic
+    kernels, renders (test_render_rays_widths_match_jax)."""
     s = scene["s"]
     cfg = _port_cfg(scene["cfg"])
     cfg = dataclasses.replace(cfg, agg=dataclasses.replace(
@@ -246,6 +250,41 @@ def test_unported_render_options_raise(scene, kw):
         trender.render_rays(None, scene["cloud"], scene["grid"],
                             _T(s.campos), _T(s.camrotc2w), torch.zeros(4, 3),
                             s.near, s.far, cfg, **kw)
+
+
+@pytest.mark.parametrize("hidden", [128, 512])
+def test_render_rays_widths_match_jax(scene, hidden):
+    """The legacy render with fused_decode on at hidden 128 and 512 (the
+    generic decode kernel's widths; its plain version here) against the
+    reference's render_rays (decode_radiance on the CPU): ray_mask and
+    pnt_mask equal, colour and acc within the bf16 bound."""
+    s = scene["s"]
+    cfg = dataclasses.replace(scene["cfg"], agg=dataclasses.replace(
+        scene["cfg"].agg, compute_dtype="bfloat16", fused_decode=True,
+        hidden_size=hidden))
+    params = jax.tree.map(np.asarray, init_aggregator_params(
+        jax.random.PRNGKey(0), cfg.agg))
+    params["density_head"][0]["bias"] = (
+        params["density_head"][0]["bias"] + 5.0)
+    with jax.default_matmul_precision("highest"):
+        want = render_rays_jit(params, s.cloud, s.grid, s.campos,
+                               s.camrotc2w, jnp.asarray(scene["rays"]),
+                               s.near, s.far, cfg)
+    tc = _port_cfg(cfg)
+    _cuda.LAUNCHES.clear()
+    got = trender.render_rays(
+        convert.aggregator_from_jax(params, tc.agg, device="cpu"),
+        scene["cloud"], scene["grid"], _T(s.campos), _T(s.camrotc2w),
+        _T(scene["rays"]), s.near, s.far, tc)
+    assert sum(_cuda.LAUNCHES.values()) == 0
+    mask = got.ray_mask.numpy()
+    np.testing.assert_array_equal(mask, np.asarray(want.ray_mask))
+    np.testing.assert_array_equal(got.pnt_mask.numpy(),
+                                  np.asarray(want.pnt_mask))
+    for g, w in ((got.coarse_raycolor.numpy(), want.coarse_raycolor),
+                 (got.acc.numpy(), want.acc)):
+        d = np.abs(g - np.asarray(w, np.float32))
+        assert d.max() <= 2e-2 and d.mean() < 2e-3, (d.max(), d.mean())
 
 
 @pytest.fixture(scope="module")

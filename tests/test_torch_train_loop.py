@@ -505,7 +505,8 @@ def test_probe_views_by_miss():
 
 
 UNPORTED_RENDER = {
-    "per-point Rw2c": "item 6",
+    "per-point Rw2c": r"legacy step, fit\(fast_path=False\), as in the "
+                      r"reference",
 }
 
 
@@ -516,8 +517,7 @@ def test_fast_train_render_unported_raises(s, name):
     pts = s["cloud"]
     pts = dataclasses.replace(pts, Rw2c=torch.eye(3).expand(
         pts.capacity, 8, 3, 3))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1 {UNPORTED_RENDER[name]}"):
+    with pytest.raises(NotImplementedError, match=UNPORTED_RENDER[name]):
         tft.fast_train_render(
             s["params"], pts, None, torch.zeros(3), torch.eye(3),
             torch.zeros(4, 3), 2.0, 6.0, s["pc"], torch.zeros(3),
