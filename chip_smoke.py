@@ -317,9 +317,14 @@ ray budget measured on the frame as the JAX bench sizes them:
      the staged chunk 0 against the fused-chunk frame's (wide) and the XLA
      route's against the staged one (narrow): ray_mask equal, colour
      within ATOL / MEAN_TOL. Printed: kernel ms (queued behind a busy
-     device where under 50 us), plain ms and the bound at these widths,
-     the frames' ms in turns, peak device memory; the generic kernels join
-     the kernels line.
+     device where under 50 us), the device kernels' ms by the profiler
+     (fused_chunk_decode_any's selection, tower and colour tower apart),
+     plain ms and the bound at these widths, the frames' ms in turns, the
+     tuned fused_chunk_decode and fused_decode2 on the flagship's chunk 0
+     in the same run and each generic kernel's ratio to them (the
+     yardstick across calls), fused_decode2_any again on the narrow XLA
+     route's first live chunk of slots, peak device memory; the generic
+     kernels join the kernels line.
 
 The launch counts are set to 0 just before each path and read just
 after it. It fails (non-zero exit, no result line) when there is no
@@ -364,14 +369,23 @@ largest), their sum and the device's idle share of the unprofiled pass
 `DIR/profile_<path>.txt` (DIR defaults to `build/profile`). A train step
 of each front-end is profiled in three parts, its forward (the render
 and the losses), its backward and its optimizer update, each under its
-own profiler pass, beside the unprofiled step's time.
+own profiler pass, beside the unprofiled step's time. The widths phase
+adds the wide fused-chunk frame and the wide staged chunk 0.
 
     python3 chip_smoke.py --probe
 
 also builds `csrc/fused_decode.cu` and `csrc/fused_chunk.cu` with parts
 of the kernels left out (`TOWER_PROBE` in `csrc/tower.cuh`) and prints
 fused_decode2's and fused_chunk_decode's time with each build on their
-paths' inputs: what each part costs.
+paths' inputs: what each part costs; the widths phase does the same for
+`csrc/decode_any.cu`'s fused_decode2_any (`TOWER_PROBE` in
+`csrc/tower_wg.cuh`) on its wide and narrow staged chunk 0.
+
+    python3 chip_smoke.py --widths [--profile[=DIR]]
+
+builds the scene and its cache and runs the widths phase alone, then
+prints its results as one JSON line and no result line: the quick
+measurement of the generic kernels beside the tuned ones.
 """
 
 from __future__ import annotations
@@ -1991,6 +2005,9 @@ WIDTH_SETS = {
                     num_viewdir_freqs=3), 4, 32),
 }
 NARROW_LEGACY_FEATURES = 16
+# fused_chunk_decode_any's device kernels: the selection, the tower
+# (csrc/tower_wg.cuh) and the colour tower
+ANY_CHUNK_PARTS = ("chunk_select_kernel", "tower", "colour_any_kernel")
 
 
 def tower_macs(C, D, H, nff, ndf) -> int:
@@ -2119,14 +2136,18 @@ def widths_phase(c) -> dict:
                   2 * rows * macs)
         t_k = kernel_ms(lambda: kern(*a, **k))
         t_p = cuda_ms(lambda: plain(*a, **k), 2, 1)
+        t_dev = device_kernel_ms(lambda: kern(*a, **k), ["tower"])["tower"]
         log(f"widths {name}: {entry} (C {C}, D {D}, H {H}, octaves "
             f"({k['nff']}, {k['ndf']}), K {a[1].shape[1]}) M={a[1].shape[0]}, "
-            f"{rows} rows: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+            f"{rows} rows: kernel {t_k:.3f} ms (its device kernel by the "
+            f"profiler {ms_text(t_dev)}), plain {t_p:.3f} ms, bound "
             f"{b[0]:.4f} ms by {b[1]}, kernel / bound {t_k / b[0]:.2f}, "
             f"{2 * rows * macs / t_k / 1e9:.1f} TFLOP/s of useful work "
             f"({c.smi})")
         return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b[0],
-                    bound_by=b[1], M=a[1].shape[0], rows=rows)
+                    bound_by=b[1], M=a[1].shape[0], rows=rows,
+                    device_ms=t_dev,
+                    useful_tflops=2 * rows * macs / t_k / 1e9)
 
     # =================================================================
     # wide: K 16 of C 128, hidden 512, colour 256 x 4, octaves (4, 6, 5)
@@ -2210,17 +2231,22 @@ def widths_phase(c) -> dict:
                  2 * (n_pairs * rmac + n_found * smac))
     t_fc = kernel_ms(lambda: fc.fused_chunk_decode(*args, **kw))
     t_fc_p = cuda_ms(lambda: fc.fused_chunk_decode_plain(*args, **kw), 1, 1)
+    fc_parts = device_kernel_ms(lambda: fc.fused_chunk_decode(*args, **kw),
+                                ANY_CHUNK_PARTS)
     log(f"widths wide: fused_chunk_decode_any M={m_sl.shape[0]}, "
         f"{n_pairs} pairs, {n_found} slots found: kernel {t_fc:.3f} ms, "
         f"plain {t_fc_p:.3f} ms, bound {b_fc[0]:.3f} ms by {b_fc[1]}, "
         f"kernel / bound {t_fc / b_fc[0]:.2f}, "
         f"{2 * (n_pairs * rmac + n_found * smac) / t_fc / 1e9:.1f} TFLOP/s "
-        f"of useful work ({c.smi})")
+        f"of useful work; its device kernels by the profiler: "
+        + ", ".join(f"{n} {ms_text(v)}" for n, v in fc_parts.items())
+        + f" ms ({c.smi})")
     out["kernels"]["fused_chunk_decode_any"] = dict(
         launches=launches["fused_chunk_decode_any"],
         max_abs_err=float(max(d_sig.max(), d_rgb.max())), ms=t_fc,
         plain_ms=t_fc_p, bound_ms=b_fc[0], bound_by=b_fc[1],
-        M=m_sl.shape[0], pairs=n_pairs)
+        M=m_sl.shape[0], pairs=n_pairs, device_kernels=fc_parts,
+        useful_tflops=2 * (n_pairs * rmac + n_found * smac) / t_fc / 1e9)
 
     # ---- the staged chunk 0 (#1, #2 at (128, 16), #4 generic)
     cfg_ws = dataclasses.replace(
@@ -2254,6 +2280,16 @@ def widths_phase(c) -> dict:
                      fd.kacc_tower_reference, a, k, cfg_w.agg)
     st["launches"] = launches["fused_decode2_any"]
     out["kernels"]["fused_decode2_any"] = st
+    if "--probe" in sys.argv[1:]:
+        probe_tower("decode_any", (0, 1, 2, 4, 8, 6, 15),
+                    "fused_decode2_any wide", lambda: fd.kacc_tower(*a, **k))
+    if c.prof_dir:
+        profile_pass("widths_wide_staged",
+                     lambda: render_with(cache_w, rmin, svs, params_w,
+                                         cfg_ws, rays0),
+                     cuda_ms(lambda: render_with(cache_w, rmin, svs, params_w,
+                                                 cfg_ws, rays0), 3),
+                     c.prof_dir)
 
     # ---- one legacy chunk with fused_decode (#1, #3 generic)
     cfg_wb = dataclasses.replace(cfg_w, agg=dataclasses.replace(
@@ -2297,6 +2333,39 @@ def widths_phase(c) -> dict:
     log(f"widths: frame ms in turns, flagship {[round(t, 2) for t in turns['flagship']]}, "
         f"wide {[round(t, 2) for t in turns['wide']]} ({c.smi})")
     out["frame_ms"] = turns
+    if c.prof_dir:
+        profile_pass("widths_wide_frame", frame_w, min(turns["wide"]),
+                     c.prof_dir)
+
+    # ---- the tuned kernels in this run, on the flagship's chunk 0: the
+    # yardstick of the generic kernels' times across calls
+    cfg_a = dataclasses.replace(
+        c.cfg, query=dataclasses.replace(c.cfg.query, knn_mode="fused",
+                                         chunk_mode="xla"),
+        agg=dataclasses.replace(c.cfg.agg, fused_decode2=True))
+    box = {}
+    restores = [spy(fr, "fused_chunk_decode", box),
+                spy(fd, "kacc_tower", box)]
+    try:
+        render_with(c.cache, c.rmin, c.svs, scene.params, c.cfg, rays0)
+        render_with(c.cache, c.rmin, c.svs, scene.params, cfg_a, rays0)
+        torch.cuda.synchronize()
+    finally:
+        for r in restores:
+            r()
+    a5, k5 = box["fused_chunk_decode"]
+    a4, k4 = box["kacc_tower"]
+    tuned = {"fused_chunk_decode": kernel_ms(
+                 lambda: fc.fused_chunk_decode(*a5, **k5)),
+             "fused_decode2": kernel_ms(lambda: fd.kacc_tower(*a4, **k4))}
+    out["tuned_ms"] = tuned
+    log(f"widths: the tuned kernels on the flagship's chunk 0 in this run: "
+        f"fused_chunk_decode {tuned['fused_chunk_decode']:.3f} ms, "
+        f"fused_decode2 {tuned['fused_decode2']:.3f} ms; wide "
+        f"fused_chunk_decode_any / fused_chunk_decode "
+        f"{t_fc / tuned['fused_chunk_decode']:.2f}x, wide fused_decode2_any "
+        f"/ fused_decode2 {out['kernels']['fused_decode2_any']['ms'] / tuned['fused_decode2']:.2f}x ({c.smi})")
+    del a5, k5, a4, k4
     del cache_w, outs_w, out_ws, out_wb, box, args, kw, a, k
     torch.cuda.empty_cache()
 
@@ -2335,6 +2404,10 @@ def widths_phase(c) -> dict:
     out["narrow"]["fused_decode2_any"] = tower_stats(
         "narrow", "fused_decode2_any", fd.kacc_tower,
         fd.kacc_tower_reference, a, k, cfg_n.agg)
+    if "--probe" in sys.argv[1:]:
+        probe_tower("decode_any", (0, 1, 2, 4, 8, 6, 15),
+                    "fused_decode2_any narrow",
+                    lambda: fd.kacc_tower(*a, **k))
     out["narrow"]["staged_launches"] = launches
 
     # ---- the XLA route with fused_decode2 (#1, #4 generic), chunk 0
@@ -2365,6 +2438,15 @@ def widths_phase(c) -> dict:
     check_chunk_pair("narrow XLA route chunk 0 vs the staged chunk 0",
                      out_nx, out_ns)
     out["narrow"]["xla_launches"] = launches
+    # the tower at the XLA route's chunk of slots (its first live chunk)
+    a, k = box["kacc_tower"]
+    out["narrow"]["fused_decode2_any_xla"] = tower_stats(
+        "narrow, XLA chunk", "fused_decode2_any", fd.kacc_tower,
+        fd.kacc_tower_reference, a, k, cfg_n.agg)
+    out["narrow"]["fused_decode2_any_xla"]["per_chunk_0"] = want4
+    log(f"widths narrow: fused_decode2_any / the tuned fused_decode2 "
+        f"{out['narrow']['fused_decode2_any']['ms'] / out['tuned_ms']['fused_decode2']:.2f}x "
+        f"(staged chunk 0 against the flagship's; {c.smi})")
 
     # ---- a legacy chunk with fused_decode at 16 features (#1, #3
     # generic); its tower again at 3 dists on the same rows
@@ -5666,6 +5748,10 @@ def main() -> int:
     print(smi, flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    prof_arg = next((a for a in sys.argv[1:] if a.startswith("--profile")),
+                    None)
+    prof_dir = pathlib.Path(
+        prof_arg.partition("=")[2] or "build/profile") if prof_arg else None
 
     t0 = time.perf_counter()
     libs = _cuda.build()
@@ -5709,6 +5795,16 @@ def main() -> int:
         f"[max_q, PK, C] view), kxyz {tuple(cache.kxyz.shape)} "
         f"{nbytes(cache.kxyz)} B, coor_2_qslot {nbytes(cache.coor_2_qslot)} "
         f"B; device memory allocated {torch.cuda.memory_allocated()} B")
+
+    import types
+    if "--widths" in sys.argv[1:]:
+        # the widths phase alone on this scene: no other phase, no result
+        # line
+        widths = widths_phase(types.SimpleNamespace(
+            scene=scene, cache=cache, cfg=cfg, dev=dev, rmin=rmin, svs=svs,
+            raydirs=raydirs, n_chunks=n_chunks, smi=smi, prof_dir=prof_dir))
+        print(json.dumps({"widths": widths}), flush=True)
+        return 0
 
     def render(rays, c=cfg):
         return fr.fast_render_rays(
@@ -5843,10 +5939,6 @@ def main() -> int:
     best = min(frame_ms)
     log(f"full frame {total} rays: {[round(t, 2) for t in frame_ms]} ms -> "
         f"{total / best * 1e3:.1f} rays/s (best of 3; {smi})")
-    prof_arg = next((a for a in sys.argv[1:] if a.startswith("--profile")),
-                    None)
-    prof_dir = pathlib.Path(
-        prof_arg.partition("=")[2] or "build/profile") if prof_arg else None
     if prof_dir:
         profile_pass("fused_chunk", render_frame, best, prof_dir)
 
@@ -6065,7 +6157,6 @@ def main() -> int:
     # =================================================================
     # The reference's default front-ends: march, raster, render_frame
     # =================================================================
-    import types
     ns = types.SimpleNamespace(
         scene=scene, cache=cache, cfg=cfg, dev=dev, rmin=rmin, svs=svs,
         raydirs=raydirs, raydirs_frame=raydirs_frame, perm=perm, outs=outs,
@@ -6235,7 +6326,8 @@ def main() -> int:
                       r["max_abs_err"], r["ms"], r["plain_ms"],
                       (r["bound_ms"], r["bound_by"]),
                       extra={"widths": "wide", "M": r["M"],
-                             "narrow": narrow})
+                             "narrow": narrow,
+                             "tuned_ms_same_run": widths["tuned_ms"]})
 
     def by_route(kernel):
         """The kernel's launches on each route of the routes phase."""

@@ -11,22 +11,24 @@
 //   * chunk_select_kernel<G> (csrc/chunk_select.cuh): selection, extract,
 //     weights and geometry, G = 8, 16 or 32 lanes a slot by C and K, into
 //     the scratch buffer (120 bytes a valid pair, 2 round8(H) + 13 a slot);
-//   * tower_any_kernel (csrc/tower_any.cuh) on the valid pairs: sigma,
-//     found and the K-sums, a bf16 row of H per slot;
+//   * tower_wg_kernel (csrc/tower_wg.cuh, the warp-specialised wgmma
+//     tower) on the valid pairs: sigma, found and the K-sums, a bf16 row of
+//     H per slot;
 //   * colour_any_kernel (csrc/tower_any.cuh) on the slots, 64 a tile.
 // What bounds it on Hopper: tensor-core operations (the tower and the
-// colour tower), under them the selection's bytes; tower_any.cuh says how
-// the generic towers go about it. The rounding points are the reference's
+// colour tower), under them the selection's bytes; tower_wg.cuh and
+// tower_any.cuh say how the towers go about it. The rounding points are the reference's
 // fused chunk's: (bf16(acc) + bf16(bias)) rounded to bf16, LeakyReLU(0.1)
 // in f32, alpha*w and h*w summed over K in f32 in k order,
 // sigmoid*(1+2e-3)-1e-3. Compiled with -fmad=false: the selection's
 // geometry must equal the plain version's bit for bit.
-// Weights: the tower's packed layout (tower_any.cuh) with the biases
-// rounded to bf16, then the colour tower's, made by ops/fused_chunk.py::
-// _kernel_params_any.
+// Weights: the tower's packed image (tower_wg.cuh) with the biases
+// rounded to bf16, then the colour tower's (tower_any.cuh), made by
+// ops/fused_chunk.py::_kernel_params_any.
 
 #include "chunk_select.cuh"
 #include "tower_any.cuh"
+#include "tower_wg.cuh"
 
 using namespace tany;
 
@@ -40,7 +42,7 @@ int row_width(int H) { return (H + 7) / 8 * 8; }
 bool widths_ok(int C, int K, int H, int HC, int layers, int nff, int ndf,
                int nvf) {
   return C >= 1 && C <= 256 && K >= 1 && K <= 32 &&
-         tower_widths_ok(kC, kD, H, nff, ndf, K) && HC >= 1 && HC <= 512 &&
+         twg::widths_ok(kC, kD, H, nff, ndf, K) && HC >= 1 && HC <= 512 &&
          layers >= 1 && layers <= 8 && nvf >= 1 && nvf <= 10;
 }
 
@@ -66,11 +68,11 @@ cudaError_t run_select(const void* kmeta, const void* kcand, const void* kxyz,
 
 extern "C" long long chunk_any_n_weights(int H, int HC, int layers, int nff,
                                          int ndf, int nvf) {
-  return tower_weights(kC, kD, H, nff, ndf) +
+  return twg::tower_weights(kC, kD, H, nff, ndf) +
          colour_weights(H, HC, layers, nvf);
 }
 extern "C" int chunk_any_n_params(int H, int HC, int layers) {
-  return tower_params(H) + colour_params(HC, layers);
+  return twg::tower_params(H) + colour_params(HC, layers);
 }
 // bytes of scratch the entry point needs for M slots of K neighbours
 extern "C" long long chunk_any_scratch_bytes(int M, int K, int H) {
@@ -105,13 +107,13 @@ extern "C" int fused_chunk_decode_any(
                      st);
   if (err != cudaSuccess) return (int)err;
 
-  TowerArgs t = {};
+  twg::Args t = {};
   t.emb = s.emb;
   t.dists = s.dists;
   t.cd = s.cd;
   t.wk = s.wk;
   t.nk = s.nk;
-  t.w = (const bf16*)weights;
+  t.w = (const twg::bf16*)weights;
   t.f = (const float*)params;
   t.aw = (float*)sig;
   t.hw = s.hw;
@@ -125,14 +127,15 @@ extern "C" int fused_chunk_decode_any(
   t.ndf = ndf;
   t.hs = hs;
   t.act_super = act_super;
-  if ((err = launch_tower<kChunk>(t, st)) != cudaSuccess) return (int)err;
+  if ((err = twg::launch<twg::kChunk>(t, st)) != cudaSuccess)
+    return (int)err;
 
   ColourArgs c = {};
   c.hw = s.hw;
   c.vd = s.vd;
   c.nk = s.nk;
-  c.w = (const bf16*)weights + tower_weights(kC, kD, H, nff, ndf);
-  c.f = (const float*)params + tower_params(H);
+  c.w = (const bf16*)weights + twg::tower_weights(kC, kD, H, nff, ndf);
+  c.f = (const float*)params + twg::tower_params(H);
   c.rgb = (float*)rgb;
   c.M = M;
   c.H = H;

@@ -12,47 +12,21 @@
 // fused_decode.cu keeps the flagship widths (32, 6, 256, octaves 3 / 5,
 // K <= 8).
 //
-// What bounds it on Hopper: tensor-core operations; the kernel is the
-// generic tower of csrc/tower_any.cuh (mma.sync on 64-row tiles of the
-// rows with a weight, weights streamed from L2 through cp.async stages),
-// which says how. Compiled with -fmad=false so that acc + bias, 0.1 * x
-// and h * wk round as the plain version's separate operations do.
-// Weights: tower_any.cuh's packed layout, made by ops/fused_decode.py::
-// pack_tower_any.
+// What bounds it on Hopper: tensor-core operations. fused_decode2_any
+// runs the warp-specialised wgmma tower of csrc/tower_wg.cuh (weights
+// packed by ops/fused_decode.py::pack_tower_wg), fused_decode_any the
+// generic mma.sync tower of csrc/tower_any.cuh (weights packed by
+// pack_tower_any); each header says how. Compiled with -fmad=false so
+// that acc + bias, 0.1 * x and h * wk round as the plain version's
+// separate operations do.
 
 #include "tower_any.cuh"
+#include "tower_wg.cuh"
 
 using namespace tany;
 
-namespace {
-
-template <int MODE>
-int launch(const void* emb, const void* dists, const void* cd, const void* wk,
-           const void* weights, const void* params, void* aw, void* hw, int M,
-           int K, int C, int D, int H, int nff, int ndf, void* stream) {
-  if (!tower_widths_ok(C, D, H, nff, ndf, K)) return (int)cudaErrorInvalidValue;
-  TowerArgs a = {};
-  a.emb = (const bf16*)emb;
-  a.dists = (const float*)dists;
-  a.cd = (const float*)cd;
-  a.wk = (const float*)wk;
-  a.w = (const bf16*)weights;
-  a.f = (const float*)params;
-  a.aw = (float*)aw;
-  a.hw = hw;
-  a.M = M;
-  a.K = K;
-  a.C = C;
-  a.D = D;
-  a.H = H;
-  a.nff = nff;
-  a.ndf = ndf;
-  return (int)launch_tower<MODE>(a, (cudaStream_t)stream);
-}
-
-}  // namespace
-
-// bf16 elements of the packed weights, f32 parameters
+// bf16 elements of fused_decode_any's packed weights (tower_any.cuh), f32
+// parameters (either entry point's)
 extern "C" long long decode_any_n_weights(int C, int D, int H, int nff,
                                           int ndf) {
   return tower_weights(C, D, H, nff, ndf);
@@ -66,8 +40,30 @@ extern "C" int fused_decode_any(const void* emb, const void* dists,
                                 const void* weights, const void* params,
                                 void* aw, void* hw, int M, int K, int C, int D,
                                 int H, int nff, int ndf, void* stream) {
-  return launch<kPair>(emb, dists, cd, wk, weights, params, aw, hw, M, K, C,
-                       D, H, nff, ndf, stream);
+  if (!tower_widths_ok(C, D, H, nff, ndf, K)) return (int)cudaErrorInvalidValue;
+  TowerArgs a = {};
+  a.emb = (const bf16*)emb;
+  a.dists = (const float*)dists;
+  a.cd = (const float*)cd;
+  a.wk = (const float*)wk;
+  a.w = (const bf16*)weights;
+  a.f = (const float*)params;
+  a.aw = (float*)aw;
+  a.hw = (bf16*)hw;
+  a.M = M;
+  a.K = K;
+  a.C = C;
+  a.D = D;
+  a.H = H;
+  a.nff = nff;
+  a.ndf = ndf;
+  return (int)launch_tower(a, (cudaStream_t)stream);
+}
+
+// bf16 elements of fused_decode2_any's packed weights (tower_wg.cuh)
+extern "C" long long decode2_any_n_weights(int C, int D, int H, int nff,
+                                           int ndf) {
+  return twg::tower_weights(C, D, H, nff, ndf);
 }
 
 // same inputs -> aw f32 [M], hw f32 [M, H], summed over k in k order
@@ -76,6 +72,22 @@ extern "C" int fused_decode2_any(const void* emb, const void* dists,
                                  const void* weights, const void* params,
                                  void* aw, void* hw, int M, int K, int C, int D,
                                  int H, int nff, int ndf, void* stream) {
-  return launch<kKacc>(emb, dists, cd, wk, weights, params, aw, hw, M, K, C,
-                       D, H, nff, ndf, stream);
+  if (!twg::widths_ok(C, D, H, nff, ndf, K)) return (int)cudaErrorInvalidValue;
+  twg::Args a = {};
+  a.emb = (const twg::bf16*)emb;
+  a.dists = (const float*)dists;
+  a.cd = (const float*)cd;
+  a.wk = (const float*)wk;
+  a.w = (const twg::bf16*)weights;
+  a.f = (const float*)params;
+  a.aw = (float*)aw;
+  a.hw = hw;
+  a.M = M;
+  a.K = K;
+  a.C = C;
+  a.D = D;
+  a.H = H;
+  a.nff = nff;
+  a.ndf = ndf;
+  return (int)twg::launch<twg::kKacc>(a, (cudaStream_t)stream);
 }

@@ -1,10 +1,12 @@
-// The radiance decoder's MLP towers at any width of the port's envelope,
-// for the widths the tuned wgmma tower of csrc/tower.cuh is not built for.
-// Shared by csrc/decode_any.cu (fused_decode_any, fused_decode2_any) and
-// csrc/chunk_any.cu (fused_chunk_decode_any). They replace, at those
-// widths, the towers inside the Pallas kernels pointnerf2studio_tpu/ops/
-// fused_decode.py::_pair_kernel / ::_kacc_kernel and ops/fused_chunk.py::
-// _kernel, which take every width as a static shape.
+// Two of the radiance decoder's MLP towers at any width of the port's
+// envelope, on mma.sync: the per-neighbour tower of csrc/decode_any.cu's
+// fused_decode_any (one output row a (slot, k) row) and the colour tower
+// of csrc/chunk_any.cu's fused_chunk_decode_any. They replace, at the
+// widths the tuned kernels are not built for, the per-row tower inside the
+// Pallas kernel pointnerf2studio_tpu/ops/fused_decode.py::_pair_kernel and
+// the colour tower inside ops/fused_chunk.py::_kernel, which take every
+// width as a static shape. The K-summing towers (fused_decode2_any and
+// the chunk's) run on the warp-specialised wgmma tower of tower_wg.cuh.
 //
 // The per-neighbour tower: layer 1 [emb (C), PE(emb) (2 C nff), PE(dists)
 // (2 D ndf)] -> H, layer 2 H -> H, layer 3 [h (H), colour and dirdot (7)]
@@ -16,14 +18,12 @@
 // What bounds it on Hopper: tensor-core operations (at hidden 512 some
 // 1.95 MFLOP a row against 150 bytes of input), and under them the weights
 // that every 64-row tile reads from L2 (2 MB at hidden 512). This is the
-// simple generic design; the tuned tower of tower.cuh is the fast one:
-//   * a block of 8 warps runs tiles of 64 rows; a slot's rows never split
-//     across tiles, so the K-sums are taken in the tile in k order. Rows
-//     whose weight is exactly 0 (or, in the chunk, k >= the neighbours
-//     found) add exactly 0 to every sum and write exactly 0, so only the
-//     live rows are packed into tiles: the block scans up to 256 slots of
-//     its span at a time (a thread a slot, a block-wide prefix sum of the
-//     row counts) and takes the longest run whose rows fit 64;
+// simple generic design; tower_wg.cuh and tower.cuh are the fast ones:
+//   * a block of 8 warps runs tiles of 64 rows. Rows whose weight is
+//     exactly 0 write exactly 0, so only the live rows are packed into
+//     tiles: the block scans up to 256 slots of its span at a time (a
+//     thread a slot, a block-wide prefix sum of the row counts) and takes
+//     the longest run whose rows fit 64;
 //   * products are mma.sync m16n8k16 (bf16 x bf16 -> f32) fed by ldmatrix;
 //     a warp owns all 64 rows and NT n-tiles of 8 columns (the layer's
 //     width padded to 64 NT, NT = 1, 2, 4 or 8, a template parameter), so a
@@ -39,12 +39,12 @@
 //     32-column stage in shared memory, each PE value by one precise sinf
 //     or cosf of the bf16 input times 2^f (no double-angle recurrence);
 //   * the last layer leaves as an f32 tile over both activation buffers;
-//     the density head, the row outputs and the K-sums are read from it.
+//     the density head and the row outputs are read from it.
 // The rounding points are the plain versions': bf16 operands, f32
-// accumulation, f32 bias (decode) or bf16(bf16(acc) + bf16 bias) (chunk),
-// LeakyReLU(0.1) in f32, bf16 between layers, alpha * w and h * w summed
-// over k in f32 in k order. The including sources are compiled with
-// -fmad=false so that those adds and multiplies round separately.
+// accumulation, f32 bias (decode) or bf16(bf16(acc) + bf16 bias) (the
+// colour tower), LeakyReLU(0.1) in f32, bf16 between layers. The
+// including sources are compiled with -fmad=false so that those adds and
+// multiplies round separately.
 // Shared memory at hidden 512: 222,248 bytes a block (138 KB activations,
 // 64 KB weight stages, 15 KB tables), one block an SM.
 
@@ -104,7 +104,6 @@ struct Tables {
   float alpha[kRows];
   int src[kRows];               // row g = m * K + k of the inputs
   unsigned bits[kSlotsMax];     // the tile's slots' live rows
-  int first[kSlotsMax];         // a slot's first row in the tile
   int wsum[kWarps];
   int nrows;
 };
@@ -323,21 +322,16 @@ __device__ __forceinline__ void store_f32(const float (&acc)[4][NT][4],
 }
 
 // the per-neighbour tower's inputs and outputs
-enum Mode { kPair = 0, kKacc = 1, kChunk = 2 };
-
 struct TowerArgs {
   const bf16* emb;          // [M*K, C]
   const float* dists;       // [M*K, D]
   const float* cd;          // [M*K, 7] colour, dirdot
   const float* wk;          // [M*K]
-  const signed char* nk;    // kChunk: [M] neighbours found, -1 masked off
   const bf16* w;            // packed weights (tower_weights)
   const float* f;           // packed parameters (tower_params)
-  float* aw;                // kPair [M*K], kKacc [M], kChunk sigma [M]
-  void* hw;                 // kPair bf16 [M*K, H], kKacc f32 [M, H],
-                            // kChunk bf16 [M, hs]
-  unsigned char* found;     // kChunk [M]
-  int M, K, C, D, H, nff, ndf, span, hs, act_super;
+  float* aw;                // [M*K] alpha * wk
+  bf16* hw;                 // [M*K, H] bf16(bf16(h) * wk)
+  int M, K, C, D, H, nff, ndf, span;
 };
 
 // PE value j of the block layout of x [n]: sin(x_i 2^f) for j < n * nf
@@ -363,13 +357,14 @@ __device__ __forceinline__ void store8(unsigned char* dst, const float (&v)[8]) 
   *(uint4*)dst = u;
 }
 
-// The per-neighbour tower at 64 NT padded outputs, one mode. A block
-// walks spans of a.span slots (span, span + gridDim.x, ...).
-template <int NT, int MODE>
+// The per-neighbour tower at 64 NT padded outputs, an output row a
+// (slot, k) row. A block walks spans of a.span slots (span, span +
+// gridDim.x, ...).
+template <int NT>
 __global__ void __launch_bounds__(kThreads, 1)
 tower_any_kernel(const TowerArgs a) {
   constexpr int np = NT * 64;
-  constexpr bool kRB = MODE == kChunk;
+  constexpr bool kRB = false;
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = act_stride(np + 32);
   unsigned char* X = smem;
@@ -401,18 +396,9 @@ tower_any_kernel(const TowerArgs a) {
       // ---- the tile: the longest run of slots from s0 whose rows fit
       const int m = s0 + t;
       unsigned bits = 0;
-      bool on = false;
-      if (m < s_end) {
-        if (MODE == kChunk) {
-          const int nk = a.nk[m];
-          on = nk >= 0;
-          bits = nk <= 0 ? 0u : nk >= 32 ? 0xffffffffu : (1u << nk) - 1u;
-        } else {
-          on = true;
-          for (int k = 0; k < K; ++k)
-            if (a.wk[(size_t)m * K + k] != 0.f) bits |= 1u << k;
-        }
-      }
+      if (m < s_end)
+        for (int k = 0; k < K; ++k)
+          if (a.wk[(size_t)m * K + k] != 0.f) bits |= 1u << k;
       const int cnt = __popc(bits);
       int pre = cnt;
 #pragma unroll
@@ -428,7 +414,6 @@ tower_any_kernel(const TowerArgs a) {
       if (take_me) {
         const int first = pre - cnt;
         T.bits[t] = bits;
-        T.first[t] = on ? first : -1;
         int j = first;
         for (int k = 0; k < K; ++k)
           if ((bits >> k) & 1u) T.src[j++] = m * K + k;
@@ -493,7 +478,7 @@ tower_any_kernel(const TowerArgs a) {
         store_act<NT, kRB>(acc, b3, X, S, warp, lane);
         __syncthreads();
         run_layer<NT, false>(acc, w4, np, wst, X, S, NoFill(), warp, lane);
-        store_f32<NT, kRB>(acc, b4, Ft, ldf, MODE == kPair, warp, lane);
+        store_f32<NT, kRB>(acc, b4, Ft, ldf, true, warp, lane);
         __syncthreads();
 
         // ---- the density head, a warp a row: alpha
@@ -504,59 +489,27 @@ tower_any_kernel(const TowerArgs a) {
 #pragma unroll
           for (int o = 16; o > 0; o >>= 1)
             d = d + __shfl_xor_sync(0xffffffffu, d, o);
-          float al;
-          if (MODE == kChunk) {
-            const float y = bf_round(bf_round(d) + bd);
-            al = a.act_super
-                     ? log1pf(expf(-fabsf(y - 1.f))) + fmaxf(y - 1.f, 0.f)
-                     : fmaxf(y, 0.f);
-          } else {
-            al = fmaxf(d + bd, 0.f);
-          }
-          if (lane == 0) T.alpha[r] = al;
+          if (lane == 0) T.alpha[r] = fmaxf(d + bd, 0.f);
         }
         __syncthreads();
       }
 
       // ---- the outputs
-      if (MODE == kPair) {
-        bf16* hw = (bf16*)a.hw;
-        for (int r = warp; r < nrows; r += kWarps) {
-          const float wr = T.wk[r];
-          const size_t g = (size_t)T.src[r];
-          if (lane == 0) a.aw[g] = T.alpha[r] * wr;
-          for (int c = lane; c < H; c += 32)
-            hw[g * H + c] = __float2bfloat16(Ft[r * ldf + c] * wr);
-        }
-        // rows with no weight write zeros
-        for (int e = warp; e < take * K; e += kWarps) {
-          const int i = e / K, k = e - i * K;
-          if ((T.bits[i] >> k) & 1u) continue;
-          const size_t g = (size_t)(s0 + i) * K + k;
-          if (lane == 0) a.aw[g] = 0.f;
-          for (int c = lane; c < H; c += 32) hw[g * H + c] = __float2bfloat16(0.f);
-        }
-      } else {
-        // the K-sums of each slot in k order; a slot with no rows gets 0
-        for (int i = t; i < take; i += kThreads) {
-          if (T.first[i] < 0) continue;
-          const int r0 = T.first[i], n = __popc(T.bits[i]);
-          float s = 0.f;
-          for (int r = r0; r < r0 + n; ++r) s = s + T.alpha[r] * T.wk[r];
-          a.aw[s0 + i] = s;
-          if (MODE == kChunk) a.found[s0 + i] = n > 0;
-        }
-        for (int e = t; e < take * H; e += kThreads) {
-          const int i = e / H, c = e - i * H;
-          if (T.first[i] < 0) continue;
-          const int r0 = T.first[i], n = __popc(T.bits[i]);
-          float s = 0.f;
-          for (int r = r0; r < r0 + n; ++r) s = s + Ft[r * ldf + c] * T.wk[r];
-          if (MODE == kKacc)
-            ((float*)a.hw)[(size_t)(s0 + i) * H + c] = s;
-          else
-            ((bf16*)a.hw)[(size_t)(s0 + i) * a.hs + c] = __float2bfloat16(s);
-        }
+      bf16* hw = a.hw;
+      for (int r = warp; r < nrows; r += kWarps) {
+        const float wr = T.wk[r];
+        const size_t g = (size_t)T.src[r];
+        if (lane == 0) a.aw[g] = T.alpha[r] * wr;
+        for (int c = lane; c < H; c += 32)
+          hw[g * H + c] = __float2bfloat16(Ft[r * ldf + c] * wr);
+      }
+      // rows with no weight write zeros
+      for (int e = warp; e < take * K; e += kWarps) {
+        const int i = e / K, k = e - i * K;
+        if ((T.bits[i] >> k) & 1u) continue;
+        const size_t g = (size_t)(s0 + i) * K + k;
+        if (lane == 0) a.aw[g] = 0.f;
+        for (int c = lane; c < H; c += 32) hw[g * H + c] = __float2bfloat16(0.f);
       }
       __syncthreads();
       s0 += take;
@@ -668,49 +621,67 @@ colour_any_kernel(const ColourArgs a) {
   }
 }
 
-// blocks for a kernel of `smem` bytes: every SM filled, at most `work`
+namespace {
+// blocks that fill every SM, per kernel and device, once looked up; 0
+// before. Internal to each source that includes this header (a
+// function-local static of a template would be one object across every
+// library of the process).
+int g_tower_slots[4][64], g_colour_slots[4][64];
+}  // namespace
+
+// blocks for a kernel of `smem` bytes: every SM filled, at most `work`.
+// The attribute, the SM count and the occupancy are looked up once a
+// kernel (`slots`: its row of g_tower_slots or g_colour_slots) and
+// device.
 template <class Kern>
-cudaError_t grid_for(Kern kern, int smem, int work, int& blocks) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t grid_for(Kern kern, int smem, int work, int& blocks,
+                     int (&slots)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per, kern, kThreads, smem)) != cudaSuccess)
-    return err;
-  if (per < 1) return cudaErrorInvalidConfiguration;
-  blocks = max(1, min(work, sms * per));
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (slots[dev] == 0) {
+    int sms = 0, per = 0;
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+        cudaSuccess)
+      return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per, kern, kThreads, smem)) != cudaSuccess)
+      return err;
+    if (per < 1) return cudaErrorInvalidConfiguration;
+    slots[dev] = sms * per;
+  }
+  blocks = max(1, min(work, slots[dev]));
   return cudaSuccess;
 }
 
 // the per-neighbour tower on M slots: slots split into spans of at least
 // 32 so that every SM gets some
-template <int NT, int MODE>
+template <int NT>
 cudaError_t launch_tower_nt(TowerArgs a, cudaStream_t stream) {
   const int smem = tower_smem(NT * 64);
   int blocks = 0;
-  cudaError_t err =
-      grid_for(tower_any_kernel<NT, MODE>, smem, a.M, blocks);
+  cudaError_t err = grid_for(tower_any_kernel<NT>, smem, a.M, blocks,
+                             g_tower_slots[__builtin_ctz(NT)]);
   if (err != cudaSuccess) return err;
   a.span = max(32, (a.M + blocks - 1) / blocks);
   a.span = (a.span + 31) / 32 * 32;
   blocks = (a.M + a.span - 1) / a.span;
-  tower_any_kernel<NT, MODE><<<blocks, kThreads, smem, stream>>>(a);
+  tower_any_kernel<NT><<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t launch_tower(const TowerArgs& a, cudaStream_t stream) {
+inline cudaError_t launch_tower(const TowerArgs& a, cudaStream_t stream) {
   if (a.M <= 0) return cudaSuccess;
   switch (padded_width(a.H)) {
-    case 64: return launch_tower_nt<1, MODE>(a, stream);
-    case 128: return launch_tower_nt<2, MODE>(a, stream);
-    case 256: return launch_tower_nt<4, MODE>(a, stream);
-    default: return launch_tower_nt<8, MODE>(a, stream);
+    case 64: return launch_tower_nt<1>(a, stream);
+    case 128: return launch_tower_nt<2>(a, stream);
+    case 256: return launch_tower_nt<4>(a, stream);
+    default: return launch_tower_nt<8>(a, stream);
   }
 }
 
@@ -718,8 +689,9 @@ template <int NT>
 cudaError_t launch_colour_nt(const ColourArgs& a, cudaStream_t stream) {
   const int smem = colour_smem(NT * 64);
   int blocks = 0;
-  const cudaError_t err = grid_for(colour_any_kernel<NT>, smem,
-                                   (a.M + kRows - 1) / kRows, blocks);
+  const cudaError_t err =
+      grid_for(colour_any_kernel<NT>, smem, (a.M + kRows - 1) / kRows,
+               blocks, g_colour_slots[__builtin_ctz(NT)]);
   if (err != cudaSuccess) return err;
   colour_any_kernel<NT><<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();

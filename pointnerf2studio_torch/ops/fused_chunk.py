@@ -14,8 +14,10 @@ ops/fused_chunk.py:86 of the reference; its one entry point launches
 three kernels back to back: selection and gathers, the tower, the colour
 tower) at the flagship widths (hidden 256, colour 128 x 3 layers, PE
 octaves 3 / 5 / 4, K <= 8, C <= 64), and of `csrc/chunk_any.cu`'s
-`fused_chunk_decode_any` (the same three steps on the generic towers of
-`csrc/tower_any.cuh`, counted in `_cuda.LAUNCHES` under that name) at
+`fused_chunk_decode_any` (the same three steps, the tower on the
+warp-specialised wgmma tower of `csrc/tower_wg.cuh`, the colour tower on
+the mma.sync one of `csrc/tower_any.cuh`; counted in `_cuda.LAUNCHES`
+under that name) at
 every other width of the envelope `check_envelope` states: K 1-32, C
 1-256, hidden 1-512, colour width 1-512 and 1-8 colour layers, PE octaves
 1-10 each. Outside it both devices raise NotImplementedError. On CUDA
@@ -49,7 +51,7 @@ from pointnerf2studio_torch.models.aggregator import Aggregator
 from pointnerf2studio_torch.ops import _cuda
 from pointnerf2studio_torch.ops.fused_decode import (
     FREQS_MAX, HIDDEN_MAX, _pe_blocks, _round32, _w1_permutation, pack_tower,
-    pack_tower_any, padded_width, swizzle_slabs)
+    pack_tower_wg, padded_width, swizzle_slabs)
 
 PK = 48                 # payload channels (PAYW = 44 padded to 48)
 FEAT = 32               # embedding width the cache payload fixes
@@ -199,7 +201,7 @@ def _kernel_params(plist, n_color_rest: int):
 
 def _kernel_params_any(plist, n_color_rest: int):
     """Pack the prepped weights for csrc/chunk_any.cu: (weights, params).
-    `weights` (bf16): the tower's (`pack_tower_any`), then the colour
+    `weights` (bf16): the tower's (`pack_tower_wg`), then the colour
     tower's as [out][in] matrices of Nc = padded_width(HC) outputs: wc0
     [Nc][kin] (its K-sum rows at 0 .. H-1, its PE(viewdir) rows at H ..,
     kin a multiple of 32), then each further layer [Nc][Nc]. `params`
@@ -211,7 +213,7 @@ def _kernel_params_any(plist, n_color_rest: int):
     rest = plist[16:16 + 2 * n_color_rest]
     wch, bch = plist[-2:]
     bf = torch.bfloat16
-    weights, params = pack_tower_any(
+    weights, params = pack_tower_wg(
         torch.cat([w1a, w1b, w1c]), w2, torch.cat([w3a, w3b]), w4, wd,
         (b1, b2, b3, b4), bd, round_bias=True)
     H, HC = wc0a.shape

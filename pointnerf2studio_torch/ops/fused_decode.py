@@ -25,8 +25,10 @@ Pallas kernels `_pair_kernel`, ops/fused_decode.py:91, and
 `_kacc_kernel`, :235, of the reference) at the flagship widths (32
 features, 6 dists, hidden 256, PE octaves 3 / 5, K <= 8), and of the
 entry points `fused_decode_any` / `fused_decode2_any` of
-`csrc/decode_any.cu` (the generic tower of `csrc/tower_any.cuh`,
-counted in `_cuda.LAUNCHES` under those names) at every other width of
+`csrc/decode_any.cu` (the first on the mma.sync tower of
+`csrc/tower_any.cuh`, the second on the warp-specialised wgmma tower of
+`csrc/tower_wg.cuh`, whose weights `pack_tower_wg` lays out; counted in
+`_cuda.LAUNCHES` under those names) at every other width of
 the envelope `check_envelope` states: features 1-64, dist_dim 3, 4 or
 6, hidden 1-512, PE octaves 1-10, K 1-32. Outside it both devices raise
 NotImplementedError. On CUDA tensors they launch a
@@ -382,13 +384,32 @@ def _launch(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
 
 
 def padded_width(h: int) -> int:
-    """csrc/tower_any.cuh's padded_width: a layer's width as 64 NT
-    outputs, NT 1, 2, 4 or 8."""
+    """csrc/tower_any.cuh's and tower_wg.cuh's padded_width: a layer's
+    width as 64 NT outputs, NT 1, 2, 4 or 8."""
     return 64 if h <= 64 else 128 if h <= 128 else 256 if h <= 256 else 512
 
 
 def _round32(n: int) -> int:
     return -(-n // 32) * 32
+
+
+def _tower_vectors(H: int, wd, biases, bd, round_bias: bool):
+    """The f32 parameters of the generic towers: b1..b4 and the density
+    head's weights (bf16 values), each zero padded to padded_width(H),
+    then its bias and 15 zeros; with `round_bias` the biases are rounded
+    to bf16."""
+    bf = torch.bfloat16
+    n_p = padded_width(H)
+
+    def rb(b):
+        b = b.reshape(-1).float()
+        b = b.to(bf).float() if round_bias else b
+        return torch.cat([b, b.new_zeros(n_p - b.numel())])
+
+    return torch.cat([rb(b) for b in biases] + [
+        torch.cat([wd.reshape(-1).to(bf).float(),
+                   wd.new_zeros(n_p - H, dtype=torch.float32)]),
+        rb(bd)[:1], bd.new_zeros(15, dtype=torch.float32)]).contiguous()
 
 
 def pack_tower_any(w1, w2, w3, w4, wd, biases, bd, round_bias: bool):
@@ -415,37 +436,71 @@ def pack_tower_any(w1, w2, w3, w4, wd, biases, bd, round_bias: bool):
         for src, dst, n in rows:
             m[:H, dst:dst + n] = w[src:src + n].T.to(bf)
         mats.append(m.reshape(-1))
-
-    def rb(b):
-        b = b.reshape(-1).float()
-        b = b.to(bf).float() if round_bias else b
-        return torch.cat([b, b.new_zeros(n_p - b.numel())])
-
-    params = torch.cat([rb(b) for b in biases] + [
-        torch.cat([wd.reshape(-1).to(bf).float(),
-                   wd.new_zeros(n_p - H, dtype=torch.float32)]),
-        rb(bd)[:1], bd.new_zeros(15, dtype=torch.float32)])
-    return torch.cat(mats).contiguous(), params.contiguous()
+    return (torch.cat(mats).contiguous(),
+            _tower_vectors(H, wd, biases, bd, round_bias))
 
 
-def _pack_decode_any(agg: Aggregator, C: int, D: int, nff: int, ndf: int):
+def tower_wg_matrices(w1, w2, w3):
+    """The [in, out] shapes of the four layers as csrc/tower_wg.cuh reads
+    them, each padded to Np = padded_width(H) outputs and whole slabs of
+    64 inputs: w1 [round64(n1), Np], w2 and w4 [Np, Np], w3 [Np + 64, Np]
+    (its rows 0 .. H-1, then its colour and dirdot rows at Np .. Np + 6)."""
+    H = w2.shape[0]
+    n_p = padded_width(H)
+    return ((-(-w1.shape[0] // SLAB_K) * SLAB_K, n_p), (n_p, n_p),
+            (n_p + SLAB_K, n_p), (n_p, n_p))
+
+
+def pack_tower_wg(w1, w2, w3, w4, wd, biases, bd, round_bias: bool):
+    """The per-neighbour tower's parameters as csrc/tower_wg.cuh takes
+    them (fused_decode2_any, the tower of fused_chunk_decode_any).
+    `weights` (bf16): the four [in, out] matrices zero padded to the
+    shapes of `tower_wg_matrices` (w1's rows in the block PE order), each
+    cut into slabs of 64 inputs in `swizzle_slabs`' image, the slabs one
+    after the other in the order the kernel reads them; at Np = 512 a slab
+    is two images of 256 outputs, the first half's first. `params` (f32):
+    `_tower_vectors`. Zero weights with a zero bias add exactly 0, so the
+    padding changes no result."""
+    bf = torch.bfloat16
+    H = w2.shape[0]
+    pieces = []
+    for w, (kin, n_p), rows in zip(
+            (w1, w2, w3, w4), tower_wg_matrices(w1, w2, w3),
+            ([(0, 0, w1.shape[0])], [(0, 0, H)],
+             [(0, 0, H), (H, padded_width(H), w3.shape[0] - H)],
+             [(0, 0, H)])):
+        m = w.new_zeros((kin, n_p), dtype=bf)
+        for src, dst, n in rows:
+            m[dst:dst + n, :H] = w[src:src + n].to(bf)
+        half = min(n_p, 256)
+        pieces.append(torch.stack([
+            swizzle_slabs(m[:, h:h + half].contiguous()).reshape(
+                kin // SLAB_K, -1) for h in range(0, n_p, half)], 1)
+            .reshape(-1))
+    return (torch.cat(pieces).contiguous(),
+            _tower_vectors(H, wd, biases, bd, round_bias))
+
+
+def _pack_decode_any(agg: Aggregator, C: int, D: int, nff: int, ndf: int,
+                     pack):
     w1, b1, w2, b2, w3, b3, w4, b4, wd, bd = _tower_params(
         agg, C, D, nff, ndf)
-    return pack_tower_any(w1, w2, w3, w4, wd, (b1, b2, b3, b4), bd,
-                          round_bias=False)
+    return pack(w1, w2, w3, w4, wd, (b1, b2, b3, b4), bd, round_bias=False)
 
 
 def _launch_any(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
-    """csrc/decode_any.cu's entry `entry` (fused_decode_any or
-    fused_decode2_any) on CUDA tensors, weights packed once per set of
-    weights and widths."""
+    """csrc/decode_any.cu's entry `entry` on CUDA tensors: fused_decode_any
+    (weights by `pack_tower_any`) or fused_decode2_any (`pack_tower_wg`),
+    packed once per set of weights and widths."""
     dev = emb.device
     M, K, C = emb.shape
     D = dists.shape[-1]
     H = agg.mlp_base[0].weight.shape[0]
+    pair = entry == "fused_decode_any"
+    pack = pack_tower_any if pair else pack_tower_wg
     weights, params = _cuda.packed_once(
-        agg, f"_decode_any_params_{C}_{D}_{nff}_{ndf}", _tower_tensors(agg),
-        lambda: _pack_decode_any(agg, C, D, nff, ndf))
+        agg, f"_{entry}_params_{C}_{D}_{nff}_{ndf}", _tower_tensors(agg),
+        lambda: _pack_decode_any(agg, C, D, nff, ndf, pack))
     emb = emb.to(torch.bfloat16).contiguous()
     dists = dists.float().contiguous()
     cd = torch.cat([color.float(), dirdot.float()], -1).contiguous()
@@ -457,15 +512,17 @@ def _launch_any(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
     _cuda.require(params, "tower biases", torch.float32, (params.numel(),),
                   dev)
     lib = _cuda.library("decode_any")
-    lib.decode_any_n_weights.restype = ctypes.c_longlong
-    lib.decode_any_n_weights.argtypes = [ctypes.c_int] * 5
+    n_weights = (lib.decode_any_n_weights if pair
+                 else lib.decode2_any_n_weights)
+    n_weights.restype = ctypes.c_longlong
+    n_weights.argtypes = [ctypes.c_int] * 5
     lib.decode_any_n_params.restype = ctypes.c_int
     lib.decode_any_n_params.argtypes = [ctypes.c_int]
-    if (lib.decode_any_n_weights(C, D, H, nff, ndf) != weights.numel()
+    if (n_weights(C, D, H, nff, ndf) != weights.numel()
             or lib.decode_any_n_params(H) != params.numel()):
         raise RuntimeError("packed parameter layout does not match "
-                           "csrc/tower_any.cuh")
-    if entry == "fused_decode_any":
+                           "csrc/decode_any.cu")
+    if pair:
         aw = torch.empty((M, K), dtype=torch.float32, device=dev)
         hw = torch.empty((M, K, H), dtype=torch.bfloat16, device=dev)
     else:

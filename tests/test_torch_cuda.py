@@ -87,6 +87,14 @@ WIDTH_SETS = {
                   num_feat_freqs=10, num_dist_freqs=10, num_viewdir_freqs=10),
              32, 256),
     "flagship_k12": ({}, 12, 64),
+    # csrc/tower_wg.cuh at its narrowest padded width (64) and at 512
+    # from a ragged hidden width
+    "w64": (dict(hidden_size=48, hidden_size_color=32, num_color_layers=2,
+                 num_feat_freqs=3, num_dist_freqs=2, num_viewdir_freqs=2),
+            8, 64),
+    "ragged512": (dict(hidden_size=300, hidden_size_color=96,
+                       num_color_layers=2, num_feat_freqs=1,
+                       num_dist_freqs=3, num_viewdir_freqs=4), 12, 128),
 }
 
 
@@ -147,12 +155,14 @@ def test_fused_chunk_kernel_and_render(dev, cand_cap, K, layered):
     assert bool(out.ray_mask.any()) and int(out.cb_overflow) == 0
 
 
-@pytest.mark.parametrize("name", ["wide", "narrow", "edge", "flagship_k12"])
+@pytest.mark.parametrize("name", ["wide", "narrow", "edge", "flagship_k12",
+                                  "w64", "ragged512"])
 def test_fused_chunk_any_kernel_and_render(dev, name):
     """csrc/chunk_any.cu at the widths the tuned kernels are not built for
-    (K to 32, C to 256, hidden 100-512, colour 40-256 in 1-4 layers, PE
-    octaves to 10), held to the plain version as the tuned kernel is;
-    then its tile edges: a ragged M and no valid slot."""
+    (K to 32, C to 256, hidden 48-512 - every padded width of the tower,
+    64 to 512 - colour 32-256 in 1-4 layers, PE octaves to 10), held to the
+    plain version as the tuned kernel is; then its tile edges: a ragged M
+    and no valid slot."""
     agg_kw, K, cap = WIDTH_SETS[name]
     out, a, k = _chunk_call(dev, cap, K, True, agg_kw)
     assert bool(_chunk_check(a, k, "fused_chunk_decode_any").any())
@@ -185,6 +195,29 @@ def test_fused_chunk_kernel_tile_edges(dev, edge):
     elif edge == "all_k_neighbours":
         k = dict(k, radius2=0.0, num_shells=1)
     found = _chunk_check(a, k)
+    assert bool(found.any()) == (edge != "no_valid_slot")
+
+
+@pytest.mark.parametrize("name", ["w64", "ragged512", "edge"])
+@pytest.mark.parametrize("edge", ["one_slot", "no_valid_slot",
+                                  "all_k_neighbours"])
+def test_fused_chunk_any_tile_edges(dev, name, edge):
+    """The tile edges of csrc/tower_wg.cuh inside fused_chunk_decode_any:
+    a launch of one slot that has neighbours, a launch with no valid slot
+    (no row at all), and slots that all bring K rows (at K 32 a slot is
+    half a tile)."""
+    agg_kw, K, cap = WIDTH_SETS[name]
+    _, a, k = _chunk_call(dev, cap, K, True, agg_kw)
+    a = list(a)
+    if edge == "one_slot":
+        first = int(torch.nonzero(fc.fused_chunk_decode_plain(*a, **k)[2])[0])
+        for i in range(7, 12):          # qslot, locs, center, rd, mask
+            a[i] = a[i][first:first + 1].contiguous()
+    elif edge == "no_valid_slot":
+        a[-1] = torch.zeros_like(a[-1])
+    else:
+        k = dict(k, radius2=0.0, num_shells=1)
+    found = _chunk_check(a, k, "fused_chunk_decode_any")
     assert bool(found.any()) == (edge != "no_valid_slot")
 
 
@@ -316,6 +349,14 @@ DECODE_ANY = {
     "edge": (dict(WIDTH_SETS["edge"][0], point_features_dim=64,
                   agg_dist_pers=30), 32, 300),
     "flagship_k12": ({}, 12, 777),
+    # csrc/tower_wg.cuh's narrowest padded width (64), and 512 from a
+    # ragged hidden width at 24 features and 4 dists (layer 1 exactly five
+    # slabs of 64 inputs)
+    "w64": (dict(hidden_size=64, num_feat_freqs=2, num_dist_freqs=3), 8,
+            513),
+    "ragged512": (dict(hidden_size=300, point_features_dim=24,
+                       agg_dist_pers=30, num_feat_freqs=5,
+                       num_dist_freqs=7), 6, 1001),
 }
 
 
@@ -354,6 +395,38 @@ def test_decode_any_kernels_match_plain(dev, name, fill):
         else:
             none = zero.all(-1)
             assert not aw[none].any() and not hw[none].any()
+
+
+@pytest.mark.parametrize("name", ["w64", "ragged512"])
+@pytest.mark.parametrize("M,K,fill", [(130, 32, "full"), (1, 16, "full"),
+                                      (300, 8, "empty"), (257, 1, "mixed")])
+def test_decode2_any_tile_edges(dev, name, M, K, fill):
+    """The tile edges of csrc/tower_wg.cuh in fused_decode2_any, under the
+    bounds of test_decode_any_kernels_match_plain: slots of 32 rows (two
+    a tile), a launch of one slot, a launch with no live slot, and K 1
+    (up to 64 slots a tile)."""
+    kw = DECODE_ANY[name][0]
+    cfg = AggregatorConfig(compute_dtype="bfloat16", **kw)
+    agg = Aggregator(cfg, seed=5, device=dev)
+    with torch.no_grad():
+        agg.density_head[0].bias += 1.0
+    args = _decode_inputs(dev, M, K, M + K, fill, cfg.shading_feature_dim,
+                          cfg.dist_dim)
+    k = dict(nff=cfg.num_feat_freqs, ndf=cfg.num_dist_freqs)
+    n0 = _cuda.LAUNCHES["fused_decode2_any"]
+    aw, hw = fd.kacc_tower(agg, *args, **k)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["fused_decode2_any"] == n0 + 1
+    aw_p, hw_p = fd.kacc_tower_reference(agg, *args, **k)
+    assert aw.shape == aw_p.shape and hw.shape == hw_p.shape
+    assert bool(((aw - aw_p).abs() <= 2e-2 + 2.0 ** -7 * aw_p.abs()).all())
+    d, size = (hw.float() - hw_p.float()).abs(), hw_p.float().abs()
+    assert bool((d <= 1e-3 + 2.0 ** -7 * size).all())
+    assert float(d.mean()) <= 2.0 ** -8 * max(float(size.mean()), 1e-30)
+    none = (args[4] == 0).all(-1)
+    assert not aw[none].any() and not hw[none].any()
+    if fill == "empty":
+        assert not aw.any() and not hw.any()
 
 
 @pytest.mark.parametrize("first", [0, 28])

@@ -454,3 +454,61 @@ def test_select_envelope_limits(K, C):
             z((2, 3)), z(2, dtype=torch.bool), K, 0.0, 1)
     tfs.check_envelope(min(max(K, 1), 32), min(C, 256))
     assert tfs.tuned(8, 64) and not tfs.tuned(9, 64) and not tfs.tuned(8, 65)
+
+
+def _unslab(img: np.ndarray, kin: int, n: int) -> np.ndarray:
+    """csrc/tower_wg.cuh's slab image of a [kin, n] matrix back to the
+    matrix: slab s, half h (256 outputs at n = 512, else n) holds element
+    (k, j) of its 64 x half block at j * 64 + ((k // 8) ^ (j & 7)) * 8 +
+    k % 8."""
+    half = min(n, 256)
+    x = img.reshape(kin // 64, n // half, half, 8, 8)
+    j = np.arange(half)
+    pos = np.arange(8)[:, None] ^ (j & 7)[None, :]           # [c, j]
+    blocks = x[:, :, j[None, :], pos, :]                      # [s, h, c, j, e]
+    return blocks.transpose(0, 2, 4, 1, 3).reshape(kin, n)
+
+
+@pytest.mark.parametrize("H", [50, 100, 200, 300])
+def test_tower_wg_packing_unpacks(H):
+    """`pack_tower_wg` at each padded width (64, 128, 256, 512): its slab
+    image unpacked with numpy gives back every [in, out] matrix in place,
+    the padding (outputs past H, inputs past the feature rows, layer 3's
+    rows between H and Np and past Np + 6) is zero, and the parameters
+    hold the biases and the density head in place."""
+    rng = np.random.default_rng(H)
+    n1 = 70
+    bf = torch.bfloat16
+    T = lambda *s: torch.as_tensor(                            # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(bf)
+    w1, w2, w3, w4, wd = T(n1, H), T(H, H), T(H + 7, H), T(H, H), T(H, 1)
+    biases = [torch.as_tensor(rng.normal(size=(1, H)).astype(np.float32))
+              for _ in range(4)]
+    bd = torch.as_tensor(rng.normal(size=(1, 1)).astype(np.float32))
+    weights, params = tfd.pack_tower_wg(w1, w2, w3, w4, wd, biases, bd,
+                                        round_bias=False)
+    n_p = tfd.padded_width(H)
+    shapes = tfd.tower_wg_matrices(w1, w2, w3)
+    assert shapes[0] == (128, n_p) and shapes[2] == (n_p + 64, n_p)
+    flat = weights.float().numpy()
+    assert flat.size == sum(k * n for k, n in shapes)
+    mats, at = [], 0
+    for kin, n in shapes:
+        mats.append(_unslab(flat[at:at + kin * n], kin, n))
+        at += kin * n
+    want = [np.zeros(s, np.float32) for s in shapes]
+    want[0][:n1, :H] = w1.float().numpy()
+    want[1][:H, :H] = w2.float().numpy()
+    want[2][:H, :H] = w3[:H].float().numpy()
+    want[2][n_p:n_p + 7, :H] = w3[H:].float().numpy()
+    want[3][:H, :H] = w4.float().numpy()
+    for got, exp in zip(mats, want):
+        np.testing.assert_array_equal(got, exp)
+    vec = params.numpy()
+    assert vec.size == 5 * n_p + 16
+    for i, b in enumerate(biases):
+        np.testing.assert_array_equal(vec[i * n_p:i * n_p + H], b[0].numpy())
+        assert not vec[i * n_p + H:(i + 1) * n_p].any()
+    np.testing.assert_array_equal(vec[4 * n_p:4 * n_p + H],
+                                  wd[:, 0].float().numpy())
+    assert vec[5 * n_p] == bd.item() and not vec[4 * n_p + H:5 * n_p].any()
