@@ -318,8 +318,9 @@ ray budget measured on the frame as the JAX bench sizes them:
      route's against the staged one (narrow): ray_mask equal, colour
      within ATOL / MEAN_TOL. Printed: kernel ms (queued behind a busy
      device where under 50 us), the device kernels' ms by the profiler
-     (fused_chunk_decode_any's selection, tower and colour tower apart),
-     plain ms and the bound at these widths, the frames' ms in turns, the
+     (fused_chunk_decode_any's selection, tower and colour tower apart;
+     the colour tower beside its own bound on the valid slots), plain ms
+     and the bound at these widths, the frames' ms in turns, the
      tuned fused_chunk_decode and fused_decode2 on the flagship's chunk 0
      in the same run and each generic kernel's ratio to them (the
      yardstick across calls), fused_decode2_any again on the narrow XLA
@@ -370,7 +371,8 @@ largest), their sum and the device's idle share of the unprofiled pass
 of each front-end is profiled in three parts, its forward (the render
 and the losses), its backward and its optimizer update, each under its
 own profiler pass, beside the unprofiled step's time. The widths phase
-adds the wide fused-chunk frame and the wide staged chunk 0.
+adds the wide fused-chunk frame, the wide staged chunk 0 and the wide
+legacy chunk (fused_decode_any four times).
 
     python3 chip_smoke.py --probe
 
@@ -379,7 +381,10 @@ of the kernels left out (`TOWER_PROBE` in `csrc/tower.cuh`) and prints
 fused_decode2's and fused_chunk_decode's time with each build on their
 paths' inputs: what each part costs; the widths phase does the same for
 `csrc/decode_any.cu`'s fused_decode2_any (`TOWER_PROBE` in
-`csrc/tower_wg.cuh`) on its wide and narrow staged chunk 0.
+`csrc/tower_wg.cuh`) on its wide and narrow staged chunk 0, for its
+fused_decode_any on the wide legacy chunk's first decode piece and for
+`csrc/chunk_any.cu` on the wide frame's chunk 0, with the device ms of
+each of its three kernels.
 
     python3 chip_smoke.py --widths [--profile[=DIR]]
 
@@ -630,18 +635,24 @@ PROBES = {0: "whole kernel", 1: "no feature rows", 2: "no wgmma",
           23: "selection, tile forming, layer epilogues and K-sums only"}
 
 
-def probe_tower(source: str, bits_list, name: str, fn) -> None:
+def probe_tower(source: str, bits_list, name: str, fn, names=None,
+                parts=()) -> None:
     """--probe: csrc/<source>.cu built with parts of the tower left out
     (the TOWER_PROBE bits of csrc/tower.cuh) and `fn`, the kernel's
-    wrapper on the main path's inputs, timed with each build. The outputs
-    of a probe build are wrong on purpose; only its time is read."""
+    wrapper on the main path's inputs, timed with each build; `names`
+    overrides PROBES' words for a bit; `parts` names device kernels whose
+    ms the profiler reads with each build too. The outputs of a probe
+    build are wrong on purpose; only its time is read."""
     from pointnerf2studio_torch.ops import _cuda
+    names = {**PROBES, **(names or {})}
     flags = {bits: [f"-DTOWER_PROBE={bits}"] for bits in bits_list}
     _cuda.build([(source, f) for f in flags.values()])
     for bits, f in flags.items():
         with _cuda.variant(source, f):
             t = cuda_ms(fn, 10, 2)
-        log(f"probe {name}, TOWER_PROBE={bits} ({PROBES[bits]}): {t:.3f} ms")
+            split = device_kernel_ms(fn, parts) if parts else {}
+        log(f"probe {name}, TOWER_PROBE={bits} ({names[bits]}): {t:.3f} ms"
+            + "".join(f", {n} {ms_text(v)}" for n, v in split.items()))
 
 
 def tower_check(name, kern, plain, a, k):
@@ -2007,7 +2018,7 @@ WIDTH_SETS = {
 NARROW_LEGACY_FEATURES = 16
 # fused_chunk_decode_any's device kernels: the selection, the tower
 # (csrc/tower_wg.cuh) and the colour tower
-ANY_CHUNK_PARTS = ("chunk_select_kernel", "tower", "colour_any_kernel")
+ANY_CHUNK_PARTS = ("chunk_select_kernel", "tower", "colour_wg_kernel")
 
 
 def tower_macs(C, D, H, nff, ndf) -> int:
@@ -2241,12 +2252,31 @@ def widths_phase(c) -> dict:
         f"of useful work; its device kernels by the profiler: "
         + ", ".join(f"{n} {ms_text(v)}" for n, v in fc_parts.items())
         + f" ms ({c.smi})")
+    # the colour tower alone: a row a valid slot (found or not: a slot
+    # with no neighbour still gets its colour from PE(viewdir))
+    n_valid, t_col = int(m_sl.sum()), fc_parts["colour_wg_kernel"]
+    b_col = bound(n_valid * (2 * agg_w.hidden_size + 24) + 2 * smac,
+                  2 * n_valid * smac)
+    log(f"widths wide: the colour tower (colour_wg_kernel) on {n_valid} "
+        f"valid slots: {ms_text(t_col)} ms by the profiler, bound "
+        f"{b_col[0]:.4f} ms by {b_col[1]}"
+        + ("" if t_col is None else
+           f", kernel / bound {t_col / b_col[0]:.2f}, "
+           f"{2 * n_valid * smac / t_col / 1e9:.1f} TFLOP/s of useful work")
+        + f" ({c.smi})")
+    if "--probe" in sys.argv[1:]:
+        probe_tower("chunk_any", (0, 1, 2, 4, 6), "fused_chunk_decode_any "
+                    "wide", lambda: fc.fused_chunk_decode(*args, **kw),
+                    {1: "no feature rows (colour tower: no layer-1 rows)"},
+                    ANY_CHUNK_PARTS)
     out["kernels"]["fused_chunk_decode_any"] = dict(
         launches=launches["fused_chunk_decode_any"],
         max_abs_err=float(max(d_sig.max(), d_rgb.max())), ms=t_fc,
         plain_ms=t_fc_p, bound_ms=b_fc[0], bound_by=b_fc[1],
         M=m_sl.shape[0], pairs=n_pairs, device_kernels=fc_parts,
-        useful_tflops=2 * (n_pairs * rmac + n_found * smac) / t_fc / 1e9)
+        useful_tflops=2 * (n_pairs * rmac + n_found * smac) / t_fc / 1e9,
+        colour=dict(ms=t_col, bound_ms=b_col[0], bound_by=b_col[1],
+                    slots=n_valid))
 
     # ---- the staged chunk 0 (#1, #2 at (128, 16), #4 generic)
     cfg_ws = dataclasses.replace(
@@ -2319,6 +2349,18 @@ def widths_phase(c) -> dict:
                      fd.pair_tower_reference, a, k, cfg_w.agg)
     st["launches"] = launches["fused_decode_any"]
     out["kernels"]["fused_decode_any"] = st
+    if "--probe" in sys.argv[1:]:
+        probe_tower("decode_any", (0, 1, 2, 4, 8, 6, 15),
+                    "fused_decode_any wide", lambda: fd.pair_tower(*a, **k),
+                    {8: "no row outputs"})
+    if c.prof_dir:
+        def legacy_w():
+            with torch.no_grad():
+                return lr.render_rays(params_w, scene.cloud, grid,
+                                      scene.campos, scene.camrotc2w, rays0,
+                                      scene.near, scene.far, cfg_wb)
+        profile_pass("widths_wide_legacy", legacy_w, cuda_ms(legacy_w, 3),
+                     c.prof_dir)
 
     # ---- the wide frame beside the flagship frame, in turns
     def frame_main():

@@ -14,23 +14,23 @@
 //   * tower_wg_kernel (csrc/tower_wg.cuh, the warp-specialised wgmma
 //     tower) on the valid pairs: sigma, found and the K-sums, a bf16 row of
 //     H per slot;
-//   * colour_any_kernel (csrc/tower_any.cuh) on the slots, 64 a tile.
+//   * colour_wg_kernel (the same header, block and ring) on the slots
+//     that are not masked off, 64 a tile.
 // What bounds it on Hopper: tensor-core operations (the tower and the
-// colour tower), under them the selection's bytes; tower_wg.cuh and
-// tower_any.cuh say how the towers go about it. The rounding points are the reference's
+// colour tower), under them the selection's bytes; tower_wg.cuh says how
+// the towers go about it. The rounding points are the reference's
 // fused chunk's: (bf16(acc) + bf16(bias)) rounded to bf16, LeakyReLU(0.1)
 // in f32, alpha*w and h*w summed over K in f32 in k order,
 // sigmoid*(1+2e-3)-1e-3. Compiled with -fmad=false: the selection's
 // geometry must equal the plain version's bit for bit.
-// Weights: the tower's packed image (tower_wg.cuh) with the biases
-// rounded to bf16, then the colour tower's (tower_any.cuh), made by
+// Weights: the tower's packed image with the biases rounded to bf16, then
+// the colour tower's, both in tower_wg.cuh's slab image, made by
 // ops/fused_chunk.py::_kernel_params_any.
 
 #include "chunk_select.cuh"
-#include "tower_any.cuh"
 #include "tower_wg.cuh"
 
-using namespace tany;
+using chunksel::bf16;
 
 namespace {
 
@@ -69,10 +69,10 @@ cudaError_t run_select(const void* kmeta, const void* kcand, const void* kxyz,
 extern "C" long long chunk_any_n_weights(int H, int HC, int layers, int nff,
                                          int ndf, int nvf) {
   return twg::tower_weights(kC, kD, H, nff, ndf) +
-         colour_weights(H, HC, layers, nvf);
+         twg::colour_weights(H, HC, layers, nvf);
 }
 extern "C" int chunk_any_n_params(int H, int HC, int layers) {
-  return twg::tower_params(H) + colour_params(HC, layers);
+  return twg::tower_params(H) + twg::colour_params(HC, layers);
 }
 // bytes of scratch the entry point needs for M slots of K neighbours
 extern "C" long long chunk_any_scratch_bytes(int M, int K, int H) {
@@ -130,7 +130,7 @@ extern "C" int fused_chunk_decode_any(
   if ((err = twg::launch<twg::kChunk>(t, st)) != cudaSuccess)
     return (int)err;
 
-  ColourArgs c = {};
+  twg::ColourArgs c = {};
   c.hw = s.hw;
   c.vd = s.vd;
   c.nk = s.nk;
@@ -141,7 +141,6 @@ extern "C" int fused_chunk_decode_any(
   c.H = H;
   c.hs = hs;
   c.nvf = nvf;
-  c.HC = HC;
   c.layers = layers;
-  return (int)launch_colour(c, st);
+  return (int)twg::launch_colour(c, HC, st);
 }

@@ -12,73 +12,38 @@
 // fused_decode.cu keeps the flagship widths (32, 6, 256, octaves 3 / 5,
 // K <= 8).
 //
-// What bounds it on Hopper: tensor-core operations. fused_decode2_any
-// runs the warp-specialised wgmma tower of csrc/tower_wg.cuh (weights
-// packed by ops/fused_decode.py::pack_tower_wg), fused_decode_any the
-// generic mma.sync tower of csrc/tower_any.cuh (weights packed by
-// pack_tower_any); each header says how. Compiled with -fmad=false so
-// that acc + bias, 0.1 * x and h * wk round as the plain version's
-// separate operations do.
+// What bounds it on Hopper: tensor-core operations. Both entry points run
+// the warp-specialised wgmma tower of csrc/tower_wg.cuh (weights packed
+// by ops/fused_decode.py::pack_tower_wg), fused_decode_any in its mode
+// kPair, fused_decode2_any in kKacc; the header says how. Compiled with
+// -fmad=false so that acc + bias, 0.1 * x and h * wk round as the plain
+// version's separate operations do.
 
-#include "tower_any.cuh"
 #include "tower_wg.cuh"
 
-using namespace tany;
+using namespace twg;
 
-// bf16 elements of fused_decode_any's packed weights (tower_any.cuh), f32
-// parameters (either entry point's)
+// bf16 elements of the packed weights and f32 parameters (either entry
+// point's)
 extern "C" long long decode_any_n_weights(int C, int D, int H, int nff,
                                           int ndf) {
   return tower_weights(C, D, H, nff, ndf);
 }
 extern "C" int decode_any_n_params(int H) { return tower_params(H); }
 
-// emb bf16 [M, K, C], dists f32 [M, K, D], cd f32 [M, K, 7], wk f32
-// [M, K] -> aw f32 [M, K], hw bf16 [M, K, H]
-extern "C" int fused_decode_any(const void* emb, const void* dists,
-                                const void* cd, const void* wk,
-                                const void* weights, const void* params,
-                                void* aw, void* hw, int M, int K, int C, int D,
-                                int H, int nff, int ndf, void* stream) {
-  if (!tower_widths_ok(C, D, H, nff, ndf, K)) return (int)cudaErrorInvalidValue;
-  TowerArgs a = {};
+namespace {
+
+template <int MODE>
+int run(const void* emb, const void* dists, const void* cd, const void* wk,
+        const void* weights, const void* params, void* aw, void* hw, int M,
+        int K, int C, int D, int H, int nff, int ndf, void* stream) {
+  if (!widths_ok(C, D, H, nff, ndf, K)) return (int)cudaErrorInvalidValue;
+  Args a = {};
   a.emb = (const bf16*)emb;
   a.dists = (const float*)dists;
   a.cd = (const float*)cd;
   a.wk = (const float*)wk;
   a.w = (const bf16*)weights;
-  a.f = (const float*)params;
-  a.aw = (float*)aw;
-  a.hw = (bf16*)hw;
-  a.M = M;
-  a.K = K;
-  a.C = C;
-  a.D = D;
-  a.H = H;
-  a.nff = nff;
-  a.ndf = ndf;
-  return (int)launch_tower(a, (cudaStream_t)stream);
-}
-
-// bf16 elements of fused_decode2_any's packed weights (tower_wg.cuh)
-extern "C" long long decode2_any_n_weights(int C, int D, int H, int nff,
-                                           int ndf) {
-  return twg::tower_weights(C, D, H, nff, ndf);
-}
-
-// same inputs -> aw f32 [M], hw f32 [M, H], summed over k in k order
-extern "C" int fused_decode2_any(const void* emb, const void* dists,
-                                 const void* cd, const void* wk,
-                                 const void* weights, const void* params,
-                                 void* aw, void* hw, int M, int K, int C, int D,
-                                 int H, int nff, int ndf, void* stream) {
-  if (!twg::widths_ok(C, D, H, nff, ndf, K)) return (int)cudaErrorInvalidValue;
-  twg::Args a = {};
-  a.emb = (const twg::bf16*)emb;
-  a.dists = (const float*)dists;
-  a.cd = (const float*)cd;
-  a.wk = (const float*)wk;
-  a.w = (const twg::bf16*)weights;
   a.f = (const float*)params;
   a.aw = (float*)aw;
   a.hw = hw;
@@ -89,5 +54,29 @@ extern "C" int fused_decode2_any(const void* emb, const void* dists,
   a.H = H;
   a.nff = nff;
   a.ndf = ndf;
-  return (int)twg::launch<twg::kKacc>(a, (cudaStream_t)stream);
+  a.vw = pair_vw(H, hw);
+  return (int)launch<MODE>(a, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// emb bf16 [M, K, C], dists f32 [M, K, D], cd f32 [M, K, 7], wk f32
+// [M, K] -> aw f32 [M, K], hw bf16 [M, K, H]
+extern "C" int fused_decode_any(const void* emb, const void* dists,
+                                const void* cd, const void* wk,
+                                const void* weights, const void* params,
+                                void* aw, void* hw, int M, int K, int C, int D,
+                                int H, int nff, int ndf, void* stream) {
+  return run<kPair>(emb, dists, cd, wk, weights, params, aw, hw, M, K, C, D,
+                    H, nff, ndf, stream);
+}
+
+// same inputs -> aw f32 [M], hw f32 [M, H], summed over k in k order
+extern "C" int fused_decode2_any(const void* emb, const void* dists,
+                                 const void* cd, const void* wk,
+                                 const void* weights, const void* params,
+                                 void* aw, void* hw, int M, int K, int C, int D,
+                                 int H, int nff, int ndf, void* stream) {
+  return run<kKacc>(emb, dists, cd, wk, weights, params, aw, hw, M, K, C, D,
+                    H, nff, ndf, stream);
 }

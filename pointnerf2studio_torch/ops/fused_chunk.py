@@ -14,10 +14,9 @@ ops/fused_chunk.py:86 of the reference; its one entry point launches
 three kernels back to back: selection and gathers, the tower, the colour
 tower) at the flagship widths (hidden 256, colour 128 x 3 layers, PE
 octaves 3 / 5 / 4, K <= 8, C <= 64), and of `csrc/chunk_any.cu`'s
-`fused_chunk_decode_any` (the same three steps, the tower on the
-warp-specialised wgmma tower of `csrc/tower_wg.cuh`, the colour tower on
-the mma.sync one of `csrc/tower_any.cuh`; counted in `_cuda.LAUNCHES`
-under that name) at
+`fused_chunk_decode_any` (the same three steps, the tower and the colour
+tower on the warp-specialised wgmma kernels of `csrc/tower_wg.cuh`;
+counted in `_cuda.LAUNCHES` under that name) at
 every other width of the envelope `check_envelope` states: K 1-32, C
 1-256, hidden 1-512, colour width 1-512 and 1-8 colour layers, PE octaves
 1-10 each. Outside it both devices raise NotImplementedError. On CUDA
@@ -50,8 +49,8 @@ from pointnerf2studio_torch.config import AggregatorConfig
 from pointnerf2studio_torch.models.aggregator import Aggregator
 from pointnerf2studio_torch.ops import _cuda
 from pointnerf2studio_torch.ops.fused_decode import (
-    FREQS_MAX, HIDDEN_MAX, _pe_blocks, _round32, _w1_permutation, pack_tower,
-    pack_tower_wg, padded_width, swizzle_slabs)
+    FREQS_MAX, HIDDEN_MAX, _pe_blocks, _w1_permutation, pack_tower,
+    pack_tower_wg, padded_width, round_slab, slab_image, swizzle_slabs)
 
 PK = 48                 # payload channels (PAYW = 44 padded to 48)
 FEAT = 32               # embedding width the cache payload fixes
@@ -199,12 +198,21 @@ def _kernel_params(plist, n_color_rest: int):
     return weights.contiguous(), params.contiguous()
 
 
+def colour_wg_matrices(HC: int, n_in: int, layers: int):
+    """The [in, out] shapes of the colour layers as csrc/tower_wg.cuh's
+    colour_wg_kernel reads them, each padded to Nc = padded_width(HC)
+    outputs and whole slabs of 64 inputs: wc0 [round64(n_in), Nc] (its
+    K-sum rows at 0 .. H-1, its PE(viewdir) rows at H .. n_in - 1, n_in
+    = H + 6 nvf), then each further layer [Nc, Nc]."""
+    n_c = padded_width(HC)
+    return [(round_slab(n_in), n_c)] + [(n_c, n_c)] * (layers - 1)
+
+
 def _kernel_params_any(plist, n_color_rest: int):
     """Pack the prepped weights for csrc/chunk_any.cu: (weights, params).
     `weights` (bf16): the tower's (`pack_tower_wg`), then the colour
-    tower's as [out][in] matrices of Nc = padded_width(HC) outputs: wc0
-    [Nc][kin] (its K-sum rows at 0 .. H-1, its PE(viewdir) rows at H ..,
-    kin a multiple of 32), then each further layer [Nc][Nc]. `params`
+    tower's: the matrices of `colour_wg_matrices`, zero padded, each in
+    `slab_image`'s image, in the order the kernel reads them. `params`
     (f32): the tower's (biases rounded to bf16), then each colour layer's
     bias [Nc], the colour head's weights [3][Nc] and its bias, all bf16
     values, and 13 zeros. Zeros pad every matrix and vector."""
@@ -216,14 +224,14 @@ def _kernel_params_any(plist, n_color_rest: int):
     weights, params = pack_tower_wg(
         torch.cat([w1a, w1b, w1c]), w2, torch.cat([w3a, w3b]), w4, wd,
         (b1, b2, b3, b4), bd, round_bias=True)
-    H, HC = wc0a.shape
+    HC = wc0a.shape[1]
     n_c = padded_width(HC)
-    wc0 = torch.cat([wc0a, wc0b])
-    mats = [wc0.new_zeros((n_c, _round32(wc0.shape[0])), dtype=bf)]
-    mats[0][:HC, :wc0.shape[0]] = wc0.T.to(bf)
-    for w in rest[0::2]:
-        mats.append(w.new_zeros((n_c, n_c), dtype=bf))
-        mats[-1][:HC, :HC] = w.T.to(bf)
+    wc = [torch.cat([wc0a, wc0b])] + list(rest[0::2])
+    mats = []
+    for w, shape in zip(wc, colour_wg_matrices(HC, wc[0].shape[0], len(wc))):
+        m = w.new_zeros(shape, dtype=bf)
+        m[:w.shape[0], :HC] = w.to(bf)
+        mats.append(slab_image(m))
 
     def rb(x, n=n_c):
         x = x.reshape(-1).to(bf).float()
@@ -233,7 +241,7 @@ def _kernel_params_any(plist, n_color_rest: int):
     head[:, :HC] = wch.T.to(bf).float()
     params = torch.cat([params, rb(bc0)] + [rb(b) for b in rest[1::2]] + [
         head.reshape(-1), rb(bch, 16)])
-    weights = torch.cat([weights] + [m.reshape(-1) for m in mats])
+    weights = torch.cat([weights] + mats)
     return weights.contiguous(), params.contiguous()
 
 

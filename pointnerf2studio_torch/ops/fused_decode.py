@@ -25,8 +25,7 @@ Pallas kernels `_pair_kernel`, ops/fused_decode.py:91, and
 `_kacc_kernel`, :235, of the reference) at the flagship widths (32
 features, 6 dists, hidden 256, PE octaves 3 / 5, K <= 8), and of the
 entry points `fused_decode_any` / `fused_decode2_any` of
-`csrc/decode_any.cu` (the first on the mma.sync tower of
-`csrc/tower_any.cuh`, the second on the warp-specialised wgmma tower of
+`csrc/decode_any.cu` (both on the warp-specialised wgmma tower of
 `csrc/tower_wg.cuh`, whose weights `pack_tower_wg` lays out; counted in
 `_cuda.LAUNCHES` under those names) at every other width of
 the envelope `check_envelope` states: features 1-64, dist_dim 3, 4 or
@@ -384,13 +383,14 @@ def _launch(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
 
 
 def padded_width(h: int) -> int:
-    """csrc/tower_any.cuh's and tower_wg.cuh's padded_width: a layer's
-    width as 64 NT outputs, NT 1, 2, 4 or 8."""
+    """csrc/tower_wg.cuh's padded_width: a layer's width as 64 NT
+    outputs, NT 1, 2, 4 or 8."""
     return 64 if h <= 64 else 128 if h <= 128 else 256 if h <= 256 else 512
 
 
-def _round32(n: int) -> int:
-    return -(-n // 32) * 32
+def round_slab(n: int) -> int:
+    """n inputs rounded up to whole slabs of SLAB_K."""
+    return -(-n // SLAB_K) * SLAB_K
 
 
 def _tower_vectors(H: int, wd, biases, bd, round_bias: bool):
@@ -412,34 +412,6 @@ def _tower_vectors(H: int, wd, biases, bd, round_bias: bool):
         rb(bd)[:1], bd.new_zeros(15, dtype=torch.float32)]).contiguous()
 
 
-def pack_tower_any(w1, w2, w3, w4, wd, biases, bd, round_bias: bool):
-    """The per-neighbour tower's parameters as csrc/tower_any.cuh takes
-    them. `weights` (bf16): the four layers as [out][in] matrices, the
-    width padded to Np = padded_width(H) outputs and zeros elsewhere:
-    [Np][kin1] (w1's rows in the block PE order, kin1 a multiple of 32),
-    [Np][Np], [Np][Np + 32] (w3's rows 0..H-1, then its colour and
-    dirdot rows at Np .. Np + 6), [Np][Np]. `params` (f32): b1..b4 and
-    the density head's weights (bf16 values), each [Np], then its bias
-    and 15 zeros; with `round_bias` the biases are rounded to bf16.
-    Zero weights with a zero bias add exactly 0, so the padding changes
-    no result."""
-    bf = torch.bfloat16
-    H = w2.shape[0]
-    n_p = padded_width(H)
-    n1 = w1.shape[0]
-    mats = []
-    for w, kin, rows in ((w1, _round32(n1), [(0, 0, n1)]),
-                         (w2, n_p, [(0, 0, H)]),
-                         (w3, n_p + 32, [(0, 0, H), (H, n_p, w3.shape[0] - H)]),
-                         (w4, n_p, [(0, 0, H)])):
-        m = w.new_zeros((n_p, kin), dtype=bf)
-        for src, dst, n in rows:
-            m[:H, dst:dst + n] = w[src:src + n].T.to(bf)
-        mats.append(m.reshape(-1))
-    return (torch.cat(mats).contiguous(),
-            _tower_vectors(H, wd, biases, bd, round_bias))
-
-
 def tower_wg_matrices(w1, w2, w3):
     """The [in, out] shapes of the four layers as csrc/tower_wg.cuh reads
     them, each padded to Np = padded_width(H) outputs and whole slabs of
@@ -447,20 +419,31 @@ def tower_wg_matrices(w1, w2, w3):
     (its rows 0 .. H-1, then its colour and dirdot rows at Np .. Np + 6)."""
     H = w2.shape[0]
     n_p = padded_width(H)
-    return ((-(-w1.shape[0] // SLAB_K) * SLAB_K, n_p), (n_p, n_p),
-            (n_p + SLAB_K, n_p), (n_p, n_p))
+    return ((round_slab(w1.shape[0]), n_p), (n_p, n_p), (n_p + SLAB_K, n_p),
+            (n_p, n_p))
+
+
+def slab_image(m: torch.Tensor) -> torch.Tensor:
+    """A padded bf16 [kin, Np] matrix (kin a multiple of 64) as
+    csrc/tower_wg.cuh streams it, flat: its slabs of 64 inputs one after
+    the other, each in `swizzle_slabs`' image; at Np = 512 a slab is two
+    images of 256 outputs, the first half's first."""
+    kin, n_p = m.shape
+    half = min(n_p, 256)
+    return torch.stack([
+        swizzle_slabs(m[:, h:h + half].contiguous()).reshape(
+            kin // SLAB_K, -1) for h in range(0, n_p, half)], 1).reshape(-1)
 
 
 def pack_tower_wg(w1, w2, w3, w4, wd, biases, bd, round_bias: bool):
     """The per-neighbour tower's parameters as csrc/tower_wg.cuh takes
-    them (fused_decode2_any, the tower of fused_chunk_decode_any).
-    `weights` (bf16): the four [in, out] matrices zero padded to the
-    shapes of `tower_wg_matrices` (w1's rows in the block PE order), each
-    cut into slabs of 64 inputs in `swizzle_slabs`' image, the slabs one
-    after the other in the order the kernel reads them; at Np = 512 a slab
-    is two images of 256 outputs, the first half's first. `params` (f32):
-    `_tower_vectors`. Zero weights with a zero bias add exactly 0, so the
-    padding changes no result."""
+    them (fused_decode_any, fused_decode2_any, the tower of
+    fused_chunk_decode_any). `weights` (bf16): the four [in, out] matrices
+    zero padded to the shapes of `tower_wg_matrices` (w1's rows in the
+    block PE order), each in `slab_image`'s image, one after the other in
+    the order the kernel reads them. `params` (f32): `_tower_vectors`.
+    Zero weights with a zero bias add exactly 0, so the padding changes no
+    result."""
     bf = torch.bfloat16
     H = w2.shape[0]
     pieces = []
@@ -472,35 +455,30 @@ def pack_tower_wg(w1, w2, w3, w4, wd, biases, bd, round_bias: bool):
         m = w.new_zeros((kin, n_p), dtype=bf)
         for src, dst, n in rows:
             m[dst:dst + n, :H] = w[src:src + n].to(bf)
-        half = min(n_p, 256)
-        pieces.append(torch.stack([
-            swizzle_slabs(m[:, h:h + half].contiguous()).reshape(
-                kin // SLAB_K, -1) for h in range(0, n_p, half)], 1)
-            .reshape(-1))
+        pieces.append(slab_image(m))
     return (torch.cat(pieces).contiguous(),
             _tower_vectors(H, wd, biases, bd, round_bias))
 
 
-def _pack_decode_any(agg: Aggregator, C: int, D: int, nff: int, ndf: int,
-                     pack):
+def _pack_decode_any(agg: Aggregator, C: int, D: int, nff: int, ndf: int):
     w1, b1, w2, b2, w3, b3, w4, b4, wd, bd = _tower_params(
         agg, C, D, nff, ndf)
-    return pack(w1, w2, w3, w4, wd, (b1, b2, b3, b4), bd, round_bias=False)
+    return pack_tower_wg(w1, w2, w3, w4, wd, (b1, b2, b3, b4), bd,
+                         round_bias=False)
 
 
 def _launch_any(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
-    """csrc/decode_any.cu's entry `entry` on CUDA tensors: fused_decode_any
-    (weights by `pack_tower_any`) or fused_decode2_any (`pack_tower_wg`),
-    packed once per set of weights and widths."""
+    """csrc/decode_any.cu's entry `entry` (fused_decode_any or
+    fused_decode2_any) on CUDA tensors, its weights by `pack_tower_wg`,
+    packed once per set of weights and widths for both entries."""
     dev = emb.device
     M, K, C = emb.shape
     D = dists.shape[-1]
     H = agg.mlp_base[0].weight.shape[0]
     pair = entry == "fused_decode_any"
-    pack = pack_tower_any if pair else pack_tower_wg
     weights, params = _cuda.packed_once(
-        agg, f"_{entry}_params_{C}_{D}_{nff}_{ndf}", _tower_tensors(agg),
-        lambda: _pack_decode_any(agg, C, D, nff, ndf, pack))
+        agg, f"_decode_any_params_{C}_{D}_{nff}_{ndf}", _tower_tensors(agg),
+        lambda: _pack_decode_any(agg, C, D, nff, ndf))
     emb = emb.to(torch.bfloat16).contiguous()
     dists = dists.float().contiguous()
     cd = torch.cat([color.float(), dirdot.float()], -1).contiguous()
@@ -512,13 +490,11 @@ def _launch_any(entry: str, agg, emb, dists, color, dirdot, wk, nff, ndf):
     _cuda.require(params, "tower biases", torch.float32, (params.numel(),),
                   dev)
     lib = _cuda.library("decode_any")
-    n_weights = (lib.decode_any_n_weights if pair
-                 else lib.decode2_any_n_weights)
-    n_weights.restype = ctypes.c_longlong
-    n_weights.argtypes = [ctypes.c_int] * 5
+    lib.decode_any_n_weights.restype = ctypes.c_longlong
+    lib.decode_any_n_weights.argtypes = [ctypes.c_int] * 5
     lib.decode_any_n_params.restype = ctypes.c_int
     lib.decode_any_n_params.argtypes = [ctypes.c_int]
-    if (n_weights(C, D, H, nff, ndf) != weights.numel()
+    if (lib.decode_any_n_weights(C, D, H, nff, ndf) != weights.numel()
             or lib.decode_any_n_params(H) != params.numel()):
         raise RuntimeError("packed parameter layout does not match "
                            "csrc/decode_any.cu")

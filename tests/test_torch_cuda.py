@@ -95,6 +95,16 @@ WIDTH_SETS = {
     "ragged512": (dict(hidden_size=300, hidden_size_color=96,
                        num_color_layers=2, num_feat_freqs=1,
                        num_dist_freqs=3, num_viewdir_freqs=4), 12, 128),
+    # the colour tower of csrc/tower_wg.cuh at 512 from a ragged width in
+    # 8 layers, and at 200 x 3 with 10 viewdir octaves; the first layer's
+    # inputs are 360 and 330 (a 16-byte chunk holds K-sums and PE values),
+    # past the 320 columns of the tile at 256 (two passes)
+    "colour512": (dict(hidden_size=300, hidden_size_color=300,
+                       num_color_layers=8, num_feat_freqs=2,
+                       num_dist_freqs=3, num_viewdir_freqs=10), 8, 64),
+    "colour200": (dict(hidden_size=270, hidden_size_color=200,
+                       num_color_layers=3, num_feat_freqs=3,
+                       num_dist_freqs=2, num_viewdir_freqs=10), 6, 64),
 }
 
 
@@ -156,7 +166,8 @@ def test_fused_chunk_kernel_and_render(dev, cand_cap, K, layered):
 
 
 @pytest.mark.parametrize("name", ["wide", "narrow", "edge", "flagship_k12",
-                                  "w64", "ragged512"])
+                                  "w64", "ragged512", "colour512",
+                                  "colour200"])
 def test_fused_chunk_any_kernel_and_render(dev, name):
     """csrc/chunk_any.cu at the widths the tuned kernels are not built for
     (K to 32, C to 256, hidden 48-512 - every padded width of the tower,
@@ -198,7 +209,8 @@ def test_fused_chunk_kernel_tile_edges(dev, edge):
     assert bool(found.any()) == (edge != "no_valid_slot")
 
 
-@pytest.mark.parametrize("name", ["w64", "ragged512", "edge"])
+@pytest.mark.parametrize("name", ["w64", "ragged512", "edge", "colour512",
+                                  "colour200"])
 @pytest.mark.parametrize("edge", ["one_slot", "no_valid_slot",
                                   "all_k_neighbours"])
 def test_fused_chunk_any_tile_edges(dev, name, edge):
@@ -397,14 +409,13 @@ def test_decode_any_kernels_match_plain(dev, name, fill):
             assert not aw[none].any() and not hw[none].any()
 
 
-@pytest.mark.parametrize("name", ["w64", "ragged512"])
-@pytest.mark.parametrize("M,K,fill", [(130, 32, "full"), (1, 16, "full"),
-                                      (300, 8, "empty"), (257, 1, "mixed")])
-def test_decode2_any_tile_edges(dev, name, M, K, fill):
-    """The tile edges of csrc/tower_wg.cuh in fused_decode2_any, under the
-    bounds of test_decode_any_kernels_match_plain: slots of 32 rows (two
-    a tile), a launch of one slot, a launch with no live slot, and K 1
-    (up to 64 slots a tile)."""
+def _decode_any_edge(dev, name, M, K, fill, pair):
+    """One tile-edge case of csrc/tower_wg.cuh through fused_decode_any
+    (`pair`) or fused_decode2_any, under the bounds of
+    test_decode_any_kernels_match_plain."""
+    entry = "fused_decode_any" if pair else "fused_decode2_any"
+    kern, plain = ((fd.pair_tower, fd.pair_tower_reference) if pair
+                   else (fd.kacc_tower, fd.kacc_tower_reference))
     kw = DECODE_ANY[name][0]
     cfg = AggregatorConfig(compute_dtype="bfloat16", **kw)
     agg = Aggregator(cfg, seed=5, device=dev)
@@ -413,20 +424,44 @@ def test_decode2_any_tile_edges(dev, name, M, K, fill):
     args = _decode_inputs(dev, M, K, M + K, fill, cfg.shading_feature_dim,
                           cfg.dist_dim)
     k = dict(nff=cfg.num_feat_freqs, ndf=cfg.num_dist_freqs)
-    n0 = _cuda.LAUNCHES["fused_decode2_any"]
-    aw, hw = fd.kacc_tower(agg, *args, **k)
+    n0 = _cuda.LAUNCHES[entry]
+    aw, hw = kern(agg, *args, **k)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["fused_decode2_any"] == n0 + 1
-    aw_p, hw_p = fd.kacc_tower_reference(agg, *args, **k)
+    assert _cuda.LAUNCHES[entry] == n0 + 1
+    aw_p, hw_p = plain(agg, *args, **k)
     assert aw.shape == aw_p.shape and hw.shape == hw_p.shape
     assert bool(((aw - aw_p).abs() <= 2e-2 + 2.0 ** -7 * aw_p.abs()).all())
     d, size = (hw.float() - hw_p.float()).abs(), hw_p.float().abs()
     assert bool((d <= 1e-3 + 2.0 ** -7 * size).all())
     assert float(d.mean()) <= 2.0 ** -8 * max(float(size.mean()), 1e-30)
-    none = (args[4] == 0).all(-1)
+    zero = args[4] == 0
+    none = zero if pair else zero.all(-1)
     assert not aw[none].any() and not hw[none].any()
     if fill == "empty":
         assert not aw.any() and not hw.any()
+
+
+@pytest.mark.parametrize("name", ["w64", "ragged512"])
+@pytest.mark.parametrize("M,K,fill", [(130, 32, "full"), (1, 16, "full"),
+                                      (300, 8, "empty"), (257, 1, "mixed")])
+def test_decode2_any_tile_edges(dev, name, M, K, fill):
+    """The tile edges of csrc/tower_wg.cuh in fused_decode2_any, under the
+    bounds of test_decode_any_kernels_match_plain: slots of 32 rows (two
+    a tile), a launch of one slot, a launch with no live slot, and K 1
+    (up to 64 slots a tile)."""
+    _decode_any_edge(dev, name, M, K, fill, pair=False)
+
+
+@pytest.mark.parametrize("name", ["w64", "ragged512"])
+@pytest.mark.parametrize("M,K,fill", [(130, 32, "full"), (1, 16, "full"),
+                                      (300, 8, "empty"), (257, 1, "mixed")])
+def test_decode_any_tile_edges(dev, name, M, K, fill):
+    """The same tile edges in fused_decode_any (mode kPair): rows with
+    wk == 0 and a launch with no live row are written 0. At ragged512 (H
+    300) a row of hw is 600 bytes, so the rows' stores are 8 bytes wide;
+    every row is compared whole, so a store past column H - 1 into the
+    next row would show."""
+    _decode_any_edge(dev, name, M, K, fill, pair=True)
 
 
 @pytest.mark.parametrize("first", [0, 28])

@@ -512,3 +512,58 @@ def test_tower_wg_packing_unpacks(H):
     np.testing.assert_array_equal(vec[4 * n_p:4 * n_p + H],
                                   wd[:, 0].float().numpy())
     assert vec[5 * n_p] == bd.item() and not vec[4 * n_p + H:5 * n_p].any()
+
+
+@pytest.mark.parametrize("HC", [50, 100, 200, 300])
+@pytest.mark.parametrize("layers", [1, 8])
+def test_colour_wg_packing_unpacks(HC, layers):
+    """The colour part of `fused_chunk._kernel_params_any` at colour widths
+    padded to 64, 128, 256 and 512, at 1 and 8 layers: its slab image
+    unpacked with numpy gives back each layer's [in, out] matrix in place
+    (the first layer's K-sum rows, then its PE(viewdir) rows), the padding
+    (outputs past HC, inputs past the first layer's rows) is zero, and the
+    parameters hold each layer's bias, the head's weights and its bias, as
+    bf16 values, in place."""
+    H, nvf = 100, 3
+    cfg = tcfg.AggregatorConfig(hidden_size=H, hidden_size_color=HC,
+                                num_color_layers=layers,
+                                num_viewdir_freqs=nvf)
+    agg = Aggregator(cfg, seed=HC + layers, device="cpu")
+    plist, n_rest = tfc._prep_params(agg, tfc.FEAT, cfg.num_feat_freqs,
+                                     cfg.num_dist_freqs, nvf)
+    assert n_rest == layers - 1
+    weights, params = tfc._kernel_params_any(plist, n_rest)
+    n_c = tfd.padded_width(HC)
+    w1, w2, w3 = (torch.cat(plist[0:3]), plist[4], torch.cat(plist[6:8]))
+    n_tower = sum(k * n for k, n in tfd.tower_wg_matrices(w1, w2, w3))
+    p_tower = 5 * tfd.padded_width(H) + 16
+    n_in = H + 6 * nvf
+    shapes = tfc.colour_wg_matrices(HC, n_in, layers)
+    assert shapes[0] == (-(-n_in // 64) * 64, n_c)
+    flat = weights.float().numpy()[n_tower:]
+    assert flat.size == sum(k * n for k, n in shapes)
+    wc = [torch.cat(plist[13:15])] + list(plist[16:16 + 2 * n_rest:2])
+    at = 0
+    for (kin, n), w in zip(shapes, wc):
+        got = _unslab(flat[at:at + kin * n], kin, n)
+        at += kin * n
+        want = np.zeros((kin, n), np.float32)
+        want[:w.shape[0], :HC] = w.float().numpy()
+        np.testing.assert_array_equal(got, want)
+    assert wc[0].shape[0] == n_in
+    vec = params.numpy()[p_tower:]
+    assert vec.size == (layers + 3) * n_c + 16
+    biases = [plist[15]] + list(plist[17:17 + 2 * n_rest:2])
+
+    def bf(x):
+        return x.reshape(-1).to(torch.bfloat16).float().numpy()
+
+    for i, b in enumerate(biases):
+        np.testing.assert_array_equal(vec[i * n_c:i * n_c + HC], bf(b))
+        assert not vec[i * n_c + HC:(i + 1) * n_c].any()
+    head = vec[layers * n_c:(layers + 3) * n_c].reshape(3, n_c)
+    np.testing.assert_array_equal(head[:, :HC], bf(plist[-2].T.contiguous())
+                                  .reshape(3, HC))
+    assert not head[:, HC:].any()
+    np.testing.assert_array_equal(vec[(layers + 3) * n_c:][:3], bf(plist[-1]))
+    assert not vec[(layers + 3) * n_c + 3:].any()
