@@ -116,6 +116,7 @@ from pointnerf2studio_torch.ops.raster import (
     RasterUnserved, _voxel_footprint, build_qvox, make_raster_program)
 from pointnerf2studio_torch.ops.select import (
     rank_gather_pack, select_first_cols)
+from pointnerf2studio_torch.utils import profiling
 
 PAYW = 44                 # bf16 payload per candidate: xyz_rel(3) +
                           # emb(32) + conf(1) + dir(3) + color(3) + pad(2)
@@ -2099,99 +2100,122 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
     (the packing happens here, by a conservative slab test that cannot drop
     a hitting ray). On a hash grid's cache the bounds are its logical dims
     and the raster is not used (it bins against the dense qslot table), as
-    in the reference."""
+    in the reference.
+
+    While a profiler records (utils/profiling.py), the frame, its plan
+    (steps 1-2, the raster, the permutation's upload and gather), each
+    chunk render, each escalation level's wait for the card and the
+    scatter are spans `render_frame[.plan|.chunk|.wait|.scatter]`, and
+    `render_frame.frames`, `.chunk_renders` and `.rerenders` count."""
     q = cfg.query
     D = q.z_depth_dim
     dev = raydirs.device
     Rtot = raydirs.shape[0]
-    dims = cache_dims(cache)
-    rd_np = _np(host_rays if host_rays is not None else raydirs, np.float32)
-    order, n_hit, span = frame_ray_order(
-        _np(campos, np.float32), rd_np, near, far, D, ranges_min, dims,
-        scaled_vsize)
+    frame = profiling.count("render_frame.frames")
+    with profiling.span("render_frame", f"frame={frame}"):
+        with profiling.span("render_frame.plan"):
+            dims = cache_dims(cache)
+            rd_np = _np(host_rays if host_rays is not None else raydirs,
+                        np.float32)
+            order, n_hit, span = frame_ray_order(
+                _np(campos, np.float32), rd_np, near, far, D, ranges_min,
+                dims, scaled_vsize)
 
-    pcache = program_cache if program_cache is not None else {}
-    emit_tbl = None
-    front_end = "march" if march_active(q) else "depth_window"
-    if (raster is not None and render_maker is None and march_active(q)
-            and cache.hash_table is None):
-        try:
-            emit_tbl, _ = frame_raster_emit(
-                cache, campos, camrotc2w, raydirs, near, far, q, ranges_min,
-                scaled_vsize, raster, pcache)
-            front_end = "raster"
-        except RasterUnserved as e:
-            if verbose:
-                print(f"render_frame: raster disabled ({e}); walking this "
-                      f"frame", file=sys.stderr)
+            pcache = program_cache if program_cache is not None else {}
+            emit_tbl = None
+            front_end = "march" if march_active(q) else "depth_window"
+            if (raster is not None and render_maker is None
+                    and march_active(q) and cache.hash_table is None):
+                try:
+                    emit_tbl, _ = frame_raster_emit(
+                        cache, campos, camrotc2w, raydirs, near, far, q,
+                        ranges_min, scaled_vsize, raster, pcache)
+                    front_end = "raster"
+                except RasterUnserved as e:
+                    if verbose:
+                        print(f"render_frame: raster disabled ({e}); "
+                              f"walking this frame", file=sys.stderr)
 
-    f32 = torch.float32
-    if bg_ray_colors is not None:
-        color = bg_ray_colors.to(device=dev, dtype=f32).clone()
-    else:
-        color = torch.as_tensor(cfg.bg_color, dtype=f32,
-                                device=dev).expand(Rtot, 3).contiguous()
-    ray_mask = torch.zeros(Rtot, dtype=torch.bool, device=dev)
-    acc = torch.zeros(Rtot, dtype=f32, device=dev)
-    depth = torch.zeros(Rtot, dtype=f32, device=dev)
-    sums = {f: None for f in ("win_overflow", "dw_overflow", "cb_overflow",
-                              "mc_overflow", "pb_overflow")}
+            f32 = torch.float32
+            if bg_ray_colors is not None:
+                color = bg_ray_colors.to(device=dev, dtype=f32).clone()
+            else:
+                color = torch.as_tensor(
+                    cfg.bg_color, dtype=f32,
+                    device=dev).expand(Rtot, 3).contiguous()
+            ray_mask = torch.zeros(Rtot, dtype=torch.bool, device=dev)
+            acc = torch.zeros(Rtot, dtype=f32, device=dev)
+            depth = torch.zeros(Rtot, dtype=f32, device=dev)
 
-    n_chunks = (n_hit + chunk - 1) // chunk
-    if n_chunks:
-        n_used = n_chunks * chunk
-        if n_used > Rtot:
-            order = np.concatenate([order, order[Rtot - (n_used - Rtot):]])
-        perm = torch.as_tensor(order[:n_used], device=dev)
-        rays_p = raydirs[perm]
-        bg_p = None if bg_ray_colors is None else color[perm]
-        span_sorted = span[order[:n_used]]
+            n_chunks = (n_hit + chunk - 1) // chunk
+            if n_chunks:
+                n_used = n_chunks * chunk
+                if n_used > Rtot:
+                    order = np.concatenate(
+                        [order, order[Rtot - (n_used - Rtot):]])
+                perm = torch.as_tensor(order[:n_used], device=dev)
+                rays_p = raydirs[perm]
+                bg_p = None if bg_ray_colors is None else color[perm]
+                span_sorted = span[order[:n_used]]
 
-        def render(i, dw, b):
-            sl = slice(i * chunk, (i + 1) * chunk)
-            cfg_t = dataclasses.replace(cfg, query=dataclasses.replace(
-                q, depth_window=dw, ray_budget=0, compact_budget=b))
-            bg_c = None if bg_p is None else bg_p[sl]
-            if render_maker is not None:
-                key = ("render_maker", dw, chunk, b)
-                if key not in pcache:
-                    pcache[key] = render_maker(cfg_t)
-                return pcache[key](rays_p[sl], bg_c)
-            return fast_render_rays(
-                params, Rw2c, cache, campos, camrotc2w, rays_p[sl], near,
-                far, cfg_t, ranges_min, scaled_vsize,
-                premarch=None if emit_tbl is None else (emit_tbl, perm[sl]),
-                bg_ray_colors=bg_c)
+        sums = {f: None for f in ("win_overflow", "dw_overflow",
+                                  "cb_overflow", "mc_overflow",
+                                  "pb_overflow")}
+        if n_chunks:
+            def render(i, dw, b):
+                profiling.count("render_frame.chunk_renders")
+                sl = slice(i * chunk, (i + 1) * chunk)
+                cfg_t = dataclasses.replace(cfg, query=dataclasses.replace(
+                    q, depth_window=dw, ray_budget=0, compact_budget=b))
+                bg_c = None if bg_p is None else bg_p[sl]
+                with profiling.span("render_frame.chunk",
+                                    f"chunk={i} budget={b} tier={dw}"):
+                    if render_maker is not None:
+                        key = ("render_maker", dw, chunk, b)
+                        if key not in pcache:
+                            pcache[key] = render_maker(cfg_t)
+                        return pcache[key](rays_p[sl], bg_c)
+                    return fast_render_rays(
+                        params, Rw2c, cache, campos, camrotc2w, rays_p[sl],
+                        near, far, cfg_t, ranges_min, scaled_vsize,
+                        premarch=(None if emit_tbl is None
+                                  else (emit_tbl, perm[sl])),
+                        bg_ray_colors=bg_c)
 
-        b_full = q.compact_budget if q.compact_budget > 0 else q.SR
-        b_cap = min(q.SR, q.ray_slot_budget or min(q.SR, 32))
-        b_now = budget_tier if 0 < budget_tier < b_full else b_full
-        results, dws = [], []
-        for i in range(n_chunks):
-            smax = int(span_sorted[i * chunk:(i + 1) * chunk].max())
-            tier = min(D, -(-(smax + dw_slack) // tier_quant) * tier_quant)
-            dws.append(tier if tier < D else 0)
-            results.append(render(i, dws[i], b_now))
-        # budget escalation: one deferred device sync per level, usually
-        # none or one
-        while b_now < b_cap:
-            trip = [i for i, r in enumerate(results)
-                    if r.cb_overflow is not None and int(r.cb_overflow) > 0]
-            if not trip:
-                break
-            b_now = min(max(2 * b_now, b_full), b_cap)
-            for i in trip:
-                results[i] = render(i, dws[i], b_now)
-        for i, res in enumerate(results):
-            ids = perm[i * chunk:(i + 1) * chunk]
-            color[ids] = res.coarse_raycolor
-            ray_mask[ids] = res.ray_mask
-            acc[ids] = res.acc.to(f32)
-            depth[ids] = res.depth.to(f32)
-            for f in sums:
-                v = getattr(res, f)
-                if v is not None:
-                    sums[f] = v if sums[f] is None else sums[f] + v
+            b_full = q.compact_budget if q.compact_budget > 0 else q.SR
+            b_cap = min(q.SR, q.ray_slot_budget or min(q.SR, 32))
+            b_now = budget_tier if 0 < budget_tier < b_full else b_full
+            results, dws = [], []
+            for i in range(n_chunks):
+                smax = int(span_sorted[i * chunk:(i + 1) * chunk].max())
+                tier = min(D, -(-(smax + dw_slack) // tier_quant)
+                           * tier_quant)
+                dws.append(tier if tier < D else 0)
+                results.append(render(i, dws[i], b_now))
+            # budget escalation: one deferred device sync per level,
+            # usually none or one (the host waits for the card here)
+            while b_now < b_cap:
+                with profiling.span("render_frame.wait"):
+                    trip = [i for i, r in enumerate(results)
+                            if r.cb_overflow is not None
+                            and int(r.cb_overflow) > 0]
+                if not trip:
+                    break
+                profiling.count("render_frame.rerenders", len(trip))
+                b_now = min(max(2 * b_now, b_full), b_cap)
+                for i in trip:
+                    results[i] = render(i, dws[i], b_now)
+            with profiling.span("render_frame.scatter"):
+                for i, res in enumerate(results):
+                    ids = perm[i * chunk:(i + 1) * chunk]
+                    color[ids] = res.coarse_raycolor
+                    ray_mask[ids] = res.ray_mask
+                    acc[ids] = res.acc.to(f32)
+                    depth[ids] = res.depth.to(f32)
+                    for f in sums:
+                        v = getattr(res, f)
+                        if v is not None:
+                            sums[f] = v if sums[f] is None else sums[f] + v
 
     return FastRenderOutput(
         coarse_raycolor=color, ray_mask=ray_mask, acc=acc, depth=depth,

@@ -73,6 +73,7 @@ from pointnerf2studio_torch.ops.raygen import (
     near_far_linear_ray_generation)
 from pointnerf2studio_torch.ops.select import (
     rank_gather_pack, select_first_cols)
+from pointnerf2studio_torch.utils import profiling
 
 GEOW = 4      # words per candidate (meta + xyz offset), as the reference sizes it
 
@@ -600,7 +601,8 @@ def make_fast_train_step(cfg: PointNerfConfig):
     `aux` holds the loss parts, `rb_overflow` and `mc_overflow` (where the
     config has them) as device scalars, nothing read back to the host.
     Both optimizer groups step every iteration, or in turns under
-    TrainConfig.alter_step (train/trainer.apply_updates)."""
+    TrainConfig.alter_step (train/trainer.apply_updates). Its spans and
+    counter are the legacy step's (train/trainer.make_train_step)."""
     from pointnerf2studio_torch.train.loss import compute_losses
     from pointnerf2studio_torch.train.trainer import apply_updates
 
@@ -611,19 +613,27 @@ def make_fast_train_step(cfg: PointNerfConfig):
                    gt_mask: Optional[torch.Tensor] = None,
                    bg_rgb: Optional[torch.Tensor] = None
                    ) -> Tuple[object, Dict[str, torch.Tensor]]:
-        state.zero_grad()
-        out = fast_train_render(
-            state.params, state.points, geo, campos, camrotc2w, raydirs,
-            near, far, cfg, ranges_min, scaled_vsize, generator=generator,
-            training=True, jitter_u=jitter_u, bg_ray_colors=bg_rgb)
-        total, aux = compute_losses(out, gt_rgb, cfg.train, gt_mask=gt_mask)
-        total.backward()
-        aux = {k: v.detach() for k, v in aux.items()}
-        for name in ("rb_overflow", "mc_overflow"):
-            v = getattr(out, name)
-            if v is not None:
-                aux[name] = v.to(torch.float32)
-        apply_updates(state, cfg)
-        return state, aux
+        profiling.count("train.steps")
+        with profiling.span("train.step", f"step={state.step}"):
+            state.zero_grad()
+            with profiling.span("train.forward"):
+                out = fast_train_render(
+                    state.params, state.points, geo, campos, camrotc2w,
+                    raydirs, near, far, cfg, ranges_min, scaled_vsize,
+                    generator=generator, training=True, jitter_u=jitter_u,
+                    bg_ray_colors=bg_rgb)
+            with profiling.span("train.loss"):
+                total, aux = compute_losses(out, gt_rgb, cfg.train,
+                                            gt_mask=gt_mask)
+            with profiling.span("train.backward"):
+                total.backward()
+            aux = {k: v.detach() for k, v in aux.items()}
+            for name in ("rb_overflow", "mc_overflow"):
+                v = getattr(out, name)
+                if v is not None:
+                    aux[name] = v.to(torch.float32)
+            with profiling.span("train.optimizer"):
+                apply_updates(state, cfg)
+            return state, aux
 
     return train_step

@@ -11,7 +11,10 @@ be built with flags added (`variant`): a library of its own under the
 same keying, which the wrappers launch inside the `with` block.
 
 `LAUNCHES` counts kernel launches per kernel name; each wrapper adds
-one where it launches its kernel and nowhere else.
+one where it launches its kernel and nowhere else. While a profiler
+records (utils/profiling.py), nvcc's builds are the span `kernels.build`
+and `kernels.builds`, `kernels.loads` and `kernels.weight_packs` (a
+`packed_once` that packs) count.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from pathlib import Path
 from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
+
+from pointnerf2studio_torch.utils import profiling
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
@@ -113,6 +118,7 @@ def packed_once(module, slot: str, params, make):
     cached = module.__dict__.get(slot)
     if cached is not None and cached[0] == key:
         return cached[1]
+    profiling.count("kernels.weight_packs")
     value = make()
     module.__dict__[slot] = (key, value)
     return value
@@ -126,21 +132,25 @@ def build(specs: Sequence[Spec] = tuple(EXTRA_FLAGS)) -> Dict[Spec, str]:
     specs = [s if isinstance(s, str) else _spec(s) for s in specs]
     paths = {spec: _lib_path(_spec(spec)[0], extra=_spec(spec)[1])
              for spec in specs}
-    procs = {}
-    for spec, path in paths.items():
-        if not path.exists():
-            name, extra = _spec(spec)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            procs[spec] = (subprocess.Popen(
-                _command(name, tmp, extra=extra), stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True), tmp, path)
+    todo = [spec for spec, path in paths.items() if not path.exists()]
     errors = []
-    for spec, (proc, tmp, path) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {spec}:\n{log}")
-        else:
-            os.replace(tmp, path)
+    if todo:
+        profiling.count("kernels.builds", len(todo))
+        with profiling.span("kernels.build", "source=" + ",".join(
+                _spec(spec)[0] for spec in todo)):
+            procs = {}
+            for spec in todo:
+                name, extra = _spec(spec)
+                tmp = paths[spec].with_suffix(f".{os.getpid()}.tmp")
+                procs[spec] = (subprocess.Popen(
+                    _command(name, tmp, extra=extra), stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True), tmp, paths[spec])
+            for spec, (proc, tmp, path) in procs.items():
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"nvcc failed for {spec}:\n{log}")
+                else:
+                    os.replace(tmp, path)
     if errors:
         raise RuntimeError("\n".join(errors))
     return {spec: str(path) for spec, path in paths.items()}
@@ -152,6 +162,7 @@ def library(name: str) -> ctypes.CDLL:
     key = (name, _VARIANT.get(name, ()))
     lib = _LIBS.get(key)
     if lib is None:
+        profiling.count("kernels.loads")
         lib = ctypes.CDLL(build([key])[key])
         _LIBS[key] = lib
     return lib

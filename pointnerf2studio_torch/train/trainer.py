@@ -39,6 +39,7 @@ import torch
 from pointnerf2studio_torch.config import PointNerfConfig
 from pointnerf2studio_torch.models.aggregator import Aggregator
 from pointnerf2studio_torch.models.neural_points import NeuralPointCloud
+from pointnerf2studio_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -116,7 +117,11 @@ def make_train_step(cfg: PointNerfConfig):
 
     `state` is updated in place and returned; `aux` holds the loss parts
     as device scalars, nothing read back to the host. Jitter draws come
-    from `jitter_u` [R, D] where given, else from `generator`."""
+    from `jitter_u` [R, D] where given, else from `generator`. While a
+    profiler records (utils/profiling.py), the step is the span
+    `train.step`, its phases `train.forward`, `train.loss`,
+    `train.backward` and `train.optimizer` (`zero_grad` is the step's own
+    time), and `train.steps` counts."""
     from pointnerf2studio_torch.models.render import render_rays
     from pointnerf2studio_torch.train.loss import compute_losses
 
@@ -127,15 +132,22 @@ def make_train_step(cfg: PointNerfConfig):
                    bg_rgb: Optional[torch.Tensor] = None,
                    gt_mask: Optional[torch.Tensor] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        state.zero_grad()
-        out = render_rays(state.params, state.points, grid, campos,
-                          camrotc2w, raydirs, near, far, cfg, training=True,
-                          bg_ray_colors=bg_rgb, generator=generator,
-                          jitter_u=jitter_u)
-        total, aux = compute_losses(out, gt_rgb, cfg.train, gt_mask=gt_mask)
-        total.backward()
-        apply_updates(state, cfg)
-        return state, {k: v.detach() for k, v in aux.items()}
+        profiling.count("train.steps")
+        with profiling.span("train.step", f"step={state.step}"):
+            state.zero_grad()
+            with profiling.span("train.forward"):
+                out = render_rays(state.params, state.points, grid, campos,
+                                  camrotc2w, raydirs, near, far, cfg,
+                                  training=True, bg_ray_colors=bg_rgb,
+                                  generator=generator, jitter_u=jitter_u)
+            with profiling.span("train.loss"):
+                total, aux = compute_losses(out, gt_rgb, cfg.train,
+                                            gt_mask=gt_mask)
+            with profiling.span("train.backward"):
+                total.backward()
+            with profiling.span("train.optimizer"):
+                apply_updates(state, cfg)
+            return state, {k: v.detach() for k, v in aux.items()}
 
     return train_step
 

@@ -67,10 +67,14 @@ class Logger:
         for k in list(avg):
             if k.endswith("raycolor_loss"):
                 avg[k.replace("_loss", "_psnr")] = mse2psnr(avg[k])
-        dt = time.time() - self._t0
-        ips = (step - self._last_step) / dt if dt > 0 else 0.0
-        rec = {"step": step, "it_per_sec": round(ips, 3), **avg,
-               **(extra or {})}
+        # a record that closes no steps (growth, evaluation, the final
+        # one) has no rate
+        ips = None
+        if step > self._last_step:
+            dt = time.time() - self._t0
+            ips = (step - self._last_step) / dt if dt > 0 else 0.0
+        rate = {} if ips is None else {"it_per_sec": round(ips, 3)}
+        rec = {"step": step, **rate, **avg, **(extra or {})}
         line = " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                         for k, v in rec.items())
         print(line)
@@ -81,7 +85,8 @@ class Logger:
         if self._tb is not None:
             for k, v in avg.items():
                 self._tb.add_scalar(k, v, step)
-            self._tb.add_scalar("it_per_sec", ips, step)
+            if ips is not None:
+                self._tb.add_scalar("it_per_sec", ips, step)
             self._tb.flush()
         self._acc.clear()
         self._t0 = time.time()

@@ -1,118 +1,126 @@
-"""Tracing and profiling utilities.
+"""Tracing: the port's own spans and counters, on torch.profiler's clock.
 
-Port of `pointnerf2studio_tpu/utils/profiling.py` on torch: `trace`
-records a torch.profiler trace of the host and, where the process has a
-CUDA device, of the card, and writes it as a Chrome trace (Perfetto and
-chrome://tracing read it); `annotate` names a region of that trace; a
-stage timer that waits for the device of its stage's output tensors; and
-a per-step rate meter (the reference's it/s logging, reference:
-pointnerf/utils/visualizer.py:158-167).
+`span(name, args)` names a region of the program and `count(name, n)`
+counts an event. Both act only while a torch.profiler session records
+(torch's own flag, `torch.autograd.profiler._is_profiler_enabled`): the
+benchmark's traced window, or the operator's `trace(log_dir)`. Otherwise
+a span is one check of that flag and a shared empty context, and a
+count is the same check: no `record_function` is opened (it costs 9-12
+us even with no profiler running) and nothing is written.
+
+While on, a span opens `torch.profiler.record_function(name, args)`, so
+its host range lands in the same kineto timeline as the device
+operations (`args` carries the request's identifier: `frame=<n>`,
+`chunk=<i> budget=<b> tier=<dw>`, `step=<n>`). It also adds to the
+registry, one `collections.Counter`: `span.<name>.n` (entries),
+`span.<name>.ns` (host nanoseconds inside it) and `span.<name>.self_ns`
+(the same less its child spans'). The program keeps no timeline of its
+own: kineto's host stamps are not `time.perf_counter_ns`'s, so only
+durations are recorded. `count` adds `n` to the registry under its
+name. `reset()` clears the registry and `snapshot()` copies it.
+
+`trace(log_dir)` records a torch.profiler trace of the block, of the
+host and, where the process has a CUDA device, of the card, and writes
+it as a Chrome trace (Perfetto and chrome://tracing read it) with the
+registry beside it as `counters.json`.
+
+Kernel launches by kernel name stay in `ops/_cuda.LAUNCHES`, counted
+always; the registry holds no kernel names.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import dataclasses
+import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
+COUNTERS_FILE = "counters.json"
+
+REGISTRY: collections.Counter = collections.Counter()
+# the child spans' nanoseconds of each open span, innermost last
+_CHILD_NS: List[int] = []
+
+
+def recording() -> bool:
+    """Whether a torch.profiler session records now (spans and counts
+    act only then)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "rf", "t0")
+
+    def __init__(self, name: str, args: str):
+        self.name = name
+        self.rf = torch.profiler.record_function(name, args or None)
+
+    def __enter__(self):
+        self.rf.__enter__()
+        _CHILD_NS.append(0)
+        self.t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        child = _CHILD_NS.pop()
+        if _CHILD_NS:
+            _CHILD_NS[-1] += dt
+        key = "span." + self.name
+        REGISTRY[key + ".n"] += 1
+        REGISTRY[key + ".ns"] += dt
+        REGISTRY[key + ".self_ns"] += dt - child
+        return self.rf.__exit__(*exc)
+
+
+def span(name: str, args: str = ""):
+    """A context manager naming the block `name` in the trace and the
+    registry while a profiler records; an empty one otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, args)
+
+
+def count(name: str, n: int = 1) -> int:
+    """Add `n` to the registry's `name` while a profiler records; the
+    count so far (0 when off)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return 0
+    REGISTRY[name] += n
+    return REGISTRY[name]
+
+
+def reset() -> None:
+    REGISTRY.clear()
+
+
+def snapshot() -> Dict[str, int]:
+    return dict(REGISTRY)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Record a torch.profiler trace of the block and write it to
-    `log_dir/trace.json`. Yields the profiler (its `key_averages()` sums
-    the time by kernel)."""
+    `log_dir/trace.json`, and the block's spans and counts (the registry,
+    cleared on entry) to `log_dir/counters.json`. Yields the profiler
+    (its `key_averages()` sums the time by kernel and by span)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
+    reset()
     with profile(activities=acts) as prof:
         yield prof
     os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, COUNTERS_FILE), "w") as f:
+        json.dump(snapshot(), f, indent=1, sort_keys=True)
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
-
-
-def annotate(name: str):
-    """Name a region so it shows up in the trace timeline."""
-    return torch.profiler.record_function(name)
-
-
-def _tensors(out):
-    if isinstance(out, torch.Tensor):
-        yield out
-    elif isinstance(out, (list, tuple)):
-        for x in out:
-            yield from _tensors(x)
-    elif isinstance(out, dict):
-        for x in out.values():
-            yield from _tensors(x)
-    elif dataclasses.is_dataclass(out) and not isinstance(out, type):
-        for f in dataclasses.fields(out):
-            yield from _tensors(getattr(out, f.name))
-
-
-def synchronize(out) -> None:
-    """Wait for every CUDA device that holds a tensor of `out` (a tensor,
-    or lists, tuples, dicts and dataclasses of them); host tensors need
-    no wait."""
-    for dev in {t.device for t in _tensors(out) if t.is_cuda}:
-        torch.cuda.synchronize(dev)
-
-
-class StageTimer:
-    """Wall-clock stage timing that waits for each stage's device work.
-
-    Usage:
-        st = StageTimer()
-        out = st.stage("knn", lambda: knn_fn(...))
-        print(st.report())
-    """
-
-    def __init__(self):
-        self.times: Dict[str, float] = {}
-
-    def stage(self, name: str, thunk):
-        t0 = time.perf_counter()
-        out = thunk()
-        synchronize(out)
-        self.times[name] = self.times.get(name, 0.0) + (
-            time.perf_counter() - t0)
-        return out
-
-    def report(self) -> str:
-        total = sum(self.times.values())
-        lines = [f"{k:>24s}: {v * 1e3:8.1f} ms ({v / total:5.1%})"
-                 for k, v in self.times.items()]
-        lines.append(f"{'total':>24s}: {total * 1e3:8.1f} ms")
-        return "\n".join(lines)
-
-
-class RateMeter:
-    """Exponential-moving-average step rate (it/s and items/s)."""
-
-    def __init__(self, alpha: float = 0.05):
-        self.alpha = alpha
-        self._t: Optional[float] = None
-        self.ema_dt: Optional[float] = None
-
-    def tick(self, n_items: int = 1, out=None) -> Dict[str, float]:
-        """One step of `n_items` done; `out`, the step's output, is waited
-        for first (the device of each of its tensors), so that the clock
-        reads the step's end and not its enqueue."""
-        synchronize(out)
-        now = time.perf_counter()
-        res: Dict[str, float] = {}
-        if self._t is not None:
-            dt = now - self._t
-            self.ema_dt = dt if self.ema_dt is None else (
-                self.alpha * dt + (1 - self.alpha) * self.ema_dt)
-            res = {"it_per_sec": 1.0 / self.ema_dt,
-                   "items_per_sec": n_items / self.ema_dt}
-        self._t = now
-        return res

@@ -1,7 +1,7 @@
 """The port's user-surface utilities on the CPU: the matmul-FLOP counts
 (utils/flops.py) equal to the JAX reference's on three configurations,
 the profiling helpers (utils/profiling.py: a Chrome trace with its
-annotated region, the stage timer and the rate meter), the logger's
+span, and the registry beside it as counters.json), the logger's
 tensorboard scalars, its fall-back to the JSONL where tensorboard is
 missing (utils/logger.py), `fit(tensorboard=True)`, and the nerfstudio shim's
 config mapping against the reference's and its refusal without
@@ -12,7 +12,6 @@ import glob
 import json
 import os
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -78,40 +77,20 @@ def test_flops_match_jax(name):
 def test_trace_writes_a_chrome_trace(tmp_path):
     x = torch.randn(64, 64)
     with tprof.trace(str(tmp_path)) as prof:
-        with tprof.annotate("pn2s_region"):
+        with tprof.span("pn2s_region", "step=3"):
             for _ in range(3):
                 x = x @ x.T / 64
+        tprof.count("pn2s_events", 2)
     path = tmp_path / tprof.TRACE_FILE
     assert path.is_file()
     events = json.loads(path.read_text())["traceEvents"]
     assert any(e.get("name") == "pn2s_region" for e in events)
     assert any(e.key == "pn2s_region" for e in prof.key_averages())
-
-
-def test_stage_timer_waits_and_reports():
-    st = tprof.StageTimer()
-    out = st.stage("matmul", lambda: {"a": (torch.ones(8, 8) @ torch.ones(
-        8, 8),)})
-    assert torch.equal(out["a"][0], torch.full((8, 8), 8.0))
-    st.stage("sleep", lambda: time.sleep(0.02))
-    st.stage("sleep", lambda: time.sleep(0.02))
-    assert set(st.times) == {"matmul", "sleep"}
-    assert st.times["sleep"] >= 0.04
-    rep = st.report()
-    assert "matmul" in rep and "sleep" in rep and "total" in rep
-
-
-def test_rate_meter():
-    rm = tprof.RateMeter(alpha=0.5)
-    assert rm.tick(10) == {}
-    time.sleep(0.02)
-    r = rm.tick(10, out=torch.zeros(3))
-    assert 0 < r["it_per_sec"] <= 1 / 0.02
-    assert r["items_per_sec"] == pytest.approx(10 * r["it_per_sec"])
-    dt = rm.ema_dt
-    time.sleep(0.04)
-    rm.tick(10)
-    assert rm.ema_dt > dt
+    counters = json.loads((tmp_path / tprof.COUNTERS_FILE).read_text())
+    assert counters["pn2s_events"] == 2
+    assert counters["span.pn2s_region.n"] == 1
+    assert counters["span.pn2s_region.ns"] == counters[
+        "span.pn2s_region.self_ns"] > 0
 
 
 def scalars(out_dir):

@@ -31,6 +31,7 @@ against the JAX reference, on the CPU.
     tests/test_torch_legacy_train.py.)"""
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -489,6 +490,37 @@ def test_fit_grows_points(s, tmp_path):
     assert h[0]["n_alive"] == int(cloud.alive.sum()) + h[0]["grown_points"]
     assert int(res.state.points.num_alive) == h[-1]["n_alive"]
     assert any("grown_points" in rec for rec in res.log)
+
+
+def test_fit_rates_only_the_records_that_close_steps(s, tmp_path):
+    """Growth and evaluation on the print steps 2 and 4, then the final
+    evaluation: those records close no steps and carry no it_per_sec;
+    the train records keep theirs, and no record reads 0."""
+    xyz = s["cloud"].xyz
+    hole = torch.linalg.norm(xyz[:, :2], dim=-1) < 0.2
+    cloud = dataclasses.replace(s["cloud"], alive=s["cloud"].alive & ~hole)
+    cfg = with_train(
+        s["pc"], prob_freq=2, prob_thresh=0.05, prob_mul=0.4, prob_num_step=2,
+        color_loss_items=("ray_masked_coarse_raycolor",
+                          "ray_miss_coarse_raycolor"),
+        color_loss_weights=(1.0, 1.0))
+    res = tloop.fit(cfg, s["tds"], s["params"], cloud, str(tmp_path),
+                    max_steps=4, print_freq=2, save_freq=0, eval_freq=2,
+                    eval_dataset=s["tds"], eval_views=[0], eval_chunk=128,
+                    device="cpu")
+    train = [r for r in res.log if "n_points" in r]
+    rest = [r for r in res.log if "n_points" not in r]
+    assert [r["step"] for r in train] == [2, 4]
+    assert all(r["it_per_sec"] > 0 for r in train)
+    assert any("grown_points" in r for r in rest)
+    assert any("eval_psnr" in r for r in rest)
+    assert any("final_psnr" in r for r in rest)
+    assert not any("it_per_sec" in r for r in rest)
+    with open(os.path.join(str(tmp_path), "train_metrics.jsonl")) as f:
+        written = [json.loads(line) for line in f]
+    assert [r.get("it_per_sec") for r in written] == [
+        r.get("it_per_sec") for r in res.log]
+    assert all(r.get("it_per_sec", 1) != 0 for r in written)
 
 
 def test_probe_views_by_miss():
