@@ -34,7 +34,7 @@ ray budget measured on the frame as the JAX bench sizes them:
   5. the raster frame: the footprint ladder measured on the camera, one
      emit program a frame, its table equal to the march's on all 640,000
      rays, the chunks rendered from it (`premarch`), held to frame 4;
-  6. `render_frame` (rays sorted on the host, dense chunks, the budget
+  6. `render_frame` (rays sorted on the card, dense chunks, the budget
      escalation), walked and with `raster=`: the second must say that the
      raster rendered it, and both equal frame 4 bit for bit;
   7. the frame times of the depth window, the march, the raster and both
@@ -990,13 +990,14 @@ def front_end_phases(c) -> dict:
         fail("raster frame: the walk ran behind the raster's table")
     same_frame("raster frame", frame_of(outs_r), frame_m, "march")
 
-    # ---- render_frame: rays sorted on the host, dense chunks, the budget
+    # ---- render_frame: rays sorted on the card, dense chunks, the budget
     # escalation; the march planned for its chunks (the frame's rays in its
     # order), once walked and once through the raster
     host_rays = c.raydirs_frame.cpu().numpy()
     dims = tuple(cache.coor_2_qslot.shape)
-    order, n_hit, _ = fr.frame_ray_order(geo[2], host_rays, near, far, D,
-                                         c.rmin, dims, c.svs)
+    order, n_hit, _ = fr.frame_ray_order(scene.campos, c.raydirs_frame,
+                                         near, far, D, c.rmin, dims, c.svs)
+    order, n_hit = order.cpu().numpy(), int(n_hit)
     n_used = -(-n_hit // CHUNK) * CHUNK
     if n_used > total:
         order = np.concatenate([order, order[total - (n_used - total):]])
@@ -1013,8 +1014,7 @@ def front_end_phases(c) -> dict:
         return fr.render_frame(
             scene.params, scene.cloud.Rw2c, cache, scene.campos,
             scene.camrotc2w, c.raydirs_frame, scene.near, scene.far, cfg_f,
-            c.rmin, c.svs, chunk=CHUNK, raster=r, program_cache=pc,
-            host_rays=host_rays)
+            c.rmin, c.svs, chunk=CHUNK, raster=r, program_cache=pc)
 
     frames_f, launches_f = {}, {}
     for name, r in (("march", None), ("raster", raster)):
@@ -3107,7 +3107,7 @@ def structure_phase(c) -> dict:
         out = fr.render_frame(
             params, scene.cloud.Rw2c, c.cache, dev_t(ds.campos(v)),
             dev_t(ds.camrotc2w(v)), dev_t(ds.full_image_rays(v)), near, far,
-            cfg_f, c.rmin, c.svs, host_rays=ds.full_image_rays(v))
+            cfg_f, c.rmin, c.svs)
         ds.images[v] = out.coarse_raycolor.reshape(H, W, 3).cpu().numpy()
     t_teach = time.perf_counter() - t0
     bg = np.asarray(cfg_f.bg_color, np.float32)
@@ -3982,7 +3982,7 @@ def large_scene_phase(c) -> dict:
                 torch.as_tensor(d.campos(v), device=dev),
                 torch.as_tensor(d.camrotc2w(v), device=dev),
                 torch.as_tensor(rv, device=dev), near, far, cfg_gt, drmin,
-                dsvs, host_rays=rv)
+                dsvs)
             if any(int(getattr(o, f) or 0) for f in ("dw_overflow",
                                                      "cb_overflow")):
                 fail(f"large scene: ground-truth view {v} counters non-zero")
@@ -4213,7 +4213,7 @@ def plane_phase(c) -> dict:
         o = fr.render_frame(
             scene.params, scene.cloud.Rw2c, c.cache, campos,
             torch.as_tensor(ds.camrotc2w(v), device=dev), rays, near, far,
-            cfg_f, c.rmin, c.svs, host_rays=rv)
+            cfg_f, c.rmin, c.svs)
         meets = bp.ray_plane_intersection(campos, rays, pnt, normal)[1]
         gt = o.coarse_raycolor + torch.where(
             meets[:, None], (1 - o.acc)[:, None] * (colour - bg0), 0.0)

@@ -1895,14 +1895,84 @@ def frame_ray_spans(campos, raydirs, near, far, D: int,
 
 def frame_ray_order(campos, raydirs, near, far, D: int, ranges_min, dims,
                     scaled_vsize):
-    """(order [R] int64, n_hit, span [R]) of a frame's rays as
-    `render_frame` renders them: box-hitting rays first, by ascending
-    in-box span, miss rays last. A host planner (ops/march.plan_march)
-    that sizes buckets for `render_frame`'s chunks takes its rays in this
-    order."""
-    span, hit = frame_ray_spans(campos, raydirs, near, far, D, ranges_min,
-                                dims, scaled_vsize)
-    return np.lexsort((span, ~hit)), int(hit.sum()), span
+    """(order [R] int64, n_hit [] int64, span [R] int64) of a frame's rays
+    as `render_frame` renders them, as tensors on the rays' device:
+    box-hitting rays first, by ascending in-box span, ties in ray order,
+    miss rays last. No host read (host inputs are uploaded).
+
+    frame_ray_spans' slab test in float64, op for op, and the order of
+    np.lexsort((span, ~hit)) by two stable sorts, so all three equal the
+    NumPy twin's bit for bit: IEEE division and no contraction into an
+    FMA, and every division by `step` is by a device tensor (CUDA
+    computes a tensor over a host scalar as a product with its
+    reciprocal). A host planner (ops/march.plan_march) that sizes buckets
+    for `render_frame`'s chunks takes its rays in this order."""
+    dev = raydirs.device
+    f64 = torch.float64
+    rd = raydirs.to(f64)
+    cp = torch.as_tensor(campos, dtype=f64, device=dev).reshape(3)
+    rmin = torch.as_tensor(ranges_min, dtype=f64, device=dev).reshape(3)
+    svs = torch.as_tensor(scaled_vsize, dtype=f64, device=dev).reshape(3)
+    rmax = rmin + torch.stack([float(d) * svs[k]
+                               for k, d in enumerate(dims)])
+    near, far = float(near), float(far)
+    step = (far - near) / D
+    step_t = rd.new_full((), step)
+    tiny = torch.where(rd >= 0, rd.new_full((), 1e-9),
+                       rd.new_full((), -1e-9))
+    inv = torch.reciprocal(torch.where(rd.abs() < 1e-9, tiny, rd))
+    ta = (rmin - cp) * inv
+    tb = (rmax - cp) * inv
+    t_enter = torch.minimum(ta, tb).amax(-1)
+    t_exit = torch.maximum(ta, tb).amin(-1)
+    d_lo = torch.floor((t_enter - near) / step_t - 0.5).long()
+    d_hi = torch.ceil((t_exit.clamp_max(far) - near) / step_t - 0.5
+                      ).clamp_max(D - 1).long()
+    span_hit = (t_exit >= t_enter) & (d_hi >= 0)
+    span = torch.where(span_hit, d_hi - d_lo.clamp_min(0) + 1, 0)
+    hit = ((t_exit + step >= t_enter)
+           & (t_exit >= near - step) & (t_enter <= far + step))
+    by_span = torch.sort(span, stable=True).indices
+    miss = (~hit)[by_span].to(torch.uint8)
+    order = by_span[torch.sort(miss, stable=True).indices]
+    return order, hit.sum(), span
+
+
+def frame_chunks(order, n_hit, span, chunk: int):
+    """(perm [n_chunks * chunk] int64 on the device, [smax] a chunk as host
+    ints) of `frame_ray_order`'s outputs, with one host read: n_hit and
+    each chunk's largest span come back in one transfer. The hitting rays
+    fill ceil(n_hit / chunk) chunks in `order`; where they pass the frame's
+    R rays, the last chunk is padded with copies of the last ordered rays
+    (order[2R - n_used:], Python's slice: identical outputs land on
+    identical targets)."""
+    R = order.shape[0]
+    n_pad = -(-R // chunk) * chunk
+    perm = torch.cat([order, order[R - (n_pad - R):]])
+    sp = span[perm]
+    rows = -(-sp.shape[0] // chunk)
+    sp = torch.cat([sp, sp.new_full((rows * chunk - sp.shape[0],),
+                                    torch.iinfo(torch.int64).min)])
+    head = torch.cat([n_hit.reshape(1).to(sp.dtype),
+                      sp.view(rows, chunk).amax(1)]).tolist()
+    n_chunks = -(-head[0] // chunk)
+    return perm[:n_chunks * chunk], head[1:1 + n_chunks]
+
+
+def frame_buffers(R: int, bg_color, bg_ray_colors, dev):
+    """A frame's outputs before its chunks land: colour [R, 3] f32 (the
+    per-ray background, else `bg_color` filled column by column: no
+    upload, so no wait for the card), ray_mask, acc, depth."""
+    f32 = torch.float32
+    if bg_ray_colors is not None:
+        color = bg_ray_colors.to(device=dev, dtype=f32).clone()
+    else:
+        color = torch.empty((R, 3), dtype=f32, device=dev)
+        for k in range(3):
+            color[:, k] = float(bg_color[k])
+    return (color, torch.zeros(R, dtype=torch.bool, device=dev),
+            torch.zeros(R, dtype=f32, device=dev),
+            torch.zeros(R, dtype=f32, device=dev))
 
 
 def measured_depth_window(campos, raydirs, near, far, D: int,
@@ -2047,7 +2117,6 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
                  budget_tier: int = 0,
                  render_maker=None,
                  program_cache: Optional[dict] = None,
-                 host_rays: Optional[np.ndarray] = None,
                  raster: Optional[tuple] = None,
                  bg_ray_colors: Optional[torch.Tensor] = None,
                  verbose: bool = False) -> FastRenderOutput:
@@ -2058,9 +2127,12 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
     A frame's rays come from one camera, so about half miss the grid box
     and the rest have widely varying in-box chords:
 
-      1. slab-test every ray on the host (frame_ray_spans);
-      2. sort: box-hitting rays first, ascending in-box span; miss rays
-         render exact background and never enter the pipeline;
+      1. slab-test every ray on the rays' device, in float64
+         (frame_ray_order; frame_ray_spans is its NumPy twin);
+      2. sort there: box-hitting rays first, ascending in-box span; miss
+         rays render exact background and never enter the pipeline. The
+         plan's one host read brings n_hit and each chunk's largest span
+         (frame_chunks); the raster's plan reads more;
       3. render ceil(n_hit / chunk) dense chunks, each at the smallest
          depth-window tier (multiples of `tier_quant`) covering its
          largest span + slack; the last chunk is padded with copies of
@@ -2092,8 +2164,7 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
     maker or another cache. The default renders each chunk with
     `fast_render_rays` on this call's camera. `program_cache` (a dict
     kept across frames) also holds the scene's qvox table and the raster
-    programs by ladder. `host_rays`: a host copy of `raydirs`, which
-    saves the device pull. `bg_ray_colors` [Rtot, 3] (the plane model's
+    programs by ladder. `bg_ray_colors` [Rtot, 3] (the plane model's
     per-ray background) replaces cfg.bg_color ray by ray. dw_overflow,
     cb_overflow, mc_overflow, win_overflow and pb_overflow are summed over
     chunks; rb_overflow is None
@@ -2103,7 +2174,7 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
     in the reference.
 
     While a profiler records (utils/profiling.py), the frame, its plan
-    (steps 1-2, the raster, the permutation's upload and gather), each
+    (steps 1-2, the raster, the buffers and the rays' gather), each
     chunk render, each escalation level's wait for the card and the
     scatter are spans `render_frame[.plan|.chunk|.wait|.scatter]`, and
     `render_frame.frames`, `.chunk_renders` and `.rerenders` count."""
@@ -2114,12 +2185,12 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
     frame = profiling.count("render_frame.frames")
     with profiling.span("render_frame", f"frame={frame}"):
         with profiling.span("render_frame.plan"):
-            dims = cache_dims(cache)
-            rd_np = _np(host_rays if host_rays is not None else raydirs,
-                        np.float32)
-            order, n_hit, span = frame_ray_order(
-                _np(campos, np.float32), rd_np, near, far, D, ranges_min,
-                dims, scaled_vsize)
+            # the camera and rays as float32, as the chunks render them
+            perm, smax = frame_chunks(*frame_ray_order(
+                torch.as_tensor(campos, dtype=torch.float32, device=dev),
+                raydirs.to(torch.float32), near, far, D, ranges_min,
+                cache_dims(cache), scaled_vsize), chunk)
+            n_chunks = len(smax)
 
             pcache = program_cache if program_cache is not None else {}
             emit_tbl = None
@@ -2137,26 +2208,11 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
                               f"walking this frame", file=sys.stderr)
 
             f32 = torch.float32
-            if bg_ray_colors is not None:
-                color = bg_ray_colors.to(device=dev, dtype=f32).clone()
-            else:
-                color = torch.as_tensor(
-                    cfg.bg_color, dtype=f32,
-                    device=dev).expand(Rtot, 3).contiguous()
-            ray_mask = torch.zeros(Rtot, dtype=torch.bool, device=dev)
-            acc = torch.zeros(Rtot, dtype=f32, device=dev)
-            depth = torch.zeros(Rtot, dtype=f32, device=dev)
-
-            n_chunks = (n_hit + chunk - 1) // chunk
+            color, ray_mask, acc, depth = frame_buffers(
+                Rtot, cfg.bg_color, bg_ray_colors, dev)
             if n_chunks:
-                n_used = n_chunks * chunk
-                if n_used > Rtot:
-                    order = np.concatenate(
-                        [order, order[Rtot - (n_used - Rtot):]])
-                perm = torch.as_tensor(order[:n_used], device=dev)
                 rays_p = raydirs[perm]
                 bg_p = None if bg_ray_colors is None else color[perm]
-                span_sorted = span[order[:n_used]]
 
         sums = {f: None for f in ("win_overflow", "dw_overflow",
                                   "cb_overflow", "mc_overflow",
@@ -2187,8 +2243,7 @@ def render_frame(params: Aggregator, Rw2c, cache: FatCache, campos,
             b_now = budget_tier if 0 < budget_tier < b_full else b_full
             results, dws = [], []
             for i in range(n_chunks):
-                smax = int(span_sorted[i * chunk:(i + 1) * chunk].max())
-                tier = min(D, -(-(smax + dw_slack) // tier_quant)
+                tier = min(D, -(-(smax[i] + dw_slack) // tier_quant)
                            * tier_quant)
                 dws.append(tier if tier < D else 0)
                 results.append(render(i, dws[i], b_now))

@@ -129,7 +129,6 @@ def make_fast_frame_renderer(cfg: PointNerfConfig, points, grid, near: float,
             torch.as_tensor(raydirs, dtype=torch.float32, device=dev),
             near, far, cfg, rmin, svs, chunk=chunk, tier_quant=tier_quant,
             program_cache=programs, raster=raster,
-            host_rays=raydirs if isinstance(raydirs, np.ndarray) else None,
             bg_ray_colors=(None if bg is None else torch.as_tensor(
                 bg, dtype=torch.float32, device=dev)))
         if out.dw_overflow is not None and not warned:

@@ -8,6 +8,7 @@ an NVIDIA GPU and nvcc, run them without the JAX test set-up:
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -832,3 +833,66 @@ def test_gather_rows_backward_same_bits_every_run(dev):
         if first is None:
             first = table.grad.clone()
         assert torch.equal(table.grad, first)
+
+
+@pytest.mark.parametrize("where", ["inside", "outside"])
+def test_frame_plan_on_card_matches_numpy_with_one_sync(dev, where):
+    """render_frame's plan on the card, on a seeded 640x480 frame of the
+    room preset's box (+-10 m, voxel 0.016, D 400 over [0.1, 8]), from
+    inside the box and from outside past one corner: `frame_ray_order`
+    equals frame_ray_spans and np.lexsort((span, ~hit)) bit for bit,
+    `frame_chunks` the host's slicing, and the plan (slab test, sorts,
+    chunk maxima, the frame's buffers) waits for the card once."""
+    rng = np.random.default_rng(22 if where == "inside" else 23)
+    H, W, f, near, far, D, chunk = 480, 640, 580.0, 0.1, 8.0, 400, 65536
+    # the grid's bounds are float32 tensors, as render_frame is given them
+    dims = (1250,) * 3
+    rmin_h, svs_h = np.full(3, -10, np.float32), np.full(3, 0.016, np.float32)
+    j, i = np.mgrid[0:H, 0:W]
+    cam = np.stack([(i - W / 2) / f, -(j - H / 2) / f, -np.ones((H, W))],
+                   -1).reshape(-1, 3)
+    rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    if where == "inside":
+        cp = rng.uniform(-3, 3, 3)
+    else:
+        cp, rot = np.array([9.5, 9.5, 12.0]), np.eye(3)
+    rd = cam @ rot.T
+    rd = (rd / np.linalg.norm(rd, axis=-1, keepdims=True)).astype(np.float32)
+    cp = cp.astype(np.float32)
+    span, hit = fr.frame_ray_spans(cp, rd, near, far, D, rmin_h, dims, svs_h)
+    want_order = np.lexsort((span, ~hit))
+
+    cp_t, rd_t = torch.as_tensor(cp, device=dev), torch.as_tensor(rd,
+                                                                  device=dev)
+    rmin, svs = (torch.as_tensor(x, device=dev) for x in (rmin_h, svs_h))
+    args = (near, far, D, rmin, dims, svs)
+    order, n_hit, tspan = fr.frame_ray_order(cp_t, rd_t, *args)
+    np.testing.assert_array_equal(tspan.cpu().numpy(), span)
+    np.testing.assert_array_equal(order.cpu().numpy(), want_order)
+    assert int(n_hit) == int(hit.sum()) > 0
+    if where == "outside":
+        assert not hit.all()
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            perm, smax = fr.frame_chunks(
+                *fr.frame_ray_order(cp_t, rd_t, *args), chunk)
+            fr.frame_buffers(H * W, (1.0, 1.0, 1.0), None, dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+
+    n_chunks = -(-int(hit.sum()) // chunk)
+    n_used, R = n_chunks * chunk, H * W
+    o = want_order
+    if n_used > R:
+        o = np.concatenate([o, o[R - (n_used - R):]])
+    ss = span[o[:n_used]]
+    assert smax == [int(ss[k * chunk:(k + 1) * chunk].max())
+                    for k in range(n_chunks)]
+    np.testing.assert_array_equal(perm.cpu().numpy(), o[:n_used])

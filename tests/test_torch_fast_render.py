@@ -191,6 +191,122 @@ def test_depth_window_helpers_match(scene):
                                         s.far, q.z_depth_dim))
 
 
+# a box [-1, 1]^3 of 40^3 voxels, 64 samples over [0.5, 6]: one step 0.086
+PLAN_BOX = dict(near=0.5, far=6.0, D=64, ranges_min=(-1.0, -1.0, -1.0),
+                dims=(40, 40, 40), scaled_vsize=(0.05, 0.05, 0.05))
+# the room preset's box (+-10 m, voxel 0.016, D 400 over [0.1, 8]), its
+# bounds float32 as the grid holds them
+ROOM_BOX = dict(near=0.1, far=8.0, D=400,
+                ranges_min=np.full(3, -10, np.float32), dims=(1250,) * 3,
+                scaled_vsize=np.full(3, 0.016, np.float32))
+
+
+def _unit(v):
+    return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def plan_rays(case):
+    """(campos, rays) of a frame's plan at an edge of the slab test."""
+    rng = np.random.default_rng(len(case))
+    step = (PLAN_BOX["far"] - PLAN_BOX["near"]) / PLAN_BOX["D"]
+    if case == "outside_half":
+        cp = np.array([0.2, -0.1, 3.5])
+        tgt = np.c_[rng.uniform(-1.45, 1.45, (4000, 2)), np.ones(4000)]
+        return cp, _unit(tgt - cp)
+    if case == "inside":
+        return np.array([0.1, 0.2, -0.3]), _unit(rng.normal(size=(4000, 3)))
+    if case.startswith("tiny_components"):
+        vals = np.array([0.0, 1e-10, -1e-10, 1e-9, -1e-9, 0.999e-9,
+                         -1.001e-9, 0.3, -0.7, 1.0])
+        rd = np.stack(np.meshgrid(vals, vals, vals), -1).reshape(-1, 3)
+        rd = rd[np.abs(rd).max(-1) >= 0.3].astype(np.float32)
+        return (np.array([0.5, 0.25, -0.4]) if case.endswith("inside")
+                else np.array([0.5, 0.25, 1.6])), rd
+    if case == "grazing":
+        # past the edge x = 1, z = 1 by up to two steps either way
+        cp = np.array([0.0, 0.0, 4.0])
+        d = rng.uniform(-2 * step, 2 * step, (4000, 2))
+        tgt = np.c_[1 + d[:, 0], rng.uniform(-1, 1, 4000), 1 + d[:, 1]]
+        return cp, _unit(tgt - cp)
+    if case == "past_far":
+        # the box at 6.5-8.5 along -z: entering past far, negative spans
+        cp = np.array([0.0, 0.0, 7.5])
+        tgt = np.c_[rng.uniform(-1.2, 1.2, (4000, 2)), np.zeros(4000)]
+        return cp, _unit(tgt - cp)
+    if case == "room_frame":
+        # 640x480 at focal 580 looking down past one corner of the room's
+        # box: here a float32 slab test moves 55 spans by one step
+        j, i = np.mgrid[0:480, 0:640]
+        cam = np.stack([(i - 320) / 580, (240 - j) / 580,
+                        -np.ones((480, 640))], -1).reshape(-1, 3)
+        return np.array([9.5, 9.5, 12.0]), _unit(cam)
+    # "ties": 20 directions, each 200 times
+    cp = np.array([0.3, 0.1, 3.0])
+    tgt = np.c_[rng.uniform(-1.2, 1.2, (20, 2)), np.zeros(20)]
+    return cp, np.tile(_unit(tgt - cp), (200, 1))
+
+
+@pytest.mark.parametrize("case", ["outside_half", "inside",
+                                  "tiny_components", "tiny_components_inside",
+                                  "grazing", "past_far", "ties",
+                                  "room_frame"])
+def test_frame_ray_order_matches_numpy(case):
+    """The device plan's float64 slab test and (miss, span) sort equal
+    frame_ray_spans and np.lexsort((span, ~hit)) bit for bit."""
+    cp, rd = plan_rays(case)
+    b = ROOM_BOX if case == "room_frame" else PLAN_BOX
+    args = (b["near"], b["far"], b["D"], b["ranges_min"], b["dims"],
+            b["scaled_vsize"])
+    span, hit = tfr.frame_ray_spans(cp.astype(np.float32), rd, *args[:3],
+                                    *args[3:])
+    order, n_hit, tspan = tfr.frame_ray_order(
+        torch.as_tensor(cp, dtype=torch.float32), torch.as_tensor(rd),
+        *args)
+    assert order.dtype == tspan.dtype == torch.int64 and n_hit.dim() == 0
+    np.testing.assert_array_equal(tspan.numpy(), span)
+    np.testing.assert_array_equal(order.numpy(), np.lexsort((span, ~hit)))
+    assert int(n_hit) == int(hit.sum())
+    if case == "outside_half":
+        assert 0.3 < hit.mean() < 0.7
+    if case == "past_far":
+        assert (span < 0).any() and not hit.all()
+    if case == "ties":
+        assert len(np.unique(span[hit])) < 40 < hit.sum()
+
+
+def parent_chunks(order, n_hit, span, chunk):
+    """render_frame's host slicing before the plan moved to the device."""
+    R = order.shape[0]
+    n_chunks = -(-n_hit // chunk)
+    n_used = n_chunks * chunk
+    if n_used > R:
+        order = np.concatenate([order, order[R - (n_used - R):]])
+    ss = span[order[:n_used]]
+    return order[:n_used], [int(ss[i * chunk:(i + 1) * chunk].max())
+                            for i in range(n_chunks)]
+
+
+@pytest.mark.parametrize("R,chunk,n_hit", [
+    (1000, 128, 300),     # n_hit < R
+    (1000, 128, 1000),    # every ray hits, the last chunk padded
+    (1000, 128, 0),       # all background
+    (1000, 300, 1000),    # padded past a chunk that does not divide R
+    (100, 1024, 50)])     # a chunk past 2R: the pad is all of the order
+def test_frame_chunks_one_read(R, chunk, n_hit):
+    """n_hit and each chunk's largest span, read in one transfer, and the
+    device-padded permutation equal the parent's slicing of
+    span[order[:n_used]]."""
+    rng = np.random.default_rng(R + chunk + n_hit)
+    order = rng.permutation(R)
+    span = rng.integers(-10**12, 400, R)
+    perm, smax = tfr.frame_chunks(torch.as_tensor(order),
+                                  torch.tensor(n_hit),
+                                  torch.as_tensor(span), chunk)
+    want_perm, want_smax = parent_chunks(order, n_hit, span, chunk)
+    assert smax == want_smax and len(smax) == -(-n_hit // chunk)
+    np.testing.assert_array_equal(perm.numpy(), want_perm)
+
+
 def test_port_never_imports_jax():
     mods = [m.name for m in pkgutil.walk_packages(
         pointnerf2studio_torch.__path__, "pointnerf2studio_torch.")]

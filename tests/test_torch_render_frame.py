@@ -239,7 +239,7 @@ def test_unexpected_exception_propagates(setup, monkeypatch):
 def test_program_cache_and_budget_tier(setup):
     """`program_cache` keeps the qvox table and the raster program across
     frames; `budget_tier` renders low first and escalates to the same
-    frame; `host_rays` saves the pull and changes nothing."""
+    frame."""
     s = setup
     pc = {}
     a = _frame(s, raster=(H, W, PINHOLE), program_cache=pc)
@@ -256,7 +256,7 @@ def test_program_cache_and_budget_tier(setup):
     tfr.fast_render_rays = spy
     try:
         b = _frame(s, raster=(H, W, PINHOLE), program_cache=pc,
-                   budget_tier=2, host_rays=s["rays"])
+                   budget_tier=2)
     finally:
         tfr.fast_render_rays = orig
     # every chunk at the low tier first, the tripped ones again at doubled
