@@ -6,7 +6,8 @@ sits in a file of its own, found by the name there:
 - `configs/<config>.json` (the configuration's `file`): the scene, the
   query, tower and train settings, the camera;
 - `traffic/<traffic>.json`: the mix, read by the traffic kind its "kind"
-  names, `kinds/<kind>.py` (a function `run`);
+  names, `kinds/<kind>.py` (its contract: `kinds/__init__.py`);
+- `tiny/<config>.json`: the configuration's cut for the CPU tests;
 - `metrics/<metric>.py`: a reader `read(r) -> float | None` of one
   metric from the run's record `r` (a reader that finds nothing to read
   returns None, and the metric is left out of the line);

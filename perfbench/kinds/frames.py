@@ -28,6 +28,11 @@ from perfbench.core import counts, inputs, scenes, spans
 from perfbench.reference import pointnerf as ref
 
 CHECKS = ("mask_mismatch", "color_mae")
+# tools/readings.py's modes: the program, and the control
+MODES = ("program", "control")
+# the CPU tests' tiny traffic (perfbench/tests/tiny.py)
+TINY_TRAFFIC = {"chunk": 256, "warmup_frames": 1, "check_rays": 256,
+                "count_sample": 4, "trace_seconds": 1.0}
 FR = "pointnerf2studio_torch.models.fast_render"
 # the layers a traced run names its spans by (perfbench/core/spans.py)
 SPANS = ((FR, "frame_ray_order", "render_frame: slab test and sort"),
@@ -238,8 +243,8 @@ def _run(spec, seed, seconds, trace, device, t_start, clock, hooks):
     result["memory_peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                                    if device.type == "cuda" else 0)
     n = len(times)
-    result.update(attempted=n, window_s=window, frame_s=times,
-                  frames=n, pixels=cell.H * cell.W)
+    result.update(attempted=n, loop="frames", window_s=window,
+                  frame_s=times, frames=n, pixels=cell.H * cell.W)
     cell.free()
     result["failed"] = sum(1 for _, o in kept
                            if not bool(torch.isfinite(o.coarse_raycolor).all()))
@@ -262,3 +267,21 @@ def _run(spec, seed, seconds, trace, device, t_start, clock, hooks):
         result["work"] = {"flops": flops, "bytes": bytes_, "frames": n,
                           "decode2": (d2_flops, d2_bytes)}
     return result
+
+
+def readings(spec, seed: int, device, mode: str, frames: int = 4) -> dict:
+    """The compared numbers of one seed in `mode` (`MODES`): the program's
+    first `frames` frames of the closed loop, or the control on the
+    traffic's `check_frames` poses, against the reference."""
+    if mode not in MODES:
+        raise ValueError(f"kind 'frames' has no mode {mode!r} (has {MODES})")
+    cell = Frames(spec, seed, device)
+    if mode == "program":
+        cell.build()
+        kept = [(i, cell.frame(i)) for i in range(frames)]
+        cell.free()
+        return cell.compare(kept)
+    kept = [(i, None) for i in range(spec.traffic["check_frames"])]
+    return cell.compare(
+        kept, precision=ref.control_precision(spec.config["agg"]),
+        against="reference")

@@ -41,6 +41,13 @@ SPANS = (("pointnerf2studio_torch.models.render", "render_rays",
          ("pointnerf2studio_torch.train.trainer", "apply_updates",
           "step: optimizer"))
 NEGLIGIBLE_GRAD = 1e-3
+# tools/readings.py's modes: the program (with PyTorch's TF32 matmuls on
+# in program_tf32, its own path one precision below a float32 tower), the
+# control, and the reference on half of each batch (the mean taken over
+# the rest) in the program's place
+MODES = ("program", "control", "program_tf32", "half_batch")
+# the CPU tests' tiny traffic (perfbench/tests/tiny.py)
+TINY_TRAFFIC = {"rays_per_step": 128, "trace_seconds": 1.0}
 
 
 class Train:
@@ -210,7 +217,7 @@ def _run(spec, seed, seconds, trace, device, t_start, clock, hooks):
         n, win, last = window(seconds)
     result["memory_peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                                    if device.type == "cuda" else 0)
-    result.update(attempted=n, window_s=win, steps=n,
+    result.update(attempted=n, loop="steps", window_s=win, steps=n,
                   rays=n * tr["rays_per_step"],
                   failed=0 if np.isfinite(last) else n)
     cell.free()
@@ -229,3 +236,33 @@ def _run(spec, seed, seconds, trace, device, t_start, clock, hooks):
                         + found * counts.slot_flops(agg))
         result["work"] = {"flops": per_step * n, "steps": n}
     return result
+
+
+def readings(spec, seed: int, device, mode: str, frames: int = 0) -> dict:
+    """The compared numbers of one seed in `mode` (`MODES`; `frames` is
+    not read): the program's first steps, or in `control` and
+    `half_batch` the reference so changed, against the reference."""
+    if mode not in MODES:
+        raise ValueError(f"kind 'train' has no mode {mode!r} (has {MODES})")
+    cell = Train(spec, seed, device)
+    n = spec.traffic["check_steps"]
+    if mode in ("program", "program_tf32"):
+        tf32 = mode == "program_tf32"
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        cell.build()
+        prog = cell.first_steps(n)
+        cell.free()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return gaps(prog, cell.reference())
+    cell.batches = [cell.sampler.next() for _ in range(n)]
+    want = cell.reference()
+    if mode == "control":
+        other = cell.reference(ref.control_precision(spec.config["agg"]))
+    else:
+        full = cell.batches
+        half = cell.spec.traffic["rays_per_step"] // 2
+        cell.batches = [tuple(x[:half] if x.dim() and x.shape[0]
+                              == 2 * half else x for x in b)
+                        for b in full]
+        other = cell.reference()
+    return gaps(other, want)

@@ -15,7 +15,6 @@ import torch
 from perfbench.core import harness
 from perfbench.kinds import frames as fk
 from perfbench.kinds import train as tk
-from perfbench.reference import pointnerf as ref
 from perfbench.tests.tiny import tiny_spec
 
 CPU = torch.device("cpu")
@@ -28,21 +27,14 @@ def _fails(readings: dict, limits: dict) -> bool:
 @pytest.mark.parametrize("seed", [101, 202])
 def test_train_control_is_not_correct(seed):
     spec = tiny_spec("chair-train")
-    cell = tk.Train(spec, seed, CPU)
-    cell.batches = [cell.sampler.next()
-                    for _ in range(spec.traffic["check_steps"])]
-    got = tk.gaps(cell.reference(ref.control_precision(spec.config["agg"])),
-                  cell.reference())
+    got = tk.readings(spec, seed, CPU, "control")
     assert _fails(got, spec.limits), got
 
 
 @pytest.mark.parametrize("seed", [101, 202])
 def test_frames_control_is_not_correct(seed):
     spec = tiny_spec("room-frames-staged")
-    cell = fk.Frames(spec, seed, CPU)
-    kept = [(i, None) for i in range(spec.traffic["check_frames"])]
-    got = cell.compare(kept, against="reference",
-                       precision=ref.control_precision(spec.config["agg"]))
+    got = fk.readings(spec, seed, CPU, "control")
     assert _fails(got, spec.limits), got
 
 

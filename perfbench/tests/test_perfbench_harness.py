@@ -8,6 +8,7 @@ import subprocess
 import sys
 import textwrap
 import time
+import types
 from pathlib import Path
 
 import pytest
@@ -37,15 +38,23 @@ def test_every_cell_and_metric_is_found_by_name():
         assert callable(harness.reader(m["name"]))
 
 
-def test_a_new_cell_is_found_from_files_alone(tmp_path):
-    """A configuration, traffic mix, metric reader and limits written to a
-    new tree are found by name, with no code changed."""
+def test_a_new_cell_is_found_from_files_alone(tmp_path, monkeypatch):
+    """A configuration, traffic mix, metric reader, limits and tiny cut
+    written to a new tree are found by name, with no code changed; so is
+    a cell of a traffic kind that no file of the tree names, by its kind
+    module (`harness.kind`, here a stub set in its place)."""
     pb = tmp_path / "perfbench"
-    for d in ("configs", "traffic", "metrics", "limits"):
+    for d in ("configs", "traffic", "metrics", "limits", "tiny"):
         (pb / d).mkdir(parents=True)
-    (pb / "configs" / "c.json").write_text(json.dumps({"name": "c"}))
+    (pb / "configs" / "c.json").write_text(json.dumps(
+        {"name": "c", "scene": {"n_points": 1000}}))
     (pb / "traffic" / "t.json").write_text(json.dumps({"kind": "frames"}))
+    (pb / "traffic" / "t2.json").write_text(json.dumps(
+        {"kind": "new_kind", "batch": 64}))
     (pb / "limits" / "w.json").write_text(json.dumps({"x": 1.0}))
+    (pb / "limits" / "w2.json").write_text(json.dumps({"y": 2.0}))
+    (pb / "tiny" / "c.json").write_text(json.dumps(
+        {"scene": {"n_points": 10}}))
     (pb / "metrics" / "odd.name.py").write_text(textwrap.dedent("""
         def read(r):
             return r.get("value")
@@ -53,9 +62,11 @@ def test_a_new_cell_is_found_from_files_alone(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps({
         "configs": [{"name": "c", "file": "perfbench/configs/c.json"}],
         "workloads": [{"name": "w", "config": "c", "traffic": "t",
+                       "chips": 1},
+                      {"name": "w2", "config": "c", "traffic": "t2",
                        "chips": 1}],
         "end_to_end": [{"name": "setup_s"}, {"name": "odd.name",
-                                             "workloads": ["other"]}],
+                                             "workloads": ["other", "w2"]}],
         "per_layer": [{"name": "odd.name", "moves": "setup_s"}]}))
     spec = harness.load("w", root=tmp_path)
     assert spec.traffic == {"kind": "frames"} and spec.limits == {"x": 1.0}
@@ -63,6 +74,17 @@ def test_a_new_cell_is_found_from_files_alone(tmp_path):
     assert [m["name"] for m in spec.per_layer] == ["odd.name"]
     assert harness.reader("odd.name", root=tmp_path)({"value": 2.5}) == 2.5
     assert harness.reader("odd.name", root=tmp_path)({}) is None
+
+    stub = types.SimpleNamespace(CHECKS=("y",), TINY_TRAFFIC={"batch": 4})
+    real = harness.kind
+    monkeypatch.setattr(harness, "kind", lambda name: stub
+                        if name == "new_kind" else real(name))
+    spec = harness.load("w2", root=tmp_path)
+    assert spec.traffic["kind"] == "new_kind" and spec.limits == {"y": 2.0}
+    assert [m["name"] for m in spec.end_to_end] == ["setup_s", "odd.name"]
+    tiny = tiny_spec("w2", root=tmp_path)
+    assert tiny.config["scene"] == {"n_points": 10}
+    assert tiny.traffic == {"kind": "new_kind", "batch": 4}
 
 
 def test_a_limit_missing_or_extra_raises():

@@ -3,9 +3,11 @@
 the lower and upper readings that its limits are set from.
 
     python3 perfbench/tools/readings.py --workload <cell | config:traffic> \
-        --seeds 1,2,3 --mode program|control|program_tf32|half_batch \
-        [--frames N] \
+        --seeds 1,2,3 --mode <mode> [--frames N] \
         [--route fused|staged|xla]
+
+The modes are the cell's traffic kind's (`perfbench/kinds/<kind>.py`:
+`MODES`, `readings`; a mode the kind lacks raises):
 
 - `program`: the program at the cell's own size, as a run drives it (a
   frames cell renders `--frames` frames of its closed loop and the check
@@ -18,8 +20,9 @@ the lower and upper readings that its limits are set from.
   switched on, its own path one precision below a float32 tower;
 - `half_batch` (train cells): the reference with half of each batch left
   out and the mean taken over the rest, in the program's place;
-- `run`: a whole run of the harness (`--seconds`, `--trace`), for a
-  configuration and mix that no cell pairs yet.
+
+and the tool's own `run`: a whole run of the harness (`--seconds`,
+`--trace`), for a configuration and mix that no cell pairs yet.
 
 `--route` renders a frames cell's configuration on another chunk route
 of the program (the fused chunk, the staged selection and tower, or the
@@ -45,9 +48,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
-    ap.add_argument("--mode", default="program",
-                    choices=("program", "control", "program_tf32",
-                             "half_batch", "run"))
+    ap.add_argument("--mode", default="program")
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--trace", type=int, default=0)
     ap.add_argument("--frames", type=int, default=4)
@@ -57,8 +58,6 @@ def main(argv=None) -> int:
 
     import torch
     from perfbench.core import harness
-    from perfbench.kinds import frames as fk, train as tk
-    from perfbench.reference import pointnerf as ref
 
     if args.cpu:
         from perfbench.tests.tiny import tiny_spec
@@ -84,48 +83,12 @@ def main(argv=None) -> int:
                               "route": args.route, "line": line}),
                   flush=True)
             continue
-        if spec.traffic["kind"] == "frames":
-            cell = fk.Frames(spec, seed, dev)
-            if args.mode == "program":
-                cell.build()
-                kept = [(i, cell.frame(i)) for i in range(args.frames)]
-                cell.free()
-                got = cell.compare(kept)
-            else:
-                kept = [(i, None) for i in range(spec.traffic["check_frames"])]
-                got = cell.compare(
-                    kept, precision=ref.control_precision(spec.config["agg"]),
-                    against="reference")
-        else:
-            cell = tk.Train(spec, seed, dev)
-            n = spec.traffic["check_steps"]
-            if args.mode in ("program", "program_tf32"):
-                tf32 = args.mode == "program_tf32"
-                torch.backends.cuda.matmul.allow_tf32 = tf32
-                cell.build()
-                prog = cell.first_steps(n)
-                cell.free()
-                torch.backends.cuda.matmul.allow_tf32 = False
-                got = tk.gaps(prog, cell.reference())
-            else:
-                cell.batches = [cell.sampler.next() for _ in range(n)]
-                want = cell.reference()
-                if args.mode == "control":
-                    other = cell.reference(
-                        ref.control_precision(spec.config["agg"]))
-                else:
-                    full = cell.batches
-                    half = cell.spec.traffic["rays_per_step"] // 2
-                    cell.batches = [tuple(x[:half] if x.dim() and x.shape[0]
-                                          == 2 * half else x for x in b)
-                                    for b in full]
-                    other = cell.reference()
-                got = tk.gaps(other, want)
+        got = harness.kind(spec.traffic["kind"]).readings(
+            spec, seed, dev, args.mode, args.frames)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "mode": args.mode, "route": args.route,
                           "readings": got,
                           "seconds": time.perf_counter() - t0}), flush=True)
-        del cell
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return 0
