@@ -28,6 +28,13 @@ variance included, which the JAX tree holds as leaves beside scale and
 bias - and the fields with lr_fields * lr_decay_exp ** (n /
 lr_decay_iters) (optax's exponential_decay, staircase off).
 
+Tracing (`utils/profiling.py`; all of it acts only while a torch.profiler
+session records): the counters `joint.steps` and `joint.points_generated`
+(H/4 * W/4 a step, known on the host), and the span `joint.step`
+(`step=<n>`) holding the phases `joint.features`, `joint.cost_volume`,
+`joint.cost_reg`, `joint.points`, `joint.grid`, `joint.render`,
+`joint.loss`, `joint.backward` and `joint.optimizer`.
+
 The noise draws are arguments: `generate_points_diff` takes the gaussian
 depth draw `noise` [h, w] and the step the render's `jitter_u` [R, D]; a
 step given neither draws both from its `torch.Generator`. On the card the
@@ -48,8 +55,9 @@ import torch.nn as nn
 from pointnerf2studio_torch.config import PointNerfConfig
 from pointnerf2studio_torch.models.aggregator import Aggregator
 from pointnerf2studio_torch.models.mvsnet.costvol import (
-    CostVolParams, depth_probability, expected_depth_std, init_costvol_params,
-    init_fpn_params, init_premlp_params)
+    CostVolParams, build_cost_volume, cost_reg_net8, depth_values_linear,
+    expected_depth_std, init_costvol_params, init_fpn_params,
+    init_premlp_params, prob_net)
 from pointnerf2studio_torch.models.mvsnet.featurenet import (
     FeatureNet, fpn_features, load_fpn_params, make_premlp)
 from pointnerf2studio_torch.models.mvsnet.layers import bilinear_grid_sample
@@ -58,6 +66,7 @@ from pointnerf2studio_torch.models.render import render_rays
 from pointnerf2studio_torch.ops._cuda import resolve_device
 from pointnerf2studio_torch.ops.grid import build_grid
 from pointnerf2studio_torch.train.loss import compute_losses
+from pointnerf2studio_torch.utils import profiling
 
 
 class MvsParams(nn.Module):
@@ -157,60 +166,70 @@ def generate_points_diff(
     near, far = near_far[0], near_far[1]
     dev = images.device
 
-    feats_all = fpn_features(mvs.fpn, images)                   # batched
+    with profiling.span("joint.features"):
+        feats_all = fpn_features(mvs.fpn, images)               # batched
     feats_top = feats_all[3]                                    # [V,h,w,32]
 
-    # quarter-res projection matrices, src @ inv(ref)
-    Kq = intrinsics.clone()
-    Kq[:, :2, :] = Kq[:, :2, :] * 0.25
-    proj = torch.eye(4, device=dev).repeat(V, 1, 1)
-    proj[:, :3, :4] = Kq @ w2cs[:, :3, :4]
-    proj = proj @ torch.linalg.inv(proj[0])
+    with profiling.span("joint.cost_volume"):
+        # quarter-res projection matrices, src @ inv(ref)
+        Kq = intrinsics.clone()
+        Kq[:, :2, :] = Kq[:, :2, :] * 0.25
+        proj = torch.eye(4, device=dev).repeat(V, 1, 1)
+        proj[:, :3, :4] = Kq @ w2cs[:, :3, :4]
+        proj = proj @ torch.linalg.inv(proj[0])
+        imgs_q = images.reshape(V, h, 4, w, 4, 3).mean((2, 4))
+        vol = build_cost_volume(
+            imgs_q, feats_top, proj,
+            depth_values_linear(near, far, num_depth, dev), vid=0, pad=0)
+    # costvol.depth_probability's two halves, each its own span
+    with profiling.span("joint.cost_reg"):
+        prob = prob_net(mvs.costvol.probnet,
+                        cost_reg_net8(mvs.costvol.costreg, vol))
+    with profiling.span("joint.points"):
+        ndc_e, ndc_std, valid = expected_depth_std(prob, dprob_thresh)
 
-    imgs_q = images.reshape(V, h, 4, w, 4, 3).mean((2, 4))
-    prob = depth_probability(mvs.costvol, imgs_q, feats_top, proj,
-                             (near, far), num_depth=num_depth, vid=0, pad=0)
-    ndc_e, ndc_std, valid = expected_depth_std(prob, dprob_thresh)
+        ndc_z = ndc_e + ndc_std * noise if noise is not None else ndc_e
+        ndc_z = torch.clamp(ndc_z, 0.0, 1.0)
 
-    ndc_z = ndc_e + ndc_std * noise if noise is not None else ndc_e
-    ndc_z = torch.clamp(ndc_z, 0.0, 1.0)
+        # unproject at feature-resolution pixels scaled to full-res coords
+        # (depth2point: normalised [0, 1] pixel coords * (W - 1),
+        # mvs_points_model.py:170-181)
+        f32 = torch.float32
+        yy, xx = torch.meshgrid(
+            torch.arange(h, dtype=f32, device=dev) / (h - 1) * (H - 1),
+            torch.arange(w, dtype=f32, device=dev) / (w - 1) * (W - 1),
+            indexing="ij")
+        cam_z = ndc_z * (far - near) + near
+        pix = torch.stack([xx * cam_z, yy * cam_z, cam_z], -1)   # [h, w, 3]
+        Kinv_t = torch.linalg.inv(intrinsics[0]).T
+        cam_xyz = pix.reshape(-1, 3) @ Kinv_t                    # [N, 3]
 
-    # unproject at feature-resolution pixels scaled to full-res coords
-    # (depth2point: normalised [0, 1] pixel coords * (W - 1),
-    # mvs_points_model.py:170-181)
-    yy, xx = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=dev) / (h - 1) * (H - 1),
-        torch.arange(w, dtype=torch.float32, device=dev) / (w - 1) * (W - 1),
-        indexing="ij")
-    cam_z = ndc_z * (far - near) + near
-    pix = torch.stack([xx * cam_z, yy * cam_z, cam_z], -1)       # [h, w, 3]
-    Kinv_t = torch.linalg.inv(intrinsics[0]).T
-    cam_xyz = pix.reshape(-1, 3) @ Kinv_t                        # [N, 3]
+        c2w0 = c2ws[0]
+        xyz_w = cam_xyz @ c2w0[:3, :3].T + c2w0[:3, 3]
 
-    c2w0 = c2ws[0]
-    xyz_w = cam_xyz @ c2w0[:3, :3].T + c2w0[:3, 3]
+        # embedding: imgfeat_0_0123 / dir_0 / point_conf via the ref view
+        pix_xy = (cam_xyz / cam_xyz[:, 2:3]) @ intrinsics[0].T
+        xy = pix_xy[:, :2]
+        lim = torch.tensor([W - 1, H - 1], dtype=xy.dtype, device=dev)
+        inb = ((xy >= 0) & (xy <= lim)).all(-1)
+        gx = xy[:, 0] / ((W - 1) / 2.0) - 1.0
+        gy = xy[:, 1] / ((H - 1) / 2.0) - 1.0
+        grid2 = torch.stack([gx, gy], -1)
+        sampled = [bilinear_grid_sample(f[0], grid2, align_corners=True)
+                   * inb[:, None] for f in feats_all]
+        colors = sampled[0]
+        emb_feats = torch.cat(sampled[1:], -1)                   # [N, 56]
 
-    # embedding: imgfeat_0_0123 / dir_0 / point_conf via the ref view
-    pix_xy = (cam_xyz / cam_xyz[:, 2:3]) @ intrinsics[0].T
-    xy = pix_xy[:, :2]
-    lim = torch.tensor([W - 1, H - 1], dtype=xy.dtype, device=dev)
-    inb = ((xy >= 0) & (xy <= lim)).all(-1)
-    gx = xy[:, 0] / ((W - 1) / 2.0) - 1.0
-    gy = xy[:, 1] / ((H - 1) / 2.0) - 1.0
-    grid2 = torch.stack([gx, gy], -1)
-    sampled = [bilinear_grid_sample(f[0], grid2, align_corners=True)
-               * inb[:, None] for f in feats_all]
-    colors = sampled[0]
-    emb_feats = torch.cat(sampled[1:], -1)                       # [N, 56]
+        dirs = cam_xyz / (torch.linalg.norm(cam_xyz, dim=-1, keepdim=True)
+                          + 1e-6)
+        dirs_w = dirs @ c2w0[:3, :3].T
 
-    dirs = cam_xyz / (torch.linalg.norm(cam_xyz, dim=-1, keepdim=True)
-                      + 1e-6)
-    dirs_w = dirs @ c2w0[:3, :3].T
+        # mode -1: no photometric confidence
+        conf = torch.ones_like(colors[:, :1])
+        embedding = mvs.premlp(torch.cat([emb_feats, colors, dirs_w, conf],
+                                         -1))
 
-    conf = torch.ones_like(colors[:, :1])   # mode -1: no photometric conf
-    embedding = mvs.premlp(torch.cat([emb_feats, colors, dirs_w, conf], -1))
-
-    valid = valid.reshape(-1) & inb & (cam_z.reshape(-1) > 0)
+        valid = valid.reshape(-1) & inb & (cam_z.reshape(-1) > 0)
     return {"xyz": xyz_w, "embedding": embedding, "color": colors,
             "dir": dirs_w, "conf": conf, "valid": valid}
 
@@ -232,15 +251,20 @@ def render_generated(cfg: PointNerfConfig, gen: Dict[str, torch.Tensor],
         points_conf=gen["conf"], points_dir=gen["dir"],
         points_color=gen["color"], Rw2c=torch.eye(3, device=dev),
         alive=gen["valid"])
-    grid = build_grid(
-        gen["xyz"].detach(), gen["valid"],
-        torch.as_tensor(np.asarray(ranges_min, np.float32), device=dev),
-        torch.as_tensor(np.asarray(q.scaled_vsize, np.float32), device=dev),
-        tuple(grid_dims), q.max_o, q.P, q.query_size)
-    out = render_rays(fields, points, grid, batch.campos, batch.camrotc2w,
-                      batch.raydirs, batch.near_far[0], batch.near_far[1],
-                      cfg, training=True, jitter_u=jitter_u)
-    total, aux = compute_losses(out, batch.gt_rgb, cfg.train)
+    with profiling.span("joint.grid"):
+        grid = build_grid(
+            gen["xyz"].detach(), gen["valid"],
+            torch.as_tensor(np.asarray(ranges_min, np.float32), device=dev),
+            torch.as_tensor(np.asarray(q.scaled_vsize, np.float32),
+                            device=dev),
+            tuple(grid_dims), q.max_o, q.P, q.query_size)
+    with profiling.span("joint.render"):
+        out = render_rays(fields, points, grid, batch.campos,
+                          batch.camrotc2w, batch.raydirs, batch.near_far[0],
+                          batch.near_far[1], cfg, training=True,
+                          jitter_u=jitter_u)
+    with profiling.span("joint.loss"):
+        total, aux = compute_losses(out, batch.gt_rgb, cfg.train)
     aux["n_valid"] = gen["valid"].sum()
     return total, aux
 
@@ -310,17 +334,22 @@ def make_joint_train_step(
                 jitter_u = torch.rand((batch.raydirs.shape[0],
                                        q.z_depth_dim), generator=generator,
                                       device=dev)
-        state.opt_mvs.zero_grad(set_to_none=True)
-        state.opt_fields.zero_grad(set_to_none=True)
-        total, aux = loss_impl(state.mvs, state.fields, batch, noise,
-                               jitter_u)
-        total.backward()
-        for g in state.opt_mvs.param_groups:
-            g["lr"] = mvs_lr
-        state.opt_mvs.step()
-        state.opt_fields.step()
-        state.sched_fields.step()
-        state.step += 1
+        profiling.count("joint.steps")
+        profiling.count("joint.points_generated", (H // 4) * (W // 4))
+        with profiling.span("joint.step", f"step={state.step}"):
+            state.opt_mvs.zero_grad(set_to_none=True)
+            state.opt_fields.zero_grad(set_to_none=True)
+            total, aux = loss_impl(state.mvs, state.fields, batch, noise,
+                                   jitter_u)
+            with profiling.span("joint.backward"):
+                total.backward()
+            with profiling.span("joint.optimizer"):
+                for g in state.opt_mvs.param_groups:
+                    g["lr"] = mvs_lr
+                state.opt_mvs.step()
+                state.opt_fields.step()
+                state.sched_fields.step()
+            state.step += 1
         return {k: v.detach() for k, v in aux.items()}
 
     return joint_step

@@ -11,9 +11,10 @@
     re-renders counted (chunk renders = chunks + re-renders), each of
     its spans entered as often as it runs, and a frame equal bit for bit
     with the profiler on and off;
-  * the legacy train step records each `train.*` span once a step;
+  * the legacy train step records each `train.*` span once a step, and
+    the joint MVS step each `joint.*` span and its two counters;
   * nvcc's builds, library loads and weight packs are counted;
-  * the benchmark's four metrics that read the registry: finite in a
+  * the benchmark's five metrics that read the registry: finite in a
     traced run of each cell at the CPU tests' size, absent from an
     untraced one."""
 
@@ -40,9 +41,13 @@ FRAME_SPANS = ("render_frame", "render_frame.plan", "render_frame.chunk",
                "render_frame.wait", "render_frame.scatter")
 TRAIN_SPANS = ("train.step", "train.forward", "train.loss",
                "train.backward", "train.optimizer")
+JOINT_SPANS = ("joint.step", "joint.features", "joint.cost_volume",
+               "joint.cost_reg", "joint.points", "joint.grid", "joint.render",
+               "joint.loss", "joint.backward", "joint.optimizer")
 NEW_METRICS = {"room-frames-staged": ("frame_plan_ms", "frame_wait_ms",
                                       "frame_rerenders_per_frame"),
-               "chair-train": ("train_host_ms_per_step",)}
+               "chair-train": ("train_host_ms_per_step",),
+               "chair-mvs-joint": ("joint_host_ms_per_step",)}
 
 
 @pytest.fixture(autouse=True)
@@ -208,6 +213,31 @@ def test_legacy_train_step_records_each_phase_once_a_step(sphere):
     assert set(TRAIN_SPANS) <= {e.name for e in prof.events()}
 
 
+def test_joint_step_records_each_phase_once_a_step():
+    """One joint step at the benchmark's tiny cut (3 views of 32x32, 16
+    planes, 64 rays): nothing in the registry with no profiler running;
+    under one, `joint.steps` and `joint.points_generated` (h * w) counted
+    and each span entered once, the step's self time its time less its
+    phases'."""
+    from perfbench.kinds import joint as kj
+    from perfbench.tests.tiny import tiny_spec
+    cell = kj.Joint(tiny_spec("chair-mvs-joint"), 5, torch.device("cpu"))
+    cell.build()
+    cell.step()
+    assert profiling.snapshot() == {}
+    with recorded() as prof:
+        aux = cell.step()
+    assert torch.isfinite(aux["total"])
+    snap = profiling.snapshot()
+    assert snap["joint.steps"] == 1
+    assert snap["joint.points_generated"] == 8 * 8
+    for name in JOINT_SPANS:
+        assert span_counts(name)[0] == 1, name
+    n, ns, self_ns = span_counts("joint.step")
+    assert self_ns == ns - sum(span_counts(c)[1] for c in JOINT_SPANS[1:])
+    assert set(JOINT_SPANS) <= {e.name for e in prof.events()}
+
+
 def test_kernel_builds_loads_and_packs_are_counted(tmp_path, monkeypatch):
     monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_cuda, "_LIBS", {})
@@ -249,7 +279,5 @@ def test_benchmark_reads_the_registry(cell, traced):
     for name, m in got.items():
         assert m is not None and math.isfinite(m["value"]), name
         assert m["value"] >= 0 and m["unit"] in ("ms", "renders")
-    if cell == "chair-train":
-        assert got["train_host_ms_per_step"]["value"] > 0
-    else:
-        assert got["frame_plan_ms"]["value"] > 0
+    first = NEW_METRICS[cell][0]
+    assert got[first]["value"] > 0
