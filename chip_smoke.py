@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `pointnerf2studio_torch/csrc/` (seven
+Builds the port's CUDA kernels from `pointnerf2studio_torch/csrc/` (eight
 sources and four headers: the tuned tower and the generic tower, each
 shared by two sources, the selection and the fused chunk's selection
 kernel) with nvcc (sm_90a), one nvcc a source, all started together,
@@ -231,7 +231,9 @@ ray budget measured on the frame as the JAX bench sizes them:
      step, the gate open (dprob_thresh 0.0), 100 steps: it/s (the median
      of windows of 20 after 10 warm-up steps), peak memory, the valid
      points by step (at least 90% at the first), the loss of steps 91-100
-     below that of steps 1-10, every group moved, #1 launched once a step; one step's device ms by part (MVS forward, render,
+     below that of steps 1-10, every group moved, #1 and the cost
+     volume's two kernels (costvol_forward, costvol_backward) launched once
+     a step; one step's device ms by part (MVS forward, render,
      backward, optimizer); one step through #1 and through its plain
      version from copies of the state: the same selection, the loss within
      1e-6 relative and each group's gradient within 1e-4 of its norm. The
@@ -239,7 +241,16 @@ ray budget measured on the frame as the JAX bench sizes them:
      and train-joint --steps 5 at the reference's gate (0.8), each allowed
      to end in the port's ValueError for an empty cloud. LPIPS (alex,
      random weights) of the trained chair's test view 0 on the card and on
-     the host within 1e-4 relative.
+     the host within 1e-4 relative. Then the costvol phase: the joint
+     step's cost volume (csrc/costvol.cu through ops/costvol.py) at the
+     joint cell's shapes (three 200x200 maps of 32 channels, 128 planes,
+     pad 0, three ring views 30 degrees apart): the forward kernel must
+     equal the torch composite it replaced bit for bit, and the backward's
+     feature gradient must match autograd through the composite within
+     1e-5 of its largest and give the same bits on two runs; printed: each
+     kernel's ms beside its byte bound and its plain version's ms, the
+     backward's three device kernels by the profiler, and the composite's
+     forward and forward + backward beside the program's.
   17. multi: multi-device execution (`parallel/`) on the one card. The
      parent saves the chair scene, its weights, the frame's rays and the
      train phase's batch and jitter draw; each rank is a process of its own
@@ -386,6 +397,11 @@ fused_decode_any on the wide legacy chunk's first decode piece and for
 `csrc/chunk_any.cu` on the wide frame's chunk 0, with the device ms of
 each of its three kernels.
 
+    python3 chip_smoke.py --costvol
+
+builds the kernels and runs the costvol phase alone (no scene), then
+prints its results as one JSON line and no result line.
+
     python3 chip_smoke.py --widths [--profile[=DIR]]
 
 builds the scene and its cache and runs the widths phase alone, then
@@ -469,6 +485,8 @@ MVS_BINS, MVS_CPU_BATCHES = 192, 8
 MVS_ATTR_TOL = 2e-3
 MVS_FIT_STEPS, MVS_EVAL_FREQ = 1000, 500
 JOINT_STEPS, JOINT_DEPTH = 100, 128
+# the costvol phase: the joint cell's depth planes
+COSTVOL_DEPTH = 128
 # the card's published peaks (H100 SXM): device memory bytes/s and dense
 # bf16 tensor-core FLOP/s
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
@@ -5097,7 +5115,9 @@ def mvs_phase(c, data) -> dict:
         f"(steps {JOINT_STEPS - 9}-{JOINT_STEPS}); largest change per "
         f"group {moved}; launches {joint_launches} ({smi})")
     check_launches("mvs joint", joint_launches,
-                   {"first_valid_cols": JOINT_STEPS})
+                   {"first_valid_cols": JOINT_STEPS,
+                    "costvol_forward": JOINT_STEPS,
+                    "costvol_backward": JOINT_STEPS})
     if not (np.isfinite(losses).all() and last < first
             and valid[0] >= 0.9 * n_gen):
         fail("mvs: the joint loss did not fall, or the gate was not open "
@@ -5121,7 +5141,11 @@ def mvs_phase(c, data) -> dict:
     n_gate = int(text.split("step 1: ")[1].split()[0])
     log(f"mvs: the commands took {t_cli:.1f} s; train-joint's gate (0.8) "
         f"passed {n_gate} points at step 1; launches {cli_launches}")
-    check_launches("mvs cli", cli_launches, {"first_valid_cols": 5})
+    # train-joint's 5 steps, then one more cost volume for the exported
+    # cloud
+    check_launches("mvs cli", cli_launches, {"first_valid_cols": 5,
+                                             "costvol_forward": 6,
+                                             "costvol_backward": 5})
 
     # ---- 6. LPIPS (alex, random weights) of the trained chair's test
     # view 0, the card against the host
@@ -5163,6 +5187,127 @@ def mvs_phase(c, data) -> dict:
             "launches": {"fit": fit_launches, "joint": joint_launches,
                          "cli": cli_launches},
             "s": t_total}
+
+
+def costvol_inputs(dev):
+    """The joint cell's cost volume inputs (three views 30 degrees apart
+    on a ring of radius 4, the reference first, at feature resolution:
+    200x200, focal 1111.1 / 4; 128 planes over [2, 6]; features and
+    images from seed 0) -> (imgs, feats, proj, depth planes)."""
+    import torch
+    rng = np.random.default_rng(0)
+    K = np.array([[FOCAL / 4, 0, 100.0], [0, FOCAL / 4, 100.0], [0, 0, 1]])
+    P = []
+    for a in np.deg2rad([0.0, 30.0, -30.0]):
+        pos = 4.0 * np.array([np.sin(a), 0.0, -np.cos(a)])
+        z = -pos / np.linalg.norm(pos)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        c2w = np.eye(4)
+        c2w[:3, :3] = np.stack([x, np.cross(z, x), z], 1)
+        c2w[:3, 3] = pos
+        P.append(np.vstack([K @ np.linalg.inv(c2w)[:3], [0, 0, 0, 1]]))
+    P = np.stack(P)
+    proj = P @ np.linalg.inv(P[0])
+    return [torch.tensor(a, dtype=torch.float32, device=dev) for a in (
+        rng.uniform(size=(3, 200, 200, 3)),
+        rng.standard_normal((3, 200, 200, 32)), proj,
+        np.linspace(2.0, 6.0, COSTVOL_DEPTH))]
+
+
+def costvol_phase(c) -> dict:
+    """The joint step's cost volume (csrc/costvol.cu through
+    ops/costvol.py) at the joint cell's shapes (the costvol phase of the
+    module docstring, after the mvs phase). Returns the phase's
+    numbers."""
+    import torch
+    from pointnerf2studio_torch.models.mvsnet import costvol as cv
+    from pointnerf2studio_torch.ops import costvol as oc
+
+    dev, smi = c.dev, c.smi
+    t_phase = time.perf_counter()
+    imgs, feats, proj, dv = costvol_inputs(dev)
+    V, h, w, C = feats.shape
+    D = dv.shape[0]
+    grids = [cv._sweep_grid(proj[v], dv, h, w, 0, h, w) for v in (1, 2)]
+    vol = oc.cost_volume_kernel(feats, imgs, grids)
+    g = torch.randn(vol.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+
+    # the composite's forward and, under autograd, its gradient
+    f_c = feats.clone().requires_grad_()
+    want = cv.build_cost_volume_composite(imgs, f_c, proj, dv)
+    want.backward(g)
+    same_fwd = torch.equal(vol, want.detach())
+    del want
+    grads = []
+    for _ in range(2):
+        f = feats.clone().requires_grad_()
+        cv.build_cost_volume(imgs, f, proj, dv).backward(g)
+        grads.append(f.grad)
+    torch.cuda.synchronize()
+    scale = float(f_c.grad.abs().max())
+    rel = float((grads[0] - f_c.grad).abs().max()) / scale
+    same_runs = torch.equal(grads[0], grads[1])
+    del grads, f_c
+
+    def composite_fwd_bwd():
+        f = feats.clone().requires_grad_()
+        cv.build_cost_volume_composite(imgs, f, proj, dv).backward(g)
+
+    def program_fwd_bwd():
+        f = feats.clone().requires_grad_()
+        cv.build_cost_volume(imgs, f, proj, dv).backward(g)
+
+    del vol
+    t_fwd = cuda_ms(lambda: oc.cost_volume_kernel(feats, imgs, grids), 20, 2)
+    t_bwd = cuda_ms(lambda: oc.cost_volume_backward_kernel(g, feats, grids),
+                    10, 2)
+    parts = device_kernel_ms(
+        lambda: oc.cost_volume_backward_kernel(g, feats, grids),
+        ["costvol_bins_kernel", "costvol_gwf_kernel",
+         "costvol_gather_kernel"])
+    with torch.no_grad():
+        t_fwd_p = cuda_ms(lambda: oc.cost_volume_plain(feats, imgs, grids),
+                          3, 1)
+        t_bwd_p = cuda_ms(lambda: oc.cost_volume_backward_plain(
+            g, feats, grids), 3, 1)
+    t_comp_f = cuda_ms(lambda: cv.build_cost_volume_composite(
+        imgs, feats.clone().requires_grad_(), proj, dv), 3, 1)
+    t_comp_fb = cuda_ms(composite_fwd_bwd, 3, 1)
+    t_prog_f = cuda_ms(lambda: cv.build_cost_volume(
+        imgs, feats.clone().requires_grad_(), proj, dv), 10, 2)
+    t_prog_fb = cuda_ms(program_fwd_bwd, 10, 2)
+    b_fwd = bound(4 * (D * h * w * (3 * V + C) + V * h * w * (C + 3)), 0)
+    b_bwd = bound(4 * (D * h * w * C + 2 * V * h * w * C), 0)
+    rec = {"shapes": {"V": V, "h": h, "w": w, "C": C, "D": D, "pad": 0},
+           "forward": {"ms": t_fwd, "bound_ms": b_fwd[0],
+                       "plain_ms": t_fwd_p, "equal_composite": same_fwd},
+           "backward": {"ms": t_bwd, "bound_ms": b_bwd[0],
+                        "plain_ms": t_bwd_p, "kernels_ms": parts,
+                        "rel_to_autograd": rel, "same_bits": same_runs},
+           "composite_ms": {"forward": t_comp_f,
+                            "forward_backward": t_comp_fb},
+           "program_ms": {"forward": t_prog_f,
+                          "forward_backward": t_prog_fb},
+           "s": time.perf_counter() - t_phase}
+    log(f"costvol: the joint cell's volume ({V} views of {h}x{w}x{C}, {D} "
+        f"planes, pad 0): forward kernel {t_fwd:.3f} ms (bound "
+        f"{b_fwd[0]:.3f} by bytes, {t_fwd / b_fwd[0]:.2f}x; plain "
+        f"{t_fwd_p:.2f}), {'equal to' if same_fwd else 'DIFFERS from'} the "
+        f"composite; backward kernels {t_bwd:.3f} ms (bound {b_bwd[0]:.3f} "
+        f"by bytes, {t_bwd / b_bwd[0]:.2f}x; plain {t_bwd_p:.2f}; by the "
+        f"profiler "
+        + ", ".join(f"{k} {ms_text(v)}" for k, v in parts.items())
+        + f"), gradient |diff| / max |grad| {rel:.2e} against autograd "
+        f"through the composite, two runs "
+        f"{'bit-equal' if same_runs else 'DIFFER'}; the replaced path "
+        f"(the composite with its sweep) forward {t_comp_f:.2f} ms, forward "
+        f"and backward {t_comp_fb:.2f} ms; the program's path "
+        f"{t_prog_f:.3f} / {t_prog_fb:.3f} ms ({smi})")
+    if not (same_fwd and same_runs and rel <= 1e-5):
+        fail("costvol: the kernels disagree with the composite")
+    return rec
 
 
 # the multi phase: fit()'s steps under a mesh, the structure sequence's
@@ -5799,6 +5944,12 @@ def main() -> int:
     libs = _cuda.build()
     log(f"built {sorted(libs)} with nvcc for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
+    if "--costvol" in sys.argv[1:]:
+        # the cost volume's kernels alone: no scene, no result line
+        import types
+        print(json.dumps({"costvol": costvol_phase(types.SimpleNamespace(
+            dev=dev, smi=smi))}), flush=True)
+        return 0
 
     # ---- scene, grid, cache
     cfg = bench_config()
@@ -6252,6 +6403,7 @@ def main() -> int:
     # dataset
     # =================================================================
     mvs = mvs_phase(ns, data)
+    costvol = costvol_phase(ns)
 
     # =================================================================
     # Multi-device execution: one NCCL rank, two and four gloo ranks
@@ -6475,6 +6627,7 @@ def main() -> int:
                         if k not in ("select", "kacc", "chunk_gt")},
         "data": {k: v for k, v in data.items() if k != "launches"},
         "mvs": {k: v for k, v in mvs.items() if k != "launches"},
+        "costvol": costvol,
         "multi": multi,
         "widths": {k: v for k, v in widths.items() if k != "kernels"}}),
         flush=True)

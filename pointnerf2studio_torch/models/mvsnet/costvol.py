@@ -17,6 +17,11 @@ jointly (reference: pointnerf/models/mvs/models.py:660-684
   -> ProbNet (1x conv3d + BN) -> softmax over depth = depth probability
   -> expected depth + std per pixel, prob_filter mask.
 
+The cost volume is `ops/costvol.py::cost_volume`, an autograd Function
+(the kernels of `csrc/costvol.cu` on the card) on the sweep's coordinates;
+`build_cost_volume_composite` keeps the torch composite it replaced as
+the tests' yardstick.
+
 Kept as the reference has it: models.py's ConvBnReLU3D applies NO ReLU
 (`bn(conv(x))`, models.py:697-713), nor do the transposed stages here.
 
@@ -41,6 +46,7 @@ from pointnerf2studio_torch.models.mvsnet.layers import (
     to_cf)
 from pointnerf2studio_torch.models.mvsnet.mvsnet import CostRegNet
 from pointnerf2studio_torch.ops._cuda import resolve_device
+from pointnerf2studio_torch.ops.costvol import cost_volume
 from pointnerf2studio_torch.ops.raygen import _unit_steps
 
 
@@ -178,7 +184,30 @@ def build_cost_volume(
     """[D, h+2p, w+2p, 3V+32] cost volume (models.py:891-946): channels =
     [ref RGB (broadcast over D), each warped src RGB, variance of (ref +
     warped src) features over the views whose sample lands inside
-    (-1, 1)^2 (models.py:930-933)]."""
+    (-1, 1)^2 (models.py:930-933)]. The sweep's coordinates come from
+    `_sweep_grid`; the warp, the variance and the concatenation are
+    `ops/costvol.py::cost_volume` (the kernels of `csrc/costvol.cu` on the
+    card), equal to `build_cost_volume_composite` bit for bit.
+    Differentiable in feats only."""
+    V, h, w, _ = feats.shape
+    Hp, Wp = h + 2 * pad, w + 2 * pad
+    grids = [_sweep_grid(proj_mats[v], depth_values, Hp, Wp, pad, h, w)
+             for v in range(V) if v != vid]
+    return cost_volume(feats, imgs_q, grids, vid=vid, pad=pad)
+
+
+def build_cost_volume_composite(
+    imgs_q: torch.Tensor,        # [V, h, w, 3] images at feature res
+    feats: torch.Tensor,         # [V, h, w, 32] FPN top-level features
+    proj_mats: torch.Tensor,     # [V, 4, 4] src @ inv(ref) at feature res
+    depth_values: torch.Tensor,  # [D]
+    vid: int = 0,
+    pad: int = 0,
+) -> torch.Tensor:
+    """`build_cost_volume` as torch ops under autograd: four
+    `bilinear_grid_sample` taps a source view, the variance, the
+    concatenation. No path of the program calls it: the tests and
+    `chip_smoke.py` hold `ops/costvol.py` to it."""
     V, h, w, C = feats.shape
     D = depth_values.shape[0]
     Hp, Wp = h + 2 * pad, w + 2 * pad

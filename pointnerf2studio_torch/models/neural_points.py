@@ -10,13 +10,14 @@ names match the reference checkpoint keys (xyz, points_embeding,
 points_conf, points_dir, points_color, Rw2c: [3, 3] global or [N, 3, 3]
 per point).
 
-The attributes are gathered by `gather_rows`, whose backward does not
-depend on launch order: it sorts the row ids stably and sums each row's
-run of gradients from float64 prefix sums, then writes each row once; no
-atomic accumulation sits on the gradient's path. (torch's own backward
-of an indexing, a sorted `index_put_` accumulate, is deterministic too,
-but it runs each row's duplicates in series: 64 of a chair train step's
-78 ms of device time on an NVIDIA H100.)
+The attributes and the positions are gathered by `gather_rows`, whose
+backward does not depend on launch order: it sorts the row ids stably
+and sums each row's run of gradients from float64 prefix sums, then
+writes each row once; no atomic accumulation sits on the gradient's
+path. (torch's own backward of an indexing, a sorted `index_put_`
+accumulate, is deterministic too, but it runs each row's duplicates in
+series: 64 of a chair train step's 78 ms of device time on an NVIDIA
+H100, and some 108 of a joint step's ms for the positions alone.)
 """
 
 from __future__ import annotations
@@ -191,7 +192,9 @@ def gather_neighbors(points: NeuralPointCloud, sample_pidx: torch.Tensor,
     dir, color, and Rw2c [..., K, 3, 3] for a per-point Rw2c. Empty slots
     gather a clamped index and must be masked downstream via
     `sample_pidx >= 0`. The trainable attributes go through one
-    `gather_attrs`, so their gradient takes `gather_rows`' backward. With
+    `gather_attrs` and xyz through `gather_rows`, so their gradients take
+    `gather_rows`' backward (xyz has one in the joint step, where the
+    photometric loss reaches the depth stack through the positions). With
     `points_axis` the trainable attributes are this rank's rows of a
     cloud row-sharded over that axis (parallel/sharding.shard_cloud),
     while xyz, Rw2c and the ids stay whole (reference :97-145)."""
@@ -200,7 +203,8 @@ def gather_neighbors(points: NeuralPointCloud, sample_pidx: torch.Tensor,
                        points.points_dir, points.points_color], -1)
     vals = gather_attrs(attrs, sample_pidx, points_axis)
     C = points.points_embeding.shape[1]
-    out = {"xyz": points.xyz[idx], "embeding": vals[..., :C],
+    out = {"xyz": gather_rows(points.xyz, idx.reshape(-1)).reshape(
+               idx.shape + (3,)), "embeding": vals[..., :C],
            "conf": vals[..., C:C + 1], "dir": vals[..., C + 1:C + 4],
            "color": vals[..., C + 4:C + 7]}
     if points.Rw2c.ndim == 3:

@@ -46,7 +46,9 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # render path recomputes each emitted sample's position and voxel with
 # separately rounded torch ops, and a sample on a voxel face must fall to
 # the same side in both. decode_any and chunk_any, the generic-width
-# sources, do so for fused_decode's and fused_chunk's reasons.
+# sources, do so for fused_decode's and fused_chunk's reasons. costvol does
+# so to round its samples and variance as the torch composite it replaced,
+# so that the volume is that composite's bit for bit.
 EXTRA_FLAGS: Dict[str, List[str]] = {
     "first_valid_cols": [],
     "fused_chunk": ["-fmad=false"],
@@ -55,6 +57,7 @@ EXTRA_FLAGS: Dict[str, List[str]] = {
     "decode_any": ["-fmad=false"],
     "chunk_any": ["-fmad=false"],
     "march": ["-fmad=false"],
+    "costvol": ["-fmad=false"],
 }
 
 # slots per step of the plain versions (bounds their memory)

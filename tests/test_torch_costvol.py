@@ -167,3 +167,74 @@ def test_std_gradient_where_the_probability_sits_on_one_bin():
     # elsewhere the gradient is the reference's
     np.testing.assert_allclose(lt.grad[:, 1, 1].numpy(),
                                np.asarray(g_j)[:, 1, 1], atol=1e-6)
+
+
+def _sweep_setup(V, vid, D, geom):
+    """9x9 views, so that a normalised coordinate x / 4 - 1 is exact.
+    "epipole": each source camera moves along the ref's optical axis
+    (forward or back, with a small turn), so its epipole lies inside the
+    frame and some planes sit behind it or on its centre. "exact": the
+    sources are the ref itself and the ref shifted by 1 / depth pixels
+    over depths that are powers of two, so that samples land exactly on
+    pixels, on half and quarter pixels and at gx, gy = +-1."""
+    hw = 9
+    rng = np.random.default_rng(V * 100 + vid * 10 + D)
+    imgs = rng.uniform(size=(V, hw, hw, 3)).astype(np.float32)
+    feats = rng.standard_normal((V, hw, hw, 32)).astype(np.float32)
+    proj = np.tile(np.eye(4, dtype=np.float32), (V, 1, 1))
+    srcs = [v for v in range(V) if v != vid]
+    if geom == "exact":
+        dv = np.array([1.0, 0.5, 2.0, 0.25, 4.0, 0.125, 8.0][:D], np.float32)
+        proj[srcs[0], 0, 3] = 1.0
+    else:
+        dv = np.linspace(0.3, 3.0, D).astype(np.float32)
+        K = np.array([[6.0, 0, 4.0], [0, 6.0, 4.0], [0, 0, 1]], np.float32)
+        P = np.tile(np.eye(4, dtype=np.float32), (V, 1, 1))
+        for i, v in enumerate(srcs):
+            E = np.eye(4, dtype=np.float32)
+            a = 0.1 * (i + 1)
+            E[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                         [-np.sin(a), 0, np.cos(a)]]
+            E[:3, 3] = [0.05, -0.03, 0.8 if i == 0 else -0.9]
+            P[v, :3, :4] = K @ E[:3, :4]
+        P[vid, :3, :4] = K @ np.eye(4, dtype=np.float32)[:3]
+        proj = (P @ np.linalg.inv(P[vid])).astype(np.float32)
+    return [torch.tensor(a) for a in (imgs, feats, proj, dv)]
+
+
+@pytest.mark.parametrize("geom", ["epipole", "exact"])
+@pytest.mark.parametrize("D", [1, 7])
+@pytest.mark.parametrize("vid", [0, 1])
+@pytest.mark.parametrize("V", [2, 3])
+@pytest.mark.parametrize("pad", [0, 2])
+def test_cost_volume_function_against_the_composite(pad, V, vid, D, geom):
+    """`ops/costvol.py::cost_volume` on the CPU (its plain versions):
+    the forward equals the torch composite `build_cost_volume_composite`
+    bit for bit; the features' gradient matches autograd through the
+    composite within 1e-5 of its largest (float32 sums of up to ~4D terms
+    in another order); two backward calls give the same bits; the images
+    and the projections may not require a gradient."""
+    imgs, feats, proj, dv = _sweep_setup(V, vid, D, geom)
+    g = torch.randn((D, 9 + 2 * pad, 9 + 2 * pad, 3 * V + 32),
+                    generator=torch.Generator().manual_seed(D + pad))
+    want_f = feats.clone().requires_grad_()
+    want = tc.build_cost_volume_composite(imgs, want_f, proj, dv, vid=vid,
+                                          pad=pad)
+    want.backward(g)
+    grads = []
+    for _ in range(2):
+        f = feats.clone().requires_grad_()
+        got = tc.build_cost_volume(imgs, f, proj, dv, vid=vid, pad=pad)
+        assert torch.equal(got, want.detach())
+        got.backward(g)
+        grads.append(f.grad)
+    scale = float(want_f.grad.abs().max())
+    assert scale > 0
+    assert float((grads[0] - want_f.grad).abs().max()) <= 1e-5 * scale
+    assert torch.equal(grads[0], grads[1])
+    with pytest.raises(ValueError, match="carry no gradient"):
+        tc.build_cost_volume(imgs.clone().requires_grad_(), feats, proj, dv,
+                             vid=vid, pad=pad)
+    with pytest.raises(ValueError, match="carry no gradient"):
+        tc.build_cost_volume(imgs, feats, proj.clone().requires_grad_(), dv,
+                             vid=vid, pad=pad)

@@ -896,3 +896,138 @@ def test_frame_plan_on_card_matches_numpy_with_one_sync(dev, where):
     assert smax == [int(ss[k * chunk:(k + 1) * chunk].max())
                     for k in range(n_chunks)]
     np.testing.assert_array_equal(perm.cpu().numpy(), o[:n_used])
+
+
+def _look_at_origin(pos):
+    """c2w [4, 4] (x right, y down, z forward) of a camera at `pos` looking
+    at the origin."""
+    z = -np.asarray(pos, np.float64) / np.linalg.norm(pos)
+    x = np.cross([0.0, 1.0, 0.0], z)
+    x /= np.linalg.norm(x)
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.stack([x, np.cross(z, x), z], 1)
+    c2w[:3, 3] = pos
+    return c2w
+
+
+def _costvol_case(dev, case):
+    """(imgs, feats, proj, depth planes, vid, pad) on the card. "cell": the
+    joint cell's shapes, three views 30 degrees apart on a ring of radius
+    4 (the reference view first), 128 planes over [2, 6]. "ragged": odd h
+    and w, pad 2, vid 1, sources moved along the reference's axis (their
+    epipoles inside the frame) over planes from 0.3 to 3.0, some of them
+    behind a source camera."""
+    rng = np.random.default_rng(0)
+    if case == "cell":
+        V, h, w, D, pad, vid = 3, 200, 200, 128, 0, 0
+        K = np.array([[1111.1 / 4, 0, 100.0], [0, 1111.1 / 4, 100.0],
+                      [0, 0, 1]])
+        w2c = [np.linalg.inv(_look_at_origin(
+            4.0 * np.array([np.sin(a), 0.0, -np.cos(a)])))
+            for a in np.deg2rad([0.0, 30.0, -30.0])]
+        dv = np.linspace(2.0, 6.0, D)
+    else:
+        V, h, w, D, pad, vid = 3, 37, 53, 9, 2, 1
+        K = np.array([[40.0, 0, 26.0], [0, 40.0, 18.0], [0, 0, 1]])
+        w2c = []
+        for i, tz in enumerate([0.8, 0.0, -0.9]):
+            a = 0.1 * i
+            E = np.eye(4)
+            E[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                         [-np.sin(a), 0, np.cos(a)]]
+            E[:3, 3] = [0.05 * (i != 1), -0.03 * (i != 1), tz]
+            w2c.append(E)
+        dv = np.linspace(0.3, 3.0, D)
+    P = np.stack([np.vstack([K @ e[:3], [0, 0, 0, 1]]) for e in w2c])
+    proj = P @ np.linalg.inv(P[vid])
+    imgs = rng.uniform(size=(V, h, w, 3))
+    feats = rng.standard_normal((V, h, w, 32))
+    return ([torch.tensor(a, dtype=torch.float32, device=dev)
+             for a in (imgs, feats, proj, dv)] + [vid, pad])
+
+
+@pytest.mark.parametrize("case", ["cell", "ragged"])
+def test_costvol_kernels_match_the_composite(dev, case):
+    """csrc/costvol.cu through `build_cost_volume`: the forward equals the
+    torch composite bit for bit; the features' gradient matches autograd
+    through the composite within 1e-5 of its largest and is the same bits
+    on two runs; one launch of each kernel a forward and backward. At the
+    ragged shape both also equal their plain versions on the CPU, bit for
+    bit (the same operations in the same order)."""
+    from pointnerf2studio_torch.models.mvsnet import costvol as cv
+    from pointnerf2studio_torch.ops import costvol as oc
+    imgs, feats, proj, dv, vid, pad = _costvol_case(dev, case)
+    want_f = feats.clone().requires_grad_()
+    want = cv.build_cost_volume_composite(imgs, want_f, proj, dv, vid=vid,
+                                          pad=pad)
+    g = torch.randn(want.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    want.backward(g)
+    want = want.detach()
+    n0 = [_cuda.LAUNCHES[k] for k in ("costvol_forward", "costvol_backward")]
+    grads = []
+    for _ in range(2):
+        f = feats.clone().requires_grad_()
+        got = cv.build_cost_volume(imgs, f, proj, dv, vid=vid, pad=pad)
+        assert torch.equal(got, want)
+        got.backward(g)
+        grads.append(f.grad)
+        del got
+    torch.cuda.synchronize()
+    assert [_cuda.LAUNCHES[k] - n for k, n in zip(
+        ("costvol_forward", "costvol_backward"), n0)] == [2, 2]
+    scale = float(want_f.grad.abs().max())
+    assert float((grads[0] - want_f.grad).abs().max()) <= 1e-5 * scale
+    assert torch.equal(grads[0], grads[1])
+    if case == "ragged":
+        h, w = feats.shape[1:3]
+        grids = [tuple(t.cpu() for t in cv._sweep_grid(
+            proj[v], dv, h + 2 * pad, w + 2 * pad, pad, h, w))
+            for v in range(3) if v != vid]
+        assert torch.equal(oc.cost_volume_plain(
+            feats.cpu(), imgs.cpu(), grids, vid, pad), want.cpu())
+        assert torch.equal(oc.cost_volume_backward_plain(
+            g.cpu(), feats.cpu(), grids, vid, pad), grads[0].cpu())
+
+
+def test_joint_step_launches_each_costvol_kernel_once(dev):
+    """One joint step (the chair preset, three 64x64 views, 8 planes, 256
+    rays, the gate open) launches the cost volume's forward and its
+    backward once each."""
+    from pointnerf2studio_torch.data.presets import get_preset
+    from pointnerf2studio_torch.ops.grid import compute_grid_geometry
+    from pointnerf2studio_torch.train import joint as tj
+    cfg = get_preset("chair")
+    V, H, R, f = 3, 64, 256, 1111.1 * 64 / 800
+    rng = np.random.default_rng(0)
+    c2w = np.stack([_look_at_origin(4.0 * np.array(
+        [np.sin(a), 0.0, -np.cos(a)])) for a in np.deg2rad([0, 30, -30])])
+    K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1]])
+    pix = rng.uniform(0, H, (R, 2))
+    d = np.concatenate([(pix - H / 2) / f, np.ones((R, 1))], 1) @ \
+        c2w[0, :3, :3].T
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    batch = tj.MVSTrainBatch(
+        images=t(rng.uniform(size=(V, H, H, 3))), intrinsics=t([K] * V),
+        w2cs=t(np.linalg.inv(c2w)), c2ws=t(c2w), near_far=t([2.0, 6.0]),
+        campos=t(c2w[0, :3, 3]), camrotc2w=t(c2w[0, :3, :3]), raydirs=t(d),
+        gt_rgb=t(rng.uniform(size=(R, 3))))
+    r = cfg.query.ranges
+    rmin, dims = compute_grid_geometry(np.asarray(r[:3]), np.asarray(r[3:]),
+                                       cfg.query)
+    state = tj.create_joint_state(Aggregator(cfg.agg, seed=0, device=dev),
+                                  cfg, num_views=V, seed=0, device=dev)
+    step = tj.make_joint_train_step(cfg, rmin, dims, num_depth=8,
+                                    dprob_thresh=0.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step(state, batch, generator=gen)
+    n0 = dict(_cuda.LAUNCHES)
+    aux = step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(aux["total"]))
+    for name in ("costvol_forward", "costvol_backward"):
+        assert _cuda.LAUNCHES[name] - n0.get(name, 0) == 1
